@@ -1,0 +1,105 @@
+"""Carry weights across from the JAX package: a filter bank, or a JAX
+``ReconPlan``'s spectra and solve factors, as the port's objects on a
+torch device.
+
+The inputs are plain numpy arrays and plain metadata values, so this
+module imports nothing of the JAX package; a caller holding a JAX plan
+passes ``np.asarray`` of its leaves and ``dataclasses.asdict(plan.prob)``
+/ ``plan.fg._asdict()`` for its metadata.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .config import ProblemGeom
+from .models import common
+from .models.reconstruct import ReconPlan, ReconstructionProblem
+from .ops import freq_solvers
+from .utils import validate
+from .utils.device import resolve_device
+
+PLAN_ARRAYS = (
+    "dhat_clean", "dhat_solve", "kern.dhat", "kern.dinv", "kern.minv_diag",
+)
+
+
+def bank_from_numpy(d, device="cuda") -> torch.Tensor:
+    """A filter bank [k, *reduce, *support] as a float32 tensor on
+    ``device``."""
+    d = np.asarray(d, np.float32)
+    validate.check_filters(d)
+    return torch.from_numpy(np.ascontiguousarray(d)).to(resolve_device(device))
+
+
+def _problem(p: Mapping) -> ReconstructionProblem:
+    p = dict(p)
+    g = p.pop("geom")
+    geom = ProblemGeom(
+        tuple(g["spatial_support"]), int(g["num_filters"]),
+        tuple(g.get("reduce_shape", ())),
+    )
+    return ReconstructionProblem(geom=geom, **p)
+
+
+def _freq_geom(fg: Mapping) -> common.FreqGeom:
+    return common.FreqGeom(
+        spatial_shape=tuple(fg["spatial_shape"]),
+        freq_shape=tuple(fg["freq_shape"]),
+        num_freq=int(fg["num_freq"]),
+        reduce_shape=tuple(fg["reduce_shape"]),
+        reduce_size=int(fg["reduce_size"]),
+        fft_impl=fg.get("fft_impl", "xla"),
+    )
+
+
+def plan_from_jax(
+    arrays: Mapping[str, np.ndarray], meta: Mapping, device="cuda"
+) -> ReconPlan:
+    """The port's :class:`ReconPlan` from a JAX plan's leaves.
+
+    ``arrays``: ``dhat_clean``, ``dhat_solve``, ``kern.dhat``,
+    ``kern.dinv``, ``kern.minv_diag`` as numpy arrays (a W == 1 plan:
+    its ``kern.minv`` is None). ``meta``: ``prob`` (a mapping of the
+    ReconstructionProblem fields, ``geom`` a mapping of ProblemGeom's),
+    ``fg`` (a mapping of FreqGeom's fields), ``rho``, ``has_blur``,
+    ``d_digest``, ``lambda_smooth`` and optionally ``herm_inv``.
+    """
+    missing = [k for k in PLAN_ARRAYS if k not in arrays]
+    if missing:
+        raise KeyError(f"plan arrays missing {missing}")
+    dev = resolve_device(device)
+
+    def t(name, dtype):
+        a = np.ascontiguousarray(np.asarray(arrays[name]).astype(dtype))
+        return torch.from_numpy(a).to(dev)
+
+    fg = _freq_geom(meta["fg"])
+    dhat_clean = t("dhat_clean", np.complex64)
+    dhat_solve = t("dhat_solve", np.complex64)
+    kern = freq_solvers.ZSolveKernel(
+        dhat=t("kern.dhat", np.complex64),
+        dinv=t("kern.dinv", np.float32),
+        minv=None,
+        minv_diag=t("kern.minv_diag", np.float32),
+    )
+    K, W, F = kern.dhat.shape
+    if W != 1 or F != fg.num_freq or tuple(dhat_clean.shape) != (K, W, F):
+        raise ValueError(
+            f"plan arrays of shape {tuple(kern.dhat.shape)} do not form "
+            f"a W == 1 plan over {fg.num_freq} frequencies"
+        )
+    return ReconPlan(
+        dhat_clean=dhat_clean,
+        dhat_solve=dhat_solve,
+        kern=kern,
+        prob=_problem(meta["prob"]),
+        fg=fg,
+        rho=float(meta["rho"]),
+        has_blur=bool(meta["has_blur"]),
+        d_digest=str(meta["d_digest"]),
+        lambda_smooth=float(meta["lambda_smooth"]),
+        herm_inv=meta.get("herm_inv"),
+    )

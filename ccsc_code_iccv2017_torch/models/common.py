@@ -1,0 +1,122 @@
+"""Shared model-level plumbing: frequency geometry, spectra, objectives
+(torch port of ``ccsc_code_iccv2017_tpu.models.common``, single-device
+forms — the mesh reductions come with ROADMAP.md Queue 1 item 8).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from ..config import ProblemGeom
+from ..ops import fourier
+
+
+class FreqGeom(NamedTuple):
+    """Static frequency-domain geometry for one problem instance."""
+
+    spatial_shape: Tuple[int, ...]  # padded spatial shape
+    freq_shape: Tuple[int, ...]  # rfft spectrum shape
+    num_freq: int  # F = prod(freq_shape)
+    reduce_shape: Tuple[int, ...]
+    reduce_size: int  # W
+    fft_impl: str = "xla"
+
+    @classmethod
+    def create(
+        cls,
+        geom: ProblemGeom,
+        data_spatial: Sequence[int],
+        pad: bool = True,
+        fft_pad: str = "none",
+        fft_impl: str = "xla",
+    ) -> "FreqGeom":
+        """``fft_pad`` ('none' | 'pow2' | 'fast') rounds the padded FFT
+        domain up (fourier.next_fast_size); the data sits at offset
+        psf_radius, extra zeros trail. Requires ``pad``."""
+        if fft_pad != "none" and not pad:
+            raise ValueError("fft_pad requires a padded problem domain")
+        sp = (
+            geom.padded_shape(tuple(data_spatial))
+            if pad
+            else tuple(data_spatial)
+        )
+        sp = tuple(fourier.next_fast_size(int(s), fft_pad) for s in sp)
+        fs = fourier.rfreq_shape(sp)
+        return cls(
+            sp, fs, math.prod(fs), tuple(geom.reduce_shape),
+            geom.reduce_size, fft_impl,
+        )
+
+
+def filters_to_freq(d: torch.Tensor, fg: FreqGeom) -> torch.Tensor:
+    """Support-domain filters [k, *reduce, *support] -> dhat [k, W, F]."""
+    dh = fourier.psf2otf(d, fg.spatial_shape, impl=fg.fft_impl)
+    return dh.reshape(d.shape[0], fg.reduce_size, fg.num_freq)
+
+
+def data_to_freq(b_pad: torch.Tensor, fg: FreqGeom) -> torch.Tensor:
+    """Padded data [n, *reduce, *spatial] -> bhat [n, W, F]."""
+    ndim_s = len(fg.spatial_shape)
+    bh = fourier.rfftn_spatial(b_pad, ndim_s, impl=fg.fft_impl)
+    return bh.reshape(b_pad.shape[0], fg.reduce_size, fg.num_freq)
+
+
+def codes_to_freq(z: torch.Tensor, fg: FreqGeom) -> torch.Tensor:
+    """Codes [n, k, *spatial] -> zhat [n, k, F]."""
+    zh = fourier.rfftn_spatial(z, len(fg.spatial_shape), impl=fg.fft_impl)
+    return zh.reshape(z.shape[0], z.shape[1], fg.num_freq)
+
+
+def codes_from_freq(zhat: torch.Tensor, fg: FreqGeom) -> torch.Tensor:
+    zh = zhat.reshape(*zhat.shape[:-1], *fg.freq_shape)
+    return fourier.irfftn_spatial(zh, fg.spatial_shape, impl=fg.fft_impl)
+
+
+def recon_from_freq(
+    dhat: torch.Tensor, zhat: torch.Tensor, fg: FreqGeom
+) -> torch.Tensor:
+    """Dz in real space: [n, *reduce, *spatial] (reduce axes restored)."""
+    Dzh = fourier.apply_dictionary(dhat, zhat)  # [n, W, F]
+    Dzh = Dzh.reshape(Dzh.shape[0], *fg.reduce_shape, *fg.freq_shape)
+    return fourier.irfftn_spatial(Dzh, fg.spatial_shape, impl=fg.fft_impl)
+
+
+def data_fidelity(
+    Dz: torch.Tensor,
+    b: torch.Tensor,
+    radius: Sequence[int],
+    lambda_residual: float,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """lambda_res/2 * || mask .* (crop(Dz) - b) ||^2."""
+    r = fourier.crop_spatial(Dz, radius, b.shape[-len(radius):]) - b
+    if mask is not None:
+        r = mask * r
+    return 0.5 * lambda_residual * torch.sum(r * r)
+
+
+def l1_penalty(z: torch.Tensor, lambda_prior: float) -> torch.Tensor:
+    return lambda_prior * torch.sum(torch.abs(z))
+
+
+def rel_change(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """||new - old|| / ||new|| — the reference's termination metric.
+    bf16-stored iterates accumulate in f32."""
+    new = new.to(torch.float32)
+    old = old.to(torch.float32)
+    num = torch.sum((new - old) ** 2)
+    den = torch.sum(new**2)
+    return torch.sqrt(num) / torch.clamp(torch.sqrt(den), min=1e-30)
+
+
+def psnr(
+    x: torch.Tensor, ref: torch.Tensor, crop: Sequence[int] = ()
+) -> torch.Tensor:
+    """PSNR against a [0,1] reference, optionally cropping a border."""
+    if crop:
+        x = fourier.crop_spatial(x, crop)
+        ref = fourier.crop_spatial(ref, crop)
+    mse = torch.mean((x - ref) ** 2)
+    return 10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-12))

@@ -1,0 +1,65 @@
+"""Interop with the reference's .mat filter banks (jax-free copy of the
+loaders in ``ccsc_code_iccv2017_tpu.utils.io_mat`` the 2D slice needs).
+
+MATLAB lays filters out spatial-first, filter-index last; the canonical
+layout is [k, *reduce, *spatial] (config.ProblemGeom).
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from .validate import CCSCInputError
+
+
+def _loadmat(path: str) -> dict:
+    """scipy.io.loadmat with hardened failure modes: a missing,
+    truncated or corrupt .mat raises a CCSCInputError naming the file."""
+    import scipy.io
+
+    if not os.path.exists(path):
+        raise CCSCInputError(f"no such .mat file: {path}")
+    try:
+        return scipy.io.loadmat(path)
+    except NotImplementedError:  # v7.3 (HDF5) files
+        try:
+            import h5py
+
+            out = {}
+            with h5py.File(path, "r") as f:
+                for k in f.keys():
+                    if isinstance(f[k], h5py.Dataset):
+                        # h5py is C-order transpose
+                        out[k] = np.array(f[k]).T
+            return out
+        except Exception as e:
+            raise CCSCInputError(
+                f"cannot read {path} as a v7.3 (HDF5) .mat file — the "
+                f"file is truncated or corrupt ({type(e).__name__}: "
+                f"{e}). Re-export or re-download it."
+            ) from e
+    except Exception as e:
+        size = os.path.getsize(path)
+        raise CCSCInputError(
+            f"cannot read {path} as a .mat file ({size} bytes) — the "
+            f"file is truncated, corrupt, or not a .mat at all "
+            f"({type(e).__name__}: {e}). Re-export or re-download it."
+        ) from e
+
+
+def _mat_var(path: str, name: str) -> np.ndarray:
+    data = _loadmat(path)
+    if name not in data:
+        have = sorted(k for k in data if not k.startswith("__"))
+        raise CCSCInputError(
+            f"{path} holds no variable {name!r} (found: {have}) — "
+            "this loader expects the reference's filter-bank layout"
+        )
+    return data[name]
+
+
+def load_filters_2d(path: str) -> np.ndarray:
+    """[s, s, k] -> [k, s, s] float32."""
+    d = _mat_var(path, "d")
+    return np.ascontiguousarray(np.transpose(d, (2, 0, 1))).astype(np.float32)

@@ -1,0 +1,149 @@
+"""The port's configuration, device helper and import boundary.
+
+``ccsc_code_iccv2017_torch.config`` is a jax-free copy of the JAX
+package's ``ProblemGeom``/``GEOM_2D``/``SolveConfig``: field names,
+defaults and validation must stay identical. The port's package and
+``chip_smoke.py`` must never import jax or the JAX package.
+"""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from ccsc_code_iccv2017_tpu import config as jcfg
+from ccsc_code_iccv2017_torch import config as tcfg
+from ccsc_code_iccv2017_torch.utils import device as tdevice
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "ccsc_code_iccv2017_torch")
+
+
+def _fields(cls):
+    return [(f.name, f.default, str(f.type)) for f in dataclasses.fields(cls)]
+
+
+@pytest.mark.parametrize("name", ["ProblemGeom", "SolveConfig"])
+def test_fields_and_defaults_match_jax(name):
+    assert _fields(getattr(tcfg, name)) == _fields(getattr(jcfg, name))
+
+
+def test_geometry_properties_match_jax():
+    for args in [((11, 11), 100), ((5, 7), 4), ((3, 3), 2, (4,))]:
+        t, j = tcfg.ProblemGeom(*args), jcfg.ProblemGeom(*args)
+        for prop in ("ndim_spatial", "ndim_reduce", "reduce_size",
+                     "psf_radius", "filter_shape"):
+            assert getattr(t, prop) == getattr(j, prop), prop
+        assert t.padded_shape((20, 31)) == j.padded_shape((20, 31))
+    assert dataclasses.asdict(tcfg.GEOM_2D()) == dataclasses.asdict(
+        jcfg.GEOM_2D()
+    )
+    assert dataclasses.asdict(tcfg.GEOM_2D(k=8, s=5)) == dataclasses.asdict(
+        jcfg.GEOM_2D(k=8, s=5)
+    )
+
+
+@pytest.mark.parametrize("verbose", ["none", "brief"])
+@pytest.mark.parametrize("track", [None, True, False])
+def test_tracking_properties_match_jax(verbose, track):
+    kw = dict(verbose=verbose, track_objective=track, track_psnr=track)
+    t, j = tcfg.SolveConfig(**kw), jcfg.SolveConfig(**kw)
+    assert (t.with_objective, t.with_psnr) == (j.with_objective, j.with_psnr)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(tune="bogus"), dict(storage_dtype="float16"), dict(herm_inv="lu")],
+)
+def test_invalid_values_refused_like_jax(kw):
+    with pytest.raises(ValueError):
+        jcfg.SolveConfig(**kw)
+    with pytest.raises(ValueError):
+        tcfg.SolveConfig(**kw)
+
+
+@pytest.mark.parametrize(
+    "kw, item",
+    [
+        (dict(tune="auto"), "item 9"),
+        (dict(tune="sweep"), "item 9"),
+        (dict(metrics_dir="/nonexistent"), "item 10"),
+        (dict(fft_impl="matmul"), "item 9"),
+    ],
+)
+def test_unported_fields_raise_naming_roadmap(kw, item):
+    jcfg.SolveConfig(**kw)  # valid in the JAX package
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+        tcfg.SolveConfig(**kw)
+
+
+def test_resolve_device_cpu_pins_full_f32():
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        assert tdevice.resolve_device("cpu") == torch.device("cpu")
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    assert tdevice.device_report("cpu") == {"type": "cpu"}
+
+
+def test_cuda_request_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tdevice.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tdevice.resolve_device()
+
+
+def _port_sources():
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_jax_imports_in_port_sources():
+    banned = ("jax", "jaxlib", "ccsc_code_iccv2017_tpu")
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in banned:
+                    bad.append(f"{os.path.relpath(path, REPO)}:{node.lineno}")
+    assert not bad, bad
+
+
+def test_port_imports_without_jax_at_runtime():
+    code = (
+        "import pkgutil, importlib, sys\n"
+        "import ccsc_code_iccv2017_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from ccsc_code_iccv2017_torch.apps import inpaint_2d\n"
+        "inpaint_2d.build_parser().parse_args(['--data', 'x', '--filters', 'y'])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ccsc_code_iccv2017_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
