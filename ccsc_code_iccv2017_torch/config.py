@@ -1,11 +1,12 @@
 """Typed configuration of the PyTorch/CUDA port.
 
 A jax-free copy of ``ccsc_code_iccv2017_tpu.config``'s ``ProblemGeom``,
-``GEOM_2D`` and ``SolveConfig``: every field, name and default is
-identical (tests/test_torch_config.py holds the two side by side), so a
-configuration reads the same in both packages. The port implements the
-single-device 2D reconstruction solve; the fields it does not implement
-yet refuse a non-default value with ``NotImplementedError`` naming the
+``GEOM_2D``, ``LearnConfig`` and ``SolveConfig``: every field, name and
+default is identical (tests/test_torch_config.py holds the two side by
+side), so a configuration reads the same in both packages. The port
+implements the single-device 2D reconstruction solve and the
+single-device consensus learner; the fields it does not implement yet
+refuse a non-default value with ``NotImplementedError`` naming the
 ROADMAP.md item that ports them, instead of being silently ignored.
 """
 from __future__ import annotations
@@ -68,6 +69,141 @@ class ProblemGeom:
 
 
 GEOM_2D = lambda k=100, s=11: ProblemGeom((s, s), k)
+
+
+def _not_ported(what: str, where: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet ({where})")
+
+
+@dataclasses.dataclass(frozen=True)
+class LearnConfig:
+    """Hyperparameters of the consensus dictionary learner.
+
+    Defaults follow 2D/learn_kernels_2D_large.m:15-24 and the rho
+    constants of admm_learn_conv2D_large_dzParallel.m (rho_d=5000,
+    rho_z=1). See the JAX package's ``LearnConfig`` for the full story
+    of each field; the notes here cover what differs in the port.
+
+    - ``fused_z``: on a CUDA tensor the z inner iteration runs the two
+      hand-written kernels K2a/K2b (ops.fused_z); on a CPU tensor their
+      plain version. Only the 2D, W == 1 learner takes it; elsewhere
+      the port raises instead of quietly taking the composition path.
+    - ``fused_z_precision``: only ``"highest"`` (full f32 on the CUDA
+      cores) is ported.
+    - ``use_pallas`` is kept for name parity and is not read: on a CUDA
+      tensor the composition path's z-solve always runs K1.
+    - ``storage_dtype`` / ``d_storage_dtype``: ``float32`` or
+      ``bfloat16`` (f32 math, rounded store, as in JAX).
+    """
+
+    lambda_residual: float = 1.0
+    lambda_prior: float = 1.0
+    max_it: int = 20
+    tol: float = 1e-3
+    max_it_d: int = 5
+    max_it_z: int = 10
+    rho_d: float = 5000.0
+    rho_z: float = 1.0
+    num_blocks: int = 1
+    dtype: str = "float32"
+    verbose: str = "brief"  # 'none' | 'brief' | 'all'
+    track_objective: Optional[bool] = None
+    compat_coding: str = "consensus"
+    use_pallas: bool = False
+    fused_z: bool = False
+    fused_z_precision: str = "highest"
+    fft_pad: str = "none"
+    storage_dtype: str = "float32"
+    d_storage_dtype: str = "float32"
+    fft_impl: str = "xla"
+    outer_chunk: int = 1
+    donate_state: bool = False
+    max_recoveries: int = 0
+    rho_backoff: float = 0.5
+    metrics_dir: Optional[str] = None
+    watchdog: bool = False
+    watchdog_slack: float = 20.0
+    carry_freq: bool = False
+    tune: str = "off"
+
+    @property
+    def with_objective(self) -> bool:
+        if self.track_objective is None:
+            return self.verbose != "none"
+        return self.track_objective
+
+    @property
+    def with_obs_metrics(self) -> bool:
+        """Telemetry scalars ride the step only with ``metrics_dir``,
+        which the port does not implement yet: always False here."""
+        return self.metrics_dir is not None
+
+    def __post_init__(self):
+        # the JAX package's own validation, identical messages
+        if self.outer_chunk < 1:
+            raise ValueError(
+                f"outer_chunk must be >= 1, got {self.outer_chunk}"
+            )
+        if self.max_recoveries < 0:
+            raise ValueError(
+                f"max_recoveries must be >= 0, got {self.max_recoveries}"
+            )
+        if not (0.0 < self.rho_backoff <= 1.0):
+            raise ValueError(
+                f"rho_backoff must be in (0, 1], got {self.rho_backoff}"
+            )
+        if self.watchdog_slack <= 0:
+            raise ValueError(
+                f"watchdog_slack must be > 0, got {self.watchdog_slack}"
+            )
+        if self.tune not in ("off", "auto", "sweep"):
+            raise ValueError(
+                f"tune must be 'off' | 'auto' | 'sweep', got "
+                f"{self.tune!r}"
+            )
+        if self.fused_z_precision not in ("highest", "high", "default"):
+            raise ValueError(
+                f"fused_z_precision must be 'highest' | 'high' | "
+                f"'default', got {self.fused_z_precision!r}"
+            )
+        # what the port does not implement yet
+        item9 = "ROADMAP.md Queue 1 item 9"
+        item10 = "ROADMAP.md Queue 1 item 10"
+        if self.outer_chunk > 1 or self.donate_state:
+            raise _not_ported(
+                "outer_chunk > 1 / donate_state (the chunked driver)", item9
+            )
+        if self.fft_impl != "xla":
+            raise _not_ported(
+                f"fft_impl={self.fft_impl!r} (the matmul-DFT tiers)", item9
+            )
+        if self.fused_z_precision != "highest":
+            raise _not_ported(
+                f"fused_z_precision={self.fused_z_precision!r} (K2's "
+                "tensor-core DFT tiers)",
+                "ROADMAP.md Queue 2, the K2 perf item",
+            )
+        if self.tune != "off":
+            raise _not_ported(f"tune={self.tune!r} (knob autotuning)", item9)
+        if self.metrics_dir is not None:
+            raise _not_ported("metrics_dir (run telemetry)", item10)
+        if self.watchdog:
+            raise _not_ported("watchdog (the dispatch-fence watchdog)", item10)
+        if self.verbose == "all":
+            raise _not_ported(
+                "verbose='all' (per-iteration figures)", item10
+            )
+        if self.carry_freq:
+            raise _not_ported(
+                "carry_freq (the masked learner)", "ROADMAP.md Queue 1 item 8"
+            )
+
+    @property
+    def chunked_driver(self) -> bool:
+        """True when the driver must route through the chunked step —
+        never in the port, which refuses outer_chunk > 1 and
+        donate_state above."""
+        return self.outer_chunk > 1 or self.donate_state
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,21 +1,24 @@
-"""Carry weights across from the JAX package: a filter bank, or a JAX
-``ReconPlan``'s spectra and solve factors, as the port's objects on a
-torch device.
+"""Carry weights and state across from the JAX package: a filter bank, a
+JAX ``ReconPlan``'s spectra and solve factors, or a learner's
+``LearnState``, as the port's objects on a torch device.
 
 The inputs are plain numpy arrays and plain metadata values, so this
 module imports nothing of the JAX package; a caller holding a JAX plan
 passes ``np.asarray`` of its leaves and ``dataclasses.asdict(plan.prob)``
-/ ``plan.fg._asdict()`` for its metadata.
+/ ``plan.fg._asdict()`` for its metadata, and a caller holding a JAX
+LearnState passes ``{f: np.asarray(getattr(state, f)) for f in
+state._fields}``.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
 from .config import ProblemGeom
 from .models import common
+from .models.learn import LearnState
 from .models.reconstruct import ReconPlan, ReconstructionProblem
 from .ops import freq_solvers
 from .utils import validate
@@ -103,3 +106,40 @@ def plan_from_jax(
         lambda_smooth=float(meta["lambda_smooth"]),
         herm_inv=meta.get("herm_inv"),
     )
+
+
+def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """numpy -> CPU tensor; a bfloat16 array (ml_dtypes, as JAX returns
+    it) keeps its bits as torch.bfloat16."""
+    a = np.array(a)  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def learn_state_from_jax(
+    fields: Mapping[str, np.ndarray], device="cuda"
+) -> LearnState:
+    """The port's :class:`LearnState` from a JAX LearnState's fields
+    (numpy arrays keyed by field name; bfloat16 storage kept bit for
+    bit) on ``device``."""
+    missing = [f for f in LearnState._fields if f not in fields]
+    if missing:
+        raise KeyError(f"LearnState fields missing {missing}")
+    dev = resolve_device(device)
+    return LearnState(
+        **{f: _tensor_from_numpy(fields[f]).to(dev) for f in LearnState._fields}
+    )
+
+
+def learn_state_to_numpy(state: LearnState) -> Dict[str, np.ndarray]:
+    """The fields of a port LearnState as numpy arrays on the host;
+    bfloat16 fields widen to float32 (exactly), since numpy has no
+    bfloat16 of its own."""
+    out = {}
+    for f in LearnState._fields:
+        t = getattr(state, f).detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        out[f] = t.numpy()
+    return out

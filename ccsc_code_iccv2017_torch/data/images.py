@@ -1,8 +1,8 @@
-"""Image loading and the smooth-fill warm start for the 2D slice (a
-jax-free copy of the grayscale folder path of
-``ccsc_code_iccv2017_tpu.data.images`` and the numpy branch of
-``data.native.smooth_fill_batch``; the port does not load the native
-preprocessing library)."""
+"""Image loading, contrast normalization and the smooth-fill warm start
+for the 2D slices (a jax-free copy of the grayscale folder path of
+``ccsc_code_iccv2017_tpu.data.images``, its ``local_cn`` mode, and the
+numpy branch of ``data.native.smooth_fill_batch``; the port does not
+load the native preprocessing library)."""
 from __future__ import annotations
 
 import os
@@ -30,6 +30,26 @@ def rconv2(x: np.ndarray, k: np.ndarray) -> np.ndarray:
     ry, rx = k.shape[0] // 2, k.shape[1] // 2
     xp = np.pad(x, ((ry, ry), (rx, rx)), mode="symmetric")
     return convolve2d(xp, k, mode="valid")
+
+
+def local_contrast_normalize(img: np.ndarray) -> np.ndarray:
+    """The reference's 'local_cn' mode (CreateImages.m:299-370):
+    subtract a local Gaussian mean and divide by a local std that is
+    floored at its own median (median of nonzeros if the median is 0).
+    """
+    k = gaussian_kernel()
+    dim = img.astype(np.float64)
+    lmn = rconv2(dim, k)
+    lmnsq = rconv2(dim * dim, k)
+    lvar = np.maximum(lmnsq - lmn * lmn, 0.0)
+    lstd = np.sqrt(lvar)
+    th = np.median(lstd)
+    if th == 0:
+        nz = lstd[lstd > 0]
+        th = np.median(nz) if nz.size else 0.0
+    lstd = np.maximum(lstd, th)
+    lstd[lstd == 0] = np.finfo(np.float64).eps
+    return ((dim - lmn) / lstd).astype(np.float32)
 
 
 def smooth_fill_batch(
@@ -117,13 +137,18 @@ def _resize(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
 
 def load_images(
     path: str,
+    contrast_normalize: str = "none",
+    zero_mean: bool = False,
+    square: bool = False,
     limit: Optional[int] = None,
     size: Optional[Sequence[int]] = None,
 ) -> np.ndarray:
-    """A folder of images -> [n, H, W] float32 grayscale in [0, 1]
-    (the reference's CreateImages 'none' mode). ``size`` resizes after
-    load. Other input forms (.mat stacks, color, contrast modes) come
-    with later slices."""
+    """A folder of images -> [n, H, W] float32 grayscale (CreateImages.m
+    with color 'gray'). Per image, in the JAX loader's order: to gray
+    in [0, 1], ``contrast_normalize`` ('none' or 'local_cn'), then
+    ``zero_mean``; then ``size`` resizes and ``square`` center-crops to
+    the smaller side. Other input forms (.mat stacks, single files,
+    color) and contrast modes come with later slices."""
     from PIL import Image
 
     if not os.path.isdir(path):
@@ -131,12 +156,31 @@ def load_images(
             f"{path} is not a directory: the port loads image folders "
             "only (.mat stacks and single files come with a later slice)"
         )
+    if contrast_normalize not in ("none", "local_cn"):
+        raise NotImplementedError(
+            f"contrast mode {contrast_normalize!r} is not ported yet "
+            "(the port runs 'none' and 'local_cn')"
+        )
     files = _list_image_files(path)[: limit if limit else None]
     if not files:
         raise ValueError(f"no images in {path}")
-    imgs = [to_gray(np.asarray(Image.open(f))) for f in files]
+    imgs = []
+    for f in files:
+        img = to_gray(np.asarray(Image.open(f)))
+        if contrast_normalize == "local_cn":
+            img = local_contrast_normalize(img)
+        if zero_mean:
+            img = img - img.mean()
+        imgs.append(img.astype(np.float32))
     if size is not None:
         imgs = [_resize(i, size) for i in imgs]
+    if square:
+        def crop(i):
+            s = min(i.shape[:2])
+            y0, x0 = (i.shape[0] - s) // 2, (i.shape[1] - s) // 2
+            return i[y0 : y0 + s, x0 : x0 + s]
+
+        imgs = [crop(i) for i in imgs]
     shapes = {i.shape for i in imgs}
     if len(shapes) > 1:
         raise ValueError(

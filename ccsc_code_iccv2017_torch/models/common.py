@@ -56,6 +56,16 @@ def filters_to_freq(d: torch.Tensor, fg: FreqGeom) -> torch.Tensor:
     return dh.reshape(d.shape[0], fg.reduce_size, fg.num_freq)
 
 
+def full_filters_to_freq(d_full: torch.Tensor, fg: FreqGeom) -> torch.Tensor:
+    """Full-domain (origin-centered) filters [..., k, *reduce, *spatial]
+    -> dhat [..., k, W, F]; leading axes (the learner's blocks) pass
+    through."""
+    ndim_s = len(fg.spatial_shape)
+    dh = fourier.rfftn_spatial(d_full, ndim_s, impl=fg.fft_impl)
+    lead = d_full.shape[: d_full.ndim - ndim_s - len(fg.reduce_shape)]
+    return dh.reshape(*lead, fg.reduce_size, fg.num_freq)
+
+
 def data_to_freq(b_pad: torch.Tensor, fg: FreqGeom) -> torch.Tensor:
     """Padded data [n, *reduce, *spatial] -> bhat [n, W, F]."""
     ndim_s = len(fg.spatial_shape)

@@ -1,0 +1,311 @@
+"""Consensus dictionary learning, single device (torch port of
+``ccsc_code_iccv2017_tpu.models.learn``).
+
+The block-consensus ADMM of 2D/admm_learn_conv2D_large_dzParallel.m:
+
+outer iteration i (dzParallel.m:90-194):
+  d-pass  — per-block code Grams (:96-100), then max_it_d consensus
+            iterations: global kernel prox on Dbar+Udbar (:107),
+            per-block dual update + Woodbury solve (:110-113), consensus
+            average (:115-121).
+  z-pass  — filter spectra (:142-144), then max_it_z per-block
+            sparse-coding iterations: soft-threshold prox, dual update,
+            Sherman-Morrison solve (:150-158). With ``cfg.fused_z`` each
+            iteration is the two hand-written kernels K2a/K2b
+            (ops.fused_z); otherwise the composition of torch.fft,
+            K1 (ops.kernels.solve_z_rank1) and elementwise torch.
+
+The L consensus blocks of one device ride a leading axis and every
+per-block solve is batched over it (JAX vmaps); the consensus average is
+a mean over that axis. Meshes (the psum over devices), the chunked
+driver and the telemetry extras are not ported yet (ROADMAP.md Queue 1
+items 8, 9 and 10). The JAX package's documented divergences from the
+reference (coding against the projected consensus dictionary, the
+objective over all blocks, independent per-block z inits) hold here too.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import LearnConfig, ProblemGeom
+from ..ops import fourier, freq_solvers, fused_z, proxes
+from . import common
+
+
+class LearnState(NamedTuple):
+    """Learner state on one device. Block-local fields carry a leading
+    block axis [L, ...]; the consensus fields dbar/udbar do not."""
+
+    d_local: torch.Tensor  # [L, k, *reduce, *spatial] full-domain filters
+    dual_d: torch.Tensor  # [L, k, *reduce, *spatial]
+    dbar: torch.Tensor  # [k, *reduce, *spatial] consensus average
+    udbar: torch.Tensor  # [k, *reduce, *spatial] consensus dual average
+    z: torch.Tensor  # [L, ni, k, *spatial] block-local codes
+    dual_z: torch.Tensor  # [L, ni, k, *spatial]
+
+
+class OuterMetrics(NamedTuple):
+    """0-d float32 tensors on the state's device (read by the driver in
+    one host sync per step). The JAX package's telemetry ``extras`` wait
+    for ROADMAP.md Queue 1 item 10."""
+
+    obj_d: torch.Tensor  # global objective after the d-pass
+    obj_z: torch.Tensor  # global objective after the z-pass
+    d_diff: torch.Tensor  # rel change of the consensus dictionary
+    z_diff: torch.Tensor  # rel change of codes (global norm)
+
+
+def init_state(
+    generator: torch.Generator,
+    geom: ProblemGeom,
+    fg: common.FreqGeom,
+    num_blocks: int,
+    ni: int,
+    dtype=torch.float32,
+    z_dtype=None,
+    d_dtype=None,
+) -> LearnState:
+    """Random init matching the reference's shapes: randn filters
+    embedded at the origin (dzParallel.m:38-42), randn codes (:44-47),
+    zero duals (:79-86), drawn from ``generator`` on its device. Inits
+    are drawn in ``dtype`` then rounded to the storage dtypes
+    ``z_dtype`` / ``d_dtype`` (LearnConfig.storage_dtype /
+    d_storage_dtype); dbar/udbar stay ``dtype``. torch and jax random
+    streams differ: parity tests pass the JAX init through
+    ``convert.learn_state_from_jax``."""
+    dev = generator.device
+    d0 = torch.randn(geom.filter_shape, generator=generator, dtype=dtype,
+                     device=dev)
+    d_full = fourier.circ_embed(d0, fg.spatial_shape)
+    d_locals = d_full.expand(num_blocks, *d_full.shape).to(
+        d_dtype or dtype
+    ).contiguous()
+    z0 = torch.randn(
+        (num_blocks, ni, geom.num_filters, *fg.spatial_shape),
+        generator=generator, dtype=dtype, device=dev,
+    ).to(z_dtype or dtype)
+    return LearnState(
+        d_locals,
+        torch.zeros_like(d_locals),
+        d_full,
+        torch.zeros_like(d_full),
+        z0,
+        torch.zeros_like(z0),
+    )
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32)
+
+
+def _flat_blocks(x: torch.Tensor) -> torch.Tensor:
+    """[L, ni, ...] -> [L*ni, ...] (a view of a contiguous tensor)."""
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
+
+
+def objective_parts(
+    z: torch.Tensor,
+    dhat: torch.Tensor,
+    b_blocks: torch.Tensor,
+    geom: ProblemGeom,
+    cfg: LearnConfig,
+    fg: common.FreqGeom,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(data fidelity, l1) of codes z [L, ni, k, *sp] against dhat
+    [k, W, F] over all blocks; zeros when the objective is not tracked
+    (the reference evaluates it only when monitoring wants it)."""
+    if not cfg.with_objective:
+        zero = torch.zeros((), dtype=torch.float32, device=z.device)
+        return zero, zero
+    zf = _f32(_flat_blocks(z))
+    Dz = common.recon_from_freq(dhat, common.codes_to_freq(zf, fg), fg)
+    fid = common.data_fidelity(
+        Dz, _flat_blocks(b_blocks), geom.psf_radius, cfg.lambda_residual
+    )
+    return fid, common.l1_penalty(zf, cfg.lambda_prior)
+
+
+def z_iter_composition(z, dual_z, bhat, zkern, rho, theta, fg):
+    """One z iteration as the composition (models/learn.py:366-383 of
+    the JAX package): prox + dual update, torch.fft, the rank-1 solve
+    (K1 on the card), inverse FFT. z, dual_z: [M, k, *sp] in their
+    storage dtype; bhat [M, W, F]. -> (z', dual') in the storage dtype.
+    """
+    sd = z.dtype
+    z, dual_z = _f32(z), _f32(dual_z)
+    u2 = proxes.soft_threshold(z + dual_z, theta)
+    dual_z = dual_z + (z - u2)
+    xi2_hat = common.codes_to_freq(u2 - dual_z, fg)
+    zhat_new = freq_solvers.solve_z(zkern, bhat, xi2_hat, rho)
+    return common.codes_from_freq(zhat_new, fg).to(sd), dual_z.to(sd)
+
+
+def z_iter_fused(z, dual_z, bhat, zkern, rho, theta, fg):
+    """The same iteration as the two kernels K2a/K2b (ops.fused_z):
+    only the z/dual state travels through device memory."""
+    Sy, Sx = fg.spatial_shape
+    Fx = Sx // 2 + 1
+    K = z.shape[1]
+    return fused_z.fused_z_iter(
+        z, dual_z, bhat.reshape(-1, Sy, Fx),
+        zkern.dhat.reshape(K, Sy, Fx), zkern.minv_diag.reshape(Sy, Fx),
+        rho, theta,
+    )
+
+
+def outer_step(
+    state: LearnState,
+    b_blocks: torch.Tensor,
+    geom: ProblemGeom,
+    cfg: LearnConfig,
+    fg: common.FreqGeom,
+    num_blocks: int,
+    on_phase: Optional[Callable[[str], None]] = None,
+) -> Tuple[LearnState, OuterMetrics]:
+    """One outer consensus iteration over this device's L blocks.
+
+    b_blocks: [L, ni, *reduce, *data_spatial] (unpadded), on the state's
+    device. ``num_blocks`` is the global block count N (= L on one
+    device). ``on_phase`` (optional) is called with "d_start", "d_end",
+    "z_start" and "z_end" at the phase boundaries — the driver records
+    CUDA events there to time the passes apart.
+    """
+    if cfg.fused_z and (fg.reduce_size != 1 or len(fg.spatial_shape) != 2):
+        raise NotImplementedError(
+            "fused_z covers the 2D, W == 1 learner; other geometries are "
+            "not ported yet (ROADMAP.md Queue 1 item 8)"
+        )
+    mark = on_phase or (lambda _name: None)
+    support = geom.spatial_support
+    radius = geom.psf_radius
+    L, ni = b_blocks.shape[0], b_blocks.shape[1]
+    b_pad = fourier.pad_spatial(b_blocks, radius, target=fg.spatial_shape)
+    bhat = common.data_to_freq(_flat_blocks(b_pad), fg)  # [L*ni, W, F]
+    bhat_blocks = bhat.reshape(L, ni, *bhat.shape[1:])
+
+    def prox_kernel(u):
+        return proxes.kernel_constraint_proj(u, support, fg.spatial_shape)
+
+    def objective(z, dhat):
+        fid, l1 = objective_parts(z, dhat, b_blocks, geom, cfg, fg)
+        return fid + l1
+
+    # ---------------- d-pass (dzParallel.m:95-135) -------------------
+    mark("d_start")
+    zhat = common.codes_to_freq(_f32(_flat_blocks(state.z)), fg)
+    zhat = zhat.reshape(L, ni, *zhat.shape[1:])  # [L, ni, K, F]
+    dkern = freq_solvers.precompute_d_kernel(
+        zhat, cfg.rho_d, b_hat=bhat_blocks
+    )
+    del zhat
+    dsd = state.d_local.dtype  # d-state storage (d_storage_dtype)
+    d_local, dual_d = state.d_local, state.dual_d
+    dbar, udbar = state.dbar, state.udbar
+    for _ in range(cfg.max_it_d):
+        d_f, dual_f = _f32(d_local), _f32(dual_d)
+        u = prox_kernel(dbar + udbar)  # global prox (dzParallel.m:107)
+        dual_f = dual_f + (d_f - u[None])
+        xi_hat = common.full_filters_to_freq(u[None] - dual_f, fg)
+        dhat = freq_solvers.solve_d(dkern, None, xi_hat, cfg.rho_d)
+        d_new = _filters_from_freq(dhat, fg)
+        dbar = torch.sum(d_new, 0) / num_blocks  # consensus (:115-121)
+        udbar = torch.sum(dual_f, 0) / num_blocks
+        d_local, dual_d = d_new.to(dsd), dual_f.to(dsd)
+    del dkern
+    d_diff = common.rel_change(dbar, state.dbar)
+
+    # the coding dictionary: the projected consensus average (default),
+    # or block 1's unprojected local iterate (the reference's exact
+    # semantic, dzParallel.m:143)
+    if cfg.compat_coding == "block1":
+        d_code = _f32(d_local[0])
+    elif cfg.compat_coding == "consensus":
+        d_code = prox_kernel(dbar + udbar)
+    else:
+        raise ValueError(f"unknown compat_coding {cfg.compat_coding!r}")
+    dhat_z = common.full_filters_to_freq(d_code, fg)
+    mark("d_end")
+    obj_d = objective(state.z, dhat_z)
+
+    # ---------------- z-pass (dzParallel.m:140-172) ------------------
+    mark("z_start")
+    zkern = freq_solvers.precompute_z_kernel(dhat_z, cfg.rho_z)
+    theta = cfg.lambda_prior / cfg.rho_z
+    z_iter = z_iter_fused if cfg.fused_z else z_iter_composition
+    z, dual_z = _flat_blocks(state.z), _flat_blocks(state.dual_z)
+    for _ in range(cfg.max_it_z):
+        z, dual_z = z_iter(z, dual_z, bhat, zkern, cfg.rho_z, theta, fg)
+    z = z.reshape(state.z.shape)
+    dual_z = dual_z.reshape(state.dual_z.shape)
+    mark("z_end")
+    num = torch.sum((_f32(z) - _f32(state.z)) ** 2)
+    den = torch.sum(_f32(z) ** 2)
+    z_diff = torch.sqrt(num) / torch.clamp(torch.sqrt(den), min=1e-30)
+    obj_z = objective(z, dhat_z)
+
+    new_state = LearnState(d_local, dual_d, dbar, udbar, z, dual_z)
+    return new_state, OuterMetrics(obj_d, obj_z, d_diff, z_diff)
+
+
+def eval_block(
+    state: LearnState,
+    b_blocks: torch.Tensor,
+    geom: ProblemGeom,
+    cfg: LearnConfig,
+    fg: common.FreqGeom,
+    with_outputs: bool = True,
+):
+    """(global objective, support filters, cropped per-block Dz
+    [L, ni, *reduce, *data_spatial] or None). Sequential over blocks, as
+    in JAX: only one block's code spectra exist at a time."""
+    d_proj = proxes.kernel_constraint_proj(
+        state.dbar + state.udbar, geom.spatial_support, fg.spatial_shape
+    )
+    dhat = common.full_filters_to_freq(d_proj, fg)
+    data_sp = b_blocks.shape[-geom.ndim_spatial:]
+    obj = torch.zeros((), dtype=torch.float32, device=b_blocks.device)
+    Dz_blocks = []
+    for zl, bl in zip(state.z, b_blocks):
+        zl = _f32(zl)  # z may be stored bf16
+        Dz = common.recon_from_freq(dhat, common.codes_to_freq(zl, fg), fg)
+        obj = obj + common.data_fidelity(
+            Dz, bl, geom.psf_radius, cfg.lambda_residual
+        ) + common.l1_penalty(zl, cfg.lambda_prior)
+        if with_outputs:
+            Dz_blocks.append(
+                fourier.crop_spatial(Dz, geom.psf_radius, data_sp)
+            )
+    Dz_all = torch.stack(Dz_blocks) if with_outputs else None
+    return obj, extract_filters(d_proj, geom), Dz_all
+
+
+def _filters_from_freq(dhat: torch.Tensor, fg: common.FreqGeom) -> torch.Tensor:
+    """dhat [..., K, W, F] -> full-domain real filters
+    [..., k, *reduce, *spatial]."""
+    dh = dhat.reshape(*dhat.shape[:-2], *fg.reduce_shape, *fg.freq_shape)
+    return fourier.irfftn_spatial(dh, fg.spatial_shape, impl=fg.fft_impl)
+
+
+def extract_filters(dbar_proj: torch.Tensor, geom: ProblemGeom) -> torch.Tensor:
+    """Full-domain consensus filters -> support-domain [k,*reduce,*support]
+    (the final circshift+crop, dzParallel.m:202-203)."""
+    return fourier.circ_extract(dbar_proj, geom.spatial_support)
+
+
+class LearnResult(NamedTuple):
+    d: torch.Tensor  # [k, *reduce, *support] learned filters
+    z: torch.Tensor  # [N, ni, k, *spatial] final codes (block-major)
+    Dz: torch.Tensor  # [n, *reduce, *data_spatial] reconstructions
+    trace: dict
+
+
+def learn(b, geom: ProblemGeom, cfg: LearnConfig, **kwargs) -> LearnResult:
+    """Learn a filter bank from data b [n, *reduce, *data_spatial]; see
+    :func:`ccsc_code_iccv2017_torch.parallel.consensus.learn` for the
+    keywords (``device``, ``generator``, ``checkpoint_dir``,
+    ``init_d``, ``initial_state``, ...)."""
+    from ..parallel import consensus
+
+    return consensus.learn(b, geom, cfg, **kwargs)

@@ -195,17 +195,7 @@ def _plan_arrays(d, prob, cfg, fg, blur_psf):
 def _as_input(name, x, device):
     """An entry-point array (numpy or tensor) as float32 on ``device``;
     None passes through."""
-    if x is None:
-        return None
-    if not torch.is_tensor(x):
-        x = np.asarray(x)
-        if x.dtype.kind in ("O", "U", "S"):
-            raise validate.CCSCInputError(
-                f"{name} has non-numeric dtype {x.dtype} — convert to "
-                "float32 before solving"
-            )
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(device=device, dtype=torch.float32)
+    return None if x is None else validate.as_float32(x, device, name)
 
 
 def build_plan(

@@ -1,12 +1,22 @@
-"""Per-frequency z-solve — the hot path of the reconstruction solve
-(torch port of ``ccsc_code_iccv2017_tpu.ops.freq_solvers``).
+"""Per-frequency linear solvers — the hot path of CCSC (torch port of
+``ccsc_code_iccv2017_tpu.ops.freq_solvers``).
 
-After FFT diagonalization the z-subproblem decouples into one tiny
-linear system per frequency, (Gamma + A_f^H A_f) x_f = rhs_f, with A_f
-the W x K matrix of filter spectra. For W == 1 (every 2D problem) the
-system is rank-1 and the Sherman-Morrison closed form is exact; the
-port carries it in the hand-written kernel K1 (ops.kernels). The W > 1
-Woodbury path and the d-side solve come with later slices.
+After FFT diagonalization both ADMM subproblems decouple into one tiny
+linear system per frequency:
+
+- z-subproblem: (Gamma + A_f^H A_f) x_f = rhs_f, A_f the W x K matrix of
+  filter spectra. For W == 1 (every 2D problem) the system is rank-1
+  and the Sherman-Morrison closed form is exact; the port carries it in
+  the hand-written kernel K1 (ops.kernels). The W > 1 Woodbury path
+  waits for ROADMAP.md Queue 1 item 7.
+- d-subproblem: (rho I_K + Z_f^H Z_f) x_f = rhs_f, Z_f the Ni x K matrix
+  of code spectra, inverted by the Woodbury identity through an
+  Ni x Ni Hermitian system (precompute_d_kernel / solve_d).
+
+The JAX package's ``axis_name`` arguments (filter-axis sharding) are
+dropped: meshes wait for ROADMAP.md Queue 1 item 8. The d-side
+functions take leading batch axes (the learner's consensus blocks)
+where JAX vmaps.
 """
 from __future__ import annotations
 
@@ -15,6 +25,23 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import kernels
+
+
+def hermitian_inverse(
+    G: torch.Tensor, method: Optional[str] = None
+) -> torch.Tensor:
+    """Inverse of a batch of Hermitian positive-definite complex
+    matrices, G [..., m, m] -> G^{-1}, by a batched Cholesky factor and
+    its inverse. ``torch.linalg`` takes complex64 directly, so the JAX
+    package's real 2m x 2m block embedding (a TPU workaround) does not
+    carry over. ``method`` None / 'auto' / 'cholesky' run this; 'schur'
+    and 'newton' are not ported yet."""
+    if method not in (None, "auto", "cholesky"):
+        raise NotImplementedError(
+            f"hermitian_inverse method {method!r} is not ported yet "
+            "(ROADMAP.md Queue 1 item 9); the port runs 'cholesky'"
+        )
+    return torch.cholesky_inverse(torch.linalg.cholesky(G))
 
 
 class ZSolveKernel(NamedTuple):
@@ -105,3 +132,64 @@ def solve_z_reference(
     t = torch.einsum("kwf,nkf->nwf", dhat, g)  # A Ginv rhs
     s = kernel.minv_diag[None, None, :] * t
     return g - dinv[None] * torch.einsum("kwf,nwf->nkf", dhat.conj(), s)
+
+
+class DSolveKernel(NamedTuple):
+    """Precomputed factors for the d-subproblem (dictionary update).
+
+    zhat: [..., Ni, K, F] code spectra of a consensus block.
+    ginv: [..., F, Ni, Ni] complex — (rho I_Ni + Z Z^H)^{-1}, the Woodbury
+          inner inverse.
+    zb:   optional [..., K, W, F] — Z^H b, hoisted when the data-side
+          target is constant across the inner d-iterations (the
+          consensus learner). None when the target varies.
+    """
+
+    zhat: torch.Tensor
+    ginv: torch.Tensor
+    zb: Optional[torch.Tensor] = None
+
+
+def precompute_d_kernel(
+    zhat: torch.Tensor,
+    rho: float,
+    b_hat: Optional[torch.Tensor] = None,
+) -> DSolveKernel:
+    """zhat: [..., Ni, K, F]. ``b_hat`` [..., Ni, W, F]: pass the data
+    spectra to hoist the constant Z^H b out of the d-iterations."""
+    Ni = zhat.shape[-3]
+    G = torch.einsum("...nkf,...mkf->...fnm", zhat, zhat.conj())
+    G = G + rho * torch.eye(Ni, dtype=G.dtype, device=G.device)
+    zb = None
+    if b_hat is not None:
+        zb = torch.einsum("...nkf,...nwf->...kwf", zhat.conj(), b_hat)
+    return DSolveKernel(zhat, hermitian_inverse(G), zb)
+
+
+def solve_d(
+    kernel: DSolveKernel,
+    b_hat: Optional[torch.Tensor],
+    xi_hat: torch.Tensor,
+    rho: float,
+) -> torch.Tensor:
+    """Solve (rho I_K + Z^H Z) x = Z^H b + rho * xi per frequency.
+
+    b_hat: [..., Ni, W, F] data spectra (None with a hoisted kernel);
+    xi_hat: [..., K, W, F] target filter spectra -> [..., K, W, F] new
+    filter spectra. Woodbury: x = (r - Z^H (rho I + Z Z^H)^{-1} Z r) / rho
+    with r = Z^H b + rho * xi (solve_conv_term_D, dParallel.m:252-276).
+    """
+    zhat, ginv = kernel.zhat, kernel.ginv
+    if kernel.zb is not None:
+        if b_hat is not None:
+            # a hoisted kernel bakes in its own data target
+            raise ValueError(
+                "kernel was built with a hoisted b_hat; pass b_hat=None"
+            )
+        zb = kernel.zb
+    else:
+        zb = torch.einsum("...nkf,...nwf->...kwf", zhat.conj(), b_hat)
+    r = zb + rho * xi_hat
+    t = torch.einsum("...nkf,...kwf->...nwf", zhat, r)
+    s = torch.einsum("...fnm,...mwf->...nwf", ginv, t)
+    return (r - torch.einsum("...nkf,...nwf->...kwf", zhat.conj(), s)) / rho

@@ -17,15 +17,17 @@ a first k-loop accumulates t and den, a second recomputes g and writes
 z. The second pass re-reads dhat, dinv and xi2; caching them in shared
 memory is left to a later change.
 
-Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
+Build: every source ``csrc/<name>.cu`` is compiled by ``nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``ccsc_code_iccv2017_torch/build/`` at first use (the file name carries
 the source's hash, so an edited source rebuilds), loaded with ctypes.
-The wrapper launches on ``torch.cuda.current_stream()`` and never
-synchronises.
+``build_all()`` starts one nvcc per source at once. The wrappers launch
+on ``torch.cuda.current_stream()`` and never synchronise.
 
 ``solve_z_rank1`` takes the plain version ``solve_z_rank1_reference``
 only for tensors on the CPU; for CUDA tensors it launches K1 or raises.
-``solve_z_rank1.launches`` counts kernel launches.
+``solve_z_rank1.launches`` counts kernel launches. K2 (the fused
+learner z-iteration) lives in ``ops/fused_z.py`` and is built here too.
 """
 from __future__ import annotations
 
@@ -36,12 +38,13 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "solve_z_rank1.cu")
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+SOURCE = os.path.join(CSRC_DIR, "solve_z_rank1.cu")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,48 +54,85 @@ NVCC_FLAGS = (
 _MAX_N = 65535
 
 
+def sources() -> Dict[str, str]:
+    """Every kernel source of the port: name -> path of csrc/<name>.cu."""
+    return {
+        f[:-3]: os.path.join(CSRC_DIR, f)
+        for f in sorted(os.listdir(CSRC_DIR))
+        if f.endswith(".cu")
+    }
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
         raise RuntimeError(
-            "nvcc not found (PATH or /usr/local/cuda/bin) — K1 is built "
-            "from csrc/solve_z_rank1.cu on the machine with the card"
+            "nvcc not found (PATH or /usr/local/cuda/bin) — the port's "
+            "kernels are built from csrc/*.cu on the machine with the card"
         )
     return path
 
 
-def build() -> dict:
-    """Compile K1 into the build directory (skipped when the library
-    for this exact source already exists). Returns the library path,
-    whether it compiled, the build seconds and the compiler's report
-    (``-Xptxas -v``: registers, shared memory, spills)."""
-    with open(SOURCE, "rb") as f:
+def _lib_path(name: str) -> str:
+    with open(sources()[name], "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    lib_path = os.path.join(BUILD_DIR, f"libsolve_z_rank1_{digest}.so")
-    if os.path.exists(lib_path):
-        return {"path": lib_path, "compiled": False, "seconds": 0.0,
-                "log": ""}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True, text=True, timeout=600,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-            f"{proc.stdout}{proc.stderr}"
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
+    """Compile the named kernels (default: every source under csrc/)
+    into the build directory, one nvcc process per source, all started
+    together; a library that exists for the exact source is not rebuilt.
+    Returns, per name, the library path, whether it compiled, the build
+    seconds and the compiler's report (``-Xptxas -v``: registers,
+    shared memory, spills). Raises if any build fails."""
+    srcs = sources()
+    names = list(srcs) if names is None else list(names)
+    out, running = {}, {}
+    for name in names:
+        lib_path = _lib_path(name)
+        if os.path.exists(lib_path):
+            out[name] = {"path": lib_path, "compiled": False,
+                         "seconds": 0.0, "log": ""}
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, srcs[name]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-    os.replace(tmp, lib_path)
-    return {"path": lib_path, "compiled": True, "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
+        running[name] = (proc, tmp, lib_path, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, lib_path, t0) in running.items():
+        log, _ = proc.communicate(timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{srcs[name]}:\n{log}")
+            continue
+        os.replace(tmp, lib_path)
+        out[name] = {"path": lib_path, "compiled": True,
+                     "seconds": seconds, "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def build(name: str = "solve_z_rank1") -> dict:
+    """Compile one kernel (``csrc/<name>.cu``); see :func:`build_all`."""
+    return build_all([name])[name]
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built on first
+    use."""
+    return ctypes.CDLL(build(name)["path"])
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()["path"])
+    lib = library("solve_z_rank1")
     fn = lib.ccsc_solve_z_rank1
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -63,3 +63,41 @@ def load_filters_2d(path: str) -> np.ndarray:
     """[s, s, k] -> [k, s, s] float32."""
     d = _mat_var(path, "d")
     return np.ascontiguousarray(np.transpose(d, (2, 0, 1))).astype(np.float32)
+
+
+def _host(x) -> np.ndarray:
+    if hasattr(x, "detach"):  # a torch tensor
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def save_filters(
+    path: str,
+    d,
+    trace: dict | None = None,
+    layout: str | None = None,
+    Dz=None,
+) -> None:
+    """Save learned filters (+ optional trace and Dz reconstructions) in
+    the reference's .mat layout — the terminal
+    ``save('...','d','Dz','iterations')`` of 2D/learn_kernels_2D_large.m:45
+    — so files round-trip through load_filters_2d and are
+    interchangeable with the MATLAB and JAX artifacts. d: [k, s, s]
+    (numpy or tensor) -> stored [s, s, k]; Dz: [n, H, W] -> [H, W, n].
+    Only the "2d" layout is ported; the other families come with their
+    learners (ROADMAP.md Queue 1 item 8)."""
+    import scipy.io
+
+    d = _host(d)
+    layout = layout or ("2d" if d.ndim == 3 else None)
+    if layout != "2d":
+        raise NotImplementedError(
+            f"filter layout {layout!r} for shape {d.shape}: only '2d' is "
+            "ported (ROADMAP.md Queue 1 item 8)"
+        )
+    payload = {"d": np.transpose(d, (1, 2, 0))}
+    if Dz is not None:
+        payload["Dz"] = np.transpose(_host(Dz), (1, 2, 0))
+    if trace is not None:
+        payload["iterations"] = {k: np.asarray(v) for k, v in trace.items()}
+    scipy.io.savemat(path, payload)

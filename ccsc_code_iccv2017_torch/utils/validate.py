@@ -1,6 +1,6 @@
 """Strict input validation at the port's entry points (torch port of the
 checks ``ccsc_code_iccv2017_tpu.utils.validate`` runs for
-``reconstruct``/``build_plan``).
+``reconstruct``/``build_plan`` and the consensus learner).
 
 Every failure raises :class:`CCSCInputError`, a ``ValueError`` subclass
 whose message says what was wrong and what to change. The checks take
@@ -147,6 +147,88 @@ def check_positive(what: str, **vals) -> None:
                 f"{what}.{k} must be a finite positive number, got "
                 f"{v!r}"
             )
+
+
+def as_float32(x, device, name: str = "data") -> torch.Tensor:
+    """An entry-point array (numpy or tensor) as a float32 tensor on
+    ``device``."""
+    if not torch.is_tensor(x):
+        x = np.asarray(x)
+        if x.dtype.kind in ("O", "U", "S"):
+            raise CCSCInputError(
+                f"{name} has non-numeric dtype {x.dtype} — convert to "
+                "float32 before solving"
+            )
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device=device, dtype=torch.float32)
+
+
+def check_learn_data(
+    b, geom, *, num_blocks: Optional[int] = None, name: str = "data"
+) -> None:
+    """Learner data [n, *reduce, *spatial]: layout vs geometry,
+    finiteness, and (when given) consensus-block divisibility."""
+    shape = _shape(b)
+    _check_geometry(name, shape, geom, "learner")
+    if num_blocks is not None:
+        if num_blocks < 1:
+            raise CCSCInputError(
+                f"num_blocks must be >= 1, got {num_blocks}"
+            )
+        if shape[0] % num_blocks:
+            raise CCSCInputError(
+                f"n={shape[0]} not divisible by num_blocks={num_blocks}"
+                " — pick a block count that divides the batch (or trim "
+                "the batch)"
+            )
+    check_finite(name, b)
+
+
+def check_learn_config(cfg) -> None:
+    """Positivity / sanity of the LearnConfig fields that the solver
+    would otherwise divide by or diverge on, and the storage dtypes the
+    port implements."""
+    check_positive(
+        "LearnConfig",
+        lambda_residual=cfg.lambda_residual,
+        lambda_prior=cfg.lambda_prior,
+        rho_d=cfg.rho_d,
+        rho_z=cfg.rho_z,
+    )
+    # max_it=0 is legitimate (a zero-iteration run returns the seeded
+    # dictionary)
+    if cfg.max_it < 0 or cfg.max_it_d < 1 or cfg.max_it_z < 1:
+        raise CCSCInputError(
+            "LearnConfig.max_it must be >= 0 and max_it_d/max_it_z "
+            f">= 1, got {cfg.max_it}/{cfg.max_it_d}/{cfg.max_it_z}"
+        )
+    if not np.isfinite(cfg.tol) or cfg.tol < 0:
+        raise CCSCInputError(
+            f"LearnConfig.tol must be a finite value >= 0, got {cfg.tol}"
+        )
+    for name in ("storage_dtype", "d_storage_dtype"):
+        if getattr(cfg, name) not in ("float32", "bfloat16"):
+            raise CCSCInputError(
+                f"LearnConfig.{name} must be 'float32' | 'bfloat16' in the "
+                f"port, got {getattr(cfg, name)!r}"
+            )
+
+
+def check_learn_inputs(
+    b, geom, cfg, *, init_d=None, smooth_init=None, blocks=True
+) -> None:
+    """Everything the learner entry point needs checked before its
+    first step. ``blocks=False`` for solvers that do not consensus-split
+    the batch."""
+    check_learn_config(cfg)
+    check_learn_data(
+        b, geom, num_blocks=cfg.num_blocks if blocks else None
+    )
+    if init_d is not None:
+        check_filters(init_d, geom, name="init_d")
+    if smooth_init is not None:
+        check_same_shape("smooth_init", smooth_init, b)
+        check_finite("smooth_init", smooth_init)
 
 
 def check_solve_config(cfg) -> None:

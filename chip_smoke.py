@@ -8,23 +8,57 @@ never exits 0):
 
 1. Environment: the card's name and power limit (nvidia-smi), the
    device name and compute capability, which must be (9, 0).
-2. Build: K1 (``ccsc_code_iccv2017_torch/csrc/solve_z_rank1.cu``) from
-   this checkout's sources with nvcc, timed.
-3. Kernel vs plain: K1 against its plain torch version on the card at
-   the slice's full shapes (K=100, F=266*134, N in {1, 4}; dinv = 1/rho
-   and with one raised row as the Poisson dirac regularization makes
-   it), max|dz|/max|z| <= 1e-5; kernel, plain-version and bound times.
-4. The slice serves requests: the repo's k=100 11x11 bank, 4 synthetic
+2. Build: every kernel source under ``ccsc_code_iccv2017_torch/csrc/``
+   (K1 ``solve_z_rank1.cu``, K2 ``fused_z.cu``) with nvcc, one process
+   per source, all started together, timed; the ``-Xptxas -v``
+   registers, shared memory and spills.
+3. K1 vs plain: K1 against its plain torch version on the card at the
+   serving slice's full shapes (K=100, F=266*134, N in {1, 4}; dinv =
+   1/rho and with one raised row as the Poisson dirac regularization
+   makes it), max|dz|/max|z| <= 1e-5; kernel, plain-version and bound
+   times.
+4. Slice 1 serves requests: the repo's k=100 11x11 bank, 4 synthetic
    256x256 images (Gaussian-smoothed noise from --seed), 50% masks and
    the smooth-fill warm start, one ``build_plan``, then 4 requests
    through ``reconstruct(plan=...)`` at max_it=100, tol=1e-3. K1's
    launch count is set to 0 just before and must grow by exactly the
    iterations served.
-5. Card vs CPU: request 0 at max_it=10, tol=0 on both devices; the
-   objective traces agree to rtol 1e-4 and the reconstructions to
+5. Slice 1 card vs CPU: request 0 at max_it=10, tol=0 on both devices;
+   the objective traces agree to rtol 1e-4 and the reconstructions to
    1e-4 * max|b|.
-6. Output: a ``{"kernels": [...]}`` line, a ``{"slice": ...}`` line,
-   the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+6. K2 vs plain: the fused z-iteration (K2a + K2b) against its plain
+   torch version on the card, at (N=4, K=100, 110x110) in float32 and
+   bfloat16 state and at (N=3, K=6, 9x9) for odd lengths, with the
+   main path's filters and data. Limits: float32 max|dz'|/max|z'| <=
+   1e-5 and max|ddual'|/max|dual'| <= 1e-6; bfloat16 |dz'| <= 0.02
+   max|z'|; two launches on the same inputs give the same bits. One
+   more case at (N=4, K=100, 110x110) takes noise spectra over the whole
+   plane, where the rank-1 correction cancels by orders of magnitude:
+   there the kernels are held to the plain version run in float64,
+   max|dz'|/max|z'| <= 3e-5 (float32 reaches ~0.8e-5 by FFT and
+   ~1.6-1.9e-5 by the kernels' dense sums on the CPU). Then, at the
+   learner's full launch shape (N=800, K=100, 110x110, float32), K2a
+   and K2b each timed against their plain passes and their bounds
+   (formulas printed), and one z-iteration of the composition path
+   (cuFFT + K1 + elementwise) as the yardstick.
+7. Slice 2 learns at full width: k=100 11x11 filters, 8 consensus
+   blocks x 100 synthetic 100x100 images (Gaussian-smoothed noise from
+   --seed, local_cn, zero mean), max_it_d=5, max_it_z=10, fused_z,
+   3 outer steps at tol=0 through ``parallel.consensus.learn``. K2a's
+   and K2b's launch counts are set to 0 just before and must each equal
+   max_it_z x the steps adopted; every trace value is finite, obj_z
+   falls from step 1 to step 3 and every filter norm is <= 1 + 1e-5.
+8. Fused vs composition: the same configuration on 2 blocks x 8
+   images, 2 outer steps, fused_z True and False from the same init:
+   objective traces within rtol 1e-4, filters within 1e-4 max|d|; K1
+   launches only in the composition run, K2 only in the fused one.
+9. Slice 2 card vs CPU: k=16 11x11, 2 blocks x 2 images of 48x48, 2
+   outer steps, fused on both devices (the kernels on the card, their
+   plain version on the CPU) from one init: objective rtol 1e-4,
+   filters 1e-4 max|d|.
+10. Output: a ``{"kernels": [...]}`` line (K1, K2a, K2b), a
+   ``{"slice": ...}`` line (serving), a ``{"learn": ...}`` line, the
+   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when CUDA is absent or the
 port's package is not beside this script.
@@ -102,13 +136,18 @@ def phase_environment(torch, device_report):
 
 
 def phase_build(kernels):
-    info = kernels.build()
-    print(f"[2] K1 built in {info['seconds']:.2f} s "
-          f"(compiled={info['compiled']}): {info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[2]   {line.strip()}")
-    return info
+    t0 = time.perf_counter()
+    infos = kernels.build_all()
+    wall = time.perf_counter() - t0
+    for name, info in infos.items():
+        print(f"[2] {name} built in {info['seconds']:.2f} s "
+              f"(compiled={info['compiled']}): {info['path']}")
+        for line in info["log"].splitlines():
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "smem")):
+                print(f"[2]   {line.strip()}")
+    print(f"[2] all kernels built in {wall:.2f} s (parallel nvcc)")
+    return infos
 
 
 def phase_kernel_vs_plain(torch, kernels, bw, flops, seed):
@@ -270,6 +309,400 @@ def phase_card_vs_cpu(torch, port, data):
             "b_max": b_max}
 
 
+LEARN_K, LEARN_SUPPORT, LEARN_SIDE = 100, 11, 100  # the BASELINE learner
+LEARN_S = LEARN_SIDE + 2 * (LEARN_SUPPORT // 2)  # 110: padded plane side
+LEARN_BLOCKS, LEARN_NI = 8, 100  # N = 800 images, K = 100 filters
+
+
+def _fused_inputs(torch, gen, N, Kf, Sy, Sx, dtype, rho=1.0,
+                  whole_plane=False):
+    """Random state and spectra for one fused z-iteration on the card.
+    By default with the main path's structure: unit-norm filters on an
+    11x11 support (the learner's projected dictionary) and data on the
+    interior of the padded plane. ``whole_plane`` takes noise over the
+    whole plane for both instead: there the rank-1 correction cancels
+    by orders of magnitude, and even the plain float32 version lands
+    ~1e-5 from float64."""
+    dev = gen.device
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    z = randn(N, Kf, Sy, Sx).to(dtype)
+    du = randn(N, Kf, Sy, Sx).to(dtype)
+    if whole_plane:
+        d, b = randn(Kf, Sy, Sx), randn(N, Sy, Sx)
+    else:
+        s = min(LEARN_SUPPORT, Sy, Sx)
+        d = torch.zeros(Kf, Sy, Sx, device=dev)
+        d[:, :s, :s] = randn(Kf, s, s)
+        d /= d.flatten(1).norm(dim=1)[:, None, None]
+        r = LEARN_SUPPORT // 2 if min(Sy, Sx) > 2 * LEARN_SUPPORT else 0
+        b = torch.zeros(N, Sy, Sx, device=dev)
+        b[:, r:Sy - r, r:Sx - r] = randn(N, Sy - 2 * r, Sx - 2 * r)
+    dhat, bhat = torch.fft.rfft2(d), torch.fft.rfft2(b)
+    minv = 1.0 / (1.0 + torch.sum(dhat.abs() ** 2, 0) / rho)
+    return z, du, bhat, dhat, minv
+
+
+def _k2_cost(N, Kf, Sy, Sx, itemsize):
+    """Operations and bytes of the work K2a and K2b do, per pass, and the
+    operations of the kernels' own dense-DFT formulation beside them.
+
+    Per [Sy, Sx] plane (Fx = Sx/2 + 1), the work is one real 2D transform
+    in pass A and two in pass B (forward and inverse), counted at the
+    usual 5 n log2 n flops for a complex FFT of length n and half that
+    for a real one: Sy real rows (2.5 Sx log2 Sx) and Fx complex columns
+    (5 Sy log2 Sy). Elementwise work is ~8 flops per pixel (prox, dual,
+    xi) and 18 (pass A: g and the t accumulation) or 22 (pass B: g, s
+    and the correction) per bin. Bytes: each input read once, each
+    output written once. The kernels (csrc/fused_z.cu) do the transforms
+    as dense sums instead: 4 Sy Sx Fx flops per real row DFT and 8 Sy^2
+    Fx per complex column DFT ("formulation_ops"), ~20x the FFT count
+    at 110x110; that is how far their formulation sits above the work,
+    not a floor of the work."""
+    import math
+
+    Fx = Sx // 2 + 1
+    P, Fp, planes = Sy * Sx, Sy * Fx, N * Kf
+    fft = 2.5 * Sy * Sx * math.log2(Sx) + 5 * Fx * Sy * math.log2(Sy)
+    row, col = 4 * Sy * Sx * Fx, 8 * Sy * Sy * Fx
+    ops_a = planes * (fft + 8 * P + 18 * Fp)
+    ops_b = planes * (2 * fft + 6 * P + 22 * Fp)
+    dense_a = planes * (row + col + 8 * P + 18 * Fp)
+    dense_b = planes * (2 * row + 2 * col + 6 * P + 22 * Fp)
+    state = planes * P * itemsize  # one state plane set
+    bytes_a = 3 * state + 8 * Fp * (Kf + 2 * N)  # z, du, dual'; dhat, bhat, t
+    bytes_b = 3 * state + 8 * Fp * (Kf + 2 * N) + 4 * Fp  # ... z'; t, minv
+    formulas = {
+        "ops_a": "N K (2.5 Sy Sx log2 Sx + 5 Fx Sy log2 Sy + 8 Sy Sx "
+                 "+ 18 Sy Fx)",
+        "ops_b": "N K (5 Sy Sx log2 Sx + 10 Fx Sy log2 Sy + 6 Sy Sx "
+                 "+ 22 Sy Fx)",
+        "formulation_ops_a": "N K (4 Sy Sx Fx + 8 Sy^2 Fx + 8 Sy Sx "
+                             "+ 18 Sy Fx)",
+        "formulation_ops_b": "N K (8 Sy Sx Fx + 16 Sy^2 Fx + 6 Sy Sx "
+                             "+ 22 Sy Fx)",
+        "bytes_a": "3 N K Sy Sx e + 8 Sy Fx (K + 2N)",
+        "bytes_b": "3 N K Sy Sx e + 8 Sy Fx (K + 2N) + 4 Sy Fx",
+    }
+    return (ops_a, bytes_a, dense_a), (ops_b, bytes_b, dense_b), formulas
+
+
+def _bound(ops, nbytes, formulation_ops, bw, flops):
+    bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * ops / flops
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "ops": ops, "bytes": nbytes, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "formulation_ops": formulation_ops,
+            "formulation_ops_ms": 1e3 * formulation_ops / flops}
+
+
+def phase_k2_vs_plain(torch, port, bw, flops, seed):
+    fz = port["fused_z"]
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    rho, theta = 1.0, 1.0  # the learner's rho_z and lambda / rho_z
+    cases = []
+    for (N, Kf, S, dtype) in ((4, 100, LEARN_S, torch.float32),
+                              (4, 100, LEARN_S, torch.bfloat16),
+                              (3, 6, 9, torch.float32)):
+        args = _fused_inputs(torch, gen, N, Kf, S, S, dtype, rho)
+        z1, d1 = fz.fused_z_iter(*args, rho, theta)
+        z2, d2 = fz.fused_z_iter(*args, rho, theta)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(z1, z2) and torch.equal(d1, d2))
+        zr, dr = fz.fused_z_iter_reference(*args, rho, theta)
+        z1f, zrf = z1.float(), zr.float()
+        z_abs = float((z1f - zrf).abs().max())
+        d_abs = float((d1.float() - dr.float()).abs().max())
+        z_scale = float(zrf.abs().max())
+        d_scale = float(dr.float().abs().max())
+        case = {
+            "N": N, "K": Kf, "S": S, "dtype": str(dtype).split(".")[-1],
+            "z_max_abs_err": z_abs, "z_rel_err": z_abs / z_scale,
+            "dual_max_abs_err": d_abs, "dual_rel_err": d_abs / d_scale,
+            "bitwise_repeatable": bitwise,
+        }
+        print(f"[6] K2 N={N} K={Kf} {S}x{S} {case['dtype']}: z' rel err "
+              f"{case['z_rel_err']:.2e}, dual' rel err "
+              f"{case['dual_rel_err']:.2e}, bitwise repeat {bitwise}")
+        if not bitwise:
+            raise RuntimeError(f"K2 is not bitwise repeatable: {case}")
+        if dtype == torch.float32:
+            ok = case["z_rel_err"] <= 1e-5 and case["dual_rel_err"] <= 1e-6
+        else:
+            ok = z_abs <= 0.02 * z_scale and d_abs <= 0.02 * d_scale
+        if not ok:
+            raise RuntimeError(f"K2 disagrees with its plain version: {case}")
+        cases.append(case)
+        del args, z1, d1, z2, d2, zr, dr, z1f, zrf
+
+    # noise spectra over the whole plane: float32 itself lands ~1e-5
+    # from float64 there, so the kernels are held to the plain version
+    # run in float64 (dual' is elementwise, held to the float32 plain)
+    args = _fused_inputs(torch, gen, 4, LEARN_K, LEARN_S, LEARN_S,
+                         torch.float32, rho, whole_plane=True)
+    z1, d1 = fz.fused_z_iter(*args, rho, theta)
+    z2, d2 = fz.fused_z_iter(*args, rho, theta)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(z1, z2) and torch.equal(d1, d2))
+    wide = [a.to(torch.complex128) if a.is_complex() else a.double()
+            for a in args]
+    z64 = fz.fused_z_iter_reference(*wide, rho, theta)[0]
+    zr, dr = fz.fused_z_iter_reference(*args, rho, theta)
+    z_scale = float(z64.abs().max())
+    whole = {
+        "N": 4, "K": LEARN_K, "S": LEARN_S, "dtype": "float32",
+        "inputs": "whole_plane_noise", "bitwise_repeatable": bitwise,
+        "z_rel_err_vs_f64": float((z1.double() - z64).abs().max()) / z_scale,
+        "plain_z_rel_err_vs_f64":
+            float((zr.double() - z64).abs().max()) / z_scale,
+        "z_rel_err_vs_plain":
+            float((z1 - zr).abs().max()) / float(zr.abs().max()),
+        "dual_rel_err": float((d1 - dr).abs().max()) / float(dr.abs().max()),
+        "limit_vs_f64": 3e-5,
+    }
+    print(f"[6] K2 N=4 K={LEARN_K} {LEARN_S}x{LEARN_S} float32, whole-plane "
+          f"noise: z' rel err vs float64 {whole['z_rel_err_vs_f64']:.2e} "
+          f"(plain float32 {whole['plain_z_rel_err_vs_f64']:.2e}; kernel vs "
+          f"plain {whole['z_rel_err_vs_plain']:.2e}), dual' rel err "
+          f"{whole['dual_rel_err']:.2e}, bitwise repeat {bitwise}")
+    if not (bitwise and whole["z_rel_err_vs_f64"] <= 3e-5
+            and whole["dual_rel_err"] <= 1e-6):
+        raise RuntimeError(f"K2 off float64 on whole-plane noise: {whole}")
+    del args, wide, z1, d1, z2, d2, z64, zr, dr
+
+    # the learner's full launch shape: N*K = 800*100 planes of 110x110
+    N, Kf, S = LEARN_BLOCKS * LEARN_NI, LEARN_K, LEARN_S
+    z, du, bhat, dhat, minv = _fused_inputs(torch, gen, N, Kf, S, S,
+                                            torch.float32, rho)
+    cost_a, cost_b, formulas = _k2_cost(N, Kf, S, S, 4)
+    # the comparison at the main path's own launch shape too
+    zk, dk = fz.fused_z_iter(z, du, bhat, dhat, minv, rho, theta)
+    zr, dr = fz.fused_z_iter_reference(z, du, bhat, dhat, minv, rho, theta)
+    full = {
+        "N": N, "K": Kf, "S": S, "dtype": "float32",
+        "z_max_abs_err": float((zk - zr).abs().max()),
+        "dual_max_abs_err": float((dk - dr).abs().max()),
+    }
+    full["z_rel_err"] = full["z_max_abs_err"] / float(zr.abs().max())
+    full["dual_rel_err"] = full["dual_max_abs_err"] / float(dr.abs().max())
+    print(f"[6] K2 N={N} K={Kf} {S}x{S} float32: z' rel err "
+          f"{full['z_rel_err']:.2e}, dual' rel err {full['dual_rel_err']:.2e}")
+    if not (full["z_rel_err"] <= 1e-5 and full["dual_rel_err"] <= 1e-6):
+        raise RuntimeError(f"K2 disagrees with its plain version: {full}")
+    cases.append(full)
+    del zk, dk, zr, dr
+    torch.cuda.empty_cache()
+    _, t = fz.pass_a(z, du, bhat, dhat, rho, theta)
+    kernel_a = _time_ms(torch, lambda: fz.pass_a(z, du, bhat, dhat, rho,
+                                                 theta), warmup=2, reps=7)
+    kernel_b = _time_ms(torch, lambda: fz.pass_b(z, du, bhat, dhat, minv, t,
+                                                 rho, theta), warmup=2, reps=7)
+    plain_a = _time_ms(torch, lambda: fz.reference_pass_a(
+        z, du, bhat, dhat, rho, theta), warmup=1, reps=5)
+    plain_b = _time_ms(torch, lambda: fz.reference_pass_b(
+        z, du, bhat, dhat, minv, t, rho, theta), warmup=1, reps=5)
+    # the yardstick: one z-iteration of the composition path
+    # (models/learn.py z_iter_composition: cuFFT + K1 + elementwise)
+    fg = port["common"].FreqGeom.create(
+        port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, Kf),
+        (LEARN_SIDE, LEARN_SIDE),
+    )
+    zkern = port["freq_solvers"].precompute_z_kernel(
+        dhat.reshape(Kf, 1, -1), rho
+    )
+    b3 = bhat.reshape(N, 1, -1)
+    comp = _time_ms(torch, lambda: port["learn"].z_iter_composition(
+        z, du, b3, zkern, rho, theta, fg), warmup=1, reps=5)
+    timing = {
+        "shape": {"N": N, "K": Kf, "Sy": S, "Sx": S, "dtype": "float32"},
+        "pass_a": dict(kernel_ms=kernel_a, plain_ms=plain_a,
+                       **_bound(*cost_a, bw, flops)),
+        "pass_b": dict(kernel_ms=kernel_b, plain_ms=plain_b,
+                       **_bound(*cost_b, bw, flops)),
+        "fused_iter_ms": kernel_a + kernel_b,
+        "composition_iter_ms": comp,
+        "formulas": formulas,
+    }
+    for p in ("pass_a", "pass_b"):
+        r = timing[p]
+        print(f"[6] K2 {p} at N={N} K={Kf} {S}x{S}: kernel "
+              f"{r['kernel_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']}: {r['ops']:.4g} flop "
+              f"-> {r['ops_ms']:.3f} ms, {r['bytes']:.4g} B -> "
+              f"{r['bytes_ms']:.3f} ms); the kernels' dense-DFT formulation "
+              f"{r['formulation_ops']:.4g} flop -> "
+              f"{r['formulation_ops_ms']:.3f} ms")
+    print(f"[6] formulas: {json.dumps(formulas)}")
+    print(f"[6] one z-iteration: fused {kernel_a + kernel_b:.3f} ms, "
+          f"composition (cuFFT + K1 + elementwise) {comp:.3f} ms")
+    del z, du, bhat, dhat, minv, t, zkern, b3
+    torch.cuda.empty_cache()
+    return {"cases": cases, "whole_plane": whole, "timing": timing}
+
+
+def _learn_images(port, seed, n, side):
+    """n synthetic side x side images: Gaussian-smoothed noise from
+    ``seed``, local_cn, zero mean — the learner CLI's preprocessing."""
+    import numpy as np
+
+    im = port["images"]
+    rng = np.random.default_rng(seed)
+    raw = im.smooth_noise_images(rng, n, side)
+    b = np.stack([im.local_contrast_normalize(x) for x in raw])
+    return (b - b.mean(axis=(1, 2), keepdims=True)).astype(np.float32)
+
+
+def _learn_cfg(port, **kw):
+    base = dict(max_it_d=5, max_it_z=10, lambda_residual=1.0,
+                lambda_prior=1.0, rho_d=5000.0, rho_z=1.0, tol=0.0,
+                track_objective=True, verbose="none")
+    base.update(kw)
+    return port["config"].LearnConfig(**base)
+
+
+def phase_learn(torch, port, seed):
+    import math
+
+    import numpy as np
+
+    n = LEARN_BLOCKS * LEARN_NI
+    t0 = time.perf_counter()
+    b = _learn_images(port, seed, n, LEARN_SIDE)
+    data_s = time.perf_counter() - t0
+    cfg = _learn_cfg(port, num_blocks=LEARN_BLOCKS, max_it=3, fused_z=True)
+    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
+    fz = port["fused_z"].fused_z_iter
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fz.launches_a = fz.launches_b = 0
+    t0 = time.perf_counter()
+    res = port["consensus"].learn(b, geom, cfg, generator=gen,
+                                  device="cuda")
+    d = res.d.cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches = {"fused_z_pass_a": fz.launches_a,
+                "fused_z_pass_b": fz.launches_b}
+    tr = res.trace
+    steps = len(tr["obj_vals_z"]) - 1
+    want = cfg.max_it_z * steps
+    print(f"[7] learn n={n} {LEARN_SIDE}x{LEARN_SIDE}, k={LEARN_K} "
+          f"{LEARN_SUPPORT}x{LEARN_SUPPORT}, {LEARN_BLOCKS} blocks: {steps} "
+          f"steps in {wall:.2f} s (data {data_s:.2f} s); K2 launches "
+          f"{launches} (want {want} each)")
+    if steps != cfg.max_it or any(v != want for v in launches.values()):
+        raise RuntimeError(f"learner ran {steps} steps with K2 launches "
+                           f"{launches}, want {cfg.max_it} steps, {want}")
+    vals = [v for k in ("obj_vals_d", "obj_vals_z", "d_diff", "z_diff",
+                        "tim_vals", "d_pass_ms", "z_pass_ms")
+            for v in tr[k]]
+    if not all(math.isfinite(v) for v in vals):
+        raise RuntimeError(f"non-finite learner trace: {tr}")
+    if not tr["obj_vals_z"][3] < tr["obj_vals_z"][1]:
+        raise RuntimeError(f"obj_z did not fall: {tr['obj_vals_z']}")
+    norms = np.sqrt((d.reshape(LEARN_K, -1) ** 2).sum(1))
+    if not (np.isfinite(d).all() and norms.max() <= 1 + 1e-5):
+        raise RuntimeError(f"filter norms out of the unit ball: {norms.max()}")
+    step_s = np.diff(tr["tim_vals"]).tolist()
+    out = {
+        "n": n, "side": LEARN_SIDE, "k": LEARN_K, "support": LEARN_SUPPORT,
+        "blocks": LEARN_BLOCKS, "max_it_d": cfg.max_it_d,
+        "max_it_z": cfg.max_it_z, "steps": steps, "launches": launches,
+        "step_s": step_s, "d_pass_ms": tr["d_pass_ms"],
+        "z_pass_ms": tr["z_pass_ms"],
+        "steps_per_s": steps / tr["tim_vals"][-1],
+        "steps_per_s_after_first": (steps - 1) / sum(step_s[1:]),
+        "obj_vals_z": tr["obj_vals_z"], "obj_vals_d": tr["obj_vals_d"],
+        "filter_norm_max": float(norms.max()),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "wall_s": wall, "data_s": data_s,
+    }
+    for i in range(steps):
+        print(f"[7] step {i + 1}: {step_s[i]:.3f} s (d-pass "
+              f"{tr['d_pass_ms'][i]:.1f} ms, z-pass {tr['z_pass_ms'][i]:.1f} "
+              f"ms), obj_d {tr['obj_vals_d'][i + 1]:.6g}, obj_z "
+              f"{tr['obj_vals_z'][i + 1]:.6g}")
+    print(f"[7] {out['steps_per_s']:.3f} outer steps/s "
+          f"({out['steps_per_s_after_first']:.3f} after the first), max "
+          f"memory allocated {out['max_memory_allocated_bytes'] / 2**30:.2f}"
+          f" GiB, filter norm max {out['filter_norm_max']:.6f}")
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _compare_learns(tag, ra, rb):
+    import numpy as np
+
+    obj_rel = max(
+        float(np.max(np.abs(np.subtract(ra.trace[k], rb.trace[k]))
+                     / np.abs(rb.trace[k])))
+        for k in ("obj_vals_d", "obj_vals_z")
+    )
+    da, db = ra.d.cpu().numpy(), rb.d.cpu().numpy()
+    d_abs = float(np.abs(da - db).max())
+    d_max = float(np.abs(db).max())
+    print(f"{tag}: objective max rel diff {obj_rel:.2e}, filters max abs "
+          f"diff {d_abs:.2e} (max|d| {d_max:.3f})")
+    if not (obj_rel <= 1e-4 and d_abs <= 1e-4 * d_max):
+        raise RuntimeError(f"{tag}: traces or filters disagree "
+                           f"({obj_rel:.3e}, {d_abs:.3e})")
+    return {"obj_max_rel_diff": obj_rel, "d_max_abs_diff": d_abs,
+            "d_max": d_max}
+
+
+def phase_fused_vs_composition(torch, port, seed):
+    b = _learn_images(port, seed + 2, 16, LEARN_SIDE)
+    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
+    fz, k1 = port["fused_z"].fused_z_iter, port["kernels"].solve_z_rank1
+    runs, counts = {}, {}
+    for fused in (True, False):
+        cfg = _learn_cfg(port, num_blocks=2, max_it=2, fused_z=fused)
+        before = (k1.launches, fz.launches_a, fz.launches_b)
+        runs[fused] = port["consensus"].learn(
+            b, geom, cfg, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(seed),
+        )
+        counts[fused] = [a - c for a, c in zip(
+            (k1.launches, fz.launches_a, fz.launches_b), before)]
+    want = 10 * 2
+    print(f"[8] launches (K1, K2a, K2b): fused {counts[True]}, composition "
+          f"{counts[False]}")
+    if counts[True] != [0, want, want] or counts[False] != [want, 0, 0]:
+        raise RuntimeError(f"unexpected launches {counts}")
+    out = _compare_learns("[8] fused vs composition", runs[True], runs[False])
+    out["launches"] = {"fused": counts[True], "composition": counts[False]}
+    return out
+
+
+def phase_learn_card_vs_cpu(torch, port, seed):
+    b = _learn_images(port, seed + 3, 4, 48)
+    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, 16)
+    cfg = _learn_cfg(port, num_blocks=2, max_it=2, fused_z=True)
+    lm, cm = port["learn"], port["common"]
+    fg = cm.FreqGeom.create(geom, (48, 48))
+    init = lm.init_state(torch.Generator().manual_seed(seed), geom, fg, 2, 2)
+    runs = {dev: port["consensus"].learn(b, geom, cfg, device=dev,
+                                         initial_state=init)
+            for dev in ("cuda", "cpu")}
+    return _compare_learns("[9] learner card vs CPU", runs["cuda"],
+                           runs["cpu"])
+
+
+def _kernel_entry(name, source, replaces, launches, kernel_ms, plain_ms,
+                  bound, build_s, **extra):
+    return dict(
+        name=name, route="cuda", source=f"{PACKAGE}/csrc/{source}",
+        replaces=replaces, launches=launches, ms=kernel_ms,
+        kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+        bound_by=bound["bound_by"], library_ms=None, build_s=build_s,
+        **extra,
+    )
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -291,44 +724,68 @@ def main(argv=None) -> int:
         name: importlib.import_module(f"{PACKAGE}.{mod}")
         for name, mod in (
             ("config", "config"), ("kernels", "ops.kernels"),
+            ("fused_z", "ops.fused_z"), ("freq_solvers", "ops.freq_solvers"),
             ("reconstruct", "models.reconstruct"),
-            ("common", "models.common"),
+            ("learn", "models.learn"), ("common", "models.common"),
+            ("consensus", "parallel.consensus"),
             ("io_mat", "utils.io_mat"), ("images", "data.images"),
             ("device", "utils.device"),
         )
     }
+
     t_start = time.perf_counter()
     smi, name = phase_environment(torch, port["device"].device_report)
     bw, flops = _datasheet(name)
     build = phase_build(port["kernels"])
-    cases = phase_kernel_vs_plain(
-        torch, port["kernels"], bw, flops, args.seed
-    )
+    cases = phase_kernel_vs_plain(torch, port["kernels"], bw, flops,
+                                  args.seed)
     served = phase_serve(torch, port, args.seed)
     agree = phase_card_vs_cpu(torch, port, served.pop("data"))
+    k2 = phase_k2_vs_plain(torch, port, bw, flops, args.seed)
+    learn = phase_learn(torch, port, args.seed)
+    fused_vs_comp = phase_fused_vs_composition(torch, port, args.seed)
+    learn_agree = phase_learn_card_vs_cpu(torch, port, args.seed)
+    seconds = time.perf_counter() - t_start
+    print(f"[10] total {seconds:.1f} s")
 
     main_case = next(c for c in cases if c["n"] == 1 and not c["raised_row"])
-    kernels_line = {"kernels": [{
-        "name": "solve_z_rank1",
-        "route": "cuda",
-        "source": f"{PACKAGE}/csrc/solve_z_rank1.cu",
-        "replaces": "ccsc_code_iccv2017_tpu/ops/pallas_kernels.py:51",
-        "launches": served["launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "max_rel_err": max(c["max_rel_err"] for c in cases),
-        "ms": main_case["kernel_ms"],
-        "kernel_ms": main_case["kernel_ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": None,
-        "build_s": build["seconds"],
-        "cases": cases,
-    }]}
+    k2_err = {
+        "max_abs_err": max(c["z_max_abs_err"] for c in k2["cases"]),
+        "max_rel_err": max(c["z_rel_err"] for c in k2["cases"]),
+        "cases": k2["cases"],
+    }
+    kernels_line = {"kernels": [
+        _kernel_entry(
+            "solve_z_rank1", "solve_z_rank1.cu",
+            "ccsc_code_iccv2017_tpu/ops/pallas_kernels.py:51",
+            served["launches"], main_case["kernel_ms"],
+            main_case["plain_ms"], main_case,
+            build["solve_z_rank1"]["seconds"],
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            max_rel_err=max(c["max_rel_err"] for c in cases), cases=cases,
+        ),
+    ] + [
+        _kernel_entry(
+            f"fused_z_{p}", "fused_z.cu",
+            f"ccsc_code_iccv2017_tpu/ops/pallas_fused_z.py:{line}",
+            learn["launches"][f"fused_z_{p}"],
+            k2["timing"][p]["kernel_ms"], k2["timing"][p]["plain_ms"],
+            k2["timing"][p], build["fused_z"]["seconds"],
+            max_abs_err=k2_err["max_abs_err"],
+            max_rel_err=k2_err["max_rel_err"],
+            timing_shape=k2["timing"]["shape"],
+            composition_iter_ms=k2["timing"]["composition_iter_ms"],
+            formulation_ops_ms=k2["timing"][p]["formulation_ops_ms"],
+        )
+        for p, line in (("pass_a", 235), ("pass_b", 280))
+    ]}
+    kernels_line["kernels"][1]["cases"] = k2_err["cases"]
+    kernels_line["kernels"][1]["whole_plane_vs_f64"] = k2["whole_plane"]
     print(json.dumps(kernels_line))
-    print(json.dumps({"slice": dict(
-        served, card_vs_cpu=agree,
-        seconds=time.perf_counter() - t_start,
+    print(json.dumps({"slice": dict(served, card_vs_cpu=agree)}))
+    print(json.dumps({"learn": dict(
+        learn, fused_vs_composition=fused_vs_comp, card_vs_cpu=learn_agree,
+        k2_formulas=k2["timing"]["formulas"], seconds=seconds,
     )}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

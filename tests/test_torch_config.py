@@ -1,8 +1,8 @@
 """The port's configuration, device helper and import boundary.
 
 ``ccsc_code_iccv2017_torch.config`` is a jax-free copy of the JAX
-package's ``ProblemGeom``/``GEOM_2D``/``SolveConfig``: field names,
-defaults and validation must stay identical. The port's package and
+package's ``ProblemGeom``/``GEOM_2D``/``LearnConfig``/``SolveConfig``:
+field names, defaults and validation must stay identical. The port's package and
 ``chip_smoke.py`` must never import jax or the JAX package.
 """
 import ast
@@ -26,7 +26,7 @@ def _fields(cls):
     return [(f.name, f.default, str(f.type)) for f in dataclasses.fields(cls)]
 
 
-@pytest.mark.parametrize("name", ["ProblemGeom", "SolveConfig"])
+@pytest.mark.parametrize("name", ["ProblemGeom", "LearnConfig", "SolveConfig"])
 def test_fields_and_defaults_match_jax(name):
     assert _fields(getattr(tcfg, name)) == _fields(getattr(jcfg, name))
 
@@ -78,6 +78,58 @@ def test_unported_fields_raise_naming_roadmap(kw, item):
     jcfg.SolveConfig(**kw)  # valid in the JAX package
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         tcfg.SolveConfig(**kw)
+
+
+@pytest.mark.parametrize("verbose", ["none", "brief"])
+@pytest.mark.parametrize("track", [None, True, False])
+def test_learn_tracking_properties_match_jax(verbose, track):
+    kw = dict(verbose=verbose, track_objective=track)
+    t, j = tcfg.LearnConfig(**kw), jcfg.LearnConfig(**kw)
+    assert t.with_objective == j.with_objective
+    assert t.with_obs_metrics == j.with_obs_metrics
+    assert t.chunked_driver == j.chunked_driver
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(outer_chunk=0), dict(max_recoveries=-1), dict(rho_backoff=0.0),
+     dict(rho_backoff=1.5), dict(watchdog_slack=0.0), dict(tune="bogus")],
+)
+def test_learn_invalid_values_refused_like_jax(kw):
+    with pytest.raises(ValueError):
+        jcfg.LearnConfig(**kw)
+    with pytest.raises(ValueError):
+        tcfg.LearnConfig(**kw)
+
+
+@pytest.mark.parametrize(
+    "kw, item",
+    [
+        (dict(outer_chunk=2), "Queue 1 item 9"),
+        (dict(donate_state=True), "Queue 1 item 9"),
+        (dict(fft_impl="matmul"), "Queue 1 item 9"),
+        (dict(fused_z_precision="high"), "Queue 2, the K2 perf item"),
+        (dict(fused_z_precision="default"), "Queue 2, the K2 perf item"),
+        (dict(tune="auto"), "Queue 1 item 9"),
+        (dict(metrics_dir="/nonexistent"), "Queue 1 item 10"),
+        (dict(watchdog=True), "Queue 1 item 10"),
+        (dict(verbose="all"), "Queue 1 item 10"),
+        (dict(carry_freq=True), "Queue 1 item 8"),
+    ],
+)
+def test_learn_unported_fields_raise_naming_roadmap(kw, item):
+    jcfg.LearnConfig(**kw)  # valid in the JAX package
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        tcfg.LearnConfig(**kw)
+
+
+def test_learn_ported_knobs_construct():
+    cfg = tcfg.LearnConfig(
+        fused_z=True, storage_dtype="bfloat16", d_storage_dtype="bfloat16",
+        use_pallas=True, compat_coding="block1", max_recoveries=2,
+        fft_pad="fast",
+    )
+    assert cfg.fused_z and not cfg.chunked_driver
 
 
 def test_resolve_device_cpu_pins_full_f32():
@@ -133,8 +185,11 @@ def test_port_imports_without_jax_at_runtime():
         "import ccsc_code_iccv2017_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "from ccsc_code_iccv2017_torch.apps import inpaint_2d\n"
+        "from ccsc_code_iccv2017_torch.apps import inpaint_2d, learn_2d\n"
         "inpaint_2d.build_parser().parse_args(['--data', 'x', '--filters', 'y'])\n"
+        "learn_2d.build_parser().parse_args(['--data', 'x', '--fused-z'])\n"
+        "from ccsc_code_iccv2017_torch.parallel import consensus\n"
+        "from ccsc_code_iccv2017_torch.ops import fused_z\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccsc_code_iccv2017_tpu')]\n"
         "assert not bad, bad\n"

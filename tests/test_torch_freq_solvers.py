@@ -1,6 +1,8 @@
 """The rank-1 z-solve: K1's plain version (``solve_z_rank1_reference``),
 the port's ``solve_z`` routing and its einsum body, against the JAX
-package's interpret-mode Pallas kernel and its einsum ``solve_z``.
+package's interpret-mode Pallas kernel and its einsum ``solve_z``; and
+the d-side solve (``hermitian_inverse``, ``precompute_d_kernel``,
+``solve_d``) against the JAX package's.
 
 Tolerance rtol 1e-5 (of the output's scale): a float32 sum over K terms
 taken in another order. The CUDA kernel itself is compared with the
@@ -184,3 +186,97 @@ def test_kernel_matches_plain_on_card(n, extra):
     ref = kernels.solve_z_rank1_reference(*args)
     err = float((out - ref).abs().max() / ref.abs().max())
     assert err <= 1e-5, err
+
+
+def _herm_pd(r, batch, m, rho):
+    z = (r.normal(size=(*batch, m, 2 * m))
+         + 1j * r.normal(size=(*batch, m, 2 * m))).astype(np.complex64)
+    return (z @ np.conj(np.swapaxes(z, -1, -2))
+            + rho * np.eye(m, dtype=np.complex64)).astype(np.complex64)
+
+
+@pytest.mark.parametrize("m", [1, 2, 5])
+def test_hermitian_inverse_matches_jax_cholesky(m):
+    """The port inverts complex64 directly; JAX through its real block
+    embedding. Same math: rtol 1e-5 of the inverse's scale."""
+    G = _herm_pd(np.random.default_rng(5), (7,), m, 0.5)
+    ref = jfs.hermitian_inverse(jnp.asarray(G), method="cholesky")
+    out = tfs.hermitian_inverse(torch.from_numpy(G))
+    _close(out, ref)
+    eye = out @ torch.from_numpy(G)
+    assert float((eye - torch.eye(m)).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("method", ["schur", "newton"])
+def test_hermitian_inverse_other_methods_not_ported(method):
+    G = torch.from_numpy(_herm_pd(np.random.default_rng(6), (2,), 3, 1.0))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tfs.hermitian_inverse(G, method=method)
+
+
+def _d_problem(r, Ni, K, W, F):
+    def c(*shape):
+        return (r.normal(size=shape) + 1j * r.normal(size=shape)).astype(
+            np.complex64
+        )
+
+    return c(Ni, K, F), c(Ni, W, F), c(K, W, F)
+
+
+@pytest.mark.parametrize("hoist", [False, True])
+def test_d_kernel_and_solve_match_jax(hoist):
+    r = np.random.default_rng(7)
+    rho = 500.0
+    zhat, bhat, xi = _d_problem(r, 3, 6, 1, 40)
+    jk = jfs.precompute_d_kernel(
+        jnp.asarray(zhat), rho, b_hat=jnp.asarray(bhat) if hoist else None
+    )
+    tk = tfs.precompute_d_kernel(
+        torch.from_numpy(zhat), rho,
+        b_hat=torch.from_numpy(bhat) if hoist else None,
+    )
+    _close(tk.ginv, jk.ginv)
+    if hoist:
+        _close(tk.zb, jk.zb)
+    else:
+        assert tk.zb is None and jk.zb is None
+    b_arg = None if hoist else bhat
+    ref = jfs.solve_d(jk, None if b_arg is None else jnp.asarray(b_arg),
+                      jnp.asarray(xi), rho)
+    out = tfs.solve_d(tk, None if b_arg is None else torch.from_numpy(b_arg),
+                      torch.from_numpy(xi), rho)
+    _close(out, ref)
+
+
+def test_d_solve_is_exact_and_batches_over_blocks():
+    """solve_d solves (rho I + Z^H Z) x = Z^H b + rho xi per frequency,
+    and a leading block axis gives each block's own solve."""
+    r = np.random.default_rng(8)
+    rho = 3.0
+    blocks = [_d_problem(r, 2, 4, 1, 5) for _ in range(3)]
+    zs, bs, xs = (torch.from_numpy(np.stack(a)) for a in zip(*blocks))
+    tk = tfs.precompute_d_kernel(zs, rho, b_hat=bs)
+    x = tfs.solve_d(tk, None, xs, rho)  # [L, K, W, F]
+    for i, (z, b, xi) in enumerate(blocks):
+        one = tfs.solve_d(
+            tfs.precompute_d_kernel(torch.from_numpy(z), rho,
+                                    b_hat=torch.from_numpy(b)),
+            None, torch.from_numpy(xi), rho,
+        )
+        _close(x[i], one.numpy())
+        for f in range(z.shape[-1]):
+            Z = z[:, :, f].astype(np.complex128)  # [Ni, K]
+            A = rho * np.eye(Z.shape[1]) + np.conj(Z.T) @ Z
+            rhs = np.conj(Z.T) @ b[:, 0, f] + rho * xi[:, 0, f]
+            np.testing.assert_allclose(
+                x[i, :, 0, f].numpy(), np.linalg.solve(A, rhs),
+                rtol=1e-4, atol=1e-5,
+            )
+
+
+def test_hoisted_d_kernel_refuses_a_second_target():
+    zhat, bhat, xi = _d_problem(np.random.default_rng(9), 2, 3, 1, 4)
+    tk = tfs.precompute_d_kernel(torch.from_numpy(zhat), 1.0,
+                                 b_hat=torch.from_numpy(bhat))
+    with pytest.raises(ValueError, match="hoisted"):
+        tfs.solve_d(tk, torch.from_numpy(bhat), torch.from_numpy(xi), 1.0)

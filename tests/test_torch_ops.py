@@ -299,3 +299,143 @@ def test_validation_refusals():
     with pytest.raises(tvalidate.CCSCInputError, match="non-numeric"):
         tvalidate.check_finite("data", np.array([["a"]]))
     tvalidate.check_finite("counts", np.arange(4))
+
+
+@pytest.mark.parametrize("norm_over_reduce", [False, True])
+@pytest.mark.parametrize("reduce_shape", [(), (3,)])
+def test_kernel_constraint_proj(reduce_shape, norm_over_reduce):
+    r = np.random.default_rng(20)
+    # some filters inside the unit ball (kept), some outside (scaled)
+    d = _rand(r, (5, *reduce_shape, 14, 12)) * np.array(
+        [0.01, 0.05, 1.0, 3.0, 0.02], np.float32
+    ).reshape(5, *([1] * (len(reduce_shape) + 2)))
+    ref = jproxes.kernel_constraint_proj(
+        jnp.asarray(d), (5, 3), (14, 12), norm_over_reduce=norm_over_reduce
+    )
+    out = tproxes.kernel_constraint_proj(
+        _t(d), (5, 3), (14, 12), norm_over_reduce=norm_over_reduce
+    )
+    _close(out, ref)
+    sup = tfourier.circ_extract(out, (5, 3))
+    axes = tuple(range(1, sup.ndim)) if norm_over_reduce else (-2, -1)
+    assert float(torch.sqrt((sup**2).sum(dim=axes)).max()) <= 1 + 1e-6
+
+
+@pytest.mark.parametrize("reduce_shape", [(), (2,)])
+def test_full_filters_to_freq(reduce_shape):
+    r = np.random.default_rng(21)
+    geom, jgeom = (ProblemGeom((5, 5), 4, reduce_shape),
+                   JGeom((5, 5), 4, reduce_shape))
+    fg = tcommon.FreqGeom.create(geom, (10, 9))
+    jfg = jcommon.FreqGeom.create(jgeom, (10, 9))
+    d = _rand(r, (4, *reduce_shape, *fg.spatial_shape))
+    _close(tcommon.full_filters_to_freq(_t(d), fg),
+           jcommon.full_filters_to_freq(jnp.asarray(d), jfg))
+    # a leading block axis passes through
+    blocks = np.stack([d, 2 * d])
+    out = tcommon.full_filters_to_freq(_t(blocks), fg)
+    assert tuple(out.shape) == (2, 4, fg.reduce_size, fg.num_freq)
+    _close(out[1], np.asarray(jcommon.full_filters_to_freq(
+        jnp.asarray(2 * d), jfg)))
+
+
+@pytest.mark.parametrize("kind", ["noise", "flat", "sparse"])
+def test_local_contrast_normalize(kind):
+    r = np.random.default_rng(22)
+    img = r.random((23, 31)).astype(np.float32)
+    if kind == "flat":
+        img[:] = 0.5  # zero local std everywhere: the eps floor
+    elif kind == "sparse":
+        img = np.zeros((23, 31), np.float32)
+        img[5:8, 9:12] = 1.0  # median std 0: the median of nonzeros
+    np.testing.assert_array_equal(
+        timages.local_contrast_normalize(img),
+        jimages.local_contrast_normalize(img),
+    )
+
+
+def test_load_images_local_cn_zero_mean_square(tmp_path):
+    from PIL import Image
+
+    r = np.random.default_rng(23)
+    for i in range(3):
+        Image.fromarray((r.random((20, 26)) * 255).astype(np.uint8)).save(
+            tmp_path / f"{i}.png"
+        )
+    kw = dict(contrast_normalize="local_cn", zero_mean=True, square=True)
+    np.testing.assert_array_equal(
+        timages.load_images(str(tmp_path), **kw),
+        jimages.load_images(str(tmp_path), **kw),
+    )
+    np.testing.assert_array_equal(
+        timages.load_images(str(tmp_path), contrast_normalize="local_cn",
+                            size=(16, 16)),
+        jimages.load_images(str(tmp_path), contrast_normalize="local_cn",
+                            size=(16, 16)),
+    )
+    with pytest.raises(NotImplementedError, match="contrast mode"):
+        timages.load_images(str(tmp_path), contrast_normalize="zca")
+
+
+def test_save_filters_round_trips_through_jax_loaders(tmp_path):
+    r = np.random.default_rng(24)
+    d, Dz = _rand(r, (4, 5, 5)), _rand(r, (3, 12, 10))
+    trace = {"obj_vals_z": [3.0, 2.0], "algorithm": "consensus"}
+    tio.save_filters(str(tmp_path / "t.mat"), _t(d), trace, Dz=_t(Dz))
+    jio.save_filters(str(tmp_path / "j.mat"), d, trace, layout="2d", Dz=Dz)
+    for name in ("t.mat", "j.mat"):
+        np.testing.assert_array_equal(
+            jio.load_filters_2d(str(tmp_path / name)), d
+        )
+        np.testing.assert_array_equal(jio.load_dz(str(tmp_path / name)), Dz)
+    np.testing.assert_array_equal(
+        tio.load_filters_2d(str(tmp_path / "t.mat")), d
+    )
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tio.save_filters(str(tmp_path / "h.mat"), _rand(r, (2, 3, 5, 5)))
+
+
+@pytest.mark.parametrize(
+    "b_shape, cfg_kw, bad",
+    [
+        ((4, 12, 12), {}, None),
+        ((4, 12, 12), dict(num_blocks=3), "not divisible"),
+        ((4, 12, 12), dict(num_blocks=0), "num_blocks"),
+        ((12, 12), {}, "axes"),
+        ((4, 4, 4), {}, "exceeds"),
+        ((4, 12, 12), dict(rho_z=0.0), "rho_z"),
+        ((4, 12, 12), dict(max_it_z=0), "max_it"),
+        ((4, 12, 12), dict(tol=-1.0), "tol"),
+        ((4, 12, 12), "nan", "non-finite"),
+    ],
+)
+def test_learn_validation_matches_jax(b_shape, cfg_kw, bad):
+    from ccsc_code_iccv2017_tpu.config import LearnConfig as JCfg
+    from ccsc_code_iccv2017_tpu.utils import validate as jvalidate
+    from ccsc_code_iccv2017_torch.config import LearnConfig
+
+    b = np.ones(b_shape, np.float32)
+    if cfg_kw == "nan":
+        b[0, 0, 0], cfg_kw = np.nan, {}
+    cfg_kw = dict(dict(num_blocks=2), **cfg_kw)
+    geom, jgeom = ProblemGeom((5, 5), 3), JGeom((5, 5), 3)
+    d = np.zeros((3, 5, 5), np.float32)
+    calls = (
+        (lambda: jvalidate.check_learn_inputs(b, jgeom, JCfg(**cfg_kw),
+                                              init_d=d)),
+        (lambda: tvalidate.check_learn_inputs(b, geom, LearnConfig(**cfg_kw),
+                                              init_d=d)),
+    )
+    for call in calls:
+        if bad is None:
+            call()
+        else:
+            with pytest.raises(ValueError, match=bad):
+                call()
+
+
+def test_learn_validation_refuses_unported_storage_dtype():
+    from ccsc_code_iccv2017_torch.config import LearnConfig
+
+    with pytest.raises(tvalidate.CCSCInputError, match="storage_dtype"):
+        tvalidate.check_learn_config(LearnConfig(storage_dtype="float16"))
