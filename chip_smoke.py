@@ -28,16 +28,23 @@ never exits 0):
    1e-4 * max|b|.
 6. K2 vs plain: the fused z-iteration (K2a + K2b) against its plain
    torch version on the card, at (N=4, K=100, 110x110) in float32 and
-   bfloat16 state and at (N=3, K=6, 9x9) for odd lengths, with the
-   main path's filters and data. Limits: float32 max|dz'|/max|z'| <=
+   bfloat16 state, and in float32 at shapes that take each branch of
+   the kernels' P x Q split plan: (N=3, K=6, 9x9) splits 3x3 on both
+   axes; (N=2, K=5, 15x12) has an odd Sy (an unpaired packed row) and
+   splits 3x5 and 3x4; (N=2, K=3, 13x11) is prime on both axes (the
+   dense routines); (N=2, K=3, 38x20) is dense on y (38 = 2x19) and
+   splits 4x5 on x. The main path's filters and data throughout, but
+   for one case, (N=2, K=3, 12x10), with random complex dhat and bhat:
+   spectra that are not Hermitian, whose DC and Nyquist bins carry
+   imaginary parts that the inverse row transform drops, as irfft does.
+   Limits: float32 max|dz'|/max|z'| <=
    1e-5 and max|ddual'|/max|dual'| <= 1e-6; bfloat16 |dz'| <= 0.02
    max|z'|; two launches on the same inputs give the same bits. One
    more case at (N=4, K=100, 110x110) takes noise spectra over the whole
    plane, where the rank-1 correction cancels by orders of magnitude:
    there the kernels are held to the plain version run in float64,
-   max|dz'|/max|z'| <= 3e-5 (float32 reaches ~0.8e-5 by FFT and
-   ~1.6-1.9e-5 by the kernels' dense sums on the CPU). Then, at the
-   learner's full launch shape (N=800, K=100, 110x110, float32), K2a
+   max|dz'|/max|z'| <= 3e-5 (float32 reaches ~0.8e-5 by FFT). Then, at
+   the learner's full launch shape (N=800, K=100, 110x110, float32), K2a
    and K2b each timed against their plain passes and their bounds
    (formulas printed), and one z-iteration of the composition path
    (cuFFT + K1 + elementwise) as the yardstick.
@@ -345,9 +352,21 @@ def _fused_inputs(torch, gen, N, Kf, Sy, Sx, dtype, rho=1.0,
     return z, du, bhat, dhat, minv
 
 
+def _split(S):
+    """The kernels' split of an axis of length S (``plan_axis`` in
+    csrc/fused_z.cu): (P, Q) with P the largest divisor of S that is at
+    most sqrt(S) and Q = S / P, when Q <= 16; else (1, S), the dense
+    routine."""
+    import math
+
+    P = max((p for p in range(2, math.isqrt(S) + 1) if S % p == 0),
+            default=1)
+    return (P, S // P) if P > 1 and S // P <= 16 else (1, S)
+
+
 def _k2_cost(N, Kf, Sy, Sx, itemsize):
     """Operations and bytes of the work K2a and K2b do, per pass, and the
-    operations of the kernels' own dense-DFT formulation beside them.
+    operations of the kernels' own split-DFT formulation beside them.
 
     Per [Sy, Sx] plane (Fx = Sx/2 + 1), the work is one real 2D transform
     in pass A and two in pass B (forward and inverse), counted at the
@@ -356,37 +375,57 @@ def _k2_cost(N, Kf, Sy, Sx, itemsize):
     (5 Sy log2 Sy). Elementwise work is ~8 flops per pixel (prox, dual,
     xi) and 18 (pass A: g and the t accumulation) or 22 (pass B: g, s
     and the correction) per bin. Bytes: each input read once, each
-    output written once. The kernels (csrc/fused_z.cu) do the transforms
-    as dense sums instead: 4 Sy Sx Fx flops per real row DFT and 8 Sy^2
-    Fx per complex column DFT ("formulation_ops"), ~20x the FFT count
-    at 110x110; that is how far their formulation sits above the work,
-    not a floor of the work."""
+    output written once. The kernels (csrc/fused_z.cu) split each axis
+    S = P Q into two stages of small DFTs, P sub-DFTs of length Q and Q
+    of length P, each taken by the DFT matrix's cos/sin symmetry:
+    sub(L) = 8 H^2 + 10 H flops, H = (L - 1) / 2, plus 4 H + 4 for an
+    even L; a complex line adds 6 S for the twiddle between the stages
+    and 4 S for the scaling, and costs 8 S^2 on an axis that keeps the
+    dense routine. A real row costs half a complex line (two rows per
+    complex transform) plus 4 flops per bin to unpack, or 4 Sx Fx dense
+    ("formulation_ops"). That is how far their formulation sits above
+    the work, not a floor of the work."""
     import math
 
     Fx = Sx // 2 + 1
     P, Fp, planes = Sy * Sx, Sy * Fx, N * Kf
     fft = 2.5 * Sy * Sx * math.log2(Sx) + 5 * Fx * Sy * math.log2(Sy)
-    row, col = 4 * Sy * Sx * Fx, 8 * Sy * Sy * Fx
+
+    def sub(L):
+        H = (L - 1) // 2
+        return 8 * H * H + 10 * H + (4 * H + 4 if L % 2 == 0 else 0)
+
+    def line(S):
+        p, q = _split(S)
+        return p * sub(q) + q * sub(p) + 10 * S if p > 1 else 8 * S * S
+
+    (py, qy), (px, qx) = _split(Sy), _split(Sx)
+    col = Fx * line(Sy)
+    row = Sy * (line(Sx) / 2 + 4 * Fx) if px > 1 else 4 * Sy * Sx * Fx
     ops_a = planes * (fft + 8 * P + 18 * Fp)
     ops_b = planes * (2 * fft + 6 * P + 22 * Fp)
-    dense_a = planes * (row + col + 8 * P + 18 * Fp)
-    dense_b = planes * (2 * row + 2 * col + 6 * P + 22 * Fp)
+    form_a = planes * (row + col + 8 * P + 18 * Fp)
+    form_b = planes * (2 * row + 2 * col + 6 * P + 22 * Fp)
     state = planes * P * itemsize  # one state plane set
     bytes_a = 3 * state + 8 * Fp * (Kf + 2 * N)  # z, du, dual'; dhat, bhat, t
     bytes_b = 3 * state + 8 * Fp * (Kf + 2 * N) + 4 * Fp  # ... z'; t, minv
+    split = (f"col(S) = P sub(Q) + Q sub(P) + 10 S for a split S = P Q, "
+             f"8 S^2 dense; sub(L) = 8 H^2 + 10 H (+ 4 H + 4 for even L), "
+             f"H = (L - 1) / 2; row = col(Sx) / 2 + 4 Fx split, 4 Sx Fx "
+             f"dense; here Sy = {py}x{qy}, Sx = {px}x{qx} (1xS: dense)")
     formulas = {
         "ops_a": "N K (2.5 Sy Sx log2 Sx + 5 Fx Sy log2 Sy + 8 Sy Sx "
                  "+ 18 Sy Fx)",
         "ops_b": "N K (5 Sy Sx log2 Sx + 10 Fx Sy log2 Sy + 6 Sy Sx "
                  "+ 22 Sy Fx)",
-        "formulation_ops_a": "N K (4 Sy Sx Fx + 8 Sy^2 Fx + 8 Sy Sx "
-                             "+ 18 Sy Fx)",
-        "formulation_ops_b": "N K (8 Sy Sx Fx + 16 Sy^2 Fx + 6 Sy Sx "
-                             "+ 22 Sy Fx)",
+        "formulation_ops_a": "N K (Sy row + Fx col(Sy) + 8 Sy Sx "
+                             f"+ 18 Sy Fx); {split}",
+        "formulation_ops_b": "N K (2 Sy row + 2 Fx col(Sy) + 6 Sy Sx "
+                             f"+ 22 Sy Fx); {split}",
         "bytes_a": "3 N K Sy Sx e + 8 Sy Fx (K + 2N)",
         "bytes_b": "3 N K Sy Sx e + 8 Sy Fx (K + 2N) + 4 Sy Fx",
     }
-    return (ops_a, bytes_a, dense_a), (ops_b, bytes_b, dense_b), formulas
+    return (ops_a, bytes_a, form_a), (ops_b, bytes_b, form_b), formulas
 
 
 def _bound(ops, nbytes, formulation_ops, bw, flops):
@@ -404,10 +443,25 @@ def phase_k2_vs_plain(torch, port, bw, flops, seed):
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     rho, theta = 1.0, 1.0  # the learner's rho_z and lambda / rho_z
     cases = []
-    for (N, Kf, S, dtype) in ((4, 100, LEARN_S, torch.float32),
-                              (4, 100, LEARN_S, torch.bfloat16),
-                              (3, 6, 9, torch.float32)):
-        args = _fused_inputs(torch, gen, N, Kf, S, S, dtype, rho)
+    for (N, Kf, Sy, Sx, dtype, hermitian) in (
+        (4, 100, LEARN_S, LEARN_S, torch.float32, True),
+        (4, 100, LEARN_S, LEARN_S, torch.bfloat16, True),
+        (3, 6, 9, 9, torch.float32, True),
+        (2, 5, 15, 12, torch.float32, True),
+        (2, 3, 13, 11, torch.float32, True),
+        (2, 3, 38, 20, torch.float32, True),
+        (2, 3, 12, 10, torch.float32, False),
+    ):
+        args = _fused_inputs(torch, gen, N, Kf, Sy, Sx, dtype, rho)
+        if not hermitian:  # DC and Nyquist bins with imaginary parts
+            z, du, bhat, dhat, _ = args
+            bhat, dhat = (torch.complex(torch.randn(a.shape, generator=gen,
+                                                    device=dev),
+                                        torch.randn(a.shape, generator=gen,
+                                                    device=dev))
+                          for a in (bhat, dhat))
+            minv = 1.0 / (1.0 + torch.sum(dhat.abs() ** 2, 0) / rho)
+            args = (z, du, bhat, dhat, minv)
         z1, d1 = fz.fused_z_iter(*args, rho, theta)
         z2, d2 = fz.fused_z_iter(*args, rho, theta)
         torch.cuda.synchronize()
@@ -419,12 +473,16 @@ def phase_k2_vs_plain(torch, port, bw, flops, seed):
         z_scale = float(zrf.abs().max())
         d_scale = float(dr.float().abs().max())
         case = {
-            "N": N, "K": Kf, "S": S, "dtype": str(dtype).split(".")[-1],
+            "N": N, "K": Kf, "Sy": Sy, "Sx": Sx, "split_y": _split(Sy),
+            "split_x": _split(Sx), "hermitian": hermitian,
+            "dtype": str(dtype).split(".")[-1],
             "z_max_abs_err": z_abs, "z_rel_err": z_abs / z_scale,
             "dual_max_abs_err": d_abs, "dual_rel_err": d_abs / d_scale,
             "bitwise_repeatable": bitwise,
         }
-        print(f"[6] K2 N={N} K={Kf} {S}x{S} {case['dtype']}: z' rel err "
+        print(f"[6] K2 N={N} K={Kf} {Sy}x{Sx} (split {case['split_y']} x "
+              f"{case['split_x']}{'' if hermitian else ', not Hermitian'}) "
+              f"{case['dtype']}: z' rel err "
               f"{case['z_rel_err']:.2e}, dual' rel err "
               f"{case['dual_rel_err']:.2e}, bitwise repeat {bitwise}")
         if not bitwise:
@@ -453,8 +511,9 @@ def phase_k2_vs_plain(torch, port, bw, flops, seed):
     zr, dr = fz.fused_z_iter_reference(*args, rho, theta)
     z_scale = float(z64.abs().max())
     whole = {
-        "N": 4, "K": LEARN_K, "S": LEARN_S, "dtype": "float32",
-        "inputs": "whole_plane_noise", "bitwise_repeatable": bitwise,
+        "N": 4, "K": LEARN_K, "Sy": LEARN_S, "Sx": LEARN_S,
+        "dtype": "float32", "inputs": "whole_plane_noise",
+        "bitwise_repeatable": bitwise,
         "z_rel_err_vs_f64": float((z1.double() - z64).abs().max()) / z_scale,
         "plain_z_rel_err_vs_f64":
             float((zr.double() - z64).abs().max()) / z_scale,
@@ -482,7 +541,7 @@ def phase_k2_vs_plain(torch, port, bw, flops, seed):
     zk, dk = fz.fused_z_iter(z, du, bhat, dhat, minv, rho, theta)
     zr, dr = fz.fused_z_iter_reference(z, du, bhat, dhat, minv, rho, theta)
     full = {
-        "N": N, "K": Kf, "S": S, "dtype": "float32",
+        "N": N, "K": Kf, "Sy": S, "Sx": S, "dtype": "float32",
         "z_max_abs_err": float((zk - zr).abs().max()),
         "dual_max_abs_err": float((dk - dr).abs().max()),
     }
@@ -532,7 +591,7 @@ def phase_k2_vs_plain(torch, port, bw, flops, seed):
               f"{r['kernel_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.3f} ms ({r['bound_by']}: {r['ops']:.4g} flop "
               f"-> {r['ops_ms']:.3f} ms, {r['bytes']:.4g} B -> "
-              f"{r['bytes_ms']:.3f} ms); the kernels' dense-DFT formulation "
+              f"{r['bytes_ms']:.3f} ms); the kernels' split-DFT formulation "
               f"{r['formulation_ops']:.4g} flop -> "
               f"{r['formulation_ops_ms']:.3f} ms")
     print(f"[6] formulas: {json.dumps(formulas)}")

@@ -61,7 +61,18 @@ def _main_path_spectra(N, K, Sy, Sx, seed=1, support=11, pad=5):
     return dhat, bhat, minv
 
 
-@pytest.mark.parametrize("Sy,Sx", [(12, 10), (9, 9)])
+@pytest.mark.parametrize(
+    "Sy,Sx",
+    [
+        (12, 10),
+        (9, 9),
+        # the shapes at which chip_smoke.py phase 6 holds the kernels, one
+        # per branch of their P x Q split plan (csrc/fused_z.cu):
+        (15, 12),  # odd Sy: an unpaired packed row; splits 3x5, 3x4
+        (13, 11),  # prime on both axes: the dense routines
+        (38, 20),  # 38 = 2x19 stays dense on y; 20 splits 4x5
+    ],
+)
 def test_plain_version_matches_interpret_pallas_and_reference(Sy, Sx):
     z, du, bhat, dhat, minv, rho = _problem(Sy=Sy, Sx=Sx)
     jin = [jnp.asarray(a) for a in (z, du, bhat, dhat, minv)]
@@ -189,7 +200,9 @@ def test_kernel_source_names_what_it_replaces():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Sy,Sx", [(110, 110), (9, 9)])
+@pytest.mark.parametrize(
+    "Sy,Sx", [(110, 110), (9, 9), (15, 12), (13, 11), (38, 20)]
+)
 def test_kernels_match_plain_on_card(dtype, Sy, Sx):
     """K2a + K2b on the card against the plain version (the chip
     smoke's limits), and bitwise repeatable."""
