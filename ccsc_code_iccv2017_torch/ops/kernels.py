@@ -11,11 +11,19 @@ replacing the TPU kernel
     z_k = g_k - dinv_k conj(d_k) t / den
 
 The CUDA source is ``csrc/solve_z_rank1.cu`` (sm_90a). It is bound by
-bytes: per frequency, ~35 K N real flops against K (12 + 16 N) + 8 N bytes.
-One thread per (n, f) with f fastest across the warp, so loads coalesce;
-a first k-loop accumulates t and den, a second recomputes g and writes
-z. The second pass re-reads dhat, dinv and xi2; caching them in shared
-memory is left to a later change.
+bytes: per frequency, ~35 K N real flops against K (12 + 16 N) + 8 N bytes,
+so it has to keep many loads in flight and move each byte once. A block
+covers ``K1_TF`` = 32 consecutive frequencies (a warp's lanes, so loads
+coalesce) times ``K1_G`` = 8 k-groups (one warp each); thread (f, g)
+keeps its KPT values of d, dinv and xi2 in registers (KPT a template
+instantiation with ``K1_G * KPT >= K``; a generic loop beyond
+``K1_G * 16``), issues all its loads before using any, and the groups'
+partial t and den meet in shared memory in a fixed order (no atomics:
+bitwise repeatable). A block loops over a chunk of NC images with d,
+dinv and den held in registers, so dhat/dinv are read once per chunk
+where they do not stay in L2 from one image to the next.
+:func:`k1_launch_plan` picks KPT, NC and the grid; the kernel's C entry
+point takes them and refuses a plan it was not built for.
 
 Build: every source ``csrc/<name>.cu`` is compiled by ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared`` into
@@ -50,8 +58,18 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# gridDim.y bound: the kernel puts the image index on the grid's y axis
-_MAX_N = 65535
+# K1's launch geometry (csrc/solve_z_rank1.cu): blocks of K1_TF
+# frequencies x K1_G k-groups; the register instantiations of KPT, the
+# values of k each thread keeps (0 = the generic loop for larger K)
+K1_TF, K1_G = 32, 8
+K1_KPT = (1, 2, 4, 8, 13, 16)
+# where dhat/dinv do not stay in L2, a block takes up to K1_NC_MAX
+# images, while the grid keeps at least K1_BLOCKS_PER_SM blocks for each
+# SM (provisional: only N=4 backs them so far)
+K1_NC_MAX = 8
+K1_BLOCKS_PER_SM = 8
+_GRID_Y_MAX = 65535
+_INT_MAX = 2**31 - 1
 
 
 def sources() -> Dict[str, str]:
@@ -137,10 +155,54 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        *[ctypes.c_int] * 9, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _card(index: int) -> tuple:
+    """(SM count, L2 bytes) of CUDA device ``index``."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.L2_cache_size
+
+
+def k1_launch_plan(N: int, K: int, F: int, sm_count: int,
+                   l2_bytes: int) -> dict:
+    """K1's launch plan for N images, K filters and F frequencies on a
+    card with ``sm_count`` SMs and ``l2_bytes`` of L2: the tile (``tf``
+    frequencies x ``g`` k-groups, the block's threads), ``kpt`` (the
+    smallest register instantiation with g * kpt >= K, or 0 for the
+    generic loop), ``nc`` (images per block) and the ``grid``
+    (ceil(F / tf), ceil(N / nc)).
+
+    A block takes more than one image only where dhat and dinv (12 K F
+    bytes) take more than half the L2: below that they stay in L2 from
+    one image to the next, and nc moved K1's time by no trend (N=800,
+    F=6160: 7.4 MB); above it each image more per block saves a read of
+    them (N=4, F=35644: 42.8 MB, nc=4 a third faster than nc=1). The
+    threshold lies between those two points; half was not measured
+    finer. There nc grows with the work, up to K1_NC_MAX, while the
+    grid keeps K1_BLOCKS_PER_SM blocks per SM; both are provisional
+    until an A/B at the serving engine's slot counts. Past 65535 chunks
+    (the grid's y limit) nc grows further. Raises on what the kernel
+    cannot take."""
+    for name, v in (("N", N), ("K", K), ("F", F), ("sm_count", sm_count),
+                    ("l2_bytes", l2_bytes)):
+        if not isinstance(v, int) or not 1 <= v <= _INT_MAX:
+            raise ValueError(f"K1 needs 1 <= {name} <= {_INT_MAX}, got {v!r}")
+    tiles = -(-F // K1_TF)
+    if tiles * K1_TF > _INT_MAX:
+        raise ValueError(f"K1 takes F <= {_INT_MAX - K1_TF + 1}, got {F}")
+    kpt = next((p for p in K1_KPT if K1_G * p >= K), 0)
+    nc = 1
+    if 12 * K * F > l2_bytes // 2:
+        nc = min(K1_NC_MAX, N,
+                 max(1, N * tiles // (K1_BLOCKS_PER_SM * sm_count)))
+    nc = max(nc, -(-N // _GRID_Y_MAX))
+    return {"tf": K1_TF, "g": K1_G, "kpt": kpt, "nc": nc,
+            "grid": (tiles, -(-N // nc))}
 
 
 def solve_z_rank1_reference(
@@ -204,18 +266,17 @@ def solve_z_rank1(
         return solve_z_rank1_reference(dhat, xi1, xi2, float(rho), dinv)
     if dev.type != "cuda":
         raise ValueError(f"solve_z_rank1 runs on cuda or cpu, not {dev}")
-    if not 1 <= N <= _MAX_N:
-        raise ValueError(f"K1 takes 1 <= N <= {_MAX_N} images, got {N}")
-    lib = _library()
+    plan = k1_launch_plan(N, K, F, *_card(dev.index))
     z = torch.empty((N, K, F), dtype=torch.complex64, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.ccsc_solve_z_rank1(
+        rc = _library().ccsc_solve_z_rank1(
             dhat.data_ptr(), xi1.data_ptr(), xi2.data_ptr(),
             dinv.data_ptr(), z.data_ptr(), float(rho), K, F, N,
+            plan["tf"], plan["g"], plan["kpt"], plan["nc"], *plan["grid"],
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError {rc}")
+        raise RuntimeError(f"K1 launch failed: cudaError {rc} (plan {plan})")
     solve_z_rank1.launches += 1
     return z
 

@@ -8,9 +8,13 @@ CPU; the CPU tests pass ``device="cpu"`` explicitly.
 """
 from __future__ import annotations
 
-from typing import Union
+import statistics
+from typing import Callable, Optional, Union
 
 import torch
+
+# the stream's sleep before each timed call: ~1 ms at the H100's ~1.98 GHz
+SLEEP_CYCLES = 2_000_000
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
@@ -54,3 +58,28 @@ def device_report(device: Union[str, torch.device] = "cuda") -> dict:
         "sm_count": props.multi_processor_count,
         "total_memory_bytes": props.total_memory,
     }
+
+
+def device_time_ms(fn: Callable[[], object], reps: int = 30, warmup: int = 5,
+                   before: Optional[Callable[[], object]] = None) -> float:
+    """Median device time in ms of one call of ``fn`` on the current CUDA
+    stream (CUDA events), after ``warmup`` calls; each timed call follows
+    ``before`` (if given, untimed) and a sleep of the stream, so the host
+    has enqueued the call by the time the start event runs and the time
+    is the device's alone, not the host's launch overhead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        if before is not None:
+            before()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)

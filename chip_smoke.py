@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA Hopper card and check it.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--against DIR]
 
 Phases (each raises on failure; nothing catches it, so a failed phase
 never exits 0):
@@ -15,8 +15,17 @@ never exits 0):
 3. K1 vs plain: K1 against its plain torch version on the card at the
    serving slice's full shapes (K=100, F=266*134, N in {1, 4}; dinv =
    1/rho and with one raised row as the Poisson dirac regularization
-   makes it), max|dz|/max|z| <= 1e-5; kernel, plain-version and bound
-   times.
+   makes it), at the learner composition path's (N=800, K=100,
+   F=110*56), and at one case per branch of ``k1_launch_plan``: K in
+   {1, 7, 100, 105, 300} at N=45, F=6161 (each register
+   instantiation's edge and the generic loop, a partial frequency
+   tile, one image per block), and K in {100, 300} at N=13, F=266*134
+   (8 images per block, the last chunk partial): max|dz|/max|z| <= 1e-5
+   and two launches bitwise equal in every case; each prints its plan
+   and its kernel, plain-version, bound and xi2-copy times. With
+   ``--against DIR`` the K1 of the checkout at DIR (an older commit
+   unpacked there) is timed beside this one at the main path's shapes
+   (N in {1, 4, 800}), for an A/B in one process.
 4. Slice 1 serves requests: the repo's k=100 11x11 bank, 4 synthetic
    256x256 images (Gaussian-smoothed noise from --seed), 50% masks and
    the smooth-fill warm start, one ``build_plan``, then 4 requests
@@ -76,7 +85,6 @@ import argparse
 import dataclasses
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -105,23 +113,6 @@ def _datasheet(name: str):
         if key in name:
             return bw, flops
     raise RuntimeError(f"no datasheet bandwidth for card {name!r}")
-
-
-def _time_ms(torch, fn, warmup=5, reps=30) -> float:
-    """Median CUDA-event time of one call, after warmup."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def phase_environment(torch, device_report):
@@ -157,9 +148,40 @@ def phase_build(kernels):
     return infos
 
 
-def phase_kernel_vs_plain(torch, kernels, bw, flops, seed):
+# phase 3's K1 cases: (N, K, F, raised dirac row). The serve
+# path's shapes; the learner composition path's (N = 8 blocks x 100
+# images, 110x56 bins); then one case per branch of k1_launch_plan: each
+# register instantiation's edge and the generic loop (K = 300), at an F
+# that is not a multiple of the tile, where dhat/dinv fit in L2 (one image
+# per block); and at the serve path's F, where they do not, an N whose
+# last chunk of images is partial
+K1_CASES = (
+    [(n, K, F, raised) for n in (1, 4) for raised in (False, True)]
+    + [(800, 100, 110 * 56, False)]
+    + [(45, k, 6161, k == 105) for k in (1, 7, 100, 105, 300)]
+    + [(13, k, F, k == 300) for k in (100, 300)]
+)
+K1_MAIN_N = (1, 4, 800)  # the main path's image counts, timed --against
+
+
+def _load_kernels(root):
+    """``ops/kernels.py`` of the checkout at ``root``, as a module of its
+    own (it builds that checkout's kernel sources there)."""
+    import importlib.util
+
+    path = os.path.join(root, PACKAGE, "ops", "kernels.py")
+    spec = importlib.util.spec_from_file_location("against_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_kernel_vs_plain(torch, kernels, time_ms, bw, flops, seed,
+                          against=None):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    props = torch.cuda.get_device_properties(dev)
+    card = (props.multi_processor_count, props.L2_cache_size)
 
     def cplx(*shape):
         return torch.complex(
@@ -168,45 +190,67 @@ def phase_kernel_vs_plain(torch, kernels, bw, flops, seed):
         )
 
     cases = []
-    for n in (1, 4):
-        for raised in (False, True):
-            dhat, xi1, xi2 = cplx(K, F), cplx(n, F), cplx(n, K, F)
-            gamma = torch.full((K, F), RHO, device=dev)
-            if raised:  # the dirac row's gradient regularization
-                gamma[K - 1] += 4.0 * torch.rand(F, generator=gen, device=dev)
-            dinv = 1.0 / gamma
-            args = (dhat, xi1, xi2, RHO, dinv)
-            z = kernels.solve_z_rank1(*args)
-            torch.cuda.synchronize()
-            ref = kernels.solve_z_rank1_reference(*args)
-            abs_err = float((z - ref).abs().max())
-            rel_err = abs_err / float(ref.abs().max())
-            if not rel_err <= 1e-5:
-                raise RuntimeError(
-                    f"K1 disagrees with its plain version: N={n} "
-                    f"raised={raised} max|dz|/max|z|={rel_err:.3e}"
-                )
-            kernel_ms = _time_ms(torch, lambda: kernels.solve_z_rank1(*args))
-            plain_ms = _time_ms(
-                torch, lambda: kernels.solve_z_rank1_reference(*args)
-            )
-            # each input read once, the output written once
-            nbytes = (K * (12 + 16 * n) + 8 * n) * F
-            # ~35 real operations per (n, k, f) and 4 per (n, f)
-            nops = n * F * (35 * K + 4)
-            bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * nops / flops
-            case = {
-                "n": n, "raised_row": raised, "max_abs_err": abs_err,
-                "max_rel_err": rel_err, "kernel_ms": kernel_ms,
-                "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bytes": nbytes,
-            }
-            print(f"[3] K1 N={n} raised={raised}: rel err {rel_err:.2e}, "
-                  f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
-            cases.append(case)
-            del dhat, xi1, xi2, gamma, dinv, args, z, ref
+    for n, k, f, raised in K1_CASES:
+        dhat, xi1, xi2 = cplx(k, f), cplx(n, f), cplx(n, k, f)
+        gamma = torch.full((k, f), RHO, device=dev)
+        if raised:  # the dirac row's gradient regularization
+            gamma[k - 1] += 4.0 * torch.rand(f, generator=gen, device=dev)
+        dinv = 1.0 / gamma
+        args = (dhat, xi1, xi2, RHO, dinv)
+        plan = kernels.k1_launch_plan(n, k, f, *card)
+        z = kernels.solve_z_rank1(*args)
+        z2 = kernels.solve_z_rank1(*args)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(z, z2))
+        del z2
+        ref = kernels.solve_z_rank1_reference(*args)
+        abs_err = float((z - ref).abs().max())
+        rel_err = abs_err / float(ref.abs().max())
+        # each input read once, the output written once
+        nbytes = (k * (12 + 16 * n) + 8 * n) * f
+        # ~35 real operations per (n, k, f) and 4 per (n, f)
+        nops = n * f * (35 * k + 4)
+        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * nops / flops
+        case = {
+            "n": n, "k": k, "f": f, "raised_row": raised, "plan": plan,
+            "max_abs_err": abs_err, "max_rel_err": rel_err,
+            "bitwise_repeatable": bitwise,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes,
+        }
+        if against is not None and n in K1_MAIN_N:
+            za = against.solve_z_rank1(*args)
+            case["against_rel_err"] = float((za - ref).abs().max()) / float(
+                ref.abs().max())
+            del za
+        del z, ref
+        case["kernel_ms"] = time_ms(lambda: kernels.solve_z_rank1(*args))
+        if "against_rel_err" in case:
+            case["against_ms"] = time_ms(lambda: against.solve_z_rank1(*args))
+        case["plain_ms"] = time_ms(
+            lambda: kernels.solve_z_rank1_reference(*args), warmup=1,
+            reps=5 if n * k * f > 1e8 else 30)
+        # a plain copy of xi2, the N K F complex64 read and written that
+        # dominate K1's bytes: the card's practical rate for that traffic
+        dst = torch.empty_like(xi2)
+        case["copy_xi2_ms"] = time_ms(lambda: dst.copy_(xi2))
+        del dst
+        print(f"[3] K1 N={n} K={k} F={f} raised={raised} plan kpt="
+              f"{plan['kpt']} nc={plan['nc']} grid={plan['grid']}: rel err "
+              f"{rel_err:.2e}, bitwise repeat {bitwise}, kernel "
+              f"{case['kernel_ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
+              f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}), copy "
+              f"of xi2 {case['copy_xi2_ms']:.4f} ms"
+              + (f"; --against: kernel {case['against_ms']:.4f} ms, rel err "
+                 f"{case['against_rel_err']:.2e}" if "against_ms" in case
+                 else ""))
+        if not (rel_err <= 1e-5 and bitwise):
+            raise RuntimeError(f"K1 disagrees with its plain version or "
+                               f"with itself: {case}")
+        cases.append(case)
+        del dhat, xi1, xi2, gamma, dinv, args
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -439,6 +483,7 @@ def _bound(ops, nbytes, formulation_ops, bw, flops):
 
 def phase_k2_vs_plain(torch, port, bw, flops, seed):
     fz = port["fused_z"]
+    time_ms = port["device"].device_time_ms
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     rho, theta = 1.0, 1.0  # the learner's rho_z and lambda / rho_z
@@ -555,13 +600,13 @@ def phase_k2_vs_plain(torch, port, bw, flops, seed):
     del zk, dk, zr, dr
     torch.cuda.empty_cache()
     _, t = fz.pass_a(z, du, bhat, dhat, rho, theta)
-    kernel_a = _time_ms(torch, lambda: fz.pass_a(z, du, bhat, dhat, rho,
-                                                 theta), warmup=2, reps=7)
-    kernel_b = _time_ms(torch, lambda: fz.pass_b(z, du, bhat, dhat, minv, t,
-                                                 rho, theta), warmup=2, reps=7)
-    plain_a = _time_ms(torch, lambda: fz.reference_pass_a(
+    kernel_a = time_ms(lambda: fz.pass_a(z, du, bhat, dhat, rho, theta),
+                       warmup=2, reps=7)
+    kernel_b = time_ms(lambda: fz.pass_b(z, du, bhat, dhat, minv, t, rho,
+                                         theta), warmup=2, reps=7)
+    plain_a = time_ms(lambda: fz.reference_pass_a(
         z, du, bhat, dhat, rho, theta), warmup=1, reps=5)
-    plain_b = _time_ms(torch, lambda: fz.reference_pass_b(
+    plain_b = time_ms(lambda: fz.reference_pass_b(
         z, du, bhat, dhat, minv, t, rho, theta), warmup=1, reps=5)
     # the yardstick: one z-iteration of the composition path
     # (models/learn.py z_iter_composition: cuFFT + K1 + elementwise)
@@ -573,7 +618,7 @@ def phase_k2_vs_plain(torch, port, bw, flops, seed):
         dhat.reshape(Kf, 1, -1), rho
     )
     b3 = bhat.reshape(N, 1, -1)
-    comp = _time_ms(torch, lambda: port["learn"].z_iter_composition(
+    comp = time_ms(lambda: port["learn"].z_iter_composition(
         z, du, b3, zkern, rho, theta, fg), warmup=1, reps=5)
     timing = {
         "shape": {"N": N, "K": Kf, "Sy": S, "Sx": S, "dtype": "float32"},
@@ -765,6 +810,9 @@ def _kernel_entry(name, source, replaces, launches, kernel_ms, plain_ms,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--against", metavar="DIR",
+                   help="root of another checkout whose K1 phase 3 times "
+                        "beside this one")
     args = p.parse_args(argv)
 
     import torch
@@ -796,8 +844,9 @@ def main(argv=None) -> int:
     smi, name = phase_environment(torch, port["device"].device_report)
     bw, flops = _datasheet(name)
     build = phase_build(port["kernels"])
-    cases = phase_kernel_vs_plain(torch, port["kernels"], bw, flops,
-                                  args.seed)
+    cases = phase_kernel_vs_plain(
+        torch, port["kernels"], port["device"].device_time_ms, bw, flops,
+        args.seed, _load_kernels(args.against) if args.against else None)
     served = phase_serve(torch, port, args.seed)
     agree = phase_card_vs_cpu(torch, port, served.pop("data"))
     k2 = phase_k2_vs_plain(torch, port, bw, flops, args.seed)

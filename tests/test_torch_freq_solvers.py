@@ -58,10 +58,12 @@ def _port_kernel(dhat, rho, extra):
 
 
 @pytest.mark.parametrize("extra", [False, True])
-def test_plain_version_matches_interpret_pallas(extra):
-    r = np.random.default_rng(0)
+# one K on each side of the register instantiations' edges (K1_G * KPT)
+@pytest.mark.parametrize("K", [1, 7, 8, 13, 100, 105])
+def test_plain_version_matches_interpret_pallas(K, extra):
+    r = np.random.default_rng(K)
     rho = 0.7
-    dhat, xi1, xi2, e = _problem(r, 8, 700, 3, extra)
+    dhat, xi1, xi2, e = _problem(r, K, 700, 3, extra)
     jk = _jax_kernel(dhat, rho, e)
     ref = pallas_kernels.solve_z_rank1_pallas(
         jnp.asarray(dhat), jnp.asarray(xi1), jnp.asarray(xi2), rho,
@@ -161,14 +163,28 @@ def test_kernel_source_names_what_it_replaces():
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
 
 
-@pytest.mark.parametrize("n", [1, 4])
-@pytest.mark.parametrize("extra", [False, True])
-def test_kernel_matches_plain_on_card(n, extra):
-    """K1 on the card at the slice's full shapes (K=100, F=266*134)."""
+# the serve path's shapes (K=100, F=266*134, N in {1, 4}), the learner
+# composition path's (N=800, F=110*56), each side of the register
+# instantiations' edges (K1_G * KPT) and the generic loop at an F that is
+# not a multiple of the tile, and N=13 at the serve path's F, where blocks
+# take 8 images and the last chunk is partial (registers and the loop)
+_CARD_CASES = (
+    [(n, 100, 266 * 134, extra) for n in (1, 4) for extra in (False, True)]
+    + [(800, 100, 110 * 56, False)]
+    + [(45, k, 6161, k % 2 == 1)
+       for k in (1, 7, 8, 9, 100, 104, 105, 128, 129, 300)]
+    + [(13, k, 266 * 134, False) for k in (100, 300)]
+)
+
+
+@pytest.mark.parametrize("n, K, F, extra", _CARD_CASES)
+def test_kernel_matches_plain_on_card(n, K, F, extra):
+    """K1 on the card against its plain version, and two launches on the
+    same inputs bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (K1 has no CPU mode)")
     r = np.random.default_rng(4)
-    K, F, rho = 100, 266 * 134, 100.0
+    rho = 100.0
     dhat, xi1, xi2, e = _problem(r, K, F, n, extra)
     dev = torch.device("cuda")
     tk = tfs.precompute_z_kernel(
@@ -181,8 +197,10 @@ def test_kernel_matches_plain_on_card(n, extra):
     )
     before = kernels.solve_z_rank1.launches
     out = kernels.solve_z_rank1(*args)
+    again = kernels.solve_z_rank1(*args)
     torch.cuda.synchronize()
-    assert kernels.solve_z_rank1.launches == before + 1
+    assert kernels.solve_z_rank1.launches == before + 2
+    assert torch.equal(out, again)
     ref = kernels.solve_z_rank1_reference(*args)
     err = float((out - ref).abs().max() / ref.abs().max())
     assert err <= 1e-5, err
