@@ -1,11 +1,12 @@
 """Typed configuration of the PyTorch/CUDA port.
 
 A jax-free copy of ``ccsc_code_iccv2017_tpu.config``'s ``ProblemGeom``,
-``GEOM_2D``, ``LearnConfig`` and ``SolveConfig``: every field, name and
-default is identical (tests/test_torch_config.py holds the two side by
-side), so a configuration reads the same in both packages. The port
-implements the single-device 2D reconstruction solve and the
-single-device consensus learner; the fields it does not implement yet
+``GEOM_2D``, ``LearnConfig``, ``SolveConfig`` and ``ServeConfig``: every
+field, name and default is identical (tests/test_torch_config.py holds
+the two side by side), so a configuration reads the same in both
+packages. The port implements the single-device 2D reconstruction
+solve, the single-device consensus learner and the single-device
+serving engine; the fields it does not implement yet
 refuse a non-default value with ``NotImplementedError`` naming the
 ROADMAP.md item that ports them, instead of being silently ignored.
 """
@@ -287,3 +288,196 @@ class SolveConfig:
         if self.track_psnr is None:
             return self.verbose != "none"
         return self.track_psnr
+
+
+# ServeConfig fields of later ROADMAP.md Queue 1 items: (field, the
+# values that ask for what the port does, the item that ports the rest)
+_SERVE_DEFERRED = (
+    ("mesh_shape", (None, ()), 8), ("mesh_devices", (None,), 8),
+    ("tune", ("off",), 9), ("tune_store", (None,), 9),
+    ("pipeline_depth", (None, 1), 9),
+    ("metrics_dir", (None,), 10), ("slo_p50_ms", (None,), 10),
+    ("slo_p99_ms", (None,), 10), ("slo_check_s", (None,), 10),
+    ("slo_profile_dir", (None,), 10), ("capture_dir", (None, ""), 10),
+    ("compile_cache", (None,), 11), ("artifact_store", (None, ""), 11),
+    ("replica_id", (None,), 11), ("staged_warmup", (None, False), 11),
+    ("warm_order", (None,), 11), ("warm_rank_capture", (None, ""), 11),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Configuration of the reconstruction serving engine
+    (serve.CodecEngine): the shape-bucket table, the micro-batch flush
+    and what a result carries. Every field, name and default is the JAX
+    package's (tests/test_torch_config.py holds them side by side; see
+    its ``ServeConfig`` for each field's story).
+
+    ``buckets`` is ``((slots, spatial_shape), ...)``: a request is padded
+    (mask-excluded) up to the smallest bucket that fits, and up to
+    ``slots`` requests ride one dispatch of that bucket. The port serves
+    ``buckets``, ``max_wait_ms``, ``return_codes``, ``verbose`` and
+    ``aot_warmup`` (one short warm dispatch per bucket at construction,
+    which builds the kernels and the cuFFT plans); every other field
+    refuses a value other than its default with ``NotImplementedError``
+    naming the ROADMAP.md item that ports it.
+    """
+
+    buckets: Tuple[Tuple[int, Tuple[int, ...]], ...]
+    max_wait_ms: float = 5.0
+    compile_cache: Optional[str] = None
+    aot_warmup: bool = True
+    return_codes: bool = False
+    metrics_dir: Optional[str] = None
+    verbose: str = "brief"
+    tune: str = "off"
+    tune_store: Optional[str] = None
+    replica_id: Optional[int] = None
+    slo_p50_ms: Optional[float] = None
+    slo_p99_ms: Optional[float] = None
+    slo_check_s: Optional[float] = None
+    slo_profile_dir: Optional[str] = None
+    capture_dir: Optional[str] = None
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    mesh_devices: Optional[Tuple[int, ...]] = None
+    artifact_store: Optional[str] = None
+    staged_warmup: Optional[bool] = None
+    warm_order: Optional[Tuple[str, ...]] = None
+    warm_rank_capture: Optional[str] = None
+    pipeline_depth: Optional[int] = None
+
+    def __post_init__(self):
+        # the JAX package's checks and normalization, verbatim
+        for fname in ("slo_p50_ms", "slo_p99_ms", "slo_check_s"):
+            v = getattr(self, fname)
+            if v is not None and v <= 0:
+                raise ValueError(
+                    f"{fname} must be > 0 when set, got {v}"
+                )
+        if self.tune not in ("off", "auto", "sweep"):
+            raise ValueError(
+                f"tune must be 'off' | 'auto' | 'sweep', got "
+                f"{self.tune!r}"
+            )
+        if self.replica_id is not None and int(self.replica_id) < 0:
+            raise ValueError(
+                f"replica_id must be >= 0, got {self.replica_id}"
+            )
+        if (
+            self.pipeline_depth is not None
+            and int(self.pipeline_depth) < 1
+        ):
+            raise ValueError(
+                f"pipeline_depth must be >= 1 when set, got "
+                f"{self.pipeline_depth}"
+            )
+        if not self.buckets:
+            raise ValueError("ServeConfig.buckets must be non-empty")
+        norm = []
+        for entry in self.buckets:
+            try:
+                slots, spatial = entry
+                spatial = tuple(int(s) for s in spatial)
+                slots = int(slots)
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"bucket {entry!r} is not (slots, spatial_shape)"
+                )
+            if slots < 1 or any(s < 1 for s in spatial):
+                raise ValueError(
+                    f"bucket {entry!r}: slots and spatial dims must be "
+                    ">= 1"
+                )
+            norm.append((slots, spatial))
+        ndims = {len(sp) for _, sp in norm}
+        if len(ndims) > 1:
+            raise ValueError(
+                f"buckets mix spatial ranks {sorted(ndims)} — one "
+                "engine serves one problem family"
+            )
+        # sorted by volume, so picking a bucket is "first that fits"
+        object.__setattr__(
+            self,
+            "buckets",
+            tuple(sorted(norm, key=lambda e: math.prod(e[1]))),
+        )
+        if self.max_wait_ms < 0:
+            raise ValueError(
+                f"max_wait_ms must be >= 0, got {self.max_wait_ms}"
+            )
+        if self.warm_order is not None:
+            if isinstance(self.warm_order, str):
+                raise ValueError(
+                    f"warm_order {self.warm_order!r} is a string — "
+                    "pass a tuple of bucket labels like "
+                    "('8@32x32', '4@16x16')"
+                )
+            object.__setattr__(
+                self,
+                "warm_order",
+                tuple(str(n) for n in self.warm_order),
+            )
+        if self.mesh_shape is not None:
+            if isinstance(self.mesh_shape, str):
+                raise ValueError(
+                    f"mesh_shape {self.mesh_shape!r} is a string — "
+                    "pass a tuple of axis sizes (e.g. (4, 2)); spec "
+                    "strings like '4x2' belong to --mesh / "
+                    "CCSC_SERVE_MESH"
+                )
+            try:
+                mesh = tuple(int(a) for a in self.mesh_shape)
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"mesh_shape {self.mesh_shape!r} is not a tuple "
+                    "of axis sizes"
+                )
+            if mesh == ():
+                # () = explicitly single-device
+                object.__setattr__(self, "mesh_shape", ())
+                if self.mesh_devices is not None:
+                    raise ValueError(
+                        "mesh_devices without a mesh is meaningless"
+                    )
+            else:
+                if not 1 <= len(mesh) <= 2 or any(
+                    a < 1 for a in mesh
+                ):
+                    raise ValueError(
+                        f"mesh_shape must be (batch,) or "
+                        f"(batch, freq) with positive axes, got "
+                        f"{mesh}"
+                    )
+                object.__setattr__(self, "mesh_shape", mesh)
+                bad = [
+                    (s, sp) for s, sp in self.buckets if s % mesh[0]
+                ]
+                if bad:
+                    raise ValueError(
+                        f"mesh batch axis {mesh[0]} must divide "
+                        f"every bucket's slots; offending buckets "
+                        f"{bad} of {list(self.buckets)} — resize the "
+                        "buckets or the mesh"
+                    )
+                if self.mesh_devices is not None:
+                    devs = tuple(int(i) for i in self.mesh_devices)
+                    if len(devs) != math.prod(mesh) or any(
+                        i < 0 for i in devs
+                    ):
+                        raise ValueError(
+                            f"mesh_devices needs {math.prod(mesh)} "
+                            f"non-negative device indices for mesh "
+                            f"{mesh}, got {devs}"
+                        )
+                    object.__setattr__(self, "mesh_devices", devs)
+        elif self.mesh_devices is not None:
+            raise ValueError(
+                "mesh_devices without mesh_shape is meaningless"
+            )
+        # what the port does not serve yet
+        for name, served, item in _SERVE_DEFERRED:
+            if getattr(self, name) not in served:
+                raise _not_ported(
+                    f"ServeConfig.{name}={getattr(self, name)!r}",
+                    f"ROADMAP.md Queue 1 item {item}",
+                )

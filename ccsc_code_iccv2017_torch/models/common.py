@@ -111,22 +111,35 @@ def l1_penalty(z: torch.Tensor, lambda_prior: float) -> torch.Tensor:
     return lambda_prior * torch.sum(torch.abs(z))
 
 
-def rel_change(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+def slot_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over every axis but the leading (slot) one: [n, ...] -> [n].
+    For n == 1 the same bits as ``torch.sum``."""
+    return x.reshape(x.shape[0], -1).sum(1)
+
+
+def rel_change(
+    new: torch.Tensor, old: torch.Tensor, per_slot: bool = False
+) -> torch.Tensor:
     """||new - old|| / ||new|| — the reference's termination metric.
-    bf16-stored iterates accumulate in f32."""
+    bf16-stored iterates accumulate in f32. ``per_slot``: one value per
+    leading index ([n]), each slot's own metric."""
+    total = slot_sum if per_slot else torch.sum
     new = new.to(torch.float32)
     old = old.to(torch.float32)
-    num = torch.sum((new - old) ** 2)
-    den = torch.sum(new**2)
+    num = total((new - old) ** 2)
+    den = total(new**2)
     return torch.sqrt(num) / torch.clamp(torch.sqrt(den), min=1e-30)
 
 
 def psnr(
-    x: torch.Tensor, ref: torch.Tensor, crop: Sequence[int] = ()
+    x: torch.Tensor, ref: torch.Tensor, crop: Sequence[int] = (),
+    per_slot: bool = False,
 ) -> torch.Tensor:
-    """PSNR against a [0,1] reference, optionally cropping a border."""
+    """PSNR against a [0,1] reference, optionally cropping a border.
+    ``per_slot``: one value per leading index ([n])."""
     if crop:
         x = fourier.crop_spatial(x, crop)
         ref = fourier.crop_spatial(ref, crop)
-    mse = torch.mean((x - ref) ** 2)
+    sq = (x - ref) ** 2
+    mse = sq.reshape(sq.shape[0], -1).mean(1) if per_slot else torch.mean(sq)
     return 10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-12))

@@ -15,7 +15,9 @@ per-frequency solve per iteration (ops.freq_solvers.solve_z, which on a
 CUDA tensor runs the hand-written kernel K1). The iteration is a Python
 ``while`` over the same body, update order, traces and stop test as the
 JAX ``while_loop``; reading the rel-change for the stop test costs one
-host synchronisation per iteration.
+host synchronisation per iteration. The serving engine's slot-wise mode
+solves a bucket of independent requests in one such loop, each stopping
+where its own n=1 solve would (``_reconstruct_impl``).
 """
 from __future__ import annotations
 
@@ -64,6 +66,8 @@ class SolveExtras(NamedTuple):
 
 
 class ReconTrace(NamedTuple):
+    # the slot-wise solve (_reconstruct_impl) carries one row per slot:
+    # [n, max_it + 1] traces and an [n] int32 tensor of iterations
     obj_vals: torch.Tensor  # [max_it + 1], index 0 = pre-iteration state
     psnr_vals: torch.Tensor  # [max_it + 1] (0 when x_orig is None)
     diff_vals: torch.Tensor  # [max_it + 1]
@@ -335,9 +339,26 @@ def reconstruct(
 
 
 def _reconstruct_impl(
-    b, d, prob, cfg, mask, smooth_init, blur_psf, x_orig, plan=None
+    b, d, prob, cfg, mask, smooth_init, blur_psf, x_orig, plan=None,
+    slotwise=False,
 ) -> ReconResult:
-    """The solve on validated float32 tensors, all on one device."""
+    """The solve on validated float32 tensors, all on one device.
+
+    ``slotwise`` (the serving engine's bucket solve): each leading index
+    of ``b`` is a slot holding its own n=1 solve, as the JAX engine's
+    vmap of n=1 solves has it: its own gamma heuristic (so its own prox
+    weights), its own objective, PSNR and rel-change, its own stop. A
+    slot that has stopped is frozen: every carried tensor, trace column
+    and its iteration count are committed through ``torch.where(active,
+    new, old)`` (the vmapped while_loop's select), so nothing of it
+    changes after its stop and its later trace entries stay 0. Nothing
+    reduces across slots but the count of active slots, read by the host
+    once per iteration: zero ends the loop, and with every slot active
+    the select is skipped (it would keep every new value). The z-solve
+    runs once per iteration for all slots, one K1 launch on the card.
+    The traces are then [n, max_it + 1] and ``num_iters`` an [n] int32
+    tensor; with one slot the results are the plain path's, bit for bit
+    on the CPU."""
     geom = prob.geom
     ndim_s = geom.ndim_spatial
     data_spatial = tuple(b.shape[-ndim_s:])
@@ -348,6 +369,8 @@ def _reconstruct_impl(
     )
     n = b.shape[0]
     dev = b.device
+    # sums of the objective: over everything, or per slot
+    total = common.slot_sum if slotwise else torch.sum
 
     K = (
         plan.num_filters
@@ -376,9 +399,13 @@ def _reconstruct_impl(
         MtM = M_pad
         Mtb = B_pad * M_pad
 
-    # --- gamma heuristic: max over OBSERVED data only (a 0-d device
-    # tensor — no host read) ---------------------------------------
-    b_max = torch.max(M * b)
+    # --- gamma heuristic: max over OBSERVED data only (a device
+    # tensor — no host read); one per slot in the slot-wise mode ------
+    b_max = (
+        torch.amax((M * b).reshape(n, -1), dim=1)
+        if slotwise
+        else torch.max(M * b)
+    )
     g = cfg.gamma_factor * cfg.lambda_prior / torch.clamp(b_max, min=1e-30)
     gamma1 = g / cfg.gamma_ratio
     gamma2 = g
@@ -402,6 +429,10 @@ def _reconstruct_impl(
 
     theta1 = cfg.lambda_residual / gamma1
     theta2 = cfg.lambda_prior / gamma2
+    if slotwise:
+        # each slot's weights broadcast over its own data / codes
+        theta1 = theta1.reshape(n, *(1,) * (B_pad.ndim - 1))
+        theta2 = theta2.reshape(n, *(1,) * (1 + ndim_s))
 
     # storage dtype of the code-sized carry tensors (z and its sparsity
     # dual); all math stays float32 (cast up at the top of each
@@ -432,8 +463,8 @@ def _reconstruct_impl(
         r = fourier.crop_spatial(Dz + smoothinit, radius, data_spatial) - b
         r = M_crop * r
         return (
-            0.5 * cfg.lambda_residual * torch.sum(r * r)
-            + cfg.lambda_prior * torch.sum(torch.abs(z))
+            0.5 * cfg.lambda_residual * total(r * r)
+            + cfg.lambda_prior * total(torch.abs(z))
         )
 
     def psnr_of(zhat, Dz_solve):
@@ -442,7 +473,7 @@ def _reconstruct_impl(
         # without a blur operator the clean and solve spectra coincide
         Dz = Dz_real(zhat, dhat_clean) if has_blur else Dz_solve
         rec = fourier.crop_spatial(Dz + smoothinit, radius, data_spatial)
-        return common.psnr(rec, x_orig, geom.psf_radius)
+        return common.psnr(rec, x_orig, geom.psf_radius, per_slot=slotwise)
 
     z_shape = (n, K, *fg.spatial_shape)
     z = torch.zeros(z_shape, dtype=torch.float32, device=dev)
@@ -451,16 +482,32 @@ def _reconstruct_impl(
     d1 = torch.zeros_like(v1)
     d2_s = to_store(torch.zeros(z_shape, dtype=torch.float32, device=dev))
     z_s = to_store(z)
-    obj_t = torch.zeros(cfg.max_it + 1, dtype=torch.float32, device=dev)
-    psnr_t = torch.zeros(cfg.max_it + 1, dtype=torch.float32, device=dev)
-    diff_t = torch.zeros(cfg.max_it + 1, dtype=torch.float32, device=dev)
-    obj_t[0] = objective(z, v1)
-    psnr_t[0] = psnr_of(zhat, v1)
+    trace_shape = ((n,) if slotwise else ()) + (cfg.max_it + 1,)
+    obj_t = torch.zeros(trace_shape, dtype=torch.float32, device=dev)
+    psnr_t = torch.zeros(trace_shape, dtype=torch.float32, device=dev)
+    diff_t = torch.zeros(trace_shape, dtype=torch.float32, device=dev)
+    obj_t[..., 0] = objective(z, v1)
+    psnr_t[..., 0] = psnr_of(zhat, v1)
 
     i = 0
     diff = float("inf")
-    # the JAX while_loop's cond: one scalar read of diff per iteration
-    while i < cfg.max_it and diff >= cfg.tol:
+    if slotwise:
+        # each slot's while_loop cond, i < max_it and diff >= tol, on
+        # the device; every slot enters the first iteration
+        iters = torch.zeros(n, dtype=torch.int32, device=dev)
+        diffs = torch.full((n,), float("inf"), device=dev)
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+        n_active = n if cfg.max_it > 0 else 0
+
+        def keep(new, old):  # a stopped slot keeps its old value
+            return torch.where(
+                active.reshape(n, *(1,) * (max(new.ndim, old.ndim) - 1)),
+                new, old,
+            )
+
+    # the JAX while_loop's cond: one scalar read per iteration (the stop
+    # test, or the count of active slots)
+    while n_active if slotwise else (i < cfg.max_it and diff >= cfg.tol):
         z = to_compute(z_s)
         d2 = to_compute(d2_s)
         u1 = data_prox(v1 - d1)
@@ -468,24 +515,39 @@ def _reconstruct_impl(
         u2 = proxes.skip_channels(
             proxes.soft_threshold(u2_raw, theta2), u2_raw, channel_mask
         )
-        d1 = d1 - (v1 - u1)
+        d1_new = d1 - (v1 - u1)
         d2 = d2 - (z - u2)
-        xi1_hat = common.data_to_freq(u1 + d1, fg)
+        xi1_hat = common.data_to_freq(u1 + d1_new, fg)
         xi2_hat = common.codes_to_freq(u2 + d2, fg)
-        zhat = freq_solvers.solve_z(
+        zhat_new = freq_solvers.solve_z(
             kern, xi1_hat, xi2_hat, rho, use_pallas=cfg.use_pallas
         )
-        z_new = common.codes_from_freq(zhat, fg)
+        z_new = common.codes_from_freq(zhat_new, fg)
         # the iterate's reconstruction: next iteration's v1 AND this
         # iteration's objective/PSNR input — computed exactly once
-        v1 = Dz_real(zhat, dhat_solve)
-        diff_d = common.rel_change(z_new, z)
-        obj_t[i + 1] = objective(z_new, v1)
-        psnr_t[i + 1] = psnr_of(zhat, v1)
-        diff_t[i + 1] = diff_d
-        z_s, d2_s = to_store(z_new), to_store(d2)
+        v1_new = Dz_real(zhat_new, dhat_solve)
+        diff_d = common.rel_change(z_new, z, per_slot=slotwise)
+        obj_d = objective(z_new, v1_new)
+        psnr_d = psnr_of(zhat_new, v1_new)
+        z_s_new, d2_s_new = to_store(z_new), to_store(d2)
+        if slotwise and n_active < n:
+            z_s_new, d2_s_new = keep(z_s_new, z_s), keep(d2_s_new, d2_s)
+            zhat_new, v1_new = keep(zhat_new, zhat), keep(v1_new, v1)
+            d1_new, diff_d = keep(d1_new, d1), keep(diff_d, diffs)
+            obj_d = keep(obj_d, obj_t[:, i + 1])
+            psnr_d = keep(psnr_d, psnr_t[:, i + 1])
+        obj_t[..., i + 1] = obj_d
+        psnr_t[..., i + 1] = psnr_d
+        diff_t[..., i + 1] = diff_d
+        z_s, d2_s, zhat, v1, d1 = z_s_new, d2_s_new, zhat_new, v1_new, d1_new
         i += 1
-        diff = float(diff_d)
+        if slotwise:
+            iters = iters + active.to(torch.int32)
+            diffs = diff_d
+            active = (iters < cfg.max_it) & (diffs >= cfg.tol)
+            n_active = int(active.sum())
+        else:
+            diff = float(diff_d)
     z = to_compute(z_s)
 
     extras = None
@@ -493,9 +555,9 @@ def _reconstruct_impl(
         r = fourier.crop_spatial(v1 + smoothinit, radius, data_spatial) - b
         r = M_crop * r
         extras = SolveExtras(
-            obj_fid=0.5 * cfg.lambda_residual * torch.sum(r * r),
-            obj_l1=cfg.lambda_prior * torch.sum(torch.abs(z)),
-            nonfinite=torch.sum(~torch.isfinite(z)).to(torch.int32),
+            obj_fid=0.5 * cfg.lambda_residual * total(r * r),
+            obj_l1=cfg.lambda_prior * total(torch.abs(z)),
+            nonfinite=total(~torch.isfinite(z)).to(torch.int32),
         )
 
     Dz = Dz_real(zhat, dhat_clean) + smoothinit
@@ -503,5 +565,6 @@ def _reconstruct_impl(
     if prob.clamp_nonneg:
         recon = torch.clamp(recon, min=0.0)
     return ReconResult(
-        z, recon, ReconTrace(obj_t, psnr_t, diff_t, i, extras)
+        z, recon,
+        ReconTrace(obj_t, psnr_t, diff_t, iters if slotwise else i, extras),
     )

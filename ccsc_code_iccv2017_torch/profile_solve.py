@@ -1,13 +1,28 @@
-"""Where one served request's time goes on the card.
+"""Where one served request's, or one engine dispatch's, time goes on the
+card.
 
-    python -m ccsc_code_iccv2017_torch.profile_solve [--size 256] [--max-it 20]
+    python -m ccsc_code_iccv2017_torch.profile_solve [--size 256]
+        [--max-it 100] [--tol 1e-3] [--slots 0] [--requests SLOTS]
 
-Builds a plan for the repo's k=100 11x11 bank, warms up once, then
-profiles one inpainting request (a Gaussian-smoothed noise image from
-``--seed``, 50% mask, smooth-fill warm start) with ``torch.profiler``.
+Profiles, with ``torch.profiler``, inpainting requests against the
+repo's k=100 11x11 bank (Gaussian-smoothed noise images from
+``--seed``, 50% masks, smooth-fill warm start, lambda_residual=5,
+lambda_prior=2, as the serving phases run them):
+
+- ``--slots 0``: one direct ``reconstruct(plan=...)`` call;
+- ``--slots S``: one dispatch of a ``serve.CodecEngine`` with one S-slot
+  bucket at ``--size``, holding ``--requests`` requests (S by default;
+  fewer leave filler slots, whose early stop makes every later
+  iteration commit through the frozen-slot selects). The window runs
+  from the first submit to the last result, so it holds the canvas fill,
+  the copies to the card, the solve, the readbacks and the worker
+  thread's hand-off.
+
+Each runs once unprofiled first (kernels, cuFFT plans, the allocator).
 Prints the device kernels ranked by their summed time and, as its last
-line, one JSON object with the wall time, the device-busy share
-(summed kernel time over wall time) and the top kernels.
+line, one JSON object with the wall time, the device-busy share (summed
+kernel time over wall time; for the engine also over the dispatch's own
+wall) and the top kernels.
 """
 from __future__ import annotations
 
@@ -19,9 +34,10 @@ import time
 import numpy as np
 import torch
 
-from .config import ProblemGeom, SolveConfig
+from .config import ProblemGeom, ServeConfig, SolveConfig
 from .data.images import smooth_fill_batch, smooth_noise_images
 from .models.reconstruct import ReconstructionProblem, build_plan, reconstruct
+from .serve.engine import CodecEngine
 from .utils.device import resolve_device
 from .utils.io_mat import load_filters_2d
 
@@ -31,9 +47,9 @@ BANK = os.path.join(
 )
 
 
-def _request(size, seed):
+def _requests(size, seed, n):
     rng = np.random.default_rng(seed)
-    x = smooth_noise_images(rng, 1, size)
+    x = smooth_noise_images(rng, n, size)
     mask = (rng.random(x.shape) < 0.5).astype(np.float32)
     return x, mask, smooth_fill_batch(x, mask)
 
@@ -46,34 +62,81 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _direct(d, prob, cfg, size, seed, dev):
+    """One direct request: (run, close) where run() solves it and
+    returns its iteration count and None."""
+    x, mask, sm = _requests(size, seed, 1)
+    plan = build_plan(d, prob, cfg, x.shape[1:], device=dev)
+
+    def run():
+        res = reconstruct(x * mask, d, prob, cfg, mask=mask, smooth_init=sm,
+                          x_orig=x, plan=plan, device=dev)
+        return int(res.trace.num_iters), None
+
+    return run, lambda: None
+
+
+def _engine(d, prob, cfg, size, seed, dev, slots, n):
+    """One engine dispatch of ``n`` requests: (run, close) where run()
+    submits them, waits for every result and returns the dispatch's
+    iterations and its own wall seconds."""
+    x, mask, sm = _requests(size, seed, n)
+    # the lane gathers every submit; set_max_wait_ms(0) then flushes it
+    eng = CodecEngine(d, prob, cfg, ServeConfig(
+        buckets=((slots, (size, size)),), max_wait_ms=60_000.0,
+        verbose="none"), device=dev)
+
+    def run():
+        eng.set_max_wait_ms(60_000.0)
+        before = len(eng.dispatch_log)
+        futs = [eng.submit(x[i] * mask[i], mask=mask[i],
+                           smooth_init=sm[i], x_orig=x[i])
+                for i in range(n)]
+        eng.set_max_wait_ms(0.0)
+        for f in futs:
+            f.result(timeout=600)
+        log = eng.dispatch_log[before:]
+        if len(log) != 1:
+            raise RuntimeError(f"{n} requests took {len(log)} dispatches")
+        return log[0]["iters"], log[0]["wall_s"]
+
+    return run, eng.close
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--size", type=int, default=256)
-    p.add_argument("--max-it", type=int, default=20)
+    p.add_argument("--max-it", type=int, default=100)
+    p.add_argument("--tol", type=float, default=1e-3)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--top", type=int, default=15)
+    p.add_argument("--slots", type=int, default=0)
+    p.add_argument("--requests", type=int, default=None)
     args = p.parse_args(argv)
     dev = resolve_device("cuda")
 
     d = load_filters_2d(BANK)
-    x, mask, sm = _request(args.size, args.seed)
     prob = ReconstructionProblem(ProblemGeom(d.shape[1:], d.shape[0]))
-    cfg = SolveConfig(max_it=args.max_it, tol=0.0)
-    plan = build_plan(d, prob, cfg, x.shape[1:], device=dev)
-
-    def solve():
-        res = reconstruct(x * mask, d, prob, cfg, mask=mask, smooth_init=sm,
-                          x_orig=x, plan=plan, device=dev)
-        torch.cuda.synchronize()
-        return res
-
-    solve()  # warm cuFFT plans and the allocator
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        res = solve()
-        wall_us = 1e6 * (time.perf_counter() - t0)
+    cfg = SolveConfig(lambda_residual=5.0, lambda_prior=2.0,
+                      max_it=args.max_it, tol=args.tol)
+    n = args.requests or max(args.slots, 1)
+    if args.slots:
+        run, close = _engine(d, prob, cfg, args.size, args.seed, dev,
+                             args.slots, n)
+    else:
+        run, close = _direct(d, prob, cfg, args.size, args.seed, dev)
+    try:
+        run()  # unprofiled: kernels, cuFFT plans, the allocator
+        torch.cuda.synchronize(dev)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            it, dispatch_s = run()
+            torch.cuda.synchronize(dev)
+            wall_us = 1e6 * (time.perf_counter() - t0)
+    finally:
+        close()
     # device-side events only: the aten ops that launched them would
     # count the same kernel time a second time
     rows = sorted(
@@ -83,16 +146,26 @@ def main(argv=None) -> dict:
         key=lambda r: -r[1],
     )
     busy_us = sum(r[1] for r in rows)
-    it = int(res.trace.num_iters)
-    print(f"{it} iterations, wall {wall_us / 1e3:.2f} ms, device busy "
-          f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%)")
+    if busy_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    what = (f"engine dispatch of {n} requests in {args.slots} slots"
+            if args.slots else "direct request")
+    print(f"{what}: {it} iterations, wall {wall_us / 1e3:.2f} ms, device "
+          f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%)"
+          + (f"; dispatch wall {1e3 * dispatch_s:.2f} ms "
+             f"({100 * busy_us / (1e6 * dispatch_s):.1f}%)"
+             if dispatch_s else ""))
     for key, us, count in rows[: args.top]:
         print(f"{us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}% "
               f"x{count:<5d} {key[:90]}")
     out = {
         "device": torch.cuda.get_device_name(dev), "size": args.size,
+        "slots": args.slots, "requests": n,
         "iters": it, "wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
         "busy_share": busy_us / wall_us,
+        "dispatch_ms": 1e3 * dispatch_s if dispatch_s else None,
+        "dispatch_busy_share": (busy_us / (1e6 * dispatch_s)
+                                if dispatch_s else None),
         "top": [{"kernel": k[:120], "ms": us / 1e3, "count": c}
                 for k, us, c in rows[: args.top]],
     }

@@ -1,0 +1,734 @@
+"""The reconstruction serving engine (torch port of
+``ccsc_code_iccv2017_tpu.serve.engine``'s single-device core).
+
+:class:`CodecEngine` pins one (bank, problem, SolveConfig) and serves
+many requests:
+
+1. **Per-bank plans**: ``models.reconstruct.build_plan`` hoists the
+   operator precompute (filter spectra, z-solve factors) out of the
+   request path, one plan per (bank digest, bucket) in a bounded LRU
+   (serve.registry.PlanCache). Requests route by ``bank_id`` and bind
+   their bank's digest at admission; ``publish_bank`` hot-swaps a bank
+   id to a new digest while admitted work finishes on the old plan.
+2. **Shape buckets**: a small configured set of (slots, spatial)
+   shapes. A request is padded top-left to the smallest bucket that
+   fits, with a zero mask over the pad, so the valid-region result is
+   the exact-shape solve's up to boundary coupling. With
+   ``aot_warmup`` every bucket runs one short warm dispatch at
+   construction, which builds the kernels and the cuFFT plans.
+3. **Micro-batching**: a bucket's lane flushes when it holds ``slots``
+   requests or its oldest request has waited ``max_wait_ms``; the batch
+   rides one dispatch, a slot-wise solve of the whole bucket
+   (``models.reconstruct._reconstruct_impl(slotwise=True)``): each slot
+   is its own n=1 solve with its own gamma, traces and stop, a stopped
+   slot is frozen, and the z-solve (K1 on the card) runs once per
+   iteration for all slots. Filler slots carry zero data and a zero
+   mask and stop after one iteration.
+
+The host reads one scalar per iteration per bucket (the count of
+active slots) instead of one per request. Dispatch is synchronous in
+one worker thread, which pins the engine's device and surfaces every
+exception on its batch's futures; nothing falls back to the CPU.
+Meshes, tuning, pipelining, telemetry, capture, artifacts and staged
+warmup are later ROADMAP.md Queue 1 items (8-11); ``ServeConfig``
+refuses them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from concurrent.futures import Future
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import ServeConfig, SolveConfig, _not_ported
+from ..models.reconstruct import (
+    ReconTrace,
+    SolveExtras,
+    _reconstruct_impl,
+    build_plan,
+)
+from ..utils import validate
+from ..utils.device import resolve_device
+from . import registry
+from .quality import valid_region_psnr
+
+
+class DeadlineExceeded(RuntimeError):
+    """Refusal of a request whose end-to-end deadline (absolute
+    wall-clock epoch seconds, stamped at admission) expired before a
+    solve slot was spent on it. ``where`` says where it died:
+    ``engine`` (at submit) or ``dispatch`` (swept from the queue)."""
+
+    def __init__(self, where: str, deadline: float):
+        super().__init__(
+            f"request deadline expired at {where} (deadline epoch "
+            f"{deadline:.3f}, now past it)"
+        )
+        self.where = where
+        self.deadline = float(deadline)
+
+
+class ServedResult(NamedTuple):
+    """One request's result, cropped back to the request shape."""
+
+    recon: np.ndarray  # [*reduce, *request_spatial]
+    # models.reconstruct.ReconTrace with numpy leaves; for a request
+    # padded into a larger bucket, psnr_vals are the solve canvas's
+    trace: "object"
+    # final PSNR over the request's valid region (serve.quality); None
+    # unless x_orig was given and the SolveConfig tracks PSNR
+    psnr: Optional[float]
+    bucket: str  # bucket the request dispatched in
+    wait_s: float  # queue time (submit -> dispatch start)
+    latency_s: float  # submit -> result ready
+    z: Optional[np.ndarray]  # codes, ServeConfig.return_codes only
+
+
+@dataclasses.dataclass
+class _Pending:
+    b: np.ndarray
+    mask: Optional[np.ndarray]
+    smooth_init: Optional[np.ndarray]
+    x_orig: Optional[np.ndarray]
+    spatial: Tuple[int, ...]
+    future: Future
+    t_submit: float
+    digest: str = ""  # the bank digest bound at admission
+    bank_id: Optional[str] = None
+    deadline: Optional[float] = None  # absolute epoch seconds
+
+
+def _bucket_name(slots: int, spatial: Tuple[int, ...]) -> str:
+    return f"{slots}@" + "x".join(str(s) for s in spatial)
+
+
+def pick_bucket(
+    buckets: Sequence[Tuple[int, Tuple[int, ...]]],
+    spatial: Sequence[int],
+) -> Tuple[int, Tuple[int, ...]]:
+    """Smallest bucket (of a volume-sorted table) that fits
+    ``spatial``."""
+    spatial = tuple(int(s) for s in spatial)
+    for slots, bsp in buckets:  # sorted by volume
+        if len(spatial) == len(bsp) and all(
+            s <= t for s, t in zip(spatial, bsp)
+        ):
+            return (slots, bsp)
+    raise validate.CCSCInputError(
+        f"request spatial {spatial} exceeds every configured "
+        f"bucket {[sp for _, sp in buckets]} — add a larger "
+        "bucket to ServeConfig.buckets"
+    )
+
+
+class CodecEngine:
+    """Pin (bank, problem, config) once; serve many requests.
+
+    Construction does the expensive work once: full bank/config/bucket
+    validation, per-bucket plans, and (``aot_warmup``) one warm dispatch
+    per bucket. The per-request path is: cheap shape/finite checks,
+    queue, one batched dispatch, slice. ``submit`` may be called from
+    any thread; one worker thread owns dispatch order and the device.
+    ``device`` (default ``"cuda"``) raises when CUDA is absent.
+    """
+
+    def __init__(
+        self,
+        d,
+        prob,
+        cfg: SolveConfig,
+        serve_cfg: ServeConfig,
+        blur_psf=None,
+        device="cuda",
+    ):
+        # close machinery first: close() must be a no-op on an engine
+        # whose constructor raised, and re-entrant
+        self._close_lock = threading.Lock()
+        self._close_started = False
+        self._close_done = threading.Event()
+
+        self.prob = prob
+        self.cfg = cfg
+        self.serve_cfg = serve_cfg
+        geom = prob.geom
+        self.geom = geom
+        ndim_s = geom.ndim_spatial
+        self.device = resolve_device(device)
+
+        # once-per-engine validation (requests get the cheap subset)
+        validate.check_solve_config(cfg)
+        validate.check_filters(d, geom)
+        for slots, spatial in serve_cfg.buckets:
+            if len(spatial) != ndim_s:
+                raise validate.CCSCInputError(
+                    f"bucket spatial {spatial} has {len(spatial)} dims "
+                    f"but the problem family has {ndim_s}"
+                )
+            if any(s < k for s, k in zip(spatial, geom.spatial_support)):
+                raise validate.CCSCInputError(
+                    f"bucket spatial {spatial} is smaller than the "
+                    f"kernel support {geom.spatial_support}"
+                )
+        if blur_psf is not None:
+            validate.check_finite("blur_psf", blur_psf)
+        try:
+            self._build(d, blur_psf)
+        except BaseException:
+            # a failed construction stops the worker it may have
+            # started and consumes the close latch
+            with self._close_lock:
+                self._close_started = True
+            self._stop_worker()
+            self._close_done.set()
+            raise
+
+    def _build(self, d, blur_psf):
+        serve_cfg = self.serve_cfg
+        # ServeConfig keeps the table in volume order (pick_bucket
+        # takes the first that fits)
+        self._buckets: List[Tuple[int, Tuple[int, ...]]] = list(
+            serve_cfg.buckets
+        )
+        self._blur_psf = blur_psf
+        default_digest = registry.bank_digest(d)
+        self._banks: Dict[str, object] = {default_digest: d}
+        self._routes: Dict[Optional[str], str] = {None: default_digest}
+        self._default_digest = default_digest
+        self._plan_cache = registry.PlanCache()
+
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        # lanes keyed ((slots, spatial), digest)
+        self._pending: Dict[Tuple, List[_Pending]] = {
+            (bk, default_digest): [] for bk in self._buckets
+        }
+        self._n_pending = 0
+        # digest of the batch being dispatched: retire_bank refuses it
+        self._dispatching: Optional[str] = None
+        self._closed = False
+        self._max_wait_s = serve_cfg.max_wait_ms / 1e3
+        self._n_dispatches = 0
+        self._occupancy_sum = 0.0
+        self._latencies: List[float] = []
+        # one entry per request dispatch: its requests, the iterations
+        # it ran (max num_iters over its batch: one K1 launch each on
+        # the card) and its wall seconds (canvas fill to last readback)
+        self._dispatch_log: List[Dict[str, object]] = []
+
+        for bkey in self._buckets:
+            t0 = time.perf_counter()
+            plan = self._install_plan(default_digest, bkey, d)
+            if serve_cfg.aot_warmup:
+                self._warm_dispatch(bkey, plan)
+            if serve_cfg.verbose != "none":
+                print(f"serve: bucket {_bucket_name(*bkey)} warm in "
+                      f"{time.perf_counter() - t0:.3f} s on {self.device}")
+
+        self._worker = threading.Thread(
+            target=self._work_loop, name="ccsc-serve", daemon=True
+        )
+        self._worker.start()
+
+    def _warm_dispatch(self, bkey, plan) -> None:
+        """One iteration on an all-filler canvas at the bucket's shape:
+        builds the kernels and the cuFFT plans and sizes the allocator,
+        so no request pays them."""
+        slots, spatial = bkey
+        zeros = np.zeros((slots, *self.geom.reduce_shape, *spatial),
+                         np.float32)
+        out = self._solve(plan, zeros, zeros, zeros, None,
+                          dataclasses.replace(self.cfg, max_it=1))
+        out.trace.num_iters.cpu()
+
+    def _solve(self, plan, bb, mm, ss, xx, cfg):
+        """The bucket's slot-wise solve on the engine's device."""
+        dev = self.device
+
+        def put(a):
+            return None if a is None else torch.from_numpy(a).to(dev)
+
+        return _reconstruct_impl(
+            put(bb), None, self.prob, cfg, put(mm), put(ss), None, put(xx),
+            plan=plan, slotwise=True,
+        )
+
+    # ------------------------------------------------------------------
+    def bucket_for(self, spatial: Sequence[int]) -> Tuple[int, Tuple[int, ...]]:
+        """Smallest configured bucket that fits ``spatial``."""
+        return pick_bucket(self._buckets, spatial)
+
+    def submit(
+        self, b, mask=None, smooth_init=None, x_orig=None,
+        bank_id: Optional[str] = None,
+        tenant: Optional[str] = None,
+        deadline_ms: Optional[float] = None,
+        _validated: bool = False,
+        _trace=None,
+        _digest: Optional[str] = None,
+        _deadline: Optional[float] = None,
+    ) -> "Future[ServedResult]":
+        """Enqueue one observation [*reduce, *spatial] (no batch axis);
+        returns a Future resolving to :class:`ServedResult`. Only the
+        cheap per-request checks run here. ``bank_id`` routes to a
+        published bank (None = the default bank); the request binds that
+        bank's digest now, so a later hot-swap never retargets it.
+        ``deadline_ms`` bounds the request end to end; an expired
+        request is refused with :class:`DeadlineExceeded` before it
+        costs a solve slot. ``tenant`` and the fleet-internal
+        ``_validated``/``_trace``/``_digest``/``_deadline`` belong to
+        the fleet layer and raise when set."""
+        for name, v, default in (
+            ("tenant", tenant, None), ("_validated", _validated, False),
+            ("_trace", _trace, None), ("_digest", _digest, None),
+            ("_deadline", _deadline, None),
+        ):
+            if v != default:
+                raise _not_ported(f"submit({name}=...) (the fleet layer)",
+                                  "ROADMAP.md Queue 1 item 11")
+        validate.check_serve_request(
+            b, self.geom, mask=mask, smooth_init=smooth_init, x_orig=x_orig,
+        )
+        deadline = None
+        if deadline_ms is not None:
+            deadline = time.time() + float(deadline_ms) / 1e3
+            if time.time() >= deadline:
+                raise DeadlineExceeded("engine", deadline)
+        spatial = tuple(int(s) for s in b.shape[self.geom.ndim_reduce:])
+        key = self.bucket_for(spatial)
+
+        def host(a):
+            return None if a is None else np.asarray(
+                a.detach().cpu() if torch.is_tensor(a) else a, np.float32
+            )
+
+        p = _Pending(
+            b=host(b), mask=host(mask), smooth_init=host(smooth_init),
+            x_orig=host(x_orig), spatial=spatial, future=Future(),
+            t_submit=time.perf_counter(), bank_id=bank_id,
+            deadline=deadline,
+        )
+        with self._cv:
+            if self._closed or self._close_started:
+                raise RuntimeError("engine is closed")
+            # the digest binds under the queue lock: publish_bank flips
+            # routes and retires digests under the same lock
+            digest = self._routes.get(bank_id)
+            if digest is None:
+                raise validate.CCSCInputError(
+                    f"unknown bank id {bank_id!r} — published: "
+                    f"{sorted(k for k in self._routes if k)} "
+                    "(default bank routes as bank_id=None)"
+                )
+            p.digest = digest
+            self._pending.setdefault((key, digest), []).append(p)
+            self._n_pending += 1
+            self._cv.notify()
+        return p.future
+
+    def reconstruct(
+        self, b, mask=None, smooth_init=None, x_orig=None,
+        bank_id: Optional[str] = None,
+        timeout: Optional[float] = None,
+    ) -> ServedResult:
+        """Synchronous submit-and-wait."""
+        return self.submit(
+            b, mask=mask, smooth_init=smooth_init, x_orig=x_orig,
+            bank_id=bank_id,
+        ).result(timeout=timeout)
+
+    def serve_many(self, requests, timeout=None) -> List[ServedResult]:
+        """Submit an iterable of request dicts (keys b/mask/smooth_init/
+        x_orig/bank_id/deadline_ms) and wait for all results, in
+        order."""
+        futs = [self.submit(**req) for req in requests]
+        return [f.result(timeout=timeout) for f in futs]
+
+    # ------------------------------------------------------------------
+    def _work_loop(self):
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while True:
+            expired: List[_Pending] = []
+            key = None
+            with self._cv:
+                while not self._closed and self._n_pending == 0:
+                    self._cv.wait()
+                if self._closed and self._n_pending == 0:
+                    return
+                max_wait = self._max_wait_s
+                now = time.perf_counter()
+                # expire dead requests before they cost a solve slot;
+                # dl_min is the earliest surviving deadline
+                wall = time.time()
+                dl_min = None
+                for k, lst in self._pending.items():
+                    keep = []
+                    for p in lst:
+                        if p.deadline is not None and wall >= p.deadline:
+                            expired.append(p)
+                        else:
+                            keep.append(p)
+                            if p.deadline is not None:
+                                dl_min = (p.deadline if dl_min is None
+                                          else min(dl_min, p.deadline))
+                    if len(keep) != len(lst):
+                        self._pending[k] = keep
+                self._n_pending -= len(expired)
+                if not expired and self._n_pending:
+                    # the oldest lane flushes first at max_wait: a full
+                    # lane must not starve another bucket's lone request
+                    ok, ot = None, None
+                    for k, lst in self._pending.items():
+                        if lst and (ot is None or lst[0].t_submit < ot):
+                            ok, ot = k, lst[0].t_submit
+                    if self._closed or now >= ot + max_wait:
+                        key = ok
+                    else:
+                        for k, lst in self._pending.items():
+                            if len(lst) >= k[0][0]:  # a full lane
+                                key = k
+                                break
+                        if key is None:
+                            t_wait = ot + max_wait - now
+                            if dl_min is not None:
+                                # notice an expiry when it happens
+                                t_wait = min(t_wait,
+                                             max(dl_min - wall, 0.0) + 1e-3)
+                            self._cv.wait(timeout=t_wait)
+                            continue
+                if key is not None:
+                    slots = key[0][0]
+                    batch = self._pending[key][:slots]
+                    self._pending[key] = self._pending[key][slots:]
+                    self._n_pending -= len(batch)
+                    self._dispatching = key[1]
+            for p in expired:
+                # a cancelled future is dropped; a live one fails
+                if p.future.set_running_or_notify_cancel():
+                    p.future.set_exception(
+                        DeadlineExceeded("dispatch", p.deadline)
+                    )
+            if key is None:
+                continue
+            # a client-cancelled request is dropped here: set_result on
+            # a cancelled Future would raise and poison its siblings
+            batch = [p for p in batch
+                     if p.future.set_running_or_notify_cancel()]
+            try:
+                if batch:
+                    self._dispatch(key, batch)
+            except Exception as e:
+                for p in batch:
+                    if not p.future.done():
+                        p.future.set_exception(e)
+            finally:
+                self._release_digest()
+
+    def _release_digest(self) -> None:
+        """The batch no longer consults its plan: its digest becomes
+        retirable (early, before its futures resolve, so a client that
+        publishes a bank the moment its result lands can retire the old
+        one)."""
+        with self._cv:
+            self._dispatching = None
+
+    def _dispatch(self, key, batch: List[_Pending]) -> None:
+        """One synchronous dispatch: canvas fill, the bucket's slot-wise
+        solve, readback, per-request crop and futures."""
+        bkey, digest = key
+        slots, spatial = bkey
+        geom = self.geom
+        cfg = self.cfg
+        name = _bucket_name(slots, spatial)
+        plan = self._plan_for(digest, bkey)
+        t0 = time.perf_counter()
+
+        shape = (slots, *geom.reduce_shape, *spatial)
+        bb = np.zeros(shape, np.float32)
+        mm = np.zeros(shape, np.float32)  # filler slots observe nothing
+        ss = np.zeros(shape, np.float32)
+        has_x = any(p.x_orig is not None for p in batch)
+        xx = np.zeros(shape, np.float32) if has_x else None
+        for i, p in enumerate(batch):
+            # top-left placement; the zero mask over the pad region
+            # excludes it from the data term
+            sl = (i, *(slice(None),) * geom.ndim_reduce) + tuple(
+                slice(0, s) for s in p.spatial
+            )
+            bb[sl] = p.b
+            mm[sl] = p.mask if p.mask is not None else 1.0
+            if p.smooth_init is not None:
+                ss[sl] = p.smooth_init
+            if p.x_orig is not None:
+                xx[sl] = p.x_orig
+        out = self._solve(plan, bb, mm, ss, xx, cfg)
+        iters = out.trace.num_iters.cpu().numpy()
+
+        # trace readbacks only where the config tracks them; untracked
+        # traces are zeros on the device and zeros here
+        zeros_tr = np.zeros((slots, cfg.max_it + 1), np.float32)
+        obj = (out.trace.obj_vals.cpu().numpy() if cfg.with_objective
+               else zeros_tr)
+        psnr = (out.trace.psnr_vals.cpu().numpy()
+                if cfg.with_psnr and has_x else zeros_tr)
+        diff = (out.trace.diff_vals.cpu().numpy()
+                if cfg.with_objective or cfg.track_diagnostics else zeros_tr)
+        recon = out.recon.cpu().numpy()
+        z = out.z.cpu().numpy() if self.serve_cfg.return_codes else None
+        ex = out.trace.extras
+        if ex is not None:
+            ex = [t.cpu().numpy() for t in ex]
+        t_done = time.perf_counter()
+        self._release_digest()
+
+        max_it = int(iters[: len(batch)].max())
+        for i, p in enumerate(batch):
+            crop = tuple(slice(0, s) for s in p.spatial)
+            rec_i = recon[i][(..., *crop)]
+            tracked = p.x_orig is not None and cfg.with_psnr
+            tr = ReconTrace(
+                obj[i],
+                psnr[i] if tracked else np.zeros_like(psnr[i]),
+                diff[i],
+                np.int32(iters[i]),
+                SolveExtras(*(e[i] for e in ex)) if ex is not None else None,
+            )
+            res = ServedResult(
+                recon=rec_i,
+                trace=tr,
+                psnr=(valid_region_psnr(rec_i, p.x_orig, geom.psf_radius)
+                      if tracked else None),
+                bucket=name,
+                wait_s=t0 - p.t_submit,
+                latency_s=t_done - p.t_submit,
+                z=z[i] if z is not None else None,
+            )
+            with self._lock:
+                self._latencies.append(res.latency_s)
+            p.future.set_result(res)
+        with self._lock:
+            self._n_dispatches += 1
+            self._occupancy_sum += len(batch) / slots
+            self._dispatch_log.append({"requests": len(batch),
+                                       "iters": max_it,
+                                       "wall_s": t_done - t0})
+
+    # ------------------------------------------------------------------
+    def stats(self) -> Dict[str, object]:
+        """Request-latency percentiles (exact, from the list of served
+        latencies) and dispatch aggregates."""
+        with self._lock:
+            lat = list(self._latencies)
+            n_disp, occ = self._n_dispatches, self._occupancy_sum
+
+        def pct(q):
+            return float(np.percentile(lat, q)) if lat else None
+
+        return {
+            "n_requests": len(lat),
+            "n_dispatches": n_disp,
+            "mean_occupancy": occ / n_disp if n_disp else 0.0,
+            "p50_latency_s": pct(50),
+            "p99_latency_s": pct(99),
+        }
+
+    @property
+    def buckets(self) -> List[Tuple[int, Tuple[int, ...]]]:
+        """The bucket table, smallest volume first."""
+        return list(self._buckets)
+
+    @property
+    def dispatch_log(self) -> List[Dict[str, object]]:
+        """One dict per request dispatch, in order: ``requests`` (real
+        slots), ``iters`` (the max of num_iters over its batch) and
+        ``wall_s`` (canvas fill to the last readback)."""
+        with self._lock:
+            return [dict(e) for e in self._dispatch_log]
+
+    @property
+    def dispatch_iters(self) -> List[int]:
+        """Iterations each request dispatch ran, in order (the max of
+        num_iters over its batch): one z-solve launch each."""
+        return [e["iters"] for e in self.dispatch_log]
+
+    @property
+    def closed(self) -> bool:
+        """True once close() has been called (or construction failed)."""
+        return self._close_started
+
+    # -- multi-bank serving --------------------------------------------
+    def _plan_for(self, digest: str, bkey):
+        """The plan serving ``(digest, bucket)``: an LRU hit, or a
+        rebuild from the retained bank."""
+        plan = self._plan_cache.get(digest, bkey)
+        if plan is not None:
+            return plan
+        d = self._banks.get(digest)
+        if d is None:
+            raise RuntimeError(
+                f"bank digest {digest} has no retained bytes on this "
+                "engine — publish the bank before routing requests to it"
+            )
+        return self._install_plan(digest, bkey, d)
+
+    def _install_plan(self, digest: str, bkey, d):
+        """Build one bucket's plan for one bank and insert it into the
+        LRU, pinning the digests with queued work against eviction."""
+        plan = build_plan(
+            d, self.prob, self.cfg, bkey[1], blur_psf=self._blur_psf,
+            device=self.device,
+        )
+        with self._cv:
+            pin = {lane[1] for lane, lst in self._pending.items() if lst}
+        self._plan_cache.put(digest, bkey, plan, pin=pin)
+        return plan
+
+    def add_bank(self, d, blur_psf=None) -> str:
+        """Register a bank and build its per-bucket plans without
+        touching any route (the make-servable half of a hot-swap).
+        Idempotent per digest; returns the bank's digest. Per-bank blur
+        PSFs are refused (plans compose the engine's pinned blur)."""
+        if blur_psf is not None:
+            raise validate.CCSCInputError(
+                "add_bank serves the engine's pinned blur operator — "
+                "per-bank blur PSFs are not supported (build a "
+                "second engine)"
+            )
+        validate.check_filters(d, self.geom)
+        digest = registry.bank_digest(d)
+        with self._cv:
+            if self._close_started:
+                raise RuntimeError("engine is closed")
+            known = digest in self._banks
+            self._banks[digest] = d
+        if not known:
+            for bkey in self._buckets:
+                self._install_plan(digest, bkey, d)
+        return digest
+
+    def publish_bank(
+        self, bank_id: Optional[str], d, tenant: Optional[str] = None,
+    ) -> Tuple[Optional[str], str]:
+        """Hot-swap: make ``d`` servable, then route ``bank_id`` (None =
+        the default bank) to its digest. Queued and in-flight requests
+        finish on the digest they bound; later admissions serve the new
+        one. Superseded digests nothing references are retired. Returns
+        ``(old_digest, new_digest)``."""
+        if tenant is not None:
+            raise _not_ported("publish_bank(tenant=...) (tenancy)",
+                              "ROADMAP.md Queue 1 item 11")
+        digest = self.add_bank(d)
+        with self._cv:
+            if self._close_started:
+                raise RuntimeError("engine is closed")
+            old = self._routes.get(bank_id)
+            self._routes[bank_id] = digest
+            stale = [dg for dg in self._banks
+                     if dg not in self._routes.values()]
+        for dg in stale:
+            self.retire_bank(dg)
+        return old, digest
+
+    def retire_bank(self, digest: str) -> bool:
+        """Drop one digest's bank, plans and empty lanes. Refused
+        (False) while the digest is routed by any bank id, queued in any
+        lane or mid-dispatch; True when it is gone."""
+        with self._cv:
+            if digest in self._routes.values():
+                return False
+            if digest == self._dispatching:
+                return False
+            if any(lane[1] == digest and lst
+                   for lane, lst in self._pending.items()):
+                return False
+            self._banks.pop(digest, None)
+            for lane in [ln for ln in self._pending if ln[1] == digest]:
+                del self._pending[lane]
+        self._plan_cache.drop_digest(digest)
+        return True
+
+    @property
+    def bank_ids(self) -> List[str]:
+        """Published bank ids (the default bank routes as None and is
+        not listed)."""
+        with self._cv:
+            return sorted(k for k in self._routes if k is not None)
+
+    def bank_digest(self, bank_id: Optional[str] = None) -> str:
+        """The digest ``bank_id`` routes to (None = the default bank)."""
+        with self._cv:
+            digest = self._routes.get(bank_id)
+        if digest is None:
+            raise validate.CCSCInputError(f"unknown bank id {bank_id!r}")
+        return digest
+
+    def plan_cache_stats(self) -> Dict[str, object]:
+        """The plan LRU's accounting (serve.registry.PlanCache)."""
+        return self._plan_cache.stats()
+
+    def set_max_wait_ms(self, ms: float) -> None:
+        """Retarget the micro-batch flush deadline live."""
+        with self._cv:
+            self._max_wait_s = max(0.0, float(ms)) / 1e3
+            self._cv.notify_all()
+
+    def drain_pending(self) -> List[Dict]:
+        """Atomically remove every request still queued (not yet in a
+        dispatch) and return its payload (b, mask, smooth_init, x_orig,
+        future, bank_id, digest); each returned future is cancelled.
+        Requests already dispatching resolve normally."""
+        cv = getattr(self, "_cv", None)
+        if cv is None:  # construction never reached the queue
+            return []
+        taken: List[_Pending] = []
+        with cv:
+            for k in self._pending:
+                taken.extend(self._pending[k])
+                self._n_pending -= len(self._pending[k])
+                self._pending[k] = []
+        out = []
+        for p in taken:
+            p.future.cancel()
+            out.append({
+                "b": p.b, "mask": p.mask, "smooth_init": p.smooth_init,
+                "x_orig": p.x_orig, "future": p.future,
+                "bank_id": p.bank_id, "digest": p.digest,
+            })
+        return out
+
+    def _stop_worker(self) -> None:
+        cv = getattr(self, "_cv", None)
+        if cv is None:
+            return
+        with cv:
+            self._closed = True
+            cv.notify_all()
+        worker = getattr(self, "_worker", None)
+        if worker is not None:
+            worker.join()
+
+    def close(self):
+        """Flush every pending request and stop the worker. Re-entrant
+        and race-safe: the first caller shuts down, the others block
+        until it has finished. A no-op on an engine whose constructor
+        raised."""
+        with self._close_lock:
+            owner = not self._close_started
+            self._close_started = True
+        if not owner:
+            self._close_done.wait()
+            return
+        try:
+            self._stop_worker()
+        finally:
+            self._close_done.set()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -1,6 +1,7 @@
 """Strict input validation at the port's entry points (torch port of the
 checks ``ccsc_code_iccv2017_tpu.utils.validate`` runs for
-``reconstruct``/``build_plan`` and the consensus learner).
+``reconstruct``/``build_plan``, the consensus learner and the serving
+engine's per-request boundary).
 
 Every failure raises :class:`CCSCInputError`, a ``ValueError`` subclass
 whose message says what was wrong and what to change. The checks take
@@ -274,3 +275,62 @@ def check_solve_inputs(
     check_solve_data(b, d, geom, mask=mask, smooth_init=smooth_init)
     if x_orig is not None:
         check_same_shape("x_orig", x_orig, b)
+
+
+def check_serve_request(
+    b, geom, *, mask=None, smooth_init=None, x_orig=None,
+    name: str = "request",
+) -> None:
+    """The cheap per-request subset of the solve checks, for the serving
+    hot path (serve.CodecEngine): one observation [*reduce, *spatial]
+    (no batch axis) — layout vs the pinned geometry, non-finite data,
+    mask/offset shape agreement and a mask that observes something. The
+    once-per-operator checks (dictionary vs geometry, config
+    positivity) run at engine construction, not here."""
+    shape = _shape(b)
+    want_ndim = geom.ndim_reduce + geom.ndim_spatial
+    if len(shape) != want_ndim:
+        layout = (
+            "["
+            + "".join(f"{r}, " for r in geom.reduce_shape)
+            + "*spatial]"
+        )
+        raise CCSCInputError(
+            f"{name} has shape {shape} ({len(shape)} axes) but the "
+            f"engine serves single observations {layout} with "
+            f"{geom.ndim_spatial} spatial axes ({want_ndim} axes total"
+            ", no batch axis — submit one request per observation)"
+        )
+    reduce_got = shape[: geom.ndim_reduce]
+    if tuple(reduce_got) != tuple(geom.reduce_shape):
+        raise CCSCInputError(
+            f"{name} reduce axes {tuple(reduce_got)} do not match the "
+            f"pinned problem's reduce_shape {tuple(geom.reduce_shape)}"
+        )
+    spatial = shape[geom.ndim_reduce:]
+    if any(s < k for s, k in zip(spatial, geom.spatial_support)):
+        raise CCSCInputError(
+            f"kernel support {tuple(geom.spatial_support)} exceeds the "
+            f"{name} spatial size {tuple(spatial)}"
+        )
+    check_finite(name, b)
+    for other_name, other in (
+        ("mask", mask), ("smooth_init", smooth_init), ("x_orig", x_orig)
+    ):
+        if other is None:
+            continue
+        if _shape(other) != shape:
+            raise CCSCInputError(
+                f"{other_name} shape {_shape(other)} does not match "
+                f"{name} shape {shape}"
+            )
+        check_finite(other_name, other)
+    if mask is not None:
+        # the direct reconstruct() path refuses an all-zero mask, and so
+        # does the serving boundary
+        t = _tensor(mask)
+        if t.numel() > 0 and not bool((t != 0).any()):
+            raise CCSCInputError(
+                "mask is identically zero — it observes no pixels, so "
+                "the reconstruction is unconstrained"
+            )

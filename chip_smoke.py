@@ -20,9 +20,11 @@ never exits 0):
    {1, 7, 100, 105, 300} at N=45, F=6161 (each register
    instantiation's edge and the generic loop, a partial frequency
    tile, one image per block), and K in {100, 300} at N=13, F=266*134
-   (8 images per block, the last chunk partial): max|dz|/max|z| <= 1e-5
-   and two launches bitwise equal in every case; each prints its plan
-   and its kernel, plain-version, bound and xi2-copy times. With
+   (8 images per block, the last chunk partial), and at the serving
+   engine's other slot counts, N in {2, 8} at the serve shape: max|dz|/
+   max|z| <= 1e-5 and two launches bitwise equal in every case; each
+   case prints its plan and its kernel, plain-version, bound and
+   xi2-copy times. With
    ``--against DIR`` the K1 of the checkout at DIR (an older commit
    unpacked there) is timed beside this one at the main path's shapes
    (N in {1, 4, 800}), for an A/B in one process.
@@ -72,9 +74,26 @@ never exits 0):
    outer steps, fused on both devices (the kernels on the card, their
    plain version on the CPU) from one init: objective rtol 1e-4,
    filters 1e-4 max|d|.
-10. Output: a ``{"kernels": [...]}`` line (K1, K2a, K2b), a
-   ``{"slice": ...}`` line (serving), a ``{"learn": ...}`` line, the
-   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+10. Slice 3 serves through the engine: the k=100 11x11 bank behind a
+   ``CodecEngine`` with one bucket of 4 slots at 256x256 (warmed at
+   construction); 40 requests of 256x256 and 2 of 240x240 (padded into
+   the bucket), Gaussian-smoothed noise from --seed, 50% masks, the
+   smooth-fill warm start, max_it=100, tol=1e-3, all submitted at once:
+   10 full dispatches and one with 2 filler slots (first or last, as the
+   submits arrive within ``max_wait_ms``).
+   K1's launch count is set to 0 just before and must equal the sum
+   over dispatches of the iterations each ran. Then the same requests
+   through one ``reconstruct(plan=...)`` call each (``serve/bench.py``'s
+   direct-call loop): every 256x256 request stops at the same iteration and
+   agrees within 1e-4 * max|b|, every padded one within 1e-3 * max|b|
+   on its valid region, and every served PSNR beats its smooth fill.
+   The record gives requests/s over the window and over the full
+   dispatches alone, and latency p50, p90 and max.
+11. Output: a ``{"kernels": [...]}`` line (K1, K2a, K2b), a
+   ``{"slice": ...}`` line (serving), a ``{"learn": ...}`` line, a
+   ``{"serve_engine": ...}`` line (the engine phase and the
+   ``serve/bench.py`` record), the nvidia-smi line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when CUDA is absent or the
 port's package is not beside this script.
@@ -85,7 +104,6 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -115,12 +133,8 @@ def _datasheet(name: str):
     raise RuntimeError(f"no datasheet bandwidth for card {name!r}")
 
 
-def phase_environment(torch, device_report):
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+def phase_environment(torch, device_report, card_line):
+    smi = card_line()
     rep = device_report("cuda:0")
     print(f"[1] nvidia-smi: {smi}")
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -160,6 +174,7 @@ K1_CASES = (
     + [(800, 100, 110 * 56, False)]
     + [(45, k, 6161, k == 105) for k in (1, 7, 100, 105, 300)]
     + [(13, k, F, k == 300) for k in (100, 300)]
+    + [(n, K, F, False) for n in (2, 8)]
 )
 K1_MAIN_N = (1, 4, 800)  # the main path's image counts, timed --against
 
@@ -796,6 +811,83 @@ def phase_learn_card_vs_cpu(torch, port, seed):
                            runs["cpu"])
 
 
+ENGINE_SLOTS = 4
+# 42 requests fill 10 dispatches; one more holds 2 beside 2 filler slots
+ENGINE_SIDES = [S] * 40 + [S - 16] * 2  # 2 padded into the bucket
+
+
+def phase_engine(torch, port, seed):
+    import numpy as np
+
+    bench, kernels = port["serve_bench"], port["kernels"]
+    cfg_kw = dict(lambda_residual=5.0, lambda_prior=2.0, max_it=100,
+                  tol=1e-3)
+    d = port["io_mat"].load_filters_2d(BANK)
+    prob = port["reconstruct"].ReconstructionProblem(
+        port["config"].ProblemGeom((11, 11), K))
+    cfg = port["config"].SolveConfig(**cfg_kw)
+    reqs = bench.make_requests(ENGINE_SIDES, seed + 4)
+    t0 = time.perf_counter()
+    with port["serve"].CodecEngine(
+            d, prob, cfg, port["config"].ServeConfig(
+                buckets=((ENGINE_SLOTS, (S, S)),)),
+            device="cuda") as eng:
+        warm_s = time.perf_counter() - t0
+        kernels.solve_z_rank1.launches = 0
+        served, engine_s, submit_s = bench.run_engine(eng, reqs)
+        launches = kernels.solve_z_rank1.launches
+        dispatch_iters = eng.dispatch_iters
+        looped, loop_s = bench.run_direct_loop(d, prob, cfg, reqs, "cuda")
+        record = bench.record(eng, served, engine_s, submit_s, looped,
+                              loop_s, "cuda")
+    print(f"[10] engine warm in {warm_s:.2f} s; {len(reqs)} requests in "
+          f"{engine_s * 1e3:.1f} ms (the submit loop {submit_s * 1e3:.1f} "
+          f"ms) over {len(dispatch_iters)} dispatches "
+          f"of {record['dispatch_requests']} requests, {dispatch_iters} "
+          f"iterations and {[round(t, 1) for t in record['dispatch_ms']]} "
+          f"ms; K1 launches {launches}")
+    if launches != sum(dispatch_iters):
+        raise RuntimeError(f"K1 launched {launches} times for dispatches "
+                           f"of {dispatch_iters} iterations")
+    out = []
+    for i, (q, s, (rec, it)) in enumerate(zip(reqs, served, looped)):
+        side = q["b"].shape[0]
+        b_max = float(np.abs(q["b"]).max())
+        err = float(np.abs(s.recon - rec).max())
+        fill = port["serve"].valid_region_psnr(q["smooth_init"],
+                                               q["x_orig"], (R, R))
+        row = {"side": side, "iters": int(s.trace.num_iters),
+               "loop_iters": it, "max_abs_diff": err, "b_max": b_max,
+               "psnr_db": s.psnr, "smooth_fill_psnr_db": fill,
+               "latency_ms": 1e3 * s.latency_s, "wait_ms": 1e3 * s.wait_s}
+        out.append(row)
+        print(f"[10] request {i} ({side}x{side}): {row['iters']} iterations "
+              f"(loop {it}), max|diff| {err:.2e} (b max {b_max:.3f}), PSNR "
+              f"{s.psnr:.2f} dB (smooth fill {fill:.2f} dB), latency "
+              f"{row['latency_ms']:.1f} ms")
+        if not (np.isfinite(s.recon).all() and s.recon.shape == (side, side)):
+            raise RuntimeError(f"request {i}: bad recon {s.recon.shape}")
+        exact = side == S
+        if exact and (row["iters"] != it or not err <= 1e-4 * b_max):
+            raise RuntimeError(f"request {i}: served {row['iters']} "
+                               f"iterations vs {it}, diff {err:.3e}")
+        # the pad's coupling at 240-in-256 measured ~1.5e-5 max|b|
+        if not exact and not err <= 1e-3 * b_max:
+            raise RuntimeError(f"padded request {i}: diff {err:.3e}")
+        if not s.psnr > fill:
+            raise RuntimeError(f"request {i}: PSNR {s.psnr:.2f} dB is not "
+                               f"above the smooth fill's {fill:.2f} dB")
+    print(f"[10] engine {record['engine_requests_per_sec']:.3f} requests/s "
+          f"over the window, {record['full_dispatch_requests_per_sec']:.3f} "
+          f"over its {record['full_dispatches']} full dispatches (latency "
+          f"p50 {record['p50_ms']:.1f} ms, p90 {record['p90_ms']:.1f} ms, "
+          f"max {record['max_ms']:.1f} ms) vs direct-call loop "
+          f"{record['loop_requests_per_sec']:.3f} requests/s")
+    return {"slots": ENGINE_SLOTS, "warm_s": warm_s, "launches": launches,
+            "dispatch_iters": dispatch_iters, "requests": out,
+            "bench": record}
+
+
 def _kernel_entry(name, source, replaces, launches, kernel_ms, plain_ms,
                   bound, build_s, **extra):
     return dict(
@@ -836,12 +928,14 @@ def main(argv=None) -> int:
             ("learn", "models.learn"), ("common", "models.common"),
             ("consensus", "parallel.consensus"),
             ("io_mat", "utils.io_mat"), ("images", "data.images"),
-            ("device", "utils.device"),
+            ("device", "utils.device"), ("serve", "serve"),
+            ("serve_bench", "serve.bench"),
         )
     }
 
     t_start = time.perf_counter()
-    smi, name = phase_environment(torch, port["device"].device_report)
+    smi, name = phase_environment(torch, port["device"].device_report,
+                                  port["serve_bench"].card_line)
     bw, flops = _datasheet(name)
     build = phase_build(port["kernels"])
     cases = phase_kernel_vs_plain(
@@ -853,8 +947,9 @@ def main(argv=None) -> int:
     learn = phase_learn(torch, port, args.seed)
     fused_vs_comp = phase_fused_vs_composition(torch, port, args.seed)
     learn_agree = phase_learn_card_vs_cpu(torch, port, args.seed)
+    engine = phase_engine(torch, port, args.seed)
     seconds = time.perf_counter() - t_start
-    print(f"[10] total {seconds:.1f} s")
+    print(f"[11] total {seconds:.1f} s")
 
     main_case = next(c for c in cases if c["n"] == 1 and not c["raised_row"])
     k2_err = {
@@ -866,9 +961,11 @@ def main(argv=None) -> int:
         _kernel_entry(
             "solve_z_rank1", "solve_z_rank1.cu",
             "ccsc_code_iccv2017_tpu/ops/pallas_kernels.py:51",
-            served["launches"], main_case["kernel_ms"],
+            served["launches"] + engine["launches"], main_case["kernel_ms"],
             main_case["plain_ms"], main_case,
             build["solve_z_rank1"]["seconds"],
+            launches_by_path={"reconstruct": served["launches"],
+                              "engine": engine["launches"]},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             max_rel_err=max(c["max_rel_err"] for c in cases), cases=cases,
         ),
@@ -895,6 +992,7 @@ def main(argv=None) -> int:
         learn, fused_vs_composition=fused_vs_comp, card_vs_cpu=learn_agree,
         k2_formulas=k2["timing"]["formulas"], seconds=seconds,
     )}))
+    print(json.dumps({"serve_engine": engine}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -26,7 +26,9 @@ def _fields(cls):
     return [(f.name, f.default, str(f.type)) for f in dataclasses.fields(cls)]
 
 
-@pytest.mark.parametrize("name", ["ProblemGeom", "LearnConfig", "SolveConfig"])
+@pytest.mark.parametrize(
+    "name", ["ProblemGeom", "LearnConfig", "SolveConfig", "ServeConfig"]
+)
 def test_fields_and_defaults_match_jax(name):
     assert _fields(getattr(tcfg, name)) == _fields(getattr(jcfg, name))
 
@@ -78,6 +80,45 @@ def test_unported_fields_raise_naming_roadmap(kw, item):
     jcfg.SolveConfig(**kw)  # valid in the JAX package
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         tcfg.SolveConfig(**kw)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(tune="bogus"), dict(slo_p50_ms=0.0), dict(slo_check_s=-1.0),
+     dict(replica_id=-1), dict(pipeline_depth=0), dict(buckets=()),
+     dict(buckets=((0, (8, 8)),)), dict(buckets=((2, 8),)),
+     dict(buckets=((2, (8, 8)), (2, (8, 8, 8)))), dict(max_wait_ms=-1.0),
+     dict(warm_order="2@8x8"), dict(mesh_shape="4x2"),
+     dict(mesh_shape=(1, 1, 1)), dict(mesh_shape=(3,)),
+     dict(mesh_devices=(0,))],
+)
+def test_serve_invalid_values_refused_like_jax(kw):
+    kw = dict(dict(buckets=((2, (8, 8)),)), **kw)
+    with pytest.raises(ValueError):
+        jcfg.ServeConfig(**kw)
+    with pytest.raises(ValueError):
+        tcfg.ServeConfig(**kw)
+
+
+def test_serve_buckets_normalized_like_jax():
+    kw = dict(buckets=[(2, [16, 16]), ("1", (8, 9))], mesh_shape=[],
+              warm_order=["2@16x16"])
+    j = jcfg.ServeConfig(**{**kw, "warm_order": None})
+    t = tcfg.ServeConfig(**{**kw, "warm_order": None})
+    assert t.buckets == j.buckets == ((1, (8, 9)), (2, (16, 16)))
+    assert t.mesh_shape == j.mesh_shape == ()
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(mesh_shape=()), dict(pipeline_depth=1), dict(capture_dir=""),
+     dict(artifact_store=""), dict(staged_warmup=False),
+     dict(warm_rank_capture=""), dict(tune="off")],
+)
+def test_serve_values_meaning_the_port_construct(kw):
+    """Values that ask for what the port does (single device, depth 1,
+    explicitly off) are not refused."""
+    tcfg.ServeConfig(buckets=((2, (8, 8)),), **kw)
 
 
 @pytest.mark.parametrize("verbose", ["none", "brief"])
@@ -190,6 +231,8 @@ def test_port_imports_without_jax_at_runtime():
         "learn_2d.build_parser().parse_args(['--data', 'x', '--fused-z'])\n"
         "from ccsc_code_iccv2017_torch.parallel import consensus\n"
         "from ccsc_code_iccv2017_torch.ops import fused_z\n"
+        "import ccsc_code_iccv2017_torch.serve\n"
+        "from ccsc_code_iccv2017_torch.serve import bench, engine\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccsc_code_iccv2017_tpu')]\n"
         "assert not bad, bad\n"
