@@ -1,11 +1,12 @@
 """2D inpainting / subsampled reconstruction driver (torch port of
 ``ccsc_code_iccv2017_tpu.apps.inpaint_2d``).
 
-Protocol: load a folder of images -> random mask keeping ``--keep`` of
-the pixels -> masked coding with a filter bank (lambda_res=5.0,
-lambda=2.0, max_it=100, tol=1e-3) with a normalized-convolution
-Gaussian fill of the observed pixels as the smooth offset -> PSNR and
-optional 16-bit PNG outputs. Runs on ``--device`` (default cuda).
+Protocol: load images (a folder, a .mat stack or one file) -> random
+mask keeping ``--keep`` of the pixels -> masked coding with a filter
+bank (lambda_res=5.0, lambda=2.0, max_it=100, tol=1e-3) with a
+normalized-convolution Gaussian fill of the observed pixels as the
+smooth offset -> PSNR and optional 16-bit PNG outputs. Runs on
+``--device`` (default cuda).
 
     python -m ccsc_code_iccv2017_torch.apps.inpaint_2d --data DIR \\
         --filters artifacts_2d/learned_bank.mat
@@ -19,6 +20,10 @@ import numpy as np
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from ._common import (
+        add_device_arg, add_mat_layout_arg, add_obs_args, add_perf_args,
+    )
+
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--data", required=True, help="test image folder")
     p.add_argument("--filters", required=True, help=".mat filter bank")
@@ -26,40 +31,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lambda-residual", type=float, default=5.0)
     p.add_argument("--lambda-prior", type=float, default=2.0)
     p.add_argument("--max-it", type=int, default=100)
-    p.add_argument(
-        "--fft-pad", default="none", choices=["none", "pow2", "fast"],
-        help="round the FFT domain up to a fast size",
-    )
-    p.add_argument(
-        "--fft-impl", default="xla",
-        choices=["xla", "matmul", "matmul_high", "matmul_bf16"],
-        help="FFT strategy; the port runs 'xla' (torch.fft) only",
-    )
-    p.add_argument(
-        "--tune", default="off", choices=["off", "auto", "sweep"],
-        help="knob autotuning; the port runs 'off' only",
-    )
-    p.add_argument(
-        "--tune-store", default=None, metavar="PATH",
-        help="tuned-knob store path (autotuning is not ported yet)",
-    )
-    p.add_argument(
-        "--metrics-dir", default=None,
-        help="telemetry stream directory (telemetry is not ported yet)",
-    )
+    add_perf_args(p)
+    add_obs_args(p)
     p.add_argument("--tol", type=float, default=1e-3)
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--size", type=int, default=None)
     p.add_argument("--out-dir", default=None, help="write 16-bit PNGs here")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument(
-        "--mat-layout", choices=["matlab", "framework"], default=None,
-        help="layout of a .mat image stack (the port loads folders only)",
-    )
-    p.add_argument(
-        "--device", default="cuda",
-        help="torch device to solve on (default cuda; 'cpu' for tests)",
-    )
+    add_mat_layout_arg(p)
+    add_device_arg(p)
     return p
 
 
@@ -71,14 +51,13 @@ def main(argv=None):
     from ..utils import validate
     from ..utils.io_mat import load_filters_2d
 
-    if args.tune_store is not None:
-        raise NotImplementedError(
-            "--tune-store: knob autotuning is not ported yet "
-            "(ROADMAP.md Queue 1 item 9)"
-        )
+    from ._common import refuse_unported
+
+    refuse_unported(args)
     d = load_filters_2d(args.filters)
     size = (args.size, args.size) if args.size else None
-    b = load_images(args.data, limit=args.limit, size=size)
+    b = load_images(args.data, limit=args.limit, size=size,
+                    mat_layout=args.mat_layout)
     rng = np.random.default_rng(args.seed)
     mask = (rng.random(b.shape) < args.keep).astype(np.float32)
     sm = smooth_fill_batch(b, mask)

@@ -219,8 +219,8 @@ class SolveConfig:
 
     ``use_pallas`` is kept for name parity and is not read: on a CUDA
     tensor the W == 1 z-solve always runs the hand-written rank-1 kernel
-    (ops.kernels.solve_z_rank1). ``herm_inv`` only affects W > 1
-    problems, which this slice does not solve.
+    (ops.kernels.solve_z_rank1). ``herm_inv`` selects the W > 1
+    problems' Gram inverse; the port runs 'cholesky' (None) only.
     """
 
     lambda_residual: float = 5.0

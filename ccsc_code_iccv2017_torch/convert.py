@@ -24,9 +24,9 @@ from .ops import freq_solvers
 from .utils import validate
 from .utils.device import resolve_device
 
-PLAN_ARRAYS = (
-    "dhat_clean", "dhat_solve", "kern.dhat", "kern.dinv", "kern.minv_diag",
-)
+PLAN_ARRAYS = ("dhat_clean", "dhat_solve", "kern.dhat", "kern.dinv")
+# and one of these: the W == 1 scalar or the W > 1 Woodbury inverse
+PLAN_INNER = ("kern.minv_diag", "kern.minv")
 
 
 def bank_from_numpy(d, device="cuda") -> torch.Tensor:
@@ -64,15 +64,22 @@ def plan_from_jax(
     """The port's :class:`ReconPlan` from a JAX plan's leaves.
 
     ``arrays``: ``dhat_clean``, ``dhat_solve``, ``kern.dhat``,
-    ``kern.dinv``, ``kern.minv_diag`` as numpy arrays (a W == 1 plan:
-    its ``kern.minv`` is None). ``meta``: ``prob`` (a mapping of the
-    ReconstructionProblem fields, ``geom`` a mapping of ProblemGeom's),
+    ``kern.dinv`` as numpy arrays, and the inner factor the JAX plan
+    holds: ``kern.minv_diag`` [F] for W == 1, or ``kern.minv`` [F, W, W]
+    for W > 1 (the other is None there and may be left out). ``meta``:
+    ``prob`` (a mapping of the ReconstructionProblem fields, ``geom`` a
+    mapping of ProblemGeom's),
     ``fg`` (a mapping of FreqGeom's fields), ``rho``, ``has_blur``,
     ``d_digest``, ``lambda_smooth`` and optionally ``herm_inv``.
     """
     missing = [k for k in PLAN_ARRAYS if k not in arrays]
-    if missing:
-        raise KeyError(f"plan arrays missing {missing}")
+    inner = [k for k in PLAN_INNER if arrays.get(k) is not None]
+    if missing or len(inner) != 1:
+        raise KeyError(
+            f"plan arrays missing {missing}, with inner factors {inner}: "
+            f"need {list(PLAN_ARRAYS)} and exactly one of "
+            f"{list(PLAN_INNER)}"
+        )
     dev = resolve_device(device)
 
     def t(name, dtype):
@@ -82,17 +89,29 @@ def plan_from_jax(
     fg = _freq_geom(meta["fg"])
     dhat_clean = t("dhat_clean", np.complex64)
     dhat_solve = t("dhat_solve", np.complex64)
+    woodbury = inner[0] == "kern.minv"
     kern = freq_solvers.ZSolveKernel(
         dhat=t("kern.dhat", np.complex64),
         dinv=t("kern.dinv", np.float32),
-        minv=None,
-        minv_diag=t("kern.minv_diag", np.float32),
+        minv=t("kern.minv", np.complex64) if woodbury else None,
+        minv_diag=None if woodbury else t("kern.minv_diag", np.float32),
     )
     K, W, F = kern.dhat.shape
-    if W != 1 or F != fg.num_freq or tuple(dhat_clean.shape) != (K, W, F):
+    inner_shape = (F, W, W) if woodbury else (F,)
+    inner_t = kern.minv if woodbury else kern.minv_diag
+    if (
+        (W > 1) != woodbury
+        or W != fg.reduce_size
+        or F != fg.num_freq
+        or tuple(dhat_clean.shape) != (K, W, F)
+        or tuple(dhat_solve.shape) != (K, W, F)
+        or tuple(kern.dinv.shape) != (K, F)
+        or tuple(inner_t.shape) != inner_shape
+    ):
         raise ValueError(
-            f"plan arrays of shape {tuple(kern.dhat.shape)} do not form "
-            f"a W == 1 plan over {fg.num_freq} frequencies"
+            f"plan arrays of shape {tuple(kern.dhat.shape)} with "
+            f"{inner[0]} {tuple(inner_t.shape)} do not form a plan over "
+            f"W={fg.reduce_size} and {fg.num_freq} frequencies"
         )
     return ReconPlan(
         dhat_clean=dhat_clean,

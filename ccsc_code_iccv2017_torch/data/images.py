@@ -1,8 +1,12 @@
 """Image loading, contrast normalization and the smooth-fill warm start
-for the 2D slices (a jax-free copy of the grayscale folder path of
-``ccsc_code_iccv2017_tpu.data.images``, its ``local_cn`` mode, and the
-numpy branch of ``data.native.smooth_fill_batch``; the port does not
-load the native preprocessing library)."""
+(a jax-free copy of ``ccsc_code_iccv2017_tpu.data.images``: the four
+input forms of the reference's CreateImages.m (a folder, a .mat stack,
+a single file, an in-memory array), its color modes and frame strides,
+the 'none' and 'local_cn' contrast modes, and the numpy branch of
+``data.native.smooth_fill_batch``; the port does not load the native
+preprocessing library). The whitening contrast modes come with
+ROADMAP.md Queue 1 item 8.
+"""
 from __future__ import annotations
 
 import os
@@ -113,6 +117,93 @@ def to_gray(img: np.ndarray) -> np.ndarray:
     return g
 
 
+def _to_unit_rgb(img: np.ndarray) -> np.ndarray:
+    """integer/float image -> float32 RGB in [0, 1]. Gray and gray+alpha
+    inputs are replicated to 3 channels; RGBA drops alpha; integer
+    dtypes are scaled by their full-scale value."""
+    if img.ndim == 3 and img.shape[-1] == 2:  # gray + alpha (PIL 'LA')
+        img = img[..., 0]
+    rgb = img[..., :3] if img.ndim == 3 else np.stack([img] * 3, -1)
+    rgb = rgb.astype(np.float32)
+    if np.issubdtype(img.dtype, np.integer):
+        rgb = rgb / _int_scale(img.dtype)
+    return rgb
+
+
+def rgb_to_ycbcr(rgb: np.ndarray) -> np.ndarray:
+    """MATLAB rgb2ycbcr on [0,1] floats: ITU-R 601 full-to-studio-swing
+    matrix, output still scaled to [0,1]."""
+    m = np.array(
+        [
+            [65.481, 128.553, 24.966],
+            [-37.797, -74.203, 112.0],
+            [112.0, -93.786, -18.214],
+        ],
+        np.float32,
+    )
+    off = np.array([16.0, 128.0, 128.0], np.float32)
+    return (rgb @ m.T + off) / 255.0
+
+
+def rgb_to_hsv(rgb: np.ndarray) -> np.ndarray:
+    """MATLAB rgb2hsv on [0,1] floats: the standard colorsys.rgb_to_hsv
+    formula, vectorized."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    v = rgb.max(-1)
+    c = v - rgb.min(-1)
+    s = np.where(v > 0, c / np.maximum(v, 1e-30), 0.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        hr = np.where(c > 0, ((g - b) / np.maximum(c, 1e-30)) % 6.0, 0.0)
+        hg = np.where(c > 0, (b - r) / np.maximum(c, 1e-30) + 2.0, 0.0)
+        hb = np.where(c > 0, (r - g) / np.maximum(c, 1e-30) + 4.0, 0.0)
+    h = np.where(v == r, hr, np.where(v == g, hg, hb)) / 6.0
+    return np.stack([h, s, v], -1).astype(np.float32)
+
+
+def convert_color(img: np.ndarray, color: str) -> np.ndarray:
+    """CreateImages.m's color dispatch: 'gray' -> [H,W],
+    'rgb'/'ycbcr'/'hsv' -> [H,W,3] float32 in [0,1]-scale."""
+    if color == "gray":
+        return to_gray(img)
+    if color == "rgb":
+        return _to_unit_rgb(img)
+    if color == "ycbcr":
+        return rgb_to_ycbcr(_to_unit_rgb(img))
+    if color == "hsv":
+        return rgb_to_hsv(_to_unit_rgb(img))
+    raise NotImplementedError(f"color mode {color!r}")
+
+
+def _per_channel(fn, img: np.ndarray) -> np.ndarray:
+    """Apply a [H,W]->[H,W] transform per color channel."""
+    if img.ndim == 2:
+        return fn(img)
+    return np.stack([fn(img[..., c]) for c in range(img.shape[-1])], -1)
+
+
+def select_frames(
+    items: Sequence, frames: Optional[Sequence] = None
+) -> list:
+    """The reference's image_frames={A,B,C} stride selection: MATLAB
+    `A:B:C`, 1-based inclusive; C may be the string 'end'."""
+    if frames is None:
+        return list(items)
+    start, step, stop = frames
+    n = len(items)
+
+    def resolve(v):
+        return n if isinstance(v, str) and v == "end" else int(v)
+
+    start, stop, step = resolve(start), resolve(stop), int(step)
+    if step == 0:
+        raise ValueError("frame stride B must be nonzero")
+    if step > 0:
+        idx = range(start - 1, min(stop, n), step)
+    else:  # MATLAB 7:-2:1 -> items 7,5,3,1 (inclusive of the stop)
+        idx = range(min(start, n) - 1, stop - 2, step)
+    return [items[i] for i in idx if 0 <= i < n]
+
+
 def _list_image_files(path: str) -> List[str]:
     files = [
         f for f in sorted(os.listdir(path)) if f.lower().endswith(IMG_EXTS)
@@ -127,51 +218,199 @@ def _list_image_files(path: str) -> List[str]:
     return [os.path.join(path, f) for f in files]
 
 
-def _resize(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
-    from PIL import Image
+def _mat_image_stack(
+    path: str, layout: Optional[str] = None
+) -> List[np.ndarray]:
+    """A .mat file holding an image stack -> list of [H, W(, C)] arrays.
 
-    return np.asarray(
-        Image.fromarray(img).resize((size[1], size[0]), Image.BILINEAR)
-    )
+    Prefers the variable names the reference looks for (``images``,
+    ``original_images``, ``I``; ``b`` in the framework's layout), else
+    takes the largest array in the file. An explicit ``layout`` wins;
+    else the MATLAB names are image-major-last ([H, W, n] /
+    [H, W, C, n]) and ``b`` is batch-leading ([n, H, W] / [n, H, W, C]).
+    Unnamed arrays default to MATLAB layout; an unnamed 4-D array whose
+    shape fits both ([?, ?, C, n] with a (1,3)-sized trailing axis but a
+    non-(1,3) third axis) raises rather than guesses."""
+    from ..utils.io_mat import _loadmat
+    from ..utils.validate import CCSCInputError
+
+    d = {
+        k: np.asarray(v)
+        for k, v in _loadmat(path).items()
+        if not k.startswith("__") and np.asarray(v).ndim >= 2
+    }
+    if not d:
+        raise CCSCInputError(f"no image array found in {path}")
+    named = None
+    for name in ("images", "original_images", "I", "b"):
+        if name in d:
+            arr = d[name]
+            named = "framework" if name == "b" else "matlab"
+            break
+    else:
+        arr = max(d.values(), key=lambda a: a.size)
+    arr = np.asarray(arr)
+    if layout is None:
+        layout = named
+    if layout is None:
+        if (
+            arr.ndim == 4
+            and arr.shape[-1] in (1, 3)
+            and arr.shape[2] not in (1, 3)
+        ):
+            raise ValueError(
+                f"ambiguous unnamed 4-D stack of shape {arr.shape} in "
+                f"{path}: could be framework [n, H, W, C] or MATLAB "
+                f"[H, W, C, n] with {arr.shape[-1]} images. Pass "
+                "mat_layout='framework'/'matlab' or name the variable "
+                "'images' (MATLAB) / 'b' (framework)."
+            )
+        layout = "matlab"
+    # a .mat stack can hold NaN: refuse it here, naming the file
+    if np.issubdtype(arr.dtype, np.floating):
+        bad = int(np.count_nonzero(~np.isfinite(arr)))
+        if bad:
+            raise CCSCInputError(
+                f".mat image stack {path} contains {bad} non-finite "
+                "value(s) (NaN/Inf) — clean the export; non-finite "
+                "data silently diverges the solvers"
+            )
+    return array_image_stack(arr, layout=layout)
 
 
-def load_images(
-    path: str,
+def array_image_stack(
+    arr: np.ndarray, layout: str = "framework"
+) -> List[np.ndarray]:
+    """Array -> list of [H, W(, C)] images. layout='framework':
+    [n, H, W] or [n, H, W, C]; layout='matlab': [H, W, n] or
+    [H, W, C, n]. A singleton C axis is squeezed."""
+    arr = np.asarray(arr)
+    if arr.ndim == 2:
+        return [arr]
+    if layout == "matlab":
+        if arr.ndim == 3:
+            return [arr[..., i] for i in range(arr.shape[-1])]
+        if arr.ndim == 4:
+            return [
+                np.squeeze(arr[..., i], -1)
+                if arr.shape[2] == 1
+                else arr[..., i]
+                for i in range(arr.shape[-1])
+            ]
+    elif layout == "framework":
+        if arr.ndim == 3:
+            return list(arr)
+        if arr.ndim == 4:
+            return [
+                np.squeeze(a, -1) if arr.shape[-1] == 1 else a
+                for a in arr
+            ]
+    else:
+        raise ValueError(f"unknown array layout {layout!r}")
+    raise ValueError(f"cannot interpret image array of shape {arr.shape}")
+
+
+def load_image_list(
+    path,
     contrast_normalize: str = "none",
     zero_mean: bool = False,
-    square: bool = False,
+    color: str = "gray",
     limit: Optional[int] = None,
-    size: Optional[Sequence[int]] = None,
-) -> np.ndarray:
-    """A folder of images -> [n, H, W] float32 grayscale (CreateImages.m
-    with color 'gray'). Per image, in the JAX loader's order: to gray
-    in [0, 1], ``contrast_normalize`` ('none' or 'local_cn'), then
-    ``zero_mean``; then ``size`` resizes and ``square`` center-crops to
-    the smaller side. Other input forms (.mat stacks, single files,
-    color) and contrast modes come with later slices."""
+    frames: Optional[Sequence] = None,
+    mat_layout: Optional[str] = None,
+) -> List[np.ndarray]:
+    """Load images as a list of [H, W] (gray) or [H, W, 3]
+    (rgb/ycbcr/hsv) float32 arrays — the CreateImagesList.m variant, for
+    images of differing sizes (the Poisson app reads it). ``frames`` is
+    the reference's {A,B,C} stride over the sorted file list.
+
+    ``path`` may be a directory of images; a directory holding a single
+    .mat stack; a .mat file; a single image file; or an in-memory array
+    (see array_image_stack for its layouts). Contrast modes: 'none' and
+    'local_cn'; the whitening modes come with ROADMAP.md Queue 1 item 8.
+    """
     from PIL import Image
 
-    if not os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is not a directory: the port loads image folders "
-            "only (.mat stacks and single files come with a later slice)"
-        )
     if contrast_normalize not in ("none", "local_cn"):
         raise NotImplementedError(
             f"contrast mode {contrast_normalize!r} is not ported yet "
-            "(the port runs 'none' and 'local_cn')"
+            "(the port runs 'none' and 'local_cn'; the whitening modes "
+            "are ROADMAP.md Queue 1 item 8)"
         )
-    files = _list_image_files(path)[: limit if limit else None]
-    if not files:
-        raise ValueError(f"no images in {path}")
-    imgs = []
-    for f in files:
-        img = to_gray(np.asarray(Image.open(f)))
+    if isinstance(path, np.ndarray):
+        raws = select_frames(array_image_stack(path), frames)
+    elif os.path.isfile(path):
+        if path.lower().endswith(".mat"):
+            raws = select_frames(
+                _mat_image_stack(path, layout=mat_layout), frames
+            )
+        else:
+            raws = select_frames([np.asarray(Image.open(path))], frames)
+    else:
+        listing = _list_image_files(path)
+        if len(listing) == 0:
+            mats = [
+                os.path.join(path, f)
+                for f in sorted(os.listdir(path))
+                if f.lower().endswith(".mat")
+            ]
+            if len(mats) != 1:
+                raise ValueError(
+                    f"no images and no single .mat stack in {path}"
+                )
+            raws = select_frames(
+                _mat_image_stack(mats[0], layout=mat_layout), frames
+            )
+        else:
+            files = select_frames(listing, frames)
+            # decode only what the limit keeps
+            files = files[: limit if limit else None]
+            raws = [np.asarray(Image.open(f)) for f in files]
+    out = []
+    for raw in raws[: limit if limit else None]:
+        img = convert_color(raw, color)
         if contrast_normalize == "local_cn":
-            img = local_contrast_normalize(img)
+            img = _per_channel(local_contrast_normalize, img)
         if zero_mean:
             img = img - img.mean()
-        imgs.append(img.astype(np.float32))
+        out.append(img.astype(np.float32))
+    return out
+
+
+def _resize(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
+    from PIL import Image
+
+    def one(ch):
+        return np.asarray(
+            Image.fromarray(ch).resize((size[1], size[0]), Image.BILINEAR)
+        )
+
+    return _per_channel(one, img)
+
+
+def load_images(
+    path,
+    contrast_normalize: str = "none",
+    zero_mean: bool = False,
+    color: str = "gray",
+    square: bool = False,
+    limit: Optional[int] = None,
+    size: Optional[Sequence[int]] = None,
+    frames: Optional[Sequence] = None,
+    mat_layout: Optional[str] = None,
+) -> np.ndarray:
+    """CreateImages.m: a folder, .mat stack, single image or in-memory
+    array (``load_image_list``) -> [n, H, W] float32 (gray) or
+    [n, H, W, 3] (the color modes). Per image, in the JAX loader's
+    order: color conversion, ``contrast_normalize`` ('none' or
+    'local_cn'), ``zero_mean``; then ``size`` resizes and ``square``
+    center-crops to the smaller side. The JAX loader's ``layout`` and
+    ``return_info`` come with the whitening modes (ROADMAP.md Queue 1
+    item 8)."""
+    imgs = load_image_list(
+        path, contrast_normalize, zero_mean, color, limit, frames,
+        mat_layout=mat_layout,
+    )
     if size is not None:
         imgs = [_resize(i, size) for i in imgs]
     if square:
@@ -184,6 +423,7 @@ def load_images(
     shapes = {i.shape for i in imgs}
     if len(shapes) > 1:
         raise ValueError(
-            f"images differ in size {shapes}; pass size= to resize them"
+            f"images differ in size {shapes}; use load_image_list or "
+            "pass size= to resize them"
         )
     return np.stack(imgs).astype(np.float32)

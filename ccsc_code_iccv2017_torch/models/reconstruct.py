@@ -4,10 +4,10 @@ the torch port of ``ccsc_code_iccv2017_tpu.models.reconstruct``.
 One solver covers the reference's reconstruction apps as configuration:
 inpainting (gaussian data term + mask), Poisson deconvolution (poisson
 data term + appended dirac with gradient regularization), and blurred
-problems (blur OTF composed into the solve operator). This slice runs
-the W == 1 problems (every 2D geometry) on one device; the W > 1
-Woodbury solve, meshes, telemetry and tuning come with later slices
-(ROADMAP.md Queue 1).
+problems (blur OTF composed into the solve operator), on any geometry:
+2D and 3D spatial supports, and reduce axes (hyperspectral bands,
+lightfield views: W > 1, the Woodbury z-solve), on one device. Meshes,
+telemetry and tuning come with later slices (ROADMAP.md Queue 1).
 
 The ADMM skeleton is the reference's 2-function consensus form: v1 = Dz
 (data side), v2 = z (sparsity side), scaled duals, and one exact

@@ -7,8 +7,12 @@ linear system per frequency:
 - z-subproblem: (Gamma + A_f^H A_f) x_f = rhs_f, A_f the W x K matrix of
   filter spectra. For W == 1 (every 2D problem) the system is rank-1
   and the Sherman-Morrison closed form is exact; the port carries it in
-  the hand-written kernel K1 (ops.kernels). The W > 1 Woodbury path
-  waits for ROADMAP.md Queue 1 item 7.
+  the hand-written kernel K1 (ops.kernels). For W > 1 (hyperspectral
+  bands, lightfield views) the Woodbury identity reduces it to a W x W
+  Hermitian system per frequency, whose inverse is precomputed once;
+  the JAX package runs that solve as XLA einsums outside any Pallas
+  kernel, and the port runs it as torch einsums (cuBLAS) and a batched
+  complex Cholesky (cuSOLVER).
 - d-subproblem: (rho I_K + Z_f^H Z_f) x_f = rhs_f, Z_f the Ni x K matrix
   of code spectra, inverted by the Woodbury identity through an
   Ni x Ni Hermitian system (precompute_d_kernel / solve_d).
@@ -49,10 +53,10 @@ class ZSolveKernel(NamedTuple):
 
     dhat:      [K, W, F] filter spectra (complex64).
     dinv:      [K, F] float32 — 1/diag(Gamma), Gamma_k(f) = rho + extra_k(f).
-    minv:      [F, W, W] complex — None when W == 1 (always, in this
-               slice).
+    minv:      [F, W, W] complex64 — (I_W + A Gamma^{-1} A^H)^{-1}, the
+               Woodbury inner inverse; None when W == 1.
     minv_diag: [F] float32 — the W == 1 scalar
-               1/(1 + sum_k |d_k|^2/Gamma_k).
+               1/(1 + sum_k |d_k|^2/Gamma_k); None when W > 1.
     """
 
     dhat: torch.Tensor
@@ -69,22 +73,23 @@ def precompute_z_kernel(
 ) -> ZSolveKernel:
     """The per-frequency inverse factors of the z-solve. dhat: [K, W, F];
     extra_diag: optional [K, F] real, added to rho on the diagonal (the
-    dirac channel's gradient regularization). ``herm_inv`` only selects
-    the W > 1 Gram inverse and is not read for W == 1."""
+    dirac channel's gradient regularization). ``herm_inv`` selects the
+    W > 1 Gram inverse (``hermitian_inverse``) and is not read for
+    W == 1."""
     K, W, F = dhat.shape
-    if W != 1:
-        raise NotImplementedError(
-            f"W={W}: the W > 1 Woodbury z-solve is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)"
-        )
     gamma = torch.full((K, F), float(rho), dtype=torch.float32,
                        device=dhat.device)
     if extra_diag is not None:
         gamma = gamma + extra_diag.to(torch.float32)
     dinv = 1.0 / gamma
-    # scalar inner system: 1 + sum_k |d_k|^2 / Gamma_k
-    m = 1.0 + torch.sum(torch.abs(dhat[:, 0, :]) ** 2 * dinv, dim=0)
-    return ZSolveKernel(dhat, dinv, None, 1.0 / m)
+    if W == 1:
+        # scalar inner system: 1 + sum_k |d_k|^2 / Gamma_k
+        m = 1.0 + torch.sum(torch.abs(dhat[:, 0, :]) ** 2 * dinv, dim=0)
+        return ZSolveKernel(dhat, dinv, None, 1.0 / m)
+    # M_f = I_W + A Gamma^{-1} A^H, A = dhat[:, :, f].T (W x K)
+    M = torch.einsum("kvf,kwf->fvw", dhat * dinv[:, None, :], dhat.conj())
+    M = M + torch.eye(W, dtype=M.dtype, device=M.device)
+    return ZSolveKernel(dhat, dinv, hermitian_inverse(M, herm_inv), None)
 
 
 def solve_z(
@@ -99,16 +104,14 @@ def solve_z(
     xi1_hat: [N, W, F] data-side target spectra; xi2_hat: [N, K, F]
     sparsity-side target spectra -> [N, K, F] code spectra.
 
-    Runs K1 (ops.kernels.solve_z_rank1): on a CUDA tensor the
-    hand-written kernel, on a CPU tensor its plain version.
-    ``use_pallas`` is accepted for signature parity with the JAX
-    package and not read.
+    W == 1 runs K1 (ops.kernels.solve_z_rank1): on a CUDA tensor the
+    hand-written kernel, on a CPU tensor its plain version. W > 1 runs
+    the Woodbury body through the precomputed W x W inverse, as torch
+    einsums on either device (no TPU kernel covers it). ``use_pallas``
+    is accepted for signature parity with the JAX package and not read.
     """
     if kernel.minv is not None:
-        raise NotImplementedError(
-            "the W > 1 Woodbury z-solve is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)"
-        )
+        return solve_z_reference(kernel, xi1_hat, xi2_hat, rho)
     return kernels.solve_z_rank1(
         kernel.dhat[:, 0, :],
         xi1_hat[:, 0, :],
@@ -124,14 +127,20 @@ def solve_z_reference(
     xi2_hat: torch.Tensor,
     rho: float,
 ) -> torch.Tensor:
-    """The JAX package's einsum body of solve_z (freq_solvers.py:491-501),
-    W == 1: Sherman-Morrison through the precomputed ``minv_diag``."""
+    """The JAX package's einsum body of solve_z (freq_solvers.py:491-501)
+    for any W, never launching K1: g = Gamma^{-1}(A^H xi1 + rho xi2),
+    t = A g, s = Minv t, z = g - Gamma^{-1} A^H s, Minv the W x W
+    inverse ``minv`` or, for W == 1, the scalar ``minv_diag``."""
     dhat, dinv = kernel.dhat, kernel.dinv
-    rhs = torch.einsum("kwf,nwf->nkf", dhat.conj(), xi1_hat) + rho * xi2_hat
+    dconj = dhat.conj()
+    rhs = torch.einsum("kwf,nwf->nkf", dconj, xi1_hat) + rho * xi2_hat
     g = dinv[None] * rhs  # Gamma^{-1} rhs, [N, K, F]
-    t = torch.einsum("kwf,nkf->nwf", dhat, g)  # A Ginv rhs
-    s = kernel.minv_diag[None, None, :] * t
-    return g - dinv[None] * torch.einsum("kwf,nwf->nkf", dhat.conj(), s)
+    t = torch.einsum("kwf,nkf->nwf", dhat, g)  # A Ginv rhs, [N, W, F]
+    if kernel.minv is None:
+        s = kernel.minv_diag[None, None, :] * t
+    else:
+        s = torch.einsum("fvw,nwf->nvf", kernel.minv, t)
+    return g - dinv[None] * torch.einsum("kwf,nwf->nkf", dconj, s)
 
 
 class DSolveKernel(NamedTuple):

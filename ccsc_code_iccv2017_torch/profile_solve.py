@@ -1,15 +1,22 @@
-"""Where one served request's, or one engine dispatch's, time goes on the
-card.
+"""Where one served request's, one engine dispatch's, or one demosaicing
+solve's time goes on the card.
 
     python -m ccsc_code_iccv2017_torch.profile_solve [--size 256]
         [--max-it 100] [--tol 1e-3] [--slots 0] [--requests SLOTS]
+        [--app inpaint|demosaic]
 
 Profiles, with ``torch.profiler``, inpainting requests against the
 repo's k=100 11x11 bank (Gaussian-smoothed noise images from
 ``--seed``, 50% masks, smooth-fill warm start, lambda_residual=5,
-lambda_prior=2, as the serving phases run them):
+lambda_prior=2, as the serving phases run them), or with ``--app
+demosaic`` one hyperspectral demosaicing solve as
+``apps/demosaic_hyperspectral.py`` runs it (the k=100 11x11x31 bank, a
+31-band synthetic cube of ``--size`` squared, the mosaic mask and its
+smooth fill, lambda_residual=1e5, lambda_prior=1, unpadded, the W > 1
+Woodbury z-solve):
 
-- ``--slots 0``: one direct ``reconstruct(plan=...)`` call;
+- ``--slots 0``: one direct ``reconstruct(plan=...)`` call (the only
+  mode of ``--app demosaic``);
 - ``--slots S``: one dispatch of a ``serve.CodecEngine`` with one S-slot
   bucket at ``--size``, holding ``--requests`` requests (S by default;
   fewer leave filler slots, whose early stop makes every later
@@ -22,7 +29,9 @@ Each runs once unprofiled first (kernels, cuFFT plans, the allocator).
 Prints the device kernels ranked by their summed time and, as its last
 line, one JSON object with the wall time, the device-busy share (summed
 kernel time over wall time; for the engine also over the dispatch's own
-wall) and the top kernels.
+wall), the top kernels and the device time by kind of kernel: cuFFT,
+cuBLAS/cuSOLVER products and factorizations, K1, and the rest
+(elementwise passes, reductions, copies).
 """
 from __future__ import annotations
 
@@ -41,10 +50,25 @@ from .serve.engine import CodecEngine
 from .utils.device import resolve_device
 from .utils.io_mat import load_filters_2d
 
-BANK = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "artifacts_2d", "learned_bank.mat",
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BANK = os.path.join(REPO, "artifacts_2d", "learned_bank.mat")
+BANK_HS = os.path.join(REPO, "artifacts_family_cpu", "bank_hs.mat")
+
+# kernel-name fragments of each kind, first match wins
+KINDS = (
+    ("K1", ("k1_registers", "k1_loop")),
+    ("cufft", ("fft", "FFT")),
+    ("cublas_cusolver", ("gemm", "gemv", "Gemm", "Gemv", "potrf", "potri",
+                         "trsm", "trmm", "syrk", "herk", "cholesky",
+                         "magma", "cusolver", "cublas")),
 )
+
+
+def kernel_kind(name: str) -> str:
+    for kind, frags in KINDS:
+        if any(f in name for f in frags):
+            return kind
+    return "other"
 
 
 def _requests(size, seed, n):
@@ -71,6 +95,32 @@ def _direct(d, prob, cfg, size, seed, dev):
     def run():
         res = reconstruct(x * mask, d, prob, cfg, mask=mask, smooth_init=sm,
                           x_orig=x, plan=plan, device=dev)
+        return int(res.trace.num_iters), None
+
+    return run, lambda: None
+
+
+def _demosaic(size, seed, max_it, tol, dev):
+    """One demosaicing solve as the app runs it: (run, close)."""
+    from .apps.demosaic_hyperspectral import mosaic_mask, nn_fill_smooth_init
+    from .data.volumes import synthetic_hyperspectral
+    from .utils.io_mat import load_filters_hyperspectral
+
+    d = load_filters_hyperspectral(BANK_HS)
+    k, bands = d.shape[0], d.shape[1]
+    cube = synthetic_hyperspectral(n=1, bands=bands, side=size, seed=seed)[0]
+    mask = mosaic_mask(bands, size, size)
+    sm = nn_fill_smooth_init(cube * mask, mask)
+    prob = ReconstructionProblem(ProblemGeom(d.shape[2:], k, (bands,)),
+                                 pad=False)
+    cfg = SolveConfig(lambda_residual=1e5, lambda_prior=1.0, max_it=max_it,
+                      tol=tol)
+    plan = build_plan(d, prob, cfg, (size, size), device=dev)
+
+    def run():
+        res = reconstruct((cube * mask)[None], d, prob, cfg,
+                          mask=mask[None], smooth_init=sm[None],
+                          x_orig=cube[None], plan=plan, device=dev)
         return int(res.trace.num_iters), None
 
     return run, lambda: None
@@ -112,19 +162,27 @@ def main(argv=None) -> dict:
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--slots", type=int, default=0)
     p.add_argument("--requests", type=int, default=None)
+    p.add_argument("--app", default="inpaint", choices=["inpaint",
+                                                          "demosaic"])
     args = p.parse_args(argv)
+    if args.app != "inpaint" and args.slots:
+        p.error("--slots profiles the inpainting engine only")
     dev = resolve_device("cuda")
 
-    d = load_filters_2d(BANK)
-    prob = ReconstructionProblem(ProblemGeom(d.shape[1:], d.shape[0]))
-    cfg = SolveConfig(lambda_residual=5.0, lambda_prior=2.0,
-                      max_it=args.max_it, tol=args.tol)
     n = args.requests or max(args.slots, 1)
-    if args.slots:
-        run, close = _engine(d, prob, cfg, args.size, args.seed, dev,
-                             args.slots, n)
+    if args.app == "demosaic":
+        run, close = _demosaic(args.size, args.seed, args.max_it, args.tol,
+                               dev)
     else:
-        run, close = _direct(d, prob, cfg, args.size, args.seed, dev)
+        d = load_filters_2d(BANK)
+        prob = ReconstructionProblem(ProblemGeom(d.shape[1:], d.shape[0]))
+        cfg = SolveConfig(lambda_residual=5.0, lambda_prior=2.0,
+                          max_it=args.max_it, tol=args.tol)
+        if args.slots:
+            run, close = _engine(d, prob, cfg, args.size, args.seed, dev,
+                                 args.slots, n)
+        else:
+            run, close = _direct(d, prob, cfg, args.size, args.seed, dev)
     try:
         run()  # unprofiled: kernels, cuFFT plans, the allocator
         torch.cuda.synchronize(dev)
@@ -148,8 +206,11 @@ def main(argv=None) -> dict:
     busy_us = sum(r[1] for r in rows)
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
+    kinds = {}
+    for key, us, _ in rows:
+        kinds[kernel_kind(key)] = kinds.get(kernel_kind(key), 0.0) + us
     what = (f"engine dispatch of {n} requests in {args.slots} slots"
-            if args.slots else "direct request")
+            if args.slots else f"direct {args.app} request")
     print(f"{what}: {it} iterations, wall {wall_us / 1e3:.2f} ms, device "
           f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%)"
           + (f"; dispatch wall {1e3 * dispatch_s:.2f} ms "
@@ -158,8 +219,12 @@ def main(argv=None) -> dict:
     for key, us, count in rows[: args.top]:
         print(f"{us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}% "
               f"x{count:<5d} {key[:90]}")
+    print("by kind: " + ", ".join(
+        f"{kind} {us / 1e3:.3f} ms ({100 * us / busy_us:.1f}%)"
+        for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1])))
     out = {
-        "device": torch.cuda.get_device_name(dev), "size": args.size,
+        "device": torch.cuda.get_device_name(dev), "app": args.app,
+        "size": args.size,
         "slots": args.slots, "requests": n,
         "iters": it, "wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
         "busy_share": busy_us / wall_us,
@@ -168,6 +233,7 @@ def main(argv=None) -> dict:
                                 if dispatch_s else None),
         "top": [{"kernel": k[:120], "ms": us / 1e3, "count": c}
                 for k, us, c in rows[: args.top]],
+        "by_kind_ms": {kind: us / 1e3 for kind, us in kinds.items()},
     }
     print(json.dumps(out))
     return out

@@ -1,5 +1,6 @@
 """Interop with the reference's .mat filter banks (jax-free copy of the
-loaders in ``ccsc_code_iccv2017_tpu.utils.io_mat`` the 2D slice needs).
+loaders in ``ccsc_code_iccv2017_tpu.utils.io_mat``: the 2D, hyperspectral,
+3D and lightfield banks, and ``infer_layout``).
 
 MATLAB lays filters out spatial-first, filter-index last; the canonical
 layout is [k, *reduce, *spatial] (config.ProblemGeom).
@@ -63,6 +64,44 @@ def load_filters_2d(path: str) -> np.ndarray:
     """[s, s, k] -> [k, s, s] float32."""
     d = _mat_var(path, "d")
     return np.ascontiguousarray(np.transpose(d, (2, 0, 1))).astype(np.float32)
+
+
+def load_filters_hyperspectral(path: str) -> np.ndarray:
+    """[s, s, w, k] -> [k, w, s, s] float32."""
+    d = _mat_var(path, "d")
+    return np.ascontiguousarray(np.transpose(d, (3, 2, 0, 1))).astype(
+        np.float32
+    )
+
+
+def load_filters_3d(path: str) -> np.ndarray:
+    """[s, s, t, k] -> [k, s, s, t] float32 (all three dims spatial)."""
+    d = _mat_var(path, "d")
+    return np.ascontiguousarray(np.transpose(d, (3, 0, 1, 2))).astype(
+        np.float32
+    )
+
+
+def load_filters_lightfield(path: str) -> np.ndarray:
+    """[s, s, a1, a2, k] -> [k, a1, a2, s, s] float32."""
+    d = _mat_var(path, "d")
+    return np.ascontiguousarray(np.transpose(d, (4, 2, 3, 0, 1))).astype(
+        np.float32
+    )
+
+
+def infer_layout(d) -> str:
+    """Best-effort family inference from filter shape. 4-D is ambiguous
+    (hyperspectral [k,w,s,s] vs video [k,x,y,t]); prefer hyperspectral
+    when the reduce dim differs from the trailing square support."""
+    if d.ndim == 3:
+        return "2d"
+    if d.ndim == 5:
+        return "lightfield"
+    if d.ndim == 4:
+        k, a, b, c = d.shape
+        return "3d" if a == b == c else "hyperspectral"
+    raise ValueError(f"cannot infer filter family from shape {d.shape}")
 
 
 def _host(x) -> np.ndarray:

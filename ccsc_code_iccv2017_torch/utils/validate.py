@@ -83,7 +83,8 @@ def _check_geometry(name: str, shape, geom, what: str) -> None:
     if tuple(reduce_got) != tuple(geom.reduce_shape):
         raise CCSCInputError(
             f"{name} reduce axes {tuple(reduce_got)} do not match the "
-            f"problem's reduce_shape {tuple(geom.reduce_shape)}"
+            f"problem's reduce_shape {tuple(geom.reduce_shape)} "
+            "(wavelengths/views axes right after the batch axis)"
         )
     spatial = shape[1 + geom.ndim_reduce :]
     if any(s < k for s, k in zip(spatial, geom.spatial_support)):
@@ -103,7 +104,7 @@ def check_filters(d, geom=None, *, name: str = "filters") -> None:
         raise CCSCInputError(
             f"{name} has shape {shape} — expected "
             "[k, *reduce, *support] with at least 2 spatial axes "
-            "(load through utils.io_mat.load_filters_2d)"
+            "(load through utils.io_mat.load_filters_*)"
         )
     if geom is not None and tuple(shape) != tuple(geom.filter_shape):
         raise CCSCInputError(

@@ -233,6 +233,14 @@ def test_port_imports_without_jax_at_runtime():
         "from ccsc_code_iccv2017_torch.ops import fused_z\n"
         "import ccsc_code_iccv2017_torch.serve\n"
         "from ccsc_code_iccv2017_torch.serve import bench, engine\n"
+        "from ccsc_code_iccv2017_torch.apps import (\n"
+        "    deblur_video, demosaic_hyperspectral, poisson_2d,\n"
+        "    view_synthesis)\n"
+        "from ccsc_code_iccv2017_torch.data import volumes\n"
+        "poisson_2d.build_parser().parse_args(['--data', 'x', '--filters', 'y'])\n"
+        "for app in (deblur_video, demosaic_hyperspectral, view_synthesis):\n"
+        "    app.build_parser().parse_args(['--synthetic', '--filters', 'y'])\n"
+        "volumes.synthetic_video(n=1, side=8, frames=4)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccsc_code_iccv2017_tpu')]\n"
         "assert not bad, bad\n"

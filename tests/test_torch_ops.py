@@ -264,8 +264,11 @@ def test_images_and_smooth_fill_match_jax(tmp_path):
     mask = (r.uniform(size=b.shape) > 0.5).astype(np.float32)
     _close(timages.smooth_fill_batch(b, mask), jnative.smooth_fill_batch(b, mask), 1e-5)
     _close(timages.smooth_fill_batch(b[0], mask[0]), jnative.smooth_fill_batch(b[0], mask[0]), 1e-5)
-    with pytest.raises(NotImplementedError):
-        timages.load_images(str(tmp_path / "0.png"))
+    # a single file loads as a one-image stack, as in the JAX loader
+    np.testing.assert_array_equal(
+        timages.load_images(str(tmp_path / "0.png")),
+        jimages.load_images(str(tmp_path / "0.png")),
+    )
 
 
 def test_smooth_noise_images_are_seeded_unit_range():

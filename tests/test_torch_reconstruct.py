@@ -385,3 +385,113 @@ def test_inpaint_app_matches_jax_app(tmp_path, capsys):
     assert "2 images, 4 iterations" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="item 9"):
         tapp.main(argv + ["--device", "cpu", "--tune", "auto"])
+
+
+def _reduce_case(reduce_shape, support, k, spatial, seed):
+    """Random data with a mosaic-like mask (each pixel observes one
+    reduce entry) and a smooth offset, on a non-square support."""
+    r = np.random.default_rng(seed)
+    W = int(np.prod(reduce_shape))
+    b = r.uniform(0.1, 1.0, (1, *reduce_shape, *spatial)).astype(np.float32)
+    d = r.normal(size=(k, *reduce_shape, *support)).astype(np.float32)
+    d /= np.sqrt((d**2).reshape(k, -1).sum(1)).reshape(k, *(1,) * (d.ndim - 1))
+    pick = r.integers(0, W, spatial)
+    mask = (np.arange(W).reshape(*reduce_shape, 1, 1) == pick).astype(
+        np.float32)[None]
+    sm = np.full_like(b, float(b.mean()))
+    return b, d, mask, sm
+
+
+@pytest.mark.parametrize(
+    "reduce_shape, support, k, spatial",
+    [
+        ((2,), (3, 4), 3, (10, 9)),  # demosaic: bands
+        ((2, 3), (3, 4), 4, (9, 11)),  # view synthesis: 2x3 views
+    ],
+    ids=["demosaic", "view_synthesis"],
+)
+def test_reduce_unpadded_smooth_init_matches_jax(reduce_shape, support, k,
+                                                 spatial):
+    """W > 1 (the Woodbury z-solve) with pad=False and a smooth offset:
+    the demosaic / view-synthesis configuration
+    (tests/test_oracle_reconstruct.py::test_demosaic_reduce_unpadded_matches_oracle)."""
+    b, d, mask, sm = _reduce_case(reduce_shape, support, k, spatial, 40)
+    prob = tr.ReconstructionProblem(
+        ProblemGeom(support, k, reduce_shape), pad=False)
+    cfg = dict(lambda_residual=100.0, lambda_prior=1.0, max_it=4, tol=0.0,
+               verbose="none", track_objective=True, track_psnr=True)
+    jres, tres = _both(b * mask, d, prob, cfg, mask=mask, smooth_init=sm,
+                       x_orig=b)
+    _assert_parity(jres, tres, b)
+    assert tres.recon.shape == (1, *reduce_shape, *spatial)
+    assert tuple(tres.z.shape) == (1, k, *spatial)  # unpadded codes
+
+
+def test_3d_deblur_prepended_dirac_matches_jax():
+    """3D spatial support, a prepended dirac and a blur PSF composed into
+    the solve (tests/test_matlab_anchor_deblur.py's configuration), on a
+    non-cubic clip."""
+    r = np.random.default_rng(41)
+    x = r.uniform(0.1, 1.0, (1, 7, 6, 5)).astype(np.float32)
+    mask = (r.uniform(size=x.shape) > 0.3).astype(np.float32)
+    d = r.normal(size=(2, 3, 3, 3)).astype(np.float32)
+    d /= np.sqrt((d**2).sum(axis=(1, 2, 3), keepdims=True))
+    psf = r.uniform(0.1, 1.0, (3, 3, 3)).astype(np.float32)
+    psf /= psf.sum()
+    sm = r.uniform(0.2, 0.4, x.shape).astype(np.float32)
+    prob = tr.ReconstructionProblem(ProblemGeom((3, 3, 3), 2),
+                                    dirac="prepend")
+    cfg = dict(lambda_residual=100.0, lambda_prior=0.5, max_it=4, tol=0.0,
+               gamma_factor=500.0, gamma_ratio=1.0, verbose="none",
+               track_objective=True, track_psnr=True)
+    jres, tres = _both(x * mask, d, prob, cfg, mask=mask, smooth_init=sm,
+                       blur_psf=psf, x_orig=x)
+    _assert_parity(jres, tres, x)
+    assert tuple(tres.z.shape) == (1, 3, 9, 8, 7)  # dirac first, padded
+    dd = tr._add_dirac(torch.from_numpy(d), prob.geom, "prepend")
+    jd = np.asarray(jr._add_dirac(jnp.asarray(d), _jax_problem(prob).geom,
+                                  "prepend"))
+    np.testing.assert_array_equal(dd.numpy(), jd)
+
+
+def test_w_gt_1_plan_from_jax_solves_like_the_port_plan():
+    """A JAX W > 1 plan carries its Woodbury inverse across
+    (``kern.minv``) and solves like the port's own plan."""
+    b, d, mask, sm = _reduce_case((3,), (3, 4), 4, (9, 10), 42)
+    prob = tr.ReconstructionProblem(ProblemGeom((3, 4), 4, (3,)), pad=False)
+    cfg = SolveConfig(lambda_residual=100.0, max_it=4, tol=0.0,
+                      verbose="none", track_objective=True)
+    jplan = jr.build_plan(jnp.asarray(d), _jax_problem(prob),
+                          JCfg(**dataclasses.asdict(cfg)), b.shape[2:])
+    assert jplan.kern.minv is not None and jplan.kern.minv_diag is None
+    arrays = {
+        "dhat_clean": np.asarray(jplan.dhat_clean),
+        "dhat_solve": np.asarray(jplan.dhat_solve),
+        "kern.dhat": np.asarray(jplan.kern.dhat),
+        "kern.dinv": np.asarray(jplan.kern.dinv),
+        "kern.minv": np.asarray(jplan.kern.minv),
+        "kern.minv_diag": None,
+    }
+    meta = {
+        "prob": dataclasses.asdict(jplan.prob), "fg": jplan.fg._asdict(),
+        "rho": jplan.rho, "has_blur": jplan.has_blur,
+        "d_digest": jplan.d_digest, "lambda_smooth": jplan.lambda_smooth,
+        "herm_inv": jplan.herm_inv,
+    }
+    carried = convert.plan_from_jax(arrays, meta, device="cpu")
+    own = tr.build_plan(d, prob, cfg, b.shape[2:], device="cpu")
+    assert carried.prob == own.prob and carried.fg == own.fg
+    assert tuple(carried.kern.minv.shape) == (own.fg.num_freq, 3, 3)
+    kw = dict(mask=mask, smooth_init=sm, device="cpu")
+    a = tr.reconstruct(b * mask, d, prob, cfg, plan=carried, **kw)
+    c = tr.reconstruct(b * mask, d, prob, cfg, plan=own, **kw)
+    assert float((a.recon - c.recon).abs().max()) <= 1e-6 * float(b.max())
+    np.testing.assert_allclose(_np(a.trace.obj_vals), _np(c.trace.obj_vals),
+                               rtol=1e-6)
+    # exactly one inner factor, of the plan's own shape
+    with pytest.raises(KeyError):
+        convert.plan_from_jax(dict(arrays, **{"kern.minv_diag": np.ones(3)}),
+                              meta, device="cpu")
+    bad = dict(arrays, **{"kern.minv": arrays["kern.minv"][:, :2, :2]})
+    with pytest.raises(ValueError, match="do not form a plan"):
+        convert.plan_from_jax(bad, meta, device="cpu")
