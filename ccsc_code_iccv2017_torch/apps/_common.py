@@ -1,13 +1,14 @@
-"""The flags the reconstruction apps share (the port's counterpart of the
-JAX package's ``apps/_dispatch.py`` argument helpers), and what an app's
-``run`` returns.
+"""The flags the reconstruction and learner apps share (the port's
+counterpart of the JAX package's ``apps/_dispatch.py`` argument helpers),
+and what a reconstruction app's ``run`` returns.
 
 Every flag of the JAX CLIs parses here with the same name, choices and
 default; a non-default value of a feature the port has not ported yet
 is refused where the config reads it (``config.SolveConfig`` for
 ``--fft-impl``, ``--tune`` and ``--metrics-dir``) or by
-:func:`refuse_unported` (``--tune-store``), naming the ROADMAP.md item
-that ports it.
+:func:`refuse_unported` (``--tune-store``), or for the learners by
+:func:`refuse_unported_learner`, naming the ROADMAP.md item that ports
+it.
 """
 from __future__ import annotations
 
@@ -67,6 +68,120 @@ def refuse_unported(args: argparse.Namespace) -> None:
             "--tune-store: knob autotuning is not ported yet "
             "(ROADMAP.md Queue 1 item 9)"
         )
+
+
+def add_learner_args(
+    parser: argparse.ArgumentParser,
+    masked_carry: bool = False,
+    d_storage: bool = True,
+) -> None:
+    """The flags the learner CLIs share, as the JAX package's
+    ``add_perf_args(chunk=True, masked_carry=...)``,
+    ``add_resilience_args`` and ``add_obs_args`` define them, plus the
+    storage dtypes and ``--device``. Those whose mechanisms are not
+    ported parse here and are refused by :func:`refuse_unported_learner`."""
+    add_perf_args(parser)
+    parser.add_argument(
+        "--outer-chunk", type=int, default=1,
+        help="outer iterations per chunk (chunked outer steps are not "
+        "ported yet)",
+    )
+    parser.add_argument(
+        "--donate-state", action="store_true",
+        help="donate the state to the chunked step (not ported yet)",
+    )
+    parser.add_argument(
+        "--stream-mode", default=None,
+        choices=["auto", "device", "kern", "paged"],
+        help="state placement tier for --streaming (not ported yet)",
+    )
+    if masked_carry:
+        parser.add_argument(
+            "--carry-freq", action="store_true",
+            help="carry the frequency-domain iterate across the masked "
+            "learner's inner iterations instead of re-transforming it "
+            "(LearnConfig.carry_freq; masked learner only)",
+        )
+    parser.add_argument(
+        "--max-recoveries", type=int, default=0,
+        help="divergence recoveries per run: on non-finite metrics keep "
+        "the last good state, back off rho by --rho-backoff and retry",
+    )
+    parser.add_argument(
+        "--rho-backoff", type=float, default=0.5,
+        help="multiplicative rho backoff per recovery",
+    )
+    parser.add_argument(
+        "--watchdog", action="store_true",
+        help="the dispatch-fence watchdog (not ported yet)",
+    )
+    parser.add_argument("--watchdog-slack", type=float, default=20.0)
+    parser.add_argument(
+        "--auto-degrade", action="store_true",
+        help="the out-of-memory downgrade ladder (not ported yet)",
+    )
+    parser.add_argument("--checkpoint-dir", default=None)
+    parser.add_argument("--checkpoint-every", type=int, default=5)
+    add_obs_args(parser)
+    parser.add_argument(
+        "--storage-dtype", default="float32",
+        choices=["float32", "bfloat16"],
+        help="storage dtype of the code state",
+    )
+    if d_storage:
+        parser.add_argument(
+            "--d-storage-dtype", default="float32",
+            choices=["float32", "bfloat16"],
+            help="storage dtype of the per-block dictionary state",
+        )
+    add_device_arg(parser)
+
+
+# learner flags of the JAX CLIs whose mechanisms are not ported yet:
+# (argparse dest, the value that asks for nothing, what it is, the
+# ROADMAP.md Queue 1 item that ports it)
+_LEARNER_NOT_PORTED = (
+    ("streaming", False, "--streaming (the host-streaming learner)", "8b"),
+    ("stream_mode", None, "--stream-mode (streaming placement)", "8b"),
+    ("streaming_blocks", 4, "--streaming-blocks (the streaming learner)",
+     "8b"),
+    ("mesh", 0, "--mesh (the sharded learner)", "8c"),
+    ("tune", "off", "--tune (knob autotuning)", "9"),
+    ("tune_store", None, "--tune-store (knob autotuning)", "9"),
+    ("fft_impl", "xla", "--fft-impl (the matmul-DFT tiers)", "9"),
+    ("outer_chunk", 1, "--outer-chunk (chunked outer steps)", "9"),
+    ("donate_state", False, "--donate-state (chunked outer steps)", "9"),
+    ("auto_degrade", False, "--auto-degrade (the OOM downgrade ladder)",
+     "10"),
+    ("metrics_dir", None, "--metrics-dir (run telemetry)", "10"),
+    ("watchdog", False, "--watchdog (the dispatch-fence watchdog)", "10"),
+    ("profile_dir", None, "--profile-dir (profiler traces)", "10"),
+)
+
+
+def refuse_unported_learner(args: argparse.Namespace) -> None:
+    """Exit naming the ROADMAP.md item of the first learner flag set
+    whose mechanism is not ported yet."""
+    for dest, idle, what, item in _LEARNER_NOT_PORTED:
+        if getattr(args, dest, idle) != idle:
+            raise SystemExit(
+                f"not ported yet: {what}: ROADMAP.md Queue 1 item {item}"
+            )
+
+
+def learner_config_kwargs(args: argparse.Namespace) -> dict:
+    """The LearnConfig fields the shared learner flags set."""
+    kw = dict(
+        verbose=args.verbose, fft_pad=args.fft_pad,
+        storage_dtype=args.storage_dtype,
+        max_recoveries=args.max_recoveries, rho_backoff=args.rho_backoff,
+        watchdog_slack=args.watchdog_slack,
+    )
+    if hasattr(args, "d_storage_dtype"):
+        kw["d_storage_dtype"] = args.d_storage_dtype
+    if hasattr(args, "carry_freq"):
+        kw["carry_freq"] = args.carry_freq
+    return kw
 
 
 class AppRun(NamedTuple):

@@ -1,13 +1,14 @@
 """2D dictionary learning driver (torch port of
-``ccsc_code_iccv2017_tpu.apps.learn_2d``, the single-device consensus
-path).
+``ccsc_code_iccv2017_tpu.apps.learn_2d``, its single-device consensus
+and masked paths).
 
 Reference protocol: CreateImages(path,'local_cn',1,'gray') -> consensus
 learner (kernel [11,11,100], lambda_res=lambda=1.0, max_it=20,
 tol=1e-3) -> save Filters_ours_2D_large.mat
 (learn_kernels_2D_large.m:8-45). Runs on ``--device`` (default cuda);
 ``--fused-z`` takes the z inner iteration through the hand-written
-kernels K2a/K2b.
+kernels K2a/K2b; ``--masked`` learns with the masked-boundary learner
+(models.learn_masked at reduce_shape=(), whose z-solve is K1).
 
     python -m ccsc_code_iccv2017_torch.apps.learn_2d --data DIR \\
         [--filters 100 --support 11 --blocks 8 --fused-z --out f.mat]
@@ -17,21 +18,9 @@ from __future__ import annotations
 import argparse
 import time
 
-# flags of the JAX CLI whose mechanisms are not ported yet, and the
-# ROADMAP.md item that ports each
-_NOT_PORTED = {
-    "mesh": "--mesh (the sharded learner): ROADMAP.md Queue 1 item 8",
-    "streaming": "--streaming (the host-streaming learner): ROADMAP.md "
-                 "Queue 1 item 8",
-    "masked": "--masked (the masked-boundary learner): ROADMAP.md Queue 1 "
-              "item 8",
-    "tune": "--tune (knob autotuning): ROADMAP.md Queue 1 item 9",
-    "profile_dir": "--profile-dir (profiler traces): ROADMAP.md Queue 1 "
-                   "item 10",
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
+    from ._common import add_learner_args, add_mat_layout_arg
+
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--data", required=True, help="image folder")
     p.add_argument("--filters", type=int, default=100)
@@ -47,58 +36,60 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rho-z", type=float, default=1.0)
     p.add_argument("--contrast", default="local_cn",
                    choices=["none", "local_cn"])
+    add_mat_layout_arg(p)
     p.add_argument("--size", type=int, default=None, help="resize side")
     p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--mesh", type=int, default=0, help="not ported yet")
     p.add_argument("--out", default="Filters_ours_2D_large.mat")
     p.add_argument(
         "--init-filters", default=None,
         help="warm-start dictionary .mat (e.g. a previous --out)",
     )
-    p.add_argument("--checkpoint-dir", default=None)
-    p.add_argument("--checkpoint-every", type=int, default=5)
+    p.add_argument("--profile-dir", default=None, help="not ported yet")
+    p.add_argument("--streaming", action="store_true", help="not ported yet")
+    p.add_argument(
+        "--masked", action="store_true",
+        help="use the masked-boundary learner (models.learn_masked at "
+        "reduce_shape=()): masked border residual, single dictionary, "
+        "objective-regression rollback. Unlocks --carry-freq; does not "
+        "combine with --streaming/--mesh/--fused-z/--profile-dir",
+    )
     p.add_argument(
         "--fused-z", action="store_true",
         help="run the z inner iteration as the hand-written kernels "
         "K2a/K2b (2D, W == 1)",
     )
-    p.add_argument(
-        "--storage-dtype", default="float32",
-        choices=["float32", "bfloat16"],
-        help="storage dtype of the code state",
-    )
-    p.add_argument(
-        "--d-storage-dtype", default="float32",
-        choices=["float32", "bfloat16"],
-        help="storage dtype of the per-block dictionary state",
-    )
-    p.add_argument("--max-recoveries", type=int, default=0)
-    p.add_argument("--rho-backoff", type=float, default=0.5)
+    add_learner_args(p, masked_carry=True)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--verbose", default="brief", choices=["none", "brief"])
-    p.add_argument(
-        "--device", default="cuda",
-        help="torch device to learn on (default cuda; 'cpu' for tests)",
-    )
-    # accepted so a JAX command line fails with the reason, not a usage
-    # error
-    p.add_argument("--mesh", type=int, default=0, help="not ported yet")
-    p.add_argument("--streaming", action="store_true", help="not ported yet")
-    p.add_argument("--masked", action="store_true", help="not ported yet")
-    p.add_argument("--tune", default="off", help="not ported yet")
-    p.add_argument("--profile-dir", default=None, help="not ported yet")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, why in _NOT_PORTED.items():
-        val = getattr(args, flag)
-        if val and val != "off":
-            raise SystemExit(f"not ported yet: {why}")
+    if args.carry_freq and not args.masked:
+        # carry_freq is the masked learner's lever
+        raise SystemExit("--carry-freq requires --masked")
+    if args.masked:
+        for flag, val in (
+            ("--streaming", args.streaming),
+            ("--mesh", args.mesh),
+            ("--fused-z", args.fused_z),
+            ("--profile-dir", args.profile_dir),
+        ):
+            if val:
+                raise SystemExit(
+                    f"--masked does not combine with {flag} "
+                    "(consensus-learner mechanisms)"
+                )
+    from ._common import learner_config_kwargs, refuse_unported_learner
+
+    refuse_unported_learner(args)
     import torch
 
     from ..config import LearnConfig, ProblemGeom
     from ..data.images import load_images
+    from ..models.learn_masked import learn_masked
     from ..parallel.consensus import learn
     from ..utils import validate
     from ..utils.device import resolve_device
@@ -113,12 +104,17 @@ def main(argv=None):
         square=args.size is None,
         size=size,
         limit=args.limit,
+        mat_layout=args.mat_layout,
     )
     print(f"loaded {b.shape[0]} images {b.shape[1:]} in "
           f"{time.time() - t0:.1f}s")
     geom = ProblemGeom((args.support, args.support), args.filters)
-    # fail on garbage inputs HERE, with the file/flag named
-    validate.check_learn_data(b, geom, num_blocks=args.blocks)
+    # fail on garbage inputs HERE, with the file/flag named; the masked
+    # learner never consensus-splits the batch, so --blocks does not
+    # constrain it
+    validate.check_learn_data(
+        b, geom, num_blocks=None if args.masked else args.blocks
+    )
     cfg = LearnConfig(
         lambda_residual=args.lambda_residual,
         lambda_prior=args.lambda_prior,
@@ -129,16 +125,13 @@ def main(argv=None):
         rho_d=args.rho_d,
         rho_z=args.rho_z,
         num_blocks=args.blocks,
-        verbose=args.verbose,
         fused_z=args.fused_z,
-        storage_dtype=args.storage_dtype,
-        d_storage_dtype=args.d_storage_dtype,
-        max_recoveries=args.max_recoveries,
-        rho_backoff=args.rho_backoff,
+        **learner_config_kwargs(args),
     )
     dev = resolve_device(args.device)
     init_d = load_filters_2d(args.init_filters) if args.init_filters else None
-    res = learn(
+    solver = learn_masked if args.masked else learn
+    res = solver(
         b, geom, cfg,
         generator=torch.Generator(device=dev).manual_seed(args.seed),
         checkpoint_dir=args.checkpoint_dir,

@@ -4,9 +4,9 @@ A jax-free copy of ``ccsc_code_iccv2017_tpu.config``'s ``ProblemGeom``,
 ``GEOM_2D``, ``LearnConfig``, ``SolveConfig`` and ``ServeConfig``: every
 field, name and default is identical (tests/test_torch_config.py holds
 the two side by side), so a configuration reads the same in both
-packages. The port implements the single-device 2D reconstruction
-solve, the single-device consensus learner and the single-device
-serving engine; the fields it does not implement yet
+packages. The port implements the single-device reconstruction
+solves, the single-device consensus and masked learners and the
+single-device serving engine; the fields it does not implement yet
 refuse a non-default value with ``NotImplementedError`` naming the
 ROADMAP.md item that ports them, instead of being silently ignored.
 """
@@ -87,10 +87,15 @@ class LearnConfig:
 
     - ``fused_z``: on a CUDA tensor the z inner iteration runs the two
       hand-written kernels K2a/K2b (ops.fused_z); on a CPU tensor their
-      plain version. Only the 2D, W == 1 learner takes it; elsewhere
-      the port raises instead of quietly taking the composition path.
-    - ``fused_z_precision``: only ``"highest"`` (full f32 on the CUDA
-      cores) is ported.
+      plain version. Only the 2D, W == 1 learner takes it; every other
+      geometry takes the composition path, as in JAX.
+    - ``fused_z_precision``: all three tiers run K2's float32 body (full
+      f32 on the CUDA cores), which meets the bounds JAX sets for
+      ``"high"`` and ``"default"`` a fortiori. K2 is not bound by its
+      operations on the card, so a cheaper tier would buy nothing.
+    - ``carry_freq``: the masked learner (models.learn_masked) carries
+      the spectrum across its inner iterations; the consensus learner
+      does not read it, as in JAX.
     - ``use_pallas`` is kept for name parity and is not read: on a CUDA
       tensor the composition path's z-solve always runs K1.
     - ``storage_dtype`` / ``d_storage_dtype``: ``float32`` or
@@ -178,12 +183,6 @@ class LearnConfig:
             raise _not_ported(
                 f"fft_impl={self.fft_impl!r} (the matmul-DFT tiers)", item9
             )
-        if self.fused_z_precision != "highest":
-            raise _not_ported(
-                f"fused_z_precision={self.fused_z_precision!r} (K2's "
-                "tensor-core DFT tiers)",
-                "ROADMAP.md Queue 2, the K2 perf item",
-            )
         if self.tune != "off":
             raise _not_ported(f"tune={self.tune!r} (knob autotuning)", item9)
         if self.metrics_dir is not None:
@@ -193,10 +192,6 @@ class LearnConfig:
         if self.verbose == "all":
             raise _not_ported(
                 "verbose='all' (per-iteration figures)", item10
-            )
-        if self.carry_freq:
-            raise _not_ported(
-                "carry_freq (the masked learner)", "ROADMAP.md Queue 1 item 8"
             )
 
     @property
@@ -293,7 +288,7 @@ class SolveConfig:
 # ServeConfig fields of later ROADMAP.md Queue 1 items: (field, the
 # values that ask for what the port does, the item that ports the rest)
 _SERVE_DEFERRED = (
-    ("mesh_shape", (None, ()), 8), ("mesh_devices", (None,), 8),
+    ("mesh_shape", (None, ()), "8c"), ("mesh_devices", (None,), "8c"),
     ("tune", ("off",), 9), ("tune_store", (None,), 9),
     ("pipeline_depth", (None, 1), 9),
     ("metrics_dir", (None,), 10), ("slo_p50_ms", (None,), 10),

@@ -1,13 +1,14 @@
 """Carry weights and state across from the JAX package: a filter bank, a
 JAX ``ReconPlan``'s spectra and solve factors, or a learner's
-``LearnState``, as the port's objects on a torch device.
+``LearnState`` / ``MaskedLearnState``, as the port's objects on a torch
+device.
 
 The inputs are plain numpy arrays and plain metadata values, so this
 module imports nothing of the JAX package; a caller holding a JAX plan
 passes ``np.asarray`` of its leaves and ``dataclasses.asdict(plan.prob)``
 / ``plan.fg._asdict()`` for its metadata, and a caller holding a JAX
-LearnState passes ``{f: np.asarray(getattr(state, f)) for f in
-state._fields}``.
+LearnState or MaskedLearnState passes ``{f: np.asarray(getattr(state,
+f)) for f in state._fields}``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from .config import ProblemGeom
 from .models import common
 from .models.learn import LearnState
+from .models.learn_masked import MaskedLearnState
 from .models.reconstruct import ReconPlan, ReconstructionProblem
 from .ops import freq_solvers
 from .utils import validate
@@ -136,29 +138,51 @@ def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _state_from_numpy(cls, fields: Mapping[str, np.ndarray], device):
+    missing = [f for f in cls._fields if f not in fields]
+    if missing:
+        raise KeyError(f"{cls.__name__} fields missing {missing}")
+    dev = resolve_device(device)
+    return cls(
+        **{f: _tensor_from_numpy(fields[f]).to(dev) for f in cls._fields}
+    )
+
+
+def _state_to_numpy(state) -> Dict[str, np.ndarray]:
+    out = {}
+    for f in state._fields:
+        t = getattr(state, f).detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        out[f] = t.numpy()
+    return out
+
+
 def learn_state_from_jax(
     fields: Mapping[str, np.ndarray], device="cuda"
 ) -> LearnState:
     """The port's :class:`LearnState` from a JAX LearnState's fields
     (numpy arrays keyed by field name; bfloat16 storage kept bit for
     bit) on ``device``."""
-    missing = [f for f in LearnState._fields if f not in fields]
-    if missing:
-        raise KeyError(f"LearnState fields missing {missing}")
-    dev = resolve_device(device)
-    return LearnState(
-        **{f: _tensor_from_numpy(fields[f]).to(dev) for f in LearnState._fields}
-    )
+    return _state_from_numpy(LearnState, fields, device)
 
 
 def learn_state_to_numpy(state: LearnState) -> Dict[str, np.ndarray]:
     """The fields of a port LearnState as numpy arrays on the host;
     bfloat16 fields widen to float32 (exactly), since numpy has no
     bfloat16 of its own."""
-    out = {}
-    for f in LearnState._fields:
-        t = getattr(state, f).detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.to(torch.float32)
-        out[f] = t.numpy()
-    return out
+    return _state_to_numpy(state)
+
+
+def masked_state_from_jax(
+    fields: Mapping[str, np.ndarray], device="cuda"
+) -> MaskedLearnState:
+    """The port's :class:`MaskedLearnState` from a JAX MaskedLearnState's
+    fields, as :func:`learn_state_from_jax`."""
+    return _state_from_numpy(MaskedLearnState, fields, device)
+
+
+def masked_state_to_numpy(state: MaskedLearnState) -> Dict[str, np.ndarray]:
+    """The fields of a port MaskedLearnState as numpy arrays on the host,
+    as :func:`learn_state_to_numpy`."""
+    return _state_to_numpy(state)

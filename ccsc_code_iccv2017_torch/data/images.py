@@ -5,7 +5,7 @@ a single file, an in-memory array), its color modes and frame strides,
 the 'none' and 'local_cn' contrast modes, and the numpy branch of
 ``data.native.smooth_fill_batch``; the port does not load the native
 preprocessing library). The whitening contrast modes come with
-ROADMAP.md Queue 1 item 8.
+ROADMAP.md Queue 1 item 8b.
 """
 from __future__ import annotations
 
@@ -327,7 +327,7 @@ def load_image_list(
     ``path`` may be a directory of images; a directory holding a single
     .mat stack; a .mat file; a single image file; or an in-memory array
     (see array_image_stack for its layouts). Contrast modes: 'none' and
-    'local_cn'; the whitening modes come with ROADMAP.md Queue 1 item 8.
+    'local_cn'; the whitening modes come with ROADMAP.md Queue 1 item 8b.
     """
     from PIL import Image
 
@@ -335,7 +335,7 @@ def load_image_list(
         raise NotImplementedError(
             f"contrast mode {contrast_normalize!r} is not ported yet "
             "(the port runs 'none' and 'local_cn'; the whitening modes "
-            "are ROADMAP.md Queue 1 item 8)"
+            "are ROADMAP.md Queue 1 item 8b)"
         )
     if isinstance(path, np.ndarray):
         raws = select_frames(array_image_stack(path), frames)
@@ -406,7 +406,7 @@ def load_images(
     'local_cn'), ``zero_mean``; then ``size`` resizes and ``square``
     center-crops to the smaller side. The JAX loader's ``layout`` and
     ``return_info`` come with the whitening modes (ROADMAP.md Queue 1
-    item 8)."""
+    item 8b)."""
     imgs = load_image_list(
         path, contrast_normalize, zero_mean, color, limit, frames,
         mat_layout=mat_layout,

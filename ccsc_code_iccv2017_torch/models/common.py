@@ -1,6 +1,6 @@
 """Shared model-level plumbing: frequency geometry, spectra, objectives
 (torch port of ``ccsc_code_iccv2017_tpu.models.common``, single-device
-forms — the mesh reductions come with ROADMAP.md Queue 1 item 8).
+forms — the mesh reductions come with ROADMAP.md Queue 1 item 8c).
 """
 from __future__ import annotations
 

@@ -10,16 +10,18 @@ outer iteration i (dzParallel.m:90-194):
             average (:115-121).
   z-pass  — filter spectra (:142-144), then max_it_z per-block
             sparse-coding iterations: soft-threshold prox, dual update,
-            Sherman-Morrison solve (:150-158). With ``cfg.fused_z`` each
-            iteration is the two hand-written kernels K2a/K2b
-            (ops.fused_z); otherwise the composition of torch.fft,
-            K1 (ops.kernels.solve_z_rank1) and elementwise torch.
+            Sherman-Morrison solve (:150-158). With ``cfg.fused_z`` on
+            a 2D, W == 1 geometry each iteration is the two
+            hand-written kernels K2a/K2b (ops.fused_z); otherwise the
+            composition of torch.fft, the z-solve (K1,
+            ops.kernels.solve_z_rank1, for W == 1; the Woodbury solve
+            for W > 1) and elementwise torch.
 
 The L consensus blocks of one device ride a leading axis and every
 per-block solve is batched over it (JAX vmaps); the consensus average is
 a mean over that axis. Meshes (the psum over devices), the chunked
 driver and the telemetry extras are not ported yet (ROADMAP.md Queue 1
-items 8, 9 and 10). The JAX package's documented divergences from the
+items 8c, 9 and 10). The JAX package's documented divergences from the
 reference (coding against the projected consensus dictionary, the
 objective over all blocks, independent per-block z inits) hold here too.
 """
@@ -172,11 +174,6 @@ def outer_step(
     "z_start" and "z_end" at the phase boundaries — the driver records
     CUDA events there to time the passes apart.
     """
-    if cfg.fused_z and (fg.reduce_size != 1 or len(fg.spatial_shape) != 2):
-        raise NotImplementedError(
-            "fused_z covers the 2D, W == 1 learner; other geometries are "
-            "not ported yet (ROADMAP.md Queue 1 item 8)"
-        )
     mark = on_phase or (lambda _name: None)
     support = geom.spatial_support
     radius = geom.psf_radius
@@ -233,7 +230,13 @@ def outer_step(
     mark("z_start")
     zkern = freq_solvers.precompute_z_kernel(dhat_z, cfg.rho_z)
     theta = cfg.lambda_prior / cfg.rho_z
-    z_iter = z_iter_fused if cfg.fused_z else z_iter_composition
+    # the JAX gate (models/learn.py:358-364 there): K2 covers the 2D,
+    # W == 1 learner; every other geometry takes the composition, whose
+    # W == 1 z-solve is K1 (a 3D learner) and W > 1 the Woodbury solve
+    fused_ok = (
+        cfg.fused_z and fg.reduce_size == 1 and len(fg.spatial_shape) == 2
+    )
+    z_iter = z_iter_fused if fused_ok else z_iter_composition
     z, dual_z = _flat_blocks(state.z), _flat_blocks(state.dual_z)
     for _ in range(cfg.max_it_z):
         z, dual_z = z_iter(z, dual_z, bhat, zkern, cfg.rho_z, theta, fg)

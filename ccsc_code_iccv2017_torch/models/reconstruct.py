@@ -214,7 +214,7 @@ def build_plan(
     spatial shape ``data_spatial`` (the request shape BEFORE psf
     padding). A plan built with ``blur_psf`` already composes the OTF —
     callers then pass ``blur_psf=None`` to ``reconstruct``. Meshes are
-    not ported yet (ROADMAP.md Queue 1 item 8)."""
+    not ported yet (ROADMAP.md Queue 1 item 8c)."""
     dev = resolve_device(device)
     d_t = _as_input("filters", d, dev)
     validate.check_filters(d_t, prob.geom)
@@ -273,7 +273,7 @@ def reconstruct(
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: sharded reconstruction is not ported yet "
-            "(ROADMAP.md Queue 1 item 8)"
+            "(ROADMAP.md Queue 1 item 8c)"
         )
     dev = resolve_device(device)
     b = _as_input("data", b, dev)

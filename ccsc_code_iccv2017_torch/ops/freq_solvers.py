@@ -18,7 +18,7 @@ linear system per frequency:
   Ni x Ni Hermitian system (precompute_d_kernel / solve_d).
 
 The JAX package's ``axis_name`` arguments (filter-axis sharding) are
-dropped: meshes wait for ROADMAP.md Queue 1 item 8. The d-side
+dropped: meshes wait for ROADMAP.md Queue 1 item 8c. The d-side
 functions take leading batch axes (the learner's consensus blocks)
 where JAX vmaps.
 """
@@ -77,6 +77,7 @@ def precompute_z_kernel(
     W > 1 Gram inverse (``hermitian_inverse``) and is not read for
     W == 1."""
     K, W, F = dhat.shape
+    dhat = dhat.contiguous()  # K1 reads it as one dense [K, F] array
     gamma = torch.full((K, F), float(rho), dtype=torch.float32,
                        device=dhat.device)
     if extra_diag is not None:
@@ -112,10 +113,11 @@ def solve_z(
     """
     if kernel.minv is not None:
         return solve_z_reference(kernel, xi1_hat, xi2_hat, rho)
+    # K1 reads dense arrays; a spectrum of a strided input may be strided
     return kernels.solve_z_rank1(
         kernel.dhat[:, 0, :],
-        xi1_hat[:, 0, :],
-        xi2_hat,
+        xi1_hat[:, 0, :].contiguous(),
+        xi2_hat.contiguous(),
         float(rho),
         dinv=kernel.dinv,
     )

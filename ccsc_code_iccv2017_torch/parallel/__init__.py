@@ -1,1 +1,1 @@
-"""Learner drivers (single device; meshes wait for ROADMAP.md item 8)."""
+"""Learners' outer loops (single device; meshes wait for ROADMAP.md item 8c)."""

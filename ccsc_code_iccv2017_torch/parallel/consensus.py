@@ -22,36 +22,8 @@ from ..models import common, learn as learn_mod
 from ..ops import fourier
 from ..utils import checkpoint as ckpt
 from ..utils import resilience, validate
-from ..utils.device import resolve_device
-
-
-def _console(cfg: LearnConfig, msg: str, always: bool = False) -> None:
-    if always or cfg.verbose != "none":
-        print(msg, flush=True)
-
-
-class _PhaseTimer:
-    """CUDA events at outer_step's phase boundaries (d_start, d_end,
-    z_start, z_end): the d-pass and z-pass device times of a step, read
-    after the step's metrics sync. A no-op off the card."""
-
-    def __init__(self, device: torch.device):
-        self.enabled = device.type == "cuda"
-        self.events = {}
-
-    def __call__(self, name: str) -> None:
-        if self.enabled:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.events[name] = ev
-
-    def read(self):
-        """(d_pass_ms, z_pass_ms) of the last step, or None."""
-        if not self.enabled:
-            return None
-        e = self.events
-        return (e["d_start"].elapsed_time(e["d_end"]),
-                e["z_start"].elapsed_time(e["z_end"]))
+from ..utils.resilience import console
+from ..utils.device import PhaseTimer, resolve_device
 
 
 def learn(
@@ -92,14 +64,14 @@ def learn(
     On the card the trace also carries ``d_pass_ms`` / ``z_pass_ms``,
     the device time of each step's two passes (CUDA events).
 
-    Not ported yet: ``mesh`` (ROADMAP.md Queue 1 item 8),
+    Not ported yet: ``mesh`` (ROADMAP.md Queue 1 item 8c),
     ``profile_dir`` and ``figures_dir`` (item 10), the chunked driver
     (item 9, refused by LearnConfig) and chaos faults.
     """
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: the sharded learner is not ported yet "
-            "(ROADMAP.md Queue 1 item 8)"
+            "(ROADMAP.md Queue 1 item 8c)"
         )
     if profile_dir is not None or figures_dir is not None:
         raise NotImplementedError(
@@ -159,7 +131,7 @@ def learn(
             state = learn_mod.LearnState(
                 **{k: v.to(dev) for k, v in fields.items()}
             )
-            _console(cfg, f"resumed from {checkpoint_dir} at iteration "
+            console(cfg, f"resumed from {checkpoint_dir} at iteration "
                           f"{start_it}", always=True)
     got = {f: tuple(getattr(state, f).shape) for f in state._fields}
     if got != expect:
@@ -185,7 +157,7 @@ def learn(
             "z_diff": [0.0],
         }
     recov = resilience.RecoveryManager(cfg, trace)
-    timer = _PhaseTimer(dev)
+    timer = PhaseTimer(dev)
     t_total = trace["tim_vals"][-1]
     it_done = start_it
     saved_it = None  # last iteration committed to the checkpoint dir
@@ -206,7 +178,7 @@ def learn(
             if not all(
                 math.isfinite(v) for v in (obj_d, obj_z, d_diff, z_diff)
             ):
-                _console(
+                console(
                     cfg,
                     f"Iter {i + 1}: non-finite metrics (obj_d={obj_d}, "
                     f"obj_z={obj_z}, d_diff={d_diff}, z_diff={z_diff}); "
@@ -231,7 +203,7 @@ def learn(
             if phases is not None:
                 trace.setdefault("d_pass_ms", []).append(phases[0])
                 trace.setdefault("z_pass_ms", []).append(phases[1])
-            _console(
+            console(
                 cfg,
                 f"Iter {i + 1}, Obj_d {obj_d:.4g}, Obj_z {obj_z:.4g}, "
                 f"Diff_d {d_diff:.3g}, Diff_z {z_diff:.3g}, "
@@ -248,7 +220,7 @@ def learn(
                           fingerprint=fingerprint)
                 saved_it = i + 1
             if preempting:
-                _console(cfg, f"preempted: checkpointed iteration {i + 1}, "
+                console(cfg, f"preempted: checkpointed iteration {i + 1}, "
                               "exiting cleanly", always=True)
                 break
             if d_diff < cfg.tol and z_diff < cfg.tol:

@@ -83,3 +83,27 @@ def device_time_ms(fn: Callable[[], object], reps: int = 30, warmup: int = 5,
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+class PhaseTimer:
+    """CUDA events at a learner step's phase boundaries (d_start,
+    d_end, z_start, z_end): the d-pass and z-pass device times of a step,
+    read after the step's metrics sync. A no-op off the card."""
+
+    def __init__(self, device: torch.device):
+        self.enabled = device.type == "cuda"
+        self.events = {}
+
+    def __call__(self, name: str) -> None:
+        if self.enabled:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events[name] = ev
+
+    def read(self):
+        """(d_pass_ms, z_pass_ms) of the last step, or None."""
+        if not self.enabled:
+            return None
+        e = self.events
+        return (e["d_start"].elapsed_time(e["d_end"]),
+                e["z_start"].elapsed_time(e["z_end"]))

@@ -1,6 +1,7 @@
 """Interop with the reference's .mat filter banks (jax-free copy of the
-loaders in ``ccsc_code_iccv2017_tpu.utils.io_mat``: the 2D, hyperspectral,
-3D and lightfield banks, and ``infer_layout``).
+loaders and writers in ``ccsc_code_iccv2017_tpu.utils.io_mat``: the 2D,
+hyperspectral, 3D and lightfield banks, ``infer_layout``,
+``save_filters`` and ``load_dz``).
 
 MATLAB lays filters out spatial-first, filter-index last; the canonical
 layout is [k, *reduce, *spatial] (config.ProblemGeom).
@@ -90,6 +91,16 @@ def load_filters_lightfield(path: str) -> np.ndarray:
     )
 
 
+# the canonical layout [k, *reduce, *spatial] <-> MATLAB's (spatial
+# first, filter index last), per family
+_TO_MATLAB = {
+    "2d": (1, 2, 0),  # [k,s,s] -> [s,s,k]
+    "hyperspectral": (2, 3, 1, 0),  # [k,w,s,s] -> [s,s,w,k]
+    "3d": (1, 2, 3, 0),  # [k,x,y,t] -> [x,y,t,k]
+    "lightfield": (3, 4, 1, 2, 0),  # [k,a1,a2,x,y] -> [x,y,a1,a2,k]
+}
+
+
 def infer_layout(d) -> str:
     """Best-effort family inference from filter shape. 4-D is ambiguous
     (hyperspectral [k,w,s,s] vs video [k,x,y,t]); prefer hyperspectral
@@ -118,25 +129,30 @@ def save_filters(
     Dz=None,
 ) -> None:
     """Save learned filters (+ optional trace and Dz reconstructions) in
-    the reference's .mat layout — the terminal
-    ``save('...','d','Dz','iterations')`` of 2D/learn_kernels_2D_large.m:45
-    — so files round-trip through load_filters_2d and are
-    interchangeable with the MATLAB and JAX artifacts. d: [k, s, s]
-    (numpy or tensor) -> stored [s, s, k]; Dz: [n, H, W] -> [H, W, n].
-    Only the "2d" layout is ported; the other families come with their
-    learners (ROADMAP.md Queue 1 item 8)."""
+    the reference's .mat layout (spatial first, index last) — the
+    terminal ``save('...','d','Dz','iterations')`` of
+    2D/learn_kernels_2D_large.m:45 — so files round-trip through the
+    load_filters_* loaders and :func:`load_dz` and are interchangeable
+    with the MATLAB and JAX artifacts. d: [k, *reduce, *support] (numpy
+    or tensor); ``layout`` one of "2d", "hyperspectral", "3d",
+    "lightfield" (None infers it from d's shape). Dz: [n, *reduce,
+    *spatial], stored with the family's permutation, n in the k role
+    (2D [n, x, y] -> [x, y, n])."""
     import scipy.io
 
     d = _host(d)
-    layout = layout or ("2d" if d.ndim == 3 else None)
-    if layout != "2d":
-        raise NotImplementedError(
-            f"filter layout {layout!r} for shape {d.shape}: only '2d' is "
-            "ported (ROADMAP.md Queue 1 item 8)"
-        )
-    payload = {"d": np.transpose(d, (1, 2, 0))}
+    layout = layout or infer_layout(d)
+    payload = {"d": np.transpose(d, _TO_MATLAB[layout])}
     if Dz is not None:
-        payload["Dz"] = np.transpose(_host(Dz), (1, 2, 0))
+        payload["Dz"] = np.transpose(_host(Dz), _TO_MATLAB[layout])
     if trace is not None:
         payload["iterations"] = {k: np.asarray(v) for k, v in trace.items()}
     scipy.io.savemat(path, payload)
+
+
+def load_dz(path: str, layout: str = "2d") -> np.ndarray:
+    """The Dz reconstructions of a saved file as [n, *reduce, *spatial]
+    float32."""
+    Dz = _mat_var(path, "Dz")
+    inv = np.argsort(_TO_MATLAB[layout])
+    return np.ascontiguousarray(np.transpose(Dz, inv)).astype(np.float32)

@@ -10,6 +10,8 @@ telemetry hooks; messages go to stdout).
 - ``GracefulShutdown`` — SIGTERM/SIGINT request checkpoint-and-clean-
   exit at the next iteration boundary. A second signal forces the
   previous behaviour.
+- ``console`` — the learners' run messages, silenced by
+  ``verbose='none'`` unless ``always``.
 - ``config_fingerprint`` — a stable identity hash of the problem, the
   same fields and the same hex digest as the JAX package, so a JAX
   checkpoint resumes in the port and vice versa (utils.checkpoint).
@@ -24,10 +26,18 @@ import threading
 from typing import Optional
 
 __all__ = [
+    "console",
     "RecoveryManager",
     "GracefulShutdown",
     "config_fingerprint",
 ]
+
+
+def console(cfg, msg: str, always: bool = False) -> None:
+    """Print a learner's run message unless ``cfg.verbose == 'none'``
+    (``always`` prints regardless)."""
+    if always or cfg.verbose != "none":
+        print(msg, flush=True)
 
 
 def config_fingerprint(geom, cfg, algorithm: str) -> str:

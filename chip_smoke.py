@@ -116,12 +116,44 @@ never exits 0):
    synthesis 5x5x48x48), 20 iterations at tol=0, on the card and on
    the CPU: the same iterations, objective traces within rtol 1e-4 and
    reconstructions within 1e-4 of the CPU reconstruction's scale.
-12. Output: a ``{"kernels": [...]}`` line (K1, K2a, K2b; K1's launches
-   by path: reconstruct, engine, poisson, deblur), a ``{"slice": ...}``
-   line (serving), a ``{"learn": ...}`` line, a ``{"serve_engine":
-   ...}`` line (the engine phase and the ``serve/bench.py`` record), an
-   ``{"apps": ...}`` line, the nvidia-smi line, and last ``{"ok": true,
-   "device": {...}}``.
+12. The learners at the reference protocol's widths, data from --seed,
+   each cut to 2 outer steps at tol=0 (the reference runs 20 or 40),
+   every launch count set to 0 just before each learner and read just
+   after: the 3D video learner through ``learn_3d.main`` (k=49
+   11x11x11, 64 synthetic clips of 50^3 in 8 blocks, rho 5000/1,
+   max_it_d=5, max_it_z=10; its filters and codes saved to a .mat): K1
+   launched 10 times a step and K2 never, obj_z falls from step 1 to
+   step 2; then K1 at its z-solve shape (N=64, K=49, F=60*60*31 =
+   111,600) on the learned filters' and the clips' spectra, held and
+   timed as in phase 3, and for K1_F64_DRAWS draws of the code target
+   both K1 and its plain version held to the same solve in float64. The
+   4D lightfield learner through
+   ``learn_4d.main`` (k=49 11x11 over 5x5 views, 64 patches of 50x50 in
+   8 blocks, rho 500/50; W = 25, no K1): obj_z falls, and the W = 25
+   z-solve of the 64 patches timed as in phase 11. The hyperspectral
+   masked learner through ``learn_hyperspectral.main`` (k=100 11x11x31,
+   gamma divisors 5000/500, the Gaussian smooth_init offset) on 16
+   synthetic cubes of 31x100x100 (the cut: the reference's training data
+   is absent) read from a .mat: whether its rollback fired, and the W =
+   31 z-solve of the 16 cubes timed. ``learn_2d --masked`` (k=100 11x11,
+   16 synthetic 100x100 images): K1 launched 10 times each step it ran.
+   Each: finite traces, every filter (or filter slice) in the unit ball,
+   steps/s, d-pass and z-pass ms, peak memory. Then each of the three at
+   a reduced size (3D 4 clips of 12^3, 4D 4 patches of 16x16x5x5, HS 2
+   cubes of 31x48x48; k=8 5x5(x5)) for 2 steps from one init drawn on
+   the CPU, on the card and on the CPU: objective traces within rtol
+   1e-4 and filters within 1e-4 of their scale, or 4x the spread one
+   float32 ulp of the initial dictionary puts into the CPU run where
+   that is larger. These card runs of the 3D and 4D learners set
+   fused_z=True: the gate routes both to the composition path, so K1
+   launches 10 times a step for 3D, never for 4D, and K2 never.
+13. Output: a ``{"kernels": [...]}`` line (K1, K2a, K2b; K1's launches
+   by path: reconstruct, engine, poisson, deblur, learn_3d,
+   learn_2d_masked), a ``{"slice": ...}`` line (serving), a
+   ``{"learn": ...}`` line, a ``{"serve_engine": ...}`` line (the engine
+   phase and the ``serve/bench.py`` record), an ``{"apps": ...}`` line,
+   a ``{"learners": ...}`` line, the nvidia-smi line, and last ``{"ok":
+   true, "device": {...}}``.
 
 Exits non-zero without printing a result when CUDA is absent or the
 port's package is not beside this script.
@@ -1130,14 +1162,14 @@ def _check_run(app, run):
     return all(zero)
 
 
-def _woodbury_timing(torch, port, built, time_ms, bw):
-    """One iteration's W > 1 z-solve at an app's full width, by CUDA
-    events, on the factors the app's own solve built (random targets),
-    beside the one-off build of those factors (the W x W Gram and its
-    batched complex Cholesky inverse) and the solve's byte bound: dhat,
-    minv, dinv, xi1 and xi2 read once and z written once. The solve is
-    held to the same solve on the CPU (same factors and targets) at
-    1e-5 of max|z|."""
+def _woodbury_timing(torch, port, built, time_ms, bw, n=1):
+    """One iteration's W > 1 z-solve of ``n`` images (an app's one, a
+    learner's batch) at full width, by CUDA events, on the factors the
+    solve built (random targets), beside the one-off build of those
+    factors (the W x W Gram and its batched complex Cholesky inverse)
+    and the solve's byte bound: dhat, minv, dinv, xi1 and xi2 read once
+    and z written once. The solve is held to the same solve on the CPU
+    (same factors and targets) at 1e-5 of max|z|."""
     kern, rho = built["kern"], built["rho"]
     K, W, F = kern.dhat.shape
     dev = kern.dhat.device
@@ -1147,7 +1179,7 @@ def _woodbury_timing(torch, port, built, time_ms, bw):
         return torch.complex(torch.randn(shape, generator=gen, device=dev),
                              torch.randn(shape, generator=gen, device=dev))
 
-    xi1, xi2 = cplx(1, W, F), cplx(1, K, F)
+    xi1, xi2 = cplx(n, W, F), cplx(n, K, F)
     solve = port["freq_solvers"].solve_z
     z = solve(kern, xi1, xi2, rho)
     # the same solve on the CPU, from the same factors and targets
@@ -1156,10 +1188,11 @@ def _woodbury_timing(torch, port, built, time_ms, bw):
     rel = float((z.cpu() - zc).abs().max()) / float(zc.abs().max())
     del host, zc, z
     ms = time_ms(lambda: solve(kern, xi1, xi2, rho), warmup=2, reps=10)
-    nbytes = 8 * K * W * F + 8 * F * W * W + 4 * K * F + 8 * W * F + 16 * K * F
+    nbytes = (8 * K * W * F + 8 * F * W * W + 4 * K * F
+              + n * (8 * W * F + 16 * K * F))
     if not rel <= 1e-5:
         raise RuntimeError(f"W={W} z-solve: card vs CPU {rel:.3e} > 1e-5")
-    return {"K": K, "W": W, "F": F, "solve_z_ms": ms,
+    return {"N": n, "K": K, "W": W, "F": F, "solve_z_ms": ms,
             "card_vs_cpu_rel_err": rel,
             "precompute_z_kernel_ms": built["ms"], "bytes": nbytes,
             "bound_ms": 1e3 * nbytes / bw, "bound_by": "bytes"}
@@ -1299,6 +1332,445 @@ def phase_apps(torch, port, time_ms, bw, seed):
     return out
 
 
+# the learner phase (12): the configurations at the reference protocol's
+# widths (SURVEY.md rows 3-5, 26, 28, 30), data from --seed (the
+# reference's movie, lightfield and training_data.mat are absent), each
+# cut to LEARNER_STEPS outer steps at tol=0 instead of 20 or 40
+LEARNER_STEPS = 2
+L3D_ARGV = ["--synthetic", "--clips", "64", "--clip-size", "50",
+            "--blocks", "8"]  # k=49 11x11x11, rho 5000/1: the defaults
+L4D_ARGV = ["--synthetic", "--patches", "64", "--patch-size", "50",
+            "--blocks", "8"]  # k=49 11x11 over 5x5 views, rho 500/50
+LHS_CUBES, LHS_SIDE = 16, 100  # this script's choice: no training data
+L2D_MASKED = (16, LEARN_SIDE)  # learn_2d --masked: images, side
+# the same problems cut down for card vs CPU
+L3D_SMALL = ["--synthetic", "--clips", "4", "--clip-size", "12",
+             "--filters", "8", "--support", "5", "--support-t", "5",
+             "--blocks", "2"]
+L4D_SMALL = ["--synthetic", "--patches", "4", "--patch-size", "16",
+             "--filters", "8", "--support", "5", "--blocks", "2"]
+LHS_SMALL = ["--synthetic", "--limit", "2", "--filters", "8", "--support",
+             "5"]  # 2 cubes of 31x48x48
+STEPS_ARGV = ["--max-it", str(LEARNER_STEPS), "--tol", "0"]
+
+
+def _learner_check(tag, res, geom, masked):
+    """Finite traces, filters in the unit ball (each filter's, or each
+    (filter, band/view) slice's, spatial norm <= 1 + 1e-5); returns
+    (steps adopted, the largest filter norm)."""
+    import math
+
+    import numpy as np
+
+    tr = res.trace
+    vals = [v for k in ("obj_vals_d", "obj_vals_z", "d_diff", "z_diff",
+                        "tim_vals", "d_pass_ms", "z_pass_ms")
+            for v in tr.get(k, [])]
+    if not all(math.isfinite(v) for v in vals):
+        raise RuntimeError(f"{tag}: non-finite trace {tr}")
+    d = res.d.cpu().numpy()
+    norms = np.sqrt((d.reshape(-1, math.prod(geom.spatial_support)) ** 2)
+                    .sum(1))
+    if not (np.isfinite(d).all() and norms.max() <= 1 + 1e-5):
+        raise RuntimeError(f"{tag}: filter norms out of the unit ball "
+                           f"({norms.max()})")
+    steps = len(tr["obj_vals_z"]) - (0 if masked else 1)
+    return steps, float(norms.max())
+
+
+def _learner_record(torch, tag, res, geom, masked, wall, data_s, launches):
+    steps, norm_max = _learner_check(tag, res, geom, masked)
+    tr = res.trace
+    step_s = [b - a for a, b in zip(tr["tim_vals"], tr["tim_vals"][1:])]
+    rec = {
+        "geom": dataclasses.asdict(geom), "data_shape": list(res.Dz.shape),
+        "steps": steps, "launches": launches, "step_s": step_s,
+        "steps_per_s": steps / tr["tim_vals"][-1],
+        "d_pass_ms": tr.get("d_pass_ms"), "z_pass_ms": tr.get("z_pass_ms"),
+        "obj_vals_d": tr["obj_vals_d"], "obj_vals_z": tr["obj_vals_z"],
+        "filter_norm_max": norm_max,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "wall_s": wall, "data_s": data_s,
+        "rolled_back_at": tr.get("rolled_back_at"),
+    }
+    for i in range(steps):
+        print(f"[12] {tag} step {i + 1}: {step_s[i]:.3f} s (d-pass "
+              f"{tr['d_pass_ms'][i]:.1f} ms, z-pass {tr['z_pass_ms'][i]:.1f}"
+              f" ms), obj_d {tr['obj_vals_d'][-steps + i]:.6g}, obj_z "
+              f"{tr['obj_vals_z'][-steps + i]:.6g}")
+    print(f"[12] {tag}: {steps} steps, {rec['steps_per_s']:.4f} steps/s, "
+          f"wall {wall:.2f} s (data {data_s:.2f} s), max memory allocated "
+          f"{rec['max_memory_allocated_bytes'] / 2**30:.2f} GiB, filter norm "
+          f"max {norm_max:.6f}, launches {launches}"
+          + (f", rolled back at step {rec['rolled_back_at']}"
+             if masked else ""))
+    return rec
+
+
+def _counts(port):
+    k1, fz = port["kernels"].solve_z_rank1, port["fused_z"].fused_z_iter
+    return {"solve_z_rank1": k1.launches, "fused_z_pass_a": fz.launches_a,
+            "fused_z_pass_b": fz.launches_b}
+
+
+def _zero_counts(torch, port):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k1, fz = port["kernels"].solve_z_rank1, port["fused_z"].fused_z_iter
+    k1.launches = fz.launches_a = fz.launches_b = 0
+
+
+def _learn_3d(torch, port, seed, tmp):
+    """The 3D video learner through ``learn_3d.main`` (its wall includes
+    making the clips, ``data_s``); the clips are made again here for the
+    K1 case that follows."""
+    app = port["learn_3d"]
+    argv = L3D_ARGV + STEPS_ARGV + ["--seed", str(seed), "--device", "cuda",
+                                    "--out", os.path.join(tmp, "3d.mat")]
+    args = app.build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    b = app.load_data(args)
+    data_s = time.perf_counter() - t0
+    geom, cfg = app.problem(args)
+    _zero_counts(torch, port)
+    t0 = time.perf_counter()
+    res = app.main(argv)
+    res.d.cpu()
+    wall = time.perf_counter() - t0
+    launches = _counts(port)
+    rec = _learner_record(torch, "3D", res, geom, False, wall, data_s,
+                          launches)
+    want = {"solve_z_rank1": cfg.max_it_z * rec["steps"],
+            "fused_z_pass_a": 0, "fused_z_pass_b": 0}
+    if rec["steps"] != LEARNER_STEPS or launches != want:
+        raise RuntimeError(f"3D learner: {rec['steps']} steps, launches "
+                           f"{launches}, want {want}")
+    if not rec["obj_vals_z"][2] < rec["obj_vals_z"][1]:
+        raise RuntimeError(f"3D learner: obj_z did not fall "
+                           f"{rec['obj_vals_z']}")
+    return rec, res, b, geom, cfg
+
+
+def _k1_at_3d_learner(torch, port, time_ms, bw, flops, res, b, geom, cfg):
+    """K1 at the 3D learner's z-solve shape (N = 64 clips, K = 49,
+    F = 60*60*31), on the learned filters' spectra and the clips' data
+    spectra, random code targets, dinv = 1/rho_z: phase 3's checks."""
+    cm, fourier = port["common"], port["fourier"]
+    dev = torch.device("cuda", 0)
+    bt = torch.from_numpy(b).to(dev)
+    fg = cm.FreqGeom.create(geom, bt.shape[-3:])
+    dhat = cm.filters_to_freq(res.d, fg)[:, 0, :].contiguous()
+    bhat = cm.data_to_freq(fourier.pad_spatial(bt, geom.psf_radius), fg)
+    xi1 = bhat[:, 0, :].contiguous()
+    del bt, bhat
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n, (k, f) = xi1.shape[0], dhat.shape
+    xi2 = torch.complex(torch.randn((n, k, f), generator=gen, device=dev),
+                        torch.randn((n, k, f), generator=gen, device=dev))
+    dinv = torch.full((k, f), 1.0 / cfg.rho_z, device=dev)
+    case = _k1_case(torch, port["kernels"], time_ms, bw, flops, _card(torch),
+                    (dhat, xi1, xi2, float(cfg.rho_z), dinv),
+                    {"path": "learn_3d"})
+    del xi2
+    torch.cuda.empty_cache()
+    case["against_f64"] = [
+        _k1_against_f64(torch, port["kernels"], dhat, xi1, dinv,
+                        float(cfg.rho_z), 11 + i)
+        for i in range(K1_F64_DRAWS)]
+    del dhat, xi1, dinv
+    torch.cuda.empty_cache()
+    return case
+
+
+K1_F64_DRAWS = 3  # code targets drawn for the float64 comparison
+
+
+def _k1_against_f64(torch, kernels, dhat, xi1, dinv, rho, draw):
+    """K1 and its plain version, both in float32, against the plain
+    version computed in float64, for one draw of the code target xi2
+    (seeded by ``draw``): each side's largest error relative to max|z|
+    of the float64 solve, and max|g| / max|z| for g = dinv (conj(d) xi1
+    + rho xi2), how much of g the rank-1 correction cancels. Fatal when K1 lies farther than 1e-5 from its plain
+    version or farther from the float64 solve than max(1e-5, twice the
+    plain version's distance)."""
+    dev = dhat.device
+    gen = torch.Generator(device=dev).manual_seed(draw)
+    n, (k, f) = xi1.shape[0], dhat.shape
+    xi2 = torch.complex(torch.randn((n, k, f), generator=gen, device=dev),
+                        torch.randn((n, k, f), generator=gen, device=dev))
+    args = (dhat, xi1, xi2, rho, dinv)
+    z = kernels.solve_z_rank1(*args)
+    plain = kernels.solve_z_rank1_reference(*args)
+    d64, di64 = dhat.to(torch.complex128), dinv.to(torch.float64)
+    err_k1 = err_plain = err_kp = scale = 0.0
+    g_over_z = 0.0
+    for i in range(0, n, 4):  # float64 in slices of 4 clips
+        sl = slice(i, i + 4)
+        x1, x2 = xi1[sl].to(torch.complex128), xi2[sl].to(torch.complex128)
+        ref = kernels.solve_z_rank1_reference(d64, x1, x2, rho, di64)
+        g = di64[None] * (d64.conj()[None] * x1[:, None, :] + rho * x2)
+        scale = max(scale, float(ref.abs().max()))
+        err_k1 = max(err_k1, float((z[sl] - ref).abs().max()))
+        err_plain = max(err_plain, float((plain[sl] - ref).abs().max()))
+        err_kp = max(err_kp, float((z[sl] - plain[sl]).abs().max()))
+        g_over_z = max(g_over_z, float(g.abs().max() / ref.abs().max()))
+        del x1, x2, ref, g
+    del z, plain, xi2, d64, di64
+    torch.cuda.empty_cache()
+    out = {"draw": draw, "k1_vs_plain": err_kp / scale,
+           "k1_vs_f64": err_k1 / scale, "plain_vs_f64": err_plain / scale,
+           "max_g_over_max_z": g_over_z}
+    print(f"[12] K1 at the 3D learner's shape, draw {draw}: K1 vs plain "
+          f"{out['k1_vs_plain']:.2e}, K1 vs float64 {out['k1_vs_f64']:.2e},"
+          f" plain vs float64 {out['plain_vs_f64']:.2e} (of max|z|); "
+          f"max|g| / max|z| {g_over_z:.3g}")
+    if not (out["k1_vs_plain"] <= 1e-5 and out["k1_vs_f64"]
+            <= max(1e-5, 2 * out["plain_vs_f64"])):
+        raise RuntimeError(f"K1 at the 3D learner's shape: {out}")
+    return out
+
+
+def _woodbury_of(torch, port, res, geom, spatial, rho, n, time_ms, bw):
+    """The W > 1 z-solve of a learner's batch on its learned filters."""
+    cm = port["common"]
+    fg = cm.FreqGeom.create(geom, spatial)
+    dhat = cm.filters_to_freq(res.d, fg)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    kern = port["freq_solvers"].precompute_z_kernel(dhat, rho)
+    end.record()
+    torch.cuda.synchronize()
+    return _woodbury_timing(torch, port, {"kern": kern, "rho": rho,
+                                          "ms": start.elapsed_time(end)},
+                            time_ms, bw, n=n)
+
+
+def _learn_4d(torch, port, seed, tmp, time_ms, bw):
+    """The 4D lightfield learner through ``learn_4d.main`` (its wall
+    includes making the patches, ``data_s``)."""
+    app = port["learn_4d"]
+    argv = L4D_ARGV + STEPS_ARGV + ["--seed", str(seed), "--device", "cuda",
+                                    "--out", os.path.join(tmp, "4d.mat")]
+    args = app.build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    b = app.load_data(args)
+    data_s = time.perf_counter() - t0
+    geom, cfg = app.problem(args, b)
+    _zero_counts(torch, port)
+    t0 = time.perf_counter()
+    res = app.main(argv)
+    res.d.cpu()
+    wall = time.perf_counter() - t0
+    launches = _counts(port)
+    rec = _learner_record(torch, "4D", res, geom, False, wall, data_s,
+                          launches)
+    if rec["steps"] != LEARNER_STEPS or any(launches.values()):
+        raise RuntimeError(f"4D learner: {rec['steps']} steps, launches "
+                           f"{launches} (W = 25: want none)")
+    if not rec["obj_vals_z"][2] < rec["obj_vals_z"][1]:
+        raise RuntimeError(f"4D learner: obj_z did not fall "
+                           f"{rec['obj_vals_z']}")
+    rec["woodbury"] = _woodbury_of(torch, port, res, geom, b.shape[-2:],
+                                   cfg.rho_z, b.shape[0], time_ms, bw)
+    print(f"[12] 4D W=25 z-solve of {b.shape[0]} patches: "
+          f"{rec['woodbury']['solve_z_ms']:.3f} ms (bound "
+          f"{rec['woodbury']['bound_ms']:.3f} ms), factors built in "
+          f"{rec['woodbury']['precompute_z_kernel_ms']:.2f} ms")
+    return rec
+
+
+def _learn_hs(torch, port, seed, tmp, time_ms, bw):
+    """The hyperspectral learner through ``learn_hyperspectral.main`` on
+    LHS_CUBES synthetic cubes of 31 x LHS_SIDE x LHS_SIDE, written as the
+    reference's .mat layout ('b' [x y w n])."""
+    import numpy as np
+    import scipy.io
+
+    app = port["learn_hyperspectral"]
+    t0 = time.perf_counter()
+    cubes = port["volumes"].synthetic_hyperspectral(
+        n=LHS_CUBES, bands=31, side=LHS_SIDE, seed=seed)
+    path = os.path.join(tmp, "hs_cubes.mat")
+    scipy.io.savemat(path, {"b": np.transpose(cubes, (2, 3, 1, 0))})
+    data_s = time.perf_counter() - t0
+    argv = ["--mat", path] + STEPS_ARGV + [
+        "--seed", str(seed), "--device", "cuda",
+        "--out", os.path.join(tmp, "hs.mat")]
+    geom, cfg = app.problem(app.build_parser().parse_args(argv), cubes)
+    _zero_counts(torch, port)
+    t0 = time.perf_counter()
+    res = app.main(argv)
+    res.d.cpu()
+    wall = time.perf_counter() - t0
+    launches = _counts(port)
+    rec = _learner_record(torch, "hyperspectral", res, geom, True, wall,
+                          data_s, launches)
+    if not 1 <= rec["steps"] <= LEARNER_STEPS or any(launches.values()):
+        raise RuntimeError(f"hyperspectral learner: {rec['steps']} steps, "
+                           f"launches {launches} (W = 31: want none)")
+    rec["cut"] = (f"{LHS_CUBES} synthetic cubes of 31x{LHS_SIDE}x{LHS_SIDE}"
+                  " (the reference's training data is absent)")
+    # the z-solve's rho is the gamma divisor (learn_masked's default)
+    rec["woodbury"] = _woodbury_of(torch, port, res, geom, cubes.shape[-2:],
+                                   500.0, LHS_CUBES, time_ms, bw)
+    print(f"[12] hyperspectral W=31 z-solve of {LHS_CUBES} cubes: "
+          f"{rec['woodbury']['solve_z_ms']:.3f} ms (bound "
+          f"{rec['woodbury']['bound_ms']:.3f} ms), factors built in "
+          f"{rec['woodbury']['precompute_z_kernel_ms']:.2f} ms; cut: "
+          f"{rec['cut']}")
+    return rec
+
+
+def _learn_2d_masked(torch, port, seed, tmp):
+    """``learn_2d --masked`` (the masked learner at reduce_shape=(),
+    whose z-solve is K1) on L2D_MASKED synthetic images read from a .mat
+    stack: K1 launched max_it_z times each outer step it ran (a step the
+    rollback reverts ran too)."""
+    import numpy as np
+    import scipy.io
+
+    n, side = L2D_MASKED
+    path = os.path.join(tmp, "masked_images.mat")
+    scipy.io.savemat(path, {"b": port["images"].smooth_noise_images(
+        np.random.default_rng(seed + 9), n, side)})
+    argv = ["--data", path, "--mat-layout", "framework", "--masked",
+            "--seed", str(seed), "--device", "cuda",
+            "--out", os.path.join(tmp, "masked.mat")] + STEPS_ARGV
+    _zero_counts(torch, port)
+    t0 = time.perf_counter()
+    res = port["learn_2d"].main(argv)
+    res.d.cpu()
+    wall = time.perf_counter() - t0
+    launches = _counts(port)
+    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
+    rec = _learner_record(torch, "2D masked", res, geom, True, wall, 0.0,
+                          launches)
+    ran = rec["steps"] + (1 if rec["rolled_back_at"] else 0)
+    want = {"solve_z_rank1": 10 * ran, "fused_z_pass_a": 0,
+            "fused_z_pass_b": 0}
+    if launches != want:
+        raise RuntimeError(f"2D masked learner: launches {launches}, "
+                           f"want {want}")
+    return rec
+
+
+def _learner_spread(ra, rb):
+    """How far two learns lie apart: the objective traces' largest
+    relative difference and the filters' largest difference over the
+    second's scale."""
+    import numpy as np
+
+    out = {"obj_max_rel_diff": 0.0}
+    for k in ("obj_vals_d", "obj_vals_z"):
+        a, b = np.asarray(ra.trace[k]), np.asarray(rb.trace[k])
+        if a.shape != b.shape:
+            raise RuntimeError(f"{k}: {len(a)} steps against {len(b)}")
+        out["obj_max_rel_diff"] = max(out["obj_max_rel_diff"], float(
+            np.max(np.abs(a - b) / np.abs(b))))
+    da, db = ra.d.cpu().numpy(), rb.d.cpu().numpy()
+    out["d_max_rel_diff"] = float(np.abs(da - db).max() / np.abs(db).max())
+    return out
+
+
+def _learners_card_vs_cpu(torch, port, seed):
+    """Each learner at a reduced size, LEARNER_STEPS steps from one init
+    drawn on the CPU, on the card and on the CPU: objective traces within
+    rtol 1e-4 and filters within 1e-4 of their scale, or within
+    FLOOR_FACTOR times the spread that one float32 ulp of the initial
+    dictionary puts into the CPU run, where that is larger."""
+    import math
+
+    lm, tlm, cm = port["learn"], port["learn_masked"], port["common"]
+    out = {}
+    for tag, app, argv in (("3D", "learn_3d", L3D_SMALL),
+                           ("4D", "learn_4d", L4D_SMALL),
+                           ("hyperspectral", "learn_hyperspectral",
+                            LHS_SMALL)):
+        mod = port[app]
+        args = mod.build_parser().parse_args(
+            argv + STEPS_ARGV + ["--seed", str(seed)])
+        b = mod.load_data(args)
+        geom, cfg = (mod.problem(args) if app == "learn_3d"
+                     else mod.problem(args, b))
+        gen = torch.Generator().manual_seed(seed + 4)
+        fg = cm.FreqGeom.create(geom, b.shape[-geom.ndim_spatial:])
+        if app == "learn_hyperspectral":
+            sm = mod.gaussian_smooth_init(b)
+            init = tlm.init_state(gen, geom, fg, b.shape[0])
+            nudged = init._replace(d_full=torch.nextafter(
+                init.d_full, torch.tensor(math.inf)))
+
+            def run(dev, st):
+                return tlm.learn_masked(b, geom, cfg, smooth_init=sm,
+                                        device=dev, initial_state=st)
+        else:
+            N = cfg.num_blocks
+            init = lm.init_state(gen, geom, fg, N, b.shape[0] // N)
+            up = torch.tensor(math.inf)
+            nudged = init._replace(
+                d_local=torch.nextafter(init.d_local, up),
+                dbar=torch.nextafter(init.dbar, up))
+            cfg = dataclasses.replace(cfg, fused_z=True)
+
+            def run(dev, st):
+                return port["consensus"].learn(b, geom, cfg, device=dev,
+                                               initial_state=st)
+        _zero_counts(torch, port)
+        card = run("cuda", init)
+        launches = _counts(port)
+        cpu, moved = run("cpu", init), run("cpu", nudged)
+        if app != "learn_hyperspectral":
+            # the fused_z gate on the card: composition, K1 only at W == 1
+            k1 = cfg.max_it_z * LEARNER_STEPS if app == "learn_3d" else 0
+            want = {"solve_z_rank1": k1, "fused_z_pass_a": 0,
+                    "fused_z_pass_b": 0}
+            if launches != want:
+                raise RuntimeError(f"{tag} learner with fused_z=True on the "
+                                   f"card: launches {launches}, want {want}")
+        diff, floor = _learner_spread(card, cpu), _learner_spread(moved, cpu)
+        limits = {k: max(AGREE, FLOOR_FACTOR * floor[k]) for k in diff}
+        ok = all(diff[k] <= limits[k] for k in diff)
+        print(f"[12] {tag} learner card vs CPU ({list(b.shape)}, k="
+              f"{geom.num_filters}): objective max rel diff "
+              f"{diff['obj_max_rel_diff']:.2e} (limit "
+              f"{limits['obj_max_rel_diff']:.2e}), filters "
+              f"{diff['d_max_rel_diff']:.2e} of their scale (limit "
+              f"{limits['d_max_rel_diff']:.2e}); one ulp of the initial "
+              f"dictionary moves the CPU run {floor['obj_max_rel_diff']:.2e}"
+              f" / {floor['d_max_rel_diff']:.2e}")
+        out[tag] = dict(diff, one_ulp_spread=floor, limits=limits, ok=ok,
+                        data_shape=list(b.shape), k=geom.num_filters,
+                        card_launches=launches)
+        if not ok:
+            raise RuntimeError(f"{tag} learner card vs CPU: {out[tag]}")
+    return out
+
+
+def phase_learners(torch, port, time_ms, bw, flops, seed):
+    import tempfile
+
+    out = {"steps_cut": f"{LEARNER_STEPS} outer steps at tol=0 each "
+                        "(the reference runs 20 or 40)"}
+    print(f"[12] cut: {out['steps_cut']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, res, b, geom, cfg = _learn_3d(torch, port, seed, tmp)
+        rec["k1_case"] = _k1_at_3d_learner(torch, port, time_ms, bw, flops,
+                                           res, b, geom, cfg)
+        out["3d"] = rec
+        del res, b
+        torch.cuda.empty_cache()
+        out["4d"] = _learn_4d(torch, port, seed, tmp, time_ms, bw)
+        torch.cuda.empty_cache()
+        out["hyperspectral"] = _learn_hs(torch, port, seed, tmp, time_ms, bw)
+        torch.cuda.empty_cache()
+        out["2d_masked"] = _learn_2d_masked(torch, port, seed, tmp)
+        torch.cuda.empty_cache()
+    out["card_vs_cpu"] = _learners_card_vs_cpu(torch, port, seed)
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, kernel_ms, plain_ms,
                   bound, build_s, **extra):
     return dict(
@@ -1342,6 +1814,11 @@ def main(argv=None) -> int:
             ("device", "utils.device"), ("serve", "serve"),
             ("serve_bench", "serve.bench"),
             ("poisson", "apps.poisson_2d"),
+            ("learn_masked", "models.learn_masked"),
+            ("fourier", "ops.fourier"), ("volumes", "data.volumes"),
+            ("learn_2d", "apps.learn_2d"), ("learn_3d", "apps.learn_3d"),
+            ("learn_4d", "apps.learn_4d"),
+            ("learn_hyperspectral", "apps.learn_hyperspectral"),
             ("deblur_video", "apps.deblur_video"),
             ("demosaic_hyperspectral", "apps.demosaic_hyperspectral"),
             ("view_synthesis", "apps.view_synthesis"),
@@ -1367,15 +1844,20 @@ def main(argv=None) -> int:
     learn_agree = phase_learn_card_vs_cpu(torch, port, args.seed)
     engine = phase_engine(torch, port, args.seed)
     apps = phase_apps(torch, port, time_ms, bw, args.seed)
+    learners = phase_learners(torch, port, time_ms, bw, flops, args.seed)
     seconds = time.perf_counter() - t_start
-    print(f"[12] total {seconds:.1f} s")
+    print(f"[13] total {seconds:.1f} s")
 
     main_case = next(c for c in cases if c["n"] == 1 and not c["raised_row"])
-    all_cases = cases + list(app_cases.values())
+    all_cases = cases + list(app_cases.values()) + [
+        learners["3d"]["k1_case"]]
     k1_paths = {"reconstruct": served["launches"],
                 "engine": engine["launches"],
                 "poisson": apps["poisson"]["k1_launches"],
-                "deblur": apps["deblur_video"]["k1_launches"]}
+                "deblur": apps["deblur_video"]["k1_launches"],
+                "learn_3d": learners["3d"]["launches"]["solve_z_rank1"],
+                "learn_2d_masked":
+                    learners["2d_masked"]["launches"]["solve_z_rank1"]}
     k2_err = {
         "max_abs_err": max(c["z_max_abs_err"] for c in k2["cases"]),
         "max_rel_err": max(c["z_rel_err"] for c in k2["cases"]),
@@ -1418,6 +1900,7 @@ def main(argv=None) -> int:
     )}))
     print(json.dumps({"serve_engine": engine}))
     print(json.dumps({"apps": dict(apps, k1_app_shapes=app_cases)}))
+    print(json.dumps({"learners": learners}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -149,19 +149,29 @@ def test_learn_invalid_values_refused_like_jax(kw):
         (dict(outer_chunk=2), "Queue 1 item 9"),
         (dict(donate_state=True), "Queue 1 item 9"),
         (dict(fft_impl="matmul"), "Queue 1 item 9"),
-        (dict(fused_z_precision="high"), "Queue 2, the K2 perf item"),
-        (dict(fused_z_precision="default"), "Queue 2, the K2 perf item"),
         (dict(tune="auto"), "Queue 1 item 9"),
         (dict(metrics_dir="/nonexistent"), "Queue 1 item 10"),
         (dict(watchdog=True), "Queue 1 item 10"),
         (dict(verbose="all"), "Queue 1 item 10"),
-        (dict(carry_freq=True), "Queue 1 item 8"),
     ],
 )
 def test_learn_unported_fields_raise_naming_roadmap(kw, item):
     jcfg.LearnConfig(**kw)  # valid in the JAX package
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         tcfg.LearnConfig(**kw)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(fused_z_precision="high"), dict(fused_z_precision="default"),
+     dict(carry_freq=True)],
+)
+def test_learn_knobs_ported_in_the_learner_slice_construct(kw):
+    """K2's precision tiers (all run its float32 body) and the masked
+    learner's carry_freq, which the port refused until it learned the 3D,
+    4D and hyperspectral problems."""
+    t, j = tcfg.LearnConfig(**kw), jcfg.LearnConfig(**kw)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
 
 
 def test_learn_ported_knobs_construct():
@@ -237,6 +247,12 @@ def test_port_imports_without_jax_at_runtime():
         "    deblur_video, demosaic_hyperspectral, poisson_2d,\n"
         "    view_synthesis)\n"
         "from ccsc_code_iccv2017_torch.data import volumes\n"
+        "from ccsc_code_iccv2017_torch.apps import (\n"
+        "    learn_3d, learn_4d, learn_hyperspectral)\n"
+        "from ccsc_code_iccv2017_torch.models import learn_masked\n"
+        "for app in (learn_3d, learn_4d, learn_hyperspectral):\n"
+        "    app.build_parser().parse_args(['--synthetic'])\n"
+        "learn_2d.build_parser().parse_args(['--data', 'x', '--masked'])\n"
         "poisson_2d.build_parser().parse_args(['--data', 'x', '--filters', 'y'])\n"
         "for app in (deblur_video, demosaic_hyperspectral, view_synthesis):\n"
         "    app.build_parser().parse_args(['--synthetic', '--filters', 'y'])\n"

@@ -85,6 +85,26 @@ def test_plain_version_matches_interpret_pallas_and_reference(Sy, Sx):
         np.testing.assert_allclose(td.numpy(), np.asarray(ref_d), atol=1e-6)
 
 
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_precision_tiers_meet_the_jax_bounds(precision):
+    """LearnConfig.fused_z_precision: the port has one float32 body for
+    every tier. Held to the JAX kernel at each tier, it stays within
+    tests/test_pallas_fused.py's 1e-3 of the scale of the "high" run
+    (interpret mode), and within this file's atol 2e-5 of JAX's CPU run
+    of "default" (on the CPU JAX computes its 1-pass tier in float32)."""
+    z, du, bhat, dhat, minv, rho = _problem()
+    jin = [jnp.asarray(a) for a in (z, du, bhat, dhat, minv)]
+    zj, dj = jfz.fused_z_iter(*jin, rho, THETA, interpret=True,
+                              precision=precision)
+    zt, dt = tfz.fused_z_iter(*_torch((z, du, bhat, dhat, minv)), rho, THETA)
+    err = float(np.abs(zt.numpy() - np.asarray(zj)).max())
+    if precision == "high":
+        assert err <= 1e-3 * float(np.abs(np.asarray(zj)).max()), err
+    else:
+        assert err <= 2e-5, err
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-6)
+
+
 def test_passes_compose_to_the_reference():
     args = _torch(_problem()[:5])
     z, du, bhat, dhat, minv = args

@@ -72,6 +72,9 @@ def test_plan_tiles_cover_f(F):
         (4, 100, 266 * 134, H100_SMS, H100_L2, 4, (1114, 1)),  # 4 slots
         (13, 100, 266 * 134, H100_SMS, H100_L2, 8, (1114, 2)),
         (800, 100, 110 * 56, H100_SMS, 8 * 2**20, 8, (193, 100)),
+        # the 3D learner's z-solve: 64 clips, K = 49, 60x60x31 bins
+        # (dhat + dinv 65.6 MB); its kpt is 8 (49 <= 8 k-groups x 8)
+        (64, 49, 60 * 60 * 31, H100_SMS, H100_L2, 8, (3488, 8)),
         # they fit: one image per block (the learner's composition path)
         (800, 100, 110 * 56, H100_SMS, H100_L2, 1, (193, 800)),
         (200000, 100, 1, H100_SMS, H100_L2, 4, (1, 50000)),  # but for

@@ -295,12 +295,124 @@ def test_jax_checkpoint_resumes_in_the_port(tmp_path, storage):
 
 
 def test_fused_z_on_other_geometry_raises():
+    """Nothing raises: fused_z on a W > 1 geometry takes the composition
+    path, as the JAX gate does (models/learn.py:358-364 there), and
+    equals fused_z=False bit for bit."""
     geom = ProblemGeom((5, 5), 4, (3,))
     fg = tcommon.FreqGeom.create(geom, (12, 12))
     st = tlearn.init_state(torch.Generator().manual_seed(0), geom, fg, 1, 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tlearn.outer_step(st, torch.zeros(1, 2, 3, 12, 12), geom,
-                          LearnConfig(fused_z=True, verbose="none"), fg, 1)
+    b = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(1, 2, 3, 12, 12)).astype(np.float32))
+    out = [tlearn.outer_step(st, b, geom, LearnConfig(
+        fused_z=fused, verbose="none", track_objective=True), fg, 1)
+        for fused in (True, False)]
+    for a, c in zip(out[0][0] + out[0][1], out[1][0] + out[1][1]):
+        assert torch.equal(a, c)
+
+
+# the 3D and 4D learners' geometries at a tiny size: (geometry args, data
+# [n, *reduce, *spatial], blocks)
+ND = {
+    "3d": (((3, 3, 3), 3), (4, 6, 6, 5)),
+    "4d": (((3, 3), 3, (2, 2)), (4, 2, 2, 8, 8)),
+}
+
+
+def _nd(which, seed=11):
+    ga, shape = ND[which]
+    b = np.random.default_rng(seed).uniform(0.1, 1.0, shape).astype(
+        np.float32)
+    jgeom = JGeom(*ga)
+    fg = jcommon.FreqGeom.create(jgeom, shape[-jgeom.ndim_spatial:])
+    jst = jlearn.init_state(jax.random.PRNGKey(5), jgeom, fg, 2,
+                            shape[0] // 2)
+    return ga, b, jst
+
+
+@pytest.mark.parametrize("which", list(ND))
+def test_one_outer_step_matches_jax_3d_4d(which):
+    ga, b, jst = _nd(which)
+    kw = dict(GOLDEN_KW, rho_d=5000.0, rho_z=1.0)
+    bb = b.reshape(2, b.shape[0] // 2, *b.shape[1:])
+    ns = len(ga[0])
+    jfg = jcommon.FreqGeom.create(JGeom(*ga), b.shape[-ns:])
+    jnew, jm = jlearn.outer_step(jst, jnp.asarray(bb), JGeom(*ga),
+                                 JCfg(**kw), jfg, 2)
+    tfg = tcommon.FreqGeom.create(ProblemGeom(*ga), b.shape[-ns:])
+    tnew, tm = tlearn.outer_step(_port_state(jst), torch.from_numpy(bb),
+                                 ProblemGeom(*ga), LearnConfig(**kw), tfg, 2)
+    port = convert.learn_state_to_numpy(tnew)
+    for f in tlearn.LearnState._fields:
+        ref = np.asarray(getattr(jnew, f))
+        err = float(np.abs(port[f] - ref).max())
+        assert err <= 1e-4 * float(np.abs(ref).max()), (f, err)
+    np.testing.assert_allclose(
+        [float(tm.obj_d), float(tm.obj_z), float(tm.d_diff),
+         float(tm.z_diff)],
+        [float(jm.obj_d), float(jm.obj_z), float(jm.d_diff),
+         float(jm.z_diff)], rtol=1e-4,
+    )
+
+
+@pytest.mark.parametrize("which", list(ND))
+def test_fused_z_on_3d_and_views_equals_composition(which, monkeypatch):
+    """fused_z=True on a 3D (W == 1, three spatial axes) and a W > 1
+    geometry learns through the composition path: the same learn as
+    fused_z=False, and K2's entry point is never called."""
+    ga, b, jst = _nd(which, seed=12)
+
+    def no_k2(*a, **kw):
+        raise AssertionError("K2 called outside the 2D, W == 1 learner")
+
+    monkeypatch.setattr(tfz, "fused_z_iter", no_k2)
+    kw = dict(GOLDEN_KW, max_it=2, rho_d=5000.0, rho_z=1.0)
+    runs = [consensus.learn(b, ProblemGeom(*ga),
+                            LearnConfig(**kw, fused_z=fused), device="cpu",
+                            initial_state=_port_state(jst))
+            for fused in (True, False)]
+    assert runs[0].trace["obj_vals_z"] == runs[1].trace["obj_vals_z"]
+    assert torch.equal(runs[0].d, runs[1].d)
+    assert torch.equal(runs[0].z, runs[1].z)
+
+
+def test_3d_learner_matches_matlab_transcription():
+    """tests/test_matlab_anchor_3d.py on the port: the float64 MATLAB
+    transcription of 3D/admm_learn_conv3D_large.m against the port's
+    learner at ProblemGeom((3,3,3), k), compat_coding='block1', at that
+    test's rtol 2e-3."""
+    from test_matlab_anchor_3d import _problem, matlab_3d_learner
+
+    b, d0_full, z0, r = _problem()
+    N, max_it = 2, 2
+    ml_d, ml_z = matlab_3d_learner(b, d0_full, z0, N, r, 1.0, 1.0, max_it,
+                                   5, 5)
+    H, n, k = b.shape[0], b.shape[-1], d0_full.shape[3]
+    ni = n // N
+    geom = ProblemGeom((3, 3, 3), k)
+    fg = tcommon.FreqGeom.create(geom, (H, H, H))
+    d_fw = torch.from_numpy(np.moveaxis(d0_full, -1, 0).astype(np.float32))
+    z_fw = torch.from_numpy(np.transpose(z0, (4, 3, 0, 1, 2)).reshape(
+        N, ni, k, *fg.spatial_shape).astype(np.float32))
+    state = tlearn.LearnState(
+        d_local=d_fw.expand(N, *d_fw.shape).contiguous(),
+        dual_d=torch.zeros(N, *d_fw.shape), dbar=torch.zeros_like(d_fw),
+        udbar=torch.zeros_like(d_fw), z=z_fw, dual_z=torch.zeros_like(z_fw),
+    )
+    b_blocks = torch.from_numpy(np.transpose(b, (3, 0, 1, 2)).reshape(
+        N, ni, H, H, H).astype(np.float32))
+    cfg = LearnConfig(
+        lambda_residual=1.0, lambda_prior=1.0, max_it=max_it, tol=0.0,
+        max_it_d=5, max_it_z=5, rho_d=5000.0, rho_z=1.0, num_blocks=N,
+        verbose="none", track_objective=True, compat_coding="block1",
+    )
+    fw_d, fw_z = [], []
+    for _ in range(max_it):
+        state, m = tlearn.outer_step(state, b_blocks, geom, cfg, fg, N)
+        fw_d.append(float(m.obj_d))
+        fw_z.append(float(m.obj_z))
+    np.testing.assert_allclose(fw_d, ml_d[1:], rtol=2e-3)
+    np.testing.assert_allclose(fw_z, ml_z[1:], rtol=2e-3)
+    assert ml_z[-1] < 0.5 * ml_z[0]
 
 
 def test_init_state_shapes_and_storage():
@@ -358,9 +470,60 @@ def test_cli_learns_and_saves_the_reference_layout(tmp_path):
 @pytest.mark.parametrize(
     "flag, item",
     [(["--mesh", "2"], "item 8"), (["--streaming"], "item 8"),
-     (["--masked"], "item 8"), (["--tune", "auto"], "item 9"),
-     (["--profile-dir", "p"], "item 10")],
+     (["--masked", "--stream-mode", "auto"], "item 8"),
+     (["--tune", "auto"], "item 9"), (["--profile-dir", "p"], "item 10")],
 )
 def test_cli_refuses_unported_flags(flag, item):
     with pytest.raises(SystemExit, match=item):
         tapp.main(["--data", "x", *flag])
+
+
+@pytest.mark.parametrize("flags, why", [
+    (["--carry-freq"], "--carry-freq requires --masked"),
+    (["--masked", "--fused-z"], "--masked does not combine with --fused-z"),
+    (["--masked", "--streaming"],
+     "--masked does not combine with --streaming"),
+])
+def test_cli_masked_refuses_like_jax(tmp_path, flags, why):
+    from ccsc_code_iccv2017_tpu.apps import learn_2d as japp
+
+    data = str(tmp_path / "imgs")
+    _write_pngs(data, n=2)  # the JAX CLI loads the data first
+    for app in (japp, tapp):
+        with pytest.raises(SystemExit, match=why):
+            app.main(["--data", data, *flags])
+
+
+@pytest.mark.parametrize("extra", [[], ["--carry-freq"]])
+def test_cli_masked_learns_and_matches_jax(tmp_path, monkeypatch, extra):
+    """``learn_2d --masked`` routes to the masked learner at
+    reduce_shape=() and matches the JAX CLI's ``--masked`` on the same
+    arguments, from the JAX init of --seed."""
+    from ccsc_code_iccv2017_tpu.apps import learn_2d as japp
+    from ccsc_code_iccv2017_torch.models import learn_masked as tlm
+    from test_torch_learn_masked import jax_masked_state
+
+    def masked_init(generator, geom, fg, n, z_dtype=torch.float32,
+                    init_d=None):
+        st = jax_masked_state(n, (geom.spatial_support, geom.num_filters,
+                                  ()), fg.spatial_shape,
+                              jax.random.PRNGKey(generator.initial_seed()))
+        return convert.masked_state_from_jax(_fields(st), generator.device)
+
+    data = str(tmp_path / "imgs")
+    _write_pngs(data, n=3)
+    argv = ["--data", data, "--filters", "4", "--support", "5",
+            "--max-it", "3", "--max-it-d", "3", "--max-it-z", "3",
+            "--tol", "0", "--masked", "--seed", "2", "--verbose", "none",
+            *extra]
+    jr = japp.main(argv + ["--out", str(tmp_path / "j.mat")])
+    monkeypatch.setattr(tlm, "init_state", masked_init)
+    out = str(tmp_path / "t.mat")
+    res = tapp.main(argv + ["--out", out, "--device", "cpu"])
+    assert res.trace["algorithm"] == "masked_admm"
+    for k in ("obj_vals_d", "obj_vals_z"):
+        assert len(res.trace[k]) == len(jr.trace[k])
+        np.testing.assert_allclose(res.trace[k], jr.trace[k], rtol=1e-4)
+    scale = float(np.abs(np.asarray(jr.d)).max())
+    assert np.abs(res.d.numpy() - np.asarray(jr.d)).max() <= 1e-4 * scale
+    np.testing.assert_array_equal(jio.load_filters_2d(out), res.d.numpy())

@@ -394,8 +394,13 @@ def test_save_filters_round_trips_through_jax_loaders(tmp_path):
     np.testing.assert_array_equal(
         tio.load_filters_2d(str(tmp_path / "t.mat")), d
     )
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tio.save_filters(str(tmp_path / "h.mat"), _rand(r, (2, 3, 5, 5)))
+    # a 4-D bank with a reduce axis unlike its support infers the
+    # hyperspectral layout, as in JAX (every layout: test_torch_learn_apps)
+    hs = _rand(r, (2, 3, 5, 5))
+    tio.save_filters(str(tmp_path / "h.mat"), _t(hs))
+    np.testing.assert_array_equal(
+        jio.load_filters_hyperspectral(str(tmp_path / "h.mat")), hs
+    )
 
 
 @pytest.mark.parametrize(
