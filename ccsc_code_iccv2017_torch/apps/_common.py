@@ -1,6 +1,8 @@
 """The flags the reconstruction and learner apps share (the port's
 counterpart of the JAX package's ``apps/_dispatch.py`` argument helpers),
-and what a reconstruction app's ``run`` returns.
+the learner CLIs' solver dispatch with its streaming arm
+(:func:`dispatch_learn`), and what a reconstruction app's ``run``
+returns.
 
 Every flag of the JAX CLIs parses here with the same name, choices and
 default; a non-default value of a feature the port has not ported yet
@@ -13,7 +15,10 @@ it.
 from __future__ import annotations
 
 import argparse
-from typing import Any, NamedTuple
+import dataclasses
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
 
 
 def add_perf_args(parser: argparse.ArgumentParser, fft_pad: bool = True) -> None:
@@ -93,7 +98,9 @@ def add_learner_args(
     parser.add_argument(
         "--stream-mode", default=None,
         choices=["auto", "device", "kern", "paged"],
-        help="state placement tier for --streaming (not ported yet)",
+        help="placement tier of --streaming's block state: auto picks "
+        "by the CCSC_STREAM_RESIDENT_GB byte budget (default: the "
+        "CCSC_STREAM_MODE knob, else auto)",
     )
     if masked_carry:
         parser.add_argument(
@@ -141,10 +148,6 @@ def add_learner_args(
 # (argparse dest, the value that asks for nothing, what it is, the
 # ROADMAP.md Queue 1 item that ports it)
 _LEARNER_NOT_PORTED = (
-    ("streaming", False, "--streaming (the host-streaming learner)", "8b"),
-    ("stream_mode", None, "--stream-mode (streaming placement)", "8b"),
-    ("streaming_blocks", 4, "--streaming-blocks (the streaming learner)",
-     "8b"),
     ("mesh", 0, "--mesh (the sharded learner)", "8c"),
     ("tune", "off", "--tune (knob autotuning)", "9"),
     ("tune_store", None, "--tune-store (knob autotuning)", "9"),
@@ -182,6 +185,76 @@ def learner_config_kwargs(args: argparse.Namespace) -> dict:
     if hasattr(args, "carry_freq"):
         kw["carry_freq"] = args.carry_freq
     return kw
+
+
+def dispatch_learn(
+    b, geom, cfg, seed: int, device, *, streaming: bool = False,
+    stream_mode: Optional[str] = None, solver=None,
+    streaming_blocks: Optional[int] = None, streaming_offset=None,
+    forbidden: Optional[dict] = None, **kwargs,
+):
+    """Run a learner CLI's solve: ``solver`` (default the consensus
+    learner, parallel.consensus.learn) with ``kwargs``, or with
+    ``streaming`` the host-streaming learner (the port of the JAX
+    package's ``apps/_dispatch.py::dispatch_learn`` without its mesh,
+    tuning and degrade arms). The random init draws from ``seed``: on
+    ``device`` for the in-memory solvers, on the host for the streaming
+    learner, whose state lives there.
+
+    The streaming arm takes ``checkpoint_dir`` / ``checkpoint_every``
+    and nothing else: a truthy ``forbidden`` entry ({"--cli-flag":
+    value}) or a non-None extra keyword is refused by name.
+    ``streaming_offset`` is subtracted from the data before the run and
+    added back to Dz after it (the hyperspectral app's smooth_init, so
+    Dz is the full reconstruction, as the masked learner's);
+    ``streaming_blocks`` becomes cfg.num_blocks, shrunk to the largest
+    divisor of n not above it."""
+    import torch
+
+    if stream_mode and not streaming:
+        raise SystemExit("--stream-mode requires --streaming")
+    if not streaming:
+        if solver is None:
+            from ..parallel.consensus import learn as solver
+        return solver(
+            b, geom, cfg, device=device,
+            generator=torch.Generator(device=device).manual_seed(seed),
+            **kwargs,
+        )
+    checkpoint_dir = kwargs.pop("checkpoint_dir", None)
+    checkpoint_every = kwargs.pop("checkpoint_every", 5)
+    set_flags = [k for k, v in (forbidden or {}).items() if v]
+    if set_flags:
+        raise SystemExit(
+            "--streaming does not combine with " + "/".join(set_flags)
+        )
+    # an unset option rides the shared call as None; `is not None`
+    # because values can be arrays
+    extra = sorted(k for k, v in kwargs.items() if v is not None)
+    if extra:
+        raise SystemExit("--streaming does not combine with "
+                         + "/".join(extra))
+    from ..parallel.streaming import learn_streaming
+
+    b = np.asarray(b, np.float32)
+    if streaming_offset is not None:
+        streaming_offset = np.asarray(streaming_offset, np.float32)
+        b = b - streaming_offset
+    if streaming_blocks is not None:
+        n = b.shape[0]
+        blocks = max(1, min(streaming_blocks, n))
+        while n % blocks:
+            blocks -= 1
+        cfg = dataclasses.replace(cfg, num_blocks=blocks)
+    res = learn_streaming(
+        b, geom, cfg, generator=torch.Generator().manual_seed(seed),
+        stream_mode=stream_mode, checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every, device=device,
+    )
+    if streaming_offset is not None:
+        # the streaming learner codes the offset-subtracted data
+        res = res._replace(Dz=res.Dz + torch.from_numpy(streaming_offset))
+    return res
 
 
 class AppRun(NamedTuple):

@@ -46,7 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     from ..config import ProblemGeom, SolveConfig
-    from ..data.images import load_images, smooth_fill_batch
+    from ..data.images import load_images
+    from ..data.native import smooth_fill_batch
     from ..models.reconstruct import ReconstructionProblem, reconstruct
     from ..utils import validate
     from ..utils.io_mat import load_filters_2d

@@ -8,7 +8,10 @@ tol=1e-3) -> save Filters_ours_2D_large.mat
 (learn_kernels_2D_large.m:8-45). Runs on ``--device`` (default cuda);
 ``--fused-z`` takes the z inner iteration through the hand-written
 kernels K2a/K2b; ``--masked`` learns with the masked-boundary learner
-(models.learn_masked at reduce_shape=(), whose z-solve is K1).
+(models.learn_masked at reduce_shape=(), whose z-solve is K1);
+``--streaming`` with the host-streaming learner (parallel.streaming: one
+consensus block on the card at a time, ``--stream-mode`` its placement
+tier; its z-solve is K1, never K2).
 
     python -m ccsc_code_iccv2017_torch.apps.learn_2d --data DIR \\
         [--filters 100 --support 11 --blocks 8 --fused-z --out f.mat]
@@ -35,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rho-d", type=float, default=5000.0)
     p.add_argument("--rho-z", type=float, default=1.0)
     p.add_argument("--contrast", default="local_cn",
-                   choices=["none", "local_cn"])
+                   help="contrast mode of data.images.load_images")
     add_mat_layout_arg(p)
     p.add_argument("--size", type=int, default=None, help="resize side")
     p.add_argument("--limit", type=int, default=None)
@@ -46,7 +49,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="warm-start dictionary .mat (e.g. a previous --out)",
     )
     p.add_argument("--profile-dir", default=None, help="not ported yet")
-    p.add_argument("--streaming", action="store_true", help="not ported yet")
+    p.add_argument(
+        "--streaming", action="store_true",
+        help="host-streaming mode: one consensus block on the card at a "
+        "time (bounded device memory; parallel.streaming)",
+    )
     p.add_argument(
         "--masked", action="store_true",
         help="use the masked-boundary learner (models.learn_masked at "
@@ -82,15 +89,14 @@ def main(argv=None):
                     f"--masked does not combine with {flag} "
                     "(consensus-learner mechanisms)"
                 )
-    from ._common import learner_config_kwargs, refuse_unported_learner
+    from ._common import (
+        dispatch_learn, learner_config_kwargs, refuse_unported_learner,
+    )
 
     refuse_unported_learner(args)
-    import torch
-
     from ..config import LearnConfig, ProblemGeom
     from ..data.images import load_images
     from ..models.learn_masked import learn_masked
-    from ..parallel.consensus import learn
     from ..utils import validate
     from ..utils.device import resolve_device
     from ..utils.io_mat import load_filters_2d, save_filters
@@ -130,14 +136,15 @@ def main(argv=None):
     )
     dev = resolve_device(args.device)
     init_d = load_filters_2d(args.init_filters) if args.init_filters else None
-    solver = learn_masked if args.masked else learn
-    res = solver(
-        b, geom, cfg,
-        generator=torch.Generator(device=dev).manual_seed(args.seed),
+    res = dispatch_learn(
+        b, geom, cfg, args.seed, dev, streaming=args.streaming,
+        stream_mode=args.stream_mode,
+        solver=learn_masked if args.masked else None,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
         init_d=init_d,
-        device=dev,
+        forbidden={"--init-filters": args.init_filters,
+                   "--profile-dir": args.profile_dir},
     )
     save_filters(args.out, res.d, res.trace, layout="2d", Dz=res.Dz)
     print(

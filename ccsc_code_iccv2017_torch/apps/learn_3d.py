@@ -7,8 +7,9 @@ Reference protocol: the contrast-normalized movie -> 64 random crops of
 (admm_learn_conv3D_large.m:11-12) -> save 3D_video_filters.mat. The
 movie blob is absent: ``--synthetic`` generates drifting-texture clips,
 ``--movie`` extracts crops from a video file. The z-solve of every
-inner iteration is K1 over all the clips' codes (W == 1). Runs on
-``--device`` (default cuda).
+inner iteration is K1 over all the clips' codes (W == 1); ``--streaming``
+runs the host-streaming learner (parallel.streaming), whose z-solve is K1
+over one block's codes. Runs on ``--device`` (default cuda).
 
     python -m ccsc_code_iccv2017_torch.apps.learn_3d --synthetic \\
         --clips 64 --clip-size 50 --blocks 8 [--out f.mat]
@@ -37,7 +38,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rho-d", type=float, default=5000.0)
     p.add_argument("--rho-z", type=float, default=1.0)
     p.add_argument("--mesh", type=int, default=0, help="not ported yet")
-    p.add_argument("--streaming", action="store_true", help="not ported yet")
+    p.add_argument(
+        "--streaming", action="store_true",
+        help="host-streaming mode: one consensus block on the card at a "
+        "time (bounded device memory; parallel.streaming)",
+    )
     p.add_argument("--out", default="3D_video_filters.mat")
     add_learner_args(p)
     p.add_argument("--seed", type=int, default=0)
@@ -79,12 +84,9 @@ def problem(args: argparse.Namespace):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from ._common import refuse_unported_learner
+    from ._common import dispatch_learn, refuse_unported_learner
 
     refuse_unported_learner(args)
-    import torch
-
-    from ..parallel.consensus import learn
     from ..utils import validate
     from ..utils.device import resolve_device
     from ..utils.io_mat import save_filters
@@ -95,12 +97,11 @@ def main(argv=None):
     # fail on garbage inputs HERE, with the file/flag named
     validate.check_learn_data(b, geom, num_blocks=args.blocks)
     dev = resolve_device(args.device)
-    res = learn(
-        b, geom, cfg,
-        generator=torch.Generator(device=dev).manual_seed(args.seed),
+    res = dispatch_learn(
+        b, geom, cfg, args.seed, dev, streaming=args.streaming,
+        stream_mode=args.stream_mode,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
-        device=dev,
     )
     save_filters(args.out, res.d, res.trace, layout="3d", Dz=res.Dz)
     print(f"saved {tuple(res.d.shape)} filters to {args.out}")

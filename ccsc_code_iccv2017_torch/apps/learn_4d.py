@@ -8,7 +8,8 @@ maps shared across the 5x5 angular views
 (admm_learn_conv4D_lightfield.m:18-20,43-47) -> save
 4d_filters_lightfield.mat. The z-solve is the W = 25 Woodbury solve.
 The lightfield blob is absent: ``--synthetic`` generates a
-disparity-shifted lightfield. Runs on ``--device`` (default cuda).
+disparity-shifted lightfield. ``--streaming`` runs the host-streaming
+learner (parallel.streaming). Runs on ``--device`` (default cuda).
 
     python -m ccsc_code_iccv2017_torch.apps.learn_4d --synthetic \\
         --patches 64 --patch-size 50 --blocks 8 [--out f.mat]
@@ -40,7 +41,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rho-d", type=float, default=500.0)
     p.add_argument("--rho-z", type=float, default=50.0)
     p.add_argument("--mesh", type=int, default=0, help="not ported yet")
-    p.add_argument("--streaming", action="store_true", help="not ported yet")
+    p.add_argument(
+        "--streaming", action="store_true",
+        help="host-streaming mode: one consensus block on the card at a "
+        "time (bounded device memory; parallel.streaming)",
+    )
     p.add_argument("--out", default="4d_filters_lightfield.mat")
     add_learner_args(p)
     p.add_argument("--seed", type=int, default=0)
@@ -91,12 +96,9 @@ def problem(args: argparse.Namespace, b: np.ndarray):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from ._common import refuse_unported_learner
+    from ._common import dispatch_learn, refuse_unported_learner
 
     refuse_unported_learner(args)
-    import torch
-
-    from ..parallel.consensus import learn
     from ..utils import validate
     from ..utils.device import resolve_device
     from ..utils.io_mat import save_filters
@@ -107,12 +109,11 @@ def main(argv=None):
     # fail on garbage inputs HERE, with the file/flag named
     validate.check_learn_data(b, geom, num_blocks=args.blocks)
     dev = resolve_device(args.device)
-    res = learn(
-        b, geom, cfg,
-        generator=torch.Generator(device=dev).manual_seed(args.seed),
+    res = dispatch_learn(
+        b, geom, cfg, args.seed, dev, streaming=args.streaming,
+        stream_mode=args.stream_mode,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
-        device=dev,
     )
     save_filters(args.out, res.d, res.trace, layout="lightfield", Dz=res.Dz)
     print(f"saved {tuple(res.d.shape)} filters to {args.out}")

@@ -7,7 +7,10 @@ learn_hyperspectral.m:16-17) -> masked ADMM learner with kernel
 [11,11,31,100], max_it=40, tol=1e-3 (:30) -> save. The z-solve is the
 W = 31 Woodbury solve. The training_data.mat blob is absent:
 ``--synthetic`` generates demo cubes, ``--mat`` reads a variable 'b'
-[x y w n]. Runs on ``--device`` (default cuda).
+[x y w n]. ``--streaming`` learns with the consensus streaming learner
+on the offset-subtracted cubes instead (parallel.streaming, in
+``--streaming-blocks`` blocks; Dz gets the offset back). Runs on
+``--device`` (default cuda).
 
     python -m ccsc_code_iccv2017_torch.apps.learn_hyperspectral \\
         --synthetic [--limit 4 --out f.mat]
@@ -35,9 +38,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--out", default="hyperspectral_filters.mat")
     p.add_argument("--init", default=None, help="warm-start filter .mat")
-    p.add_argument("--streaming", action="store_true", help="not ported yet")
+    p.add_argument(
+        "--streaming", action="store_true",
+        help="host-streaming mode: bounded device memory through the "
+        "consensus streaming learner on offset-subtracted cubes. "
+        "DIVERGENCE: the consensus objective (zero-padded border "
+        "residual) instead of the masked-boundary ADMM, whose n x n "
+        "Woodbury inner system couples all images and cannot stream "
+        "(admm_learn.m:273-300)",
+    )
     p.add_argument("--streaming-blocks", type=int, default=4,
-                   help="not ported yet")
+                   help="consensus blocks of --streaming (shrunk to the "
+                   "largest divisor of n not above it)")
     add_learner_args(p, masked_carry=True, d_storage=False)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--verbose", default="brief", choices=["none", "brief"])
@@ -93,11 +105,9 @@ def problem(args: argparse.Namespace, b: np.ndarray):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from ._common import refuse_unported_learner
+    from ._common import dispatch_learn, refuse_unported_learner
 
     refuse_unported_learner(args)
-    import torch
-
     from ..models.learn_masked import learn_masked
     from ..utils import validate
     from ..utils.device import resolve_device
@@ -110,17 +120,30 @@ def main(argv=None):
     # fail on garbage inputs HERE, with the file/flag named
     validate.check_learn_data(b, geom)
     dev = resolve_device(args.device)
-    init_d = load_filters_hyperspectral(args.init) if args.init else None
-    res = learn_masked(
-        b, geom, cfg, smooth_init=sm, init_d=init_d,
-        generator=torch.Generator(device=dev).manual_seed(args.seed),
-        checkpoint_dir=args.checkpoint_dir,
-        checkpoint_every=args.checkpoint_every,
-        device=dev,
-    )
+    if args.streaming:
+        res = dispatch_learn(
+            b, geom, cfg, args.seed, dev, streaming=True,
+            stream_mode=args.stream_mode,
+            streaming_blocks=args.streaming_blocks, streaming_offset=sm,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
+            # --streaming swaps in the consensus learner, which has no
+            # warm start and no re-transform to carry
+            forbidden={"--init": args.init, "--carry-freq": args.carry_freq},
+        )
+    else:
+        res = dispatch_learn(
+            b, geom, cfg, args.seed, dev, stream_mode=args.stream_mode,
+            solver=learn_masked, smooth_init=sm,
+            init_d=load_filters_hyperspectral(args.init) if args.init
+            else None,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
+        )
     save_filters(args.out, res.d, res.trace, layout="hyperspectral",
                  Dz=res.Dz)
-    print(f"saved {tuple(res.d.shape)} filters to {args.out}")
+    print(f"saved {tuple(res.d.shape)} filters to {args.out}"
+          + (" (streaming)" if args.streaming else ""))
     return res
 
 

@@ -2,10 +2,11 @@
 (a jax-free copy of ``ccsc_code_iccv2017_tpu.data.images``: the four
 input forms of the reference's CreateImages.m (a folder, a .mat stack,
 a single file, an in-memory array), its color modes and frame strides,
-the 'none' and 'local_cn' contrast modes, and the numpy branch of
-``data.native.smooth_fill_batch``; the port does not load the native
-preprocessing library). The whitening contrast modes come with
-ROADMAP.md Queue 1 item 8b.
+every contrast mode ('none', 'local_cn' and the whitening family of
+data.whitening), the channel layouts and ``return_info``,
+``load_images_native`` (the native preprocessing library, data.native),
+and ``smooth_fill_batch``, the numpy version of
+``data.native.smooth_fill_batch``).
 """
 from __future__ import annotations
 
@@ -326,17 +327,12 @@ def load_image_list(
 
     ``path`` may be a directory of images; a directory holding a single
     .mat stack; a .mat file; a single image file; or an in-memory array
-    (see array_image_stack for its layouts). Contrast modes: 'none' and
-    'local_cn'; the whitening modes come with ROADMAP.md Queue 1 item 8b.
+    (see array_image_stack for its layouts). Contrast modes: 'none',
+    'local_cn', data.whitening's PER_IMAGE_MODES here per image, and its
+    STACK_MODES, which load_images applies to the assembled stack.
     """
     from PIL import Image
 
-    if contrast_normalize not in ("none", "local_cn"):
-        raise NotImplementedError(
-            f"contrast mode {contrast_normalize!r} is not ported yet "
-            "(the port runs 'none' and 'local_cn'; the whitening modes "
-            "are ROADMAP.md Queue 1 item 8b)"
-        )
     if isinstance(path, np.ndarray):
         raws = select_frames(array_image_stack(path), frames)
     elif os.path.isfile(path):
@@ -371,6 +367,17 @@ def load_image_list(
         img = convert_color(raw, color)
         if contrast_normalize == "local_cn":
             img = _per_channel(local_contrast_normalize, img)
+        elif contrast_normalize != "none":
+            from . import whitening
+
+            if contrast_normalize in whitening.PER_IMAGE_MODES:
+                img = _per_channel(
+                    whitening.PER_IMAGE_MODES[contrast_normalize], img
+                )
+            elif contrast_normalize not in whitening.STACK_MODES:
+                raise NotImplementedError(
+                    f"contrast mode {contrast_normalize!r}"
+                )
         if zero_mean:
             img = img - img.mean()
         out.append(img.astype(np.float32))
@@ -388,6 +395,22 @@ def _resize(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
     return _per_channel(one, img)
 
 
+def channels_to_reduce(stack: np.ndarray) -> np.ndarray:
+    """[n, H, W, C] -> [n, C, H, W]: color channels as the model's
+    reduce axis (b = [n, *reduce, *spatial], config.ProblemGeom) so a
+    color stack feeds learn()/reconstruct() with
+    ProblemGeom(support, k, reduce_shape=(C,)) — channels share one
+    code map the way wavelengths do (2-3D admm_learn.m:13-16)."""
+    return np.moveaxis(stack, -1, 1)
+
+
+def channels_to_batch(stack: np.ndarray) -> np.ndarray:
+    """[n, H, W, C] -> [n*C, H, W]: each channel coded independently,
+    the reference's per-channel driver loop
+    (reconstruct_subsampling_lightfield.m:25 loops rgb)."""
+    return np.moveaxis(stack, -1, 1).reshape(-1, *stack.shape[1:-1])
+
+
 def load_images(
     path,
     contrast_normalize: str = "none",
@@ -398,15 +421,28 @@ def load_images(
     size: Optional[Sequence[int]] = None,
     frames: Optional[Sequence] = None,
     mat_layout: Optional[str] = None,
-) -> np.ndarray:
+    layout: str = "channels_last",
+    return_info: bool = False,
+):
     """CreateImages.m: a folder, .mat stack, single image or in-memory
-    array (``load_image_list``) -> [n, H, W] float32 (gray) or
-    [n, H, W, 3] (the color modes). Per image, in the JAX loader's
-    order: color conversion, ``contrast_normalize`` ('none' or
-    'local_cn'), ``zero_mean``; then ``size`` resizes and ``square``
-    center-crops to the smaller side. The JAX loader's ``layout`` and
-    ``return_info`` come with the whitening modes (ROADMAP.md Queue 1
-    item 8b)."""
+    array (``load_image_list``) -> [n, H, W] float32 (gray) or, for the
+    color modes, a stack whose channel placement ``layout`` picks:
+
+    - 'channels_last': [n, H, W, 3];
+    - 'reduce':        [n, 3, H, W] (gray: [n, 1, H, W]), the model
+      layout b = [n, *reduce, *spatial] for
+      ProblemGeom(support, k, reduce_shape=(3,));
+    - 'batch':         [n*3, H, W], channels coded independently.
+
+    Per image, in the JAX loader's order: color conversion, a per-image
+    ``contrast_normalize`` mode, ``zero_mean``; then ``size`` resizes,
+    ``square`` center-crops to the smaller side, and a stack mode of
+    data.whitening whitens the stack (each color channel's apart).
+
+    ``return_info`` returns ``(stack, info)``; ``info['mean_image']``,
+    oriented like the stack, is the dataset mean that ``sep_mean``
+    removed (CreateImages.m:640-646): ``stack + mean_image`` undoes it.
+    """
     imgs = load_image_list(
         path, contrast_normalize, zero_mean, color, limit, frames,
         mat_layout=mat_layout,
@@ -426,4 +462,116 @@ def load_images(
             f"images differ in size {shapes}; use load_image_list or "
             "pass size= to resize them"
         )
-    return np.stack(imgs).astype(np.float32)
+    stack = np.stack(imgs).astype(np.float32)
+    from . import whitening
+
+    info = {}
+    if contrast_normalize in whitening.STACK_MODES:
+        mode = whitening.STACK_MODES[contrast_normalize]
+        if stack.ndim == 4:  # color: whiten each channel's stack
+            outs = [mode(stack[..., c]) for c in range(stack.shape[-1])]
+            if isinstance(outs[0], tuple):  # (stack, aux) modes
+                stack = np.stack([o[0] for o in outs], -1)
+                info["mean_image"] = np.stack([o[1] for o in outs], -1)
+            else:
+                stack = np.stack(outs, -1)
+        else:
+            out = mode(stack)
+            if isinstance(out, tuple):
+                stack, info["mean_image"] = out
+            else:
+                stack = out
+    out = _apply_layout(stack, layout)
+    if "mean_image" in info:
+        info["mean_image"] = _mean_to_layout(
+            info["mean_image"], layout, stack.shape[0]
+        )
+    return (out, info) if return_info else out
+
+
+def _mean_to_layout(mu: np.ndarray, layout: str, n: int) -> np.ndarray:
+    """Orient the sep_mean mean image to match _apply_layout's stack so
+    ``stack + mean_image`` undoes the centering in every layout."""
+    if mu.ndim == 2:  # gray [H, W] broadcasts against every layout
+        return mu
+    if layout == "reduce":
+        return np.moveaxis(mu, -1, 0)  # [C, H, W] vs stack [n, C, H, W]
+    if layout == "batch":
+        # stack is [n*C, H, W] with channel fastest (channels_to_batch):
+        # repeat the per-channel means n times in the same order
+        return np.tile(np.moveaxis(mu, -1, 0), (n, 1, 1))
+    return mu  # channels_last [H, W, C]
+
+
+def _apply_layout(stack: np.ndarray, layout: str) -> np.ndarray:
+    if layout not in ("channels_last", "reduce", "batch"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if layout == "reduce":
+        # gray gets a singleton reduce axis so the shape contract
+        # [n, *reduce, *spatial] holds for every color mode
+        return (
+            stack[:, None] if stack.ndim == 3 else channels_to_reduce(stack)
+        )
+    if layout == "batch" and stack.ndim == 4:
+        return channels_to_batch(stack)
+    return stack
+
+
+def load_images_native(
+    path: str,
+    contrast_normalize: str = "none",
+    zero_mean: bool = False,
+    **kwargs,
+) -> np.ndarray:
+    """load_images with the native preprocessing library (data.native):
+    images are loaded raw, then local_cn and zero-mean run natively over
+    a thread pool, in the numpy path's order (contrast at the original
+    resolution, then resize, square crop and layout); the results agree
+    with load_images' within float32 rounding. Contrast modes: 'none'
+    and 'local_cn'. Falls back to numpy when the library is
+    unavailable."""
+    from . import native
+
+    # Match load_images' pipeline order exactly: CN (original
+    # resolution) -> resize -> square crop -> layout. size/square are
+    # deferred so CN sees the same pixels as the numpy path.
+    layout = kwargs.pop("layout", "channels_last")
+    size = kwargs.pop("size", None)
+    square = kwargs.pop("square", False)
+    # none/local_cn produce no undo state: info is always empty here
+    return_info = kwargs.pop("return_info", False)
+    stack = load_images(path, "none", False, **kwargs)
+    is_color = stack.ndim == 4
+    # the kernel consumes [*, H, W] planes: fold color into the batch
+    planes = (
+        np.ascontiguousarray(np.moveaxis(stack, -1, 1)).reshape(
+            -1, *stack.shape[1:3]
+        )
+        if is_color
+        else stack
+    )
+    if contrast_normalize == "local_cn":
+        planes = native.local_cn_batch(planes)
+    elif contrast_normalize != "none":
+        raise NotImplementedError(
+            f"native path supports none/local_cn, got {contrast_normalize!r}"
+        )
+    if zero_mean:
+        planes = native.zero_mean_batch(planes)
+    if is_color:
+        stack = np.moveaxis(
+            planes.reshape(stack.shape[0], stack.shape[-1], *stack.shape[1:3]),
+            1,
+            -1,
+        )
+    else:
+        stack = planes
+    if size is not None:
+        stack = np.stack([_resize(i, size) for i in stack])
+    if square:
+        s = min(stack.shape[1:3])
+        y0 = (stack.shape[1] - s) // 2
+        x0 = (stack.shape[2] - s) // 2
+        stack = stack[:, y0 : y0 + s, x0 : x0 + s]
+    out = _apply_layout(stack.astype(np.float32), layout)
+    return (out, {}) if return_info else out

@@ -19,7 +19,9 @@ outer iteration i (dzParallel.m:90-194):
 
 The L consensus blocks of one device ride a leading axis and every
 per-block solve is batched over it (JAX vmaps); the consensus average is
-a mean over that axis. Meshes (the psum over devices), the chunked
+a mean over that axis. The steps are written once, as the per-block
+pieces ``f_bhat`` … ``f_dz_block``, which the host-streaming learner
+(parallel.streaming) calls one block at a time. Meshes (the psum over devices), the chunked
 driver and the telemetry extras are not ported yet (ROADMAP.md Queue 1
 items 8c, 9 and 10). The JAX package's documented divergences from the
 reference (coding against the projected consensus dictionary, the
@@ -107,28 +109,6 @@ def _flat_blocks(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
 
 
-def objective_parts(
-    z: torch.Tensor,
-    dhat: torch.Tensor,
-    b_blocks: torch.Tensor,
-    geom: ProblemGeom,
-    cfg: LearnConfig,
-    fg: common.FreqGeom,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(data fidelity, l1) of codes z [L, ni, k, *sp] against dhat
-    [k, W, F] over all blocks; zeros when the objective is not tracked
-    (the reference evaluates it only when monitoring wants it)."""
-    if not cfg.with_objective:
-        zero = torch.zeros((), dtype=torch.float32, device=z.device)
-        return zero, zero
-    zf = _f32(_flat_blocks(z))
-    Dz = common.recon_from_freq(dhat, common.codes_to_freq(zf, fg), fg)
-    fid = common.data_fidelity(
-        Dz, _flat_blocks(b_blocks), geom.psf_radius, cfg.lambda_residual
-    )
-    return fid, common.l1_penalty(zf, cfg.lambda_prior)
-
-
 def z_iter_composition(z, dual_z, bhat, zkern, rho, theta, fg):
     """One z iteration as the composition (models/learn.py:366-383 of
     the JAX package): prox + dual update, torch.fft, the rank-1 solve
@@ -157,6 +137,113 @@ def z_iter_fused(z, dual_z, bhat, zkern, rho, theta, fg):
     )
 
 
+# ---- per-block pieces ------------------------------------------------
+# The steps of one consensus block, as plain functions on tensors: the
+# streaming learner (parallel.streaming) calls them block by block, and
+# outer_step calls the same functions on all of a device's blocks at
+# once (a leading block axis broadcasts through each of them). They are
+# the counterparts of the JAX package's parallel/streaming.py
+# ``_jit_pieces``; ``cfg`` is read at each call, so a rho backoff takes
+# effect at the next one.
+
+
+def f_bhat(b_nn: torch.Tensor, geom: ProblemGeom,
+           fg: common.FreqGeom) -> torch.Tensor:
+    """Data spectra [M, W, F] of unpadded data [M, *reduce, *data_sp]."""
+    return common.data_to_freq(
+        fourier.pad_spatial(b_nn, geom.psf_radius, target=fg.spatial_shape),
+        fg,
+    )
+
+
+def f_dkern(z_nn: torch.Tensor, bhat_nn: torch.Tensor, cfg: LearnConfig,
+            fg: common.FreqGeom) -> freq_solvers.DSolveKernel:
+    """The d-pass kernel of codes z_nn [..., ni, k, *sp] (any storage
+    dtype) against their data spectra bhat_nn [..., ni, W, F]: the code
+    spectra, the Woodbury inner inverse and the hoisted Z^H b, constant
+    over the max_it_d inner iterations."""
+    lead = z_nn.shape[: z_nn.ndim - len(fg.spatial_shape) - 1]
+    zhat = common.codes_to_freq(
+        _f32(z_nn).reshape(-1, *z_nn.shape[len(lead):]), fg
+    )
+    zhat = zhat.reshape(*lead, *zhat.shape[1:])  # [..., ni, K, F]
+    return freq_solvers.precompute_d_kernel(zhat, cfg.rho_d, b_hat=bhat_nn)
+
+
+def f_prox(dbar: torch.Tensor, udbar: torch.Tensor, geom: ProblemGeom,
+           fg: common.FreqGeom) -> torch.Tensor:
+    """The global kernel prox of the consensus (dzParallel.m:107)."""
+    return proxes.kernel_constraint_proj(
+        dbar + udbar, geom.spatial_support, fg.spatial_shape
+    )
+
+
+def f_d_block(kern: freq_solvers.DSolveKernel, d_local: torch.Tensor,
+              dual_d: torch.Tensor, u: torch.Tensor, cfg: LearnConfig,
+              fg: common.FreqGeom):
+    """One inner d-iteration of a block (dzParallel.m:110-113): the dual
+    step towards the prox ``u`` and the Woodbury solve. d_local, dual_d
+    [..., k, *reduce, *sp] in their storage dtype -> (d_new, dual) in
+    float32; the caller rounds them to storage."""
+    dual_f = _f32(dual_d) + (_f32(d_local) - u)
+    xi_hat = common.full_filters_to_freq(u - dual_f, fg)
+    dhat = freq_solvers.solve_d(kern, None, xi_hat, cfg.rho_d)
+    return _filters_from_freq(dhat, fg), dual_f
+
+
+def f_full_dhat(d_proj: torch.Tensor, fg: common.FreqGeom) -> torch.Tensor:
+    """Spectra [K, W, F] of the coding dictionary."""
+    return common.full_filters_to_freq(d_proj, fg)
+
+
+def f_z_block(z, dual_z, bhat, zkern, cfg: LearnConfig, fg: common.FreqGeom,
+              z_iter=z_iter_composition):
+    """A block's whole z inner loop (dzParallel.m:150-158): max_it_z
+    iterations of ``z_iter``. The composition's z-solve is K1 for W == 1
+    and the Woodbury solve for W > 1; the streaming learner takes it
+    always (it never runs K2, as in JAX). z, dual_z: [M, k, *sp] in
+    their storage dtype; bhat [M, W, F]."""
+    theta = cfg.lambda_prior / cfg.rho_z
+    for _ in range(cfg.max_it_z):
+        z, dual_z = z_iter(z, dual_z, bhat, zkern, cfg.rho_z, theta, fg)
+    return z, dual_z
+
+
+def _recon(z_nn: torch.Tensor, dhat: torch.Tensor, fg: common.FreqGeom):
+    """(codes in float32, full-domain reconstruction D z)."""
+    zf = _f32(z_nn)
+    return zf, common.recon_from_freq(dhat, common.codes_to_freq(zf, fg), fg)
+
+
+def _objective(zf, Dz, b_nn, geom: ProblemGeom, cfg: LearnConfig):
+    return common.data_fidelity(
+        Dz, b_nn, geom.psf_radius, cfg.lambda_residual
+    ) + common.l1_penalty(zf, cfg.lambda_prior)
+
+
+def f_obj_block(z_nn, b_nn, dhat, geom: ProblemGeom, cfg: LearnConfig,
+                fg: common.FreqGeom) -> torch.Tensor:
+    """The objective of codes z_nn [M, k, *sp] against unpadded data
+    b_nn [M, *reduce, *data_sp] (0-d float32)."""
+    zf, Dz = _recon(z_nn, dhat, fg)
+    return _objective(zf, Dz, b_nn, geom, cfg)
+
+
+def f_dz_block(z_nn, dhat, geom: ProblemGeom,
+               fg: common.FreqGeom, data_sp) -> torch.Tensor:
+    """The reconstruction of codes z_nn, cropped to the data's extent
+    [M, *reduce, *data_sp]."""
+    return fourier.crop_spatial(_recon(z_nn, dhat, fg)[1], geom.psf_radius,
+                                data_sp)
+
+
+def z_diff_sums(z_new: torch.Tensor, z_old: torch.Tensor):
+    """(sum of squared change, sum of squares of z_new) in float32: the
+    parts of the codes' rel change, summed over blocks."""
+    zn = _f32(z_new)
+    return torch.sum((zn - _f32(z_old)) ** 2), torch.sum(zn * zn)
+
+
 def outer_step(
     state: LearnState,
     b_blocks: torch.Tensor,
@@ -175,38 +262,26 @@ def outer_step(
     CUDA events there to time the passes apart.
     """
     mark = on_phase or (lambda _name: None)
-    support = geom.spatial_support
-    radius = geom.psf_radius
     L, ni = b_blocks.shape[0], b_blocks.shape[1]
-    b_pad = fourier.pad_spatial(b_blocks, radius, target=fg.spatial_shape)
-    bhat = common.data_to_freq(_flat_blocks(b_pad), fg)  # [L*ni, W, F]
+    bhat = f_bhat(_flat_blocks(b_blocks), geom, fg)  # [L*ni, W, F]
     bhat_blocks = bhat.reshape(L, ni, *bhat.shape[1:])
 
-    def prox_kernel(u):
-        return proxes.kernel_constraint_proj(u, support, fg.spatial_shape)
-
     def objective(z, dhat):
-        fid, l1 = objective_parts(z, dhat, b_blocks, geom, cfg, fg)
-        return fid + l1
+        if not cfg.with_objective:
+            # the reference evaluates it only when monitoring wants it
+            return torch.zeros((), dtype=torch.float32, device=z.device)
+        return f_obj_block(_flat_blocks(z), _flat_blocks(b_blocks), dhat,
+                           geom, cfg, fg)
 
     # ---------------- d-pass (dzParallel.m:95-135) -------------------
     mark("d_start")
-    zhat = common.codes_to_freq(_f32(_flat_blocks(state.z)), fg)
-    zhat = zhat.reshape(L, ni, *zhat.shape[1:])  # [L, ni, K, F]
-    dkern = freq_solvers.precompute_d_kernel(
-        zhat, cfg.rho_d, b_hat=bhat_blocks
-    )
-    del zhat
+    dkern = f_dkern(state.z, bhat_blocks, cfg, fg)  # [L, ...] spectra
     dsd = state.d_local.dtype  # d-state storage (d_storage_dtype)
     d_local, dual_d = state.d_local, state.dual_d
     dbar, udbar = state.dbar, state.udbar
     for _ in range(cfg.max_it_d):
-        d_f, dual_f = _f32(d_local), _f32(dual_d)
-        u = prox_kernel(dbar + udbar)  # global prox (dzParallel.m:107)
-        dual_f = dual_f + (d_f - u[None])
-        xi_hat = common.full_filters_to_freq(u[None] - dual_f, fg)
-        dhat = freq_solvers.solve_d(dkern, None, xi_hat, cfg.rho_d)
-        d_new = _filters_from_freq(dhat, fg)
+        u = f_prox(dbar, udbar, geom, fg)  # global prox (dzParallel.m:107)
+        d_new, dual_f = f_d_block(dkern, d_local, dual_d, u, cfg, fg)
         dbar = torch.sum(d_new, 0) / num_blocks  # consensus (:115-121)
         udbar = torch.sum(dual_f, 0) / num_blocks
         d_local, dual_d = d_new.to(dsd), dual_f.to(dsd)
@@ -219,32 +294,30 @@ def outer_step(
     if cfg.compat_coding == "block1":
         d_code = _f32(d_local[0])
     elif cfg.compat_coding == "consensus":
-        d_code = prox_kernel(dbar + udbar)
+        d_code = f_prox(dbar, udbar, geom, fg)
     else:
         raise ValueError(f"unknown compat_coding {cfg.compat_coding!r}")
-    dhat_z = common.full_filters_to_freq(d_code, fg)
+    dhat_z = f_full_dhat(d_code, fg)
     mark("d_end")
     obj_d = objective(state.z, dhat_z)
 
     # ---------------- z-pass (dzParallel.m:140-172) ------------------
     mark("z_start")
     zkern = freq_solvers.precompute_z_kernel(dhat_z, cfg.rho_z)
-    theta = cfg.lambda_prior / cfg.rho_z
     # the JAX gate (models/learn.py:358-364 there): K2 covers the 2D,
     # W == 1 learner; every other geometry takes the composition, whose
     # W == 1 z-solve is K1 (a 3D learner) and W > 1 the Woodbury solve
     fused_ok = (
         cfg.fused_z and fg.reduce_size == 1 and len(fg.spatial_shape) == 2
     )
-    z_iter = z_iter_fused if fused_ok else z_iter_composition
-    z, dual_z = _flat_blocks(state.z), _flat_blocks(state.dual_z)
-    for _ in range(cfg.max_it_z):
-        z, dual_z = z_iter(z, dual_z, bhat, zkern, cfg.rho_z, theta, fg)
+    z, dual_z = f_z_block(
+        _flat_blocks(state.z), _flat_blocks(state.dual_z), bhat, zkern, cfg,
+        fg, z_iter=z_iter_fused if fused_ok else z_iter_composition,
+    )
     z = z.reshape(state.z.shape)
     dual_z = dual_z.reshape(state.dual_z.shape)
     mark("z_end")
-    num = torch.sum((_f32(z) - _f32(state.z)) ** 2)
-    den = torch.sum(_f32(z) ** 2)
+    num, den = z_diff_sums(z, state.z)
     z_diff = torch.sqrt(num) / torch.clamp(torch.sqrt(den), min=1e-30)
     obj_z = objective(z, dhat_z)
 
@@ -263,19 +336,14 @@ def eval_block(
     """(global objective, support filters, cropped per-block Dz
     [L, ni, *reduce, *data_spatial] or None). Sequential over blocks, as
     in JAX: only one block's code spectra exist at a time."""
-    d_proj = proxes.kernel_constraint_proj(
-        state.dbar + state.udbar, geom.spatial_support, fg.spatial_shape
-    )
-    dhat = common.full_filters_to_freq(d_proj, fg)
+    d_proj = f_prox(state.dbar, state.udbar, geom, fg)
+    dhat = f_full_dhat(d_proj, fg)
     data_sp = b_blocks.shape[-geom.ndim_spatial:]
     obj = torch.zeros((), dtype=torch.float32, device=b_blocks.device)
     Dz_blocks = []
     for zl, bl in zip(state.z, b_blocks):
-        zl = _f32(zl)  # z may be stored bf16
-        Dz = common.recon_from_freq(dhat, common.codes_to_freq(zl, fg), fg)
-        obj = obj + common.data_fidelity(
-            Dz, bl, geom.psf_radius, cfg.lambda_residual
-        ) + common.l1_penalty(zl, cfg.lambda_prior)
+        zf, Dz = _recon(zl, dhat, fg)  # z may be stored bf16
+        obj = obj + _objective(zf, Dz, bl, geom, cfg)
         if with_outputs:
             Dz_blocks.append(
                 fourier.crop_spatial(Dz, geom.psf_radius, data_sp)

@@ -1,0 +1,85 @@
+"""The port's ``CCSC_*`` environment knobs (the counterpart of
+``ccsc_code_iccv2017_tpu.utils.env``, reduced to the knobs the port
+reads, with the JAX package's names, defaults and meanings).
+
+Every read goes through the typed helpers here, so a malformed value
+never crashes a run: it warns once and falls back to the declared
+default. Values are read from ``os.environ`` on every query, so tests
+arm and disarm knobs with ``monkeypatch.setenv``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import warnings
+from typing import Dict, Optional
+
+__all__ = ["Knob", "REGISTRY", "env_str", "env_float"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Knob:
+    name: str
+    kind: str  # 'str' | 'float'
+    default: object
+    help: str
+    surface: str  # the consuming module
+
+
+REGISTRY: Dict[str, Knob] = {
+    k.name: k
+    for k in (
+        Knob("CCSC_STREAM_RESIDENT_GB", "float", 10.0,
+             "byte budget of the streaming learner's auto placement tiers",
+             "parallel.streaming"),
+        Knob("CCSC_STREAM_MODE", "str", "auto",
+             "force a streaming placement tier: device | kern | paged",
+             "parallel.streaming"),
+    )
+}
+
+_warned: set = set()
+_UNSET = object()
+
+
+def _warn_once(key: str, msg: str) -> None:
+    if key not in _warned:
+        _warned.add(key)
+        warnings.warn(msg)
+
+
+def _raw(name: str) -> Optional[str]:
+    """The stripped value, or None when unset or empty; warns once on a
+    name missing from the registry."""
+    if name not in REGISTRY:
+        _warn_once(f"unregistered:{name}",
+                   f"env knob {name} is not declared in utils.env.REGISTRY")
+    raw = os.environ.get(name)
+    if raw is None:
+        return None
+    return raw.strip() or None
+
+
+def _default(name: str, default):
+    if default is not _UNSET:
+        return default
+    knob = REGISTRY.get(name)
+    return knob.default if knob is not None else None
+
+
+def env_str(name: str, default=_UNSET) -> Optional[str]:
+    raw = _raw(name)
+    return raw if raw is not None else _default(name, default)
+
+
+def env_float(name: str, default=_UNSET) -> Optional[float]:
+    raw = _raw(name)
+    if raw is None:
+        return _default(name, default)
+    try:
+        return float(raw)
+    except ValueError:
+        _warn_once(f"malformed:{name}",
+                   f"ignoring malformed env {name}={raw!r} (expected a "
+                   "number)")
+        return _default(name, default)

@@ -10,8 +10,10 @@ never exits 0):
    device name and compute capability, which must be (9, 0).
 2. Build: every kernel source under ``ccsc_code_iccv2017_torch/csrc/``
    (K1 ``solve_z_rank1.cu``, K2 ``fused_z.cu``) with nvcc, one process
-   per source, all started together, timed; the ``-Xptxas -v``
-   registers, shared memory and spills.
+   per source, and the native preprocessing library
+   (``native/ccsc_data.cpp``, g++, into the port's build directory), all
+   started together, timed; the ``-Xptxas -v`` registers, shared memory
+   and spills.
 3. K1 vs plain: K1 against its plain torch version on the card at the
    serving slice's full shapes (K=100, F=266*134, N in {1, 4}; dinv =
    1/rho and with one raised row as the Poisson dirac regularization
@@ -67,7 +69,8 @@ never exits 0):
    (cuFFT + K1 + elementwise) as the yardstick.
 7. Slice 2 learns at full width: k=100 11x11 filters, 8 consensus
    blocks x 100 synthetic 100x100 images (Gaussian-smoothed noise from
-   --seed, local_cn, zero mean), max_it_d=5, max_it_z=10, fused_z,
+   --seed, local_cn and zero mean by the native library), max_it_d=5,
+   max_it_z=10, fused_z,
    3 outer steps at tol=0 through ``parallel.consensus.learn``. K2a's
    and K2b's launch counts are set to 0 just before and must each equal
    max_it_z x the steps adopted; every trace value is finite, obj_z
@@ -147,13 +150,37 @@ never exits 0):
    that is larger. These card runs of the 3D and 4D learners set
    fused_z=True: the gate routes both to the composition path, so K1
    launches 10 times a step for 3D, never for 4D, and K2 never.
-13. Output: a ``{"kernels": [...]}`` line (K1, K2a, K2b; K1's launches
+13. The host-streaming learner (``parallel.streaming``). The rate of a
+   blocking 1 GiB copy from pageable host memory each way. The 2D north
+   star of phase 7 (fused_z off: the streaming learner never runs K2),
+   STREAM_STEPS outer step through the in-memory learner and then in
+   each placement tier (device, kern, paged), from one host init: the
+   tiers within 1e-6 of each other, the streamed run within 2e-5 of
+   max(1, each field's scale) (d, z, Dz) and rtol 1e-4 (objectives) of
+   the in-memory one, K1 launched max_it_z x 8 blocks x steps in each
+   tier and K2 never; per tier steps/s, d-pass and z-pass ms, peak
+   memory and the bytes copied each way a step. K1 at a 2D block's
+   shape (N=100, K=100, F=110*56), held and timed as in phase 3. The 3D
+   learner of phase 12 through ``learn_3d.main --streaming --stream-mode
+   paged`` for one step: its peak memory below phase 12's in-memory
+   peak, K1 launched max_it_z x 8 times; then K1 at a block's shape
+   (N=8, K=49, F=111,600) on the learned filters and block 0's clips,
+   held and timed as in phase 3. The hyperspectral app at phase 12's
+   width with ``--streaming --streaming-blocks 4`` (the W = 31 solve,
+   the auto tier): no K1, Dz finite and within 1e-4 of the returned
+   codes' reconstruction plus the smooth_init offset. Both learners
+   paged on the card against the CPU at reduced sizes, at phase 12's
+   card-vs-CPU limits. The native library: available, its local_cn
+   (64 images of 100x100) within 5e-3 and its smooth fill (phase 4's
+   requests) within 2e-5 of numpy, both timed beside numpy.
+14. Output: a ``{"kernels": [...]}`` line (K1, K2a, K2b; K1's launches
    by path: reconstruct, engine, poisson, deblur, learn_3d,
-   learn_2d_masked), a ``{"slice": ...}`` line (serving), a
-   ``{"learn": ...}`` line, a ``{"serve_engine": ...}`` line (the engine
-   phase and the ``serve/bench.py`` record), an ``{"apps": ...}`` line,
-   a ``{"learners": ...}`` line, the nvidia-smi line, and last ``{"ok":
-   true, "device": {...}}``.
+   learn_2d_masked, learn_streaming_2d, learn_streaming_3d), a
+   ``{"slice": ...}`` line (serving), a ``{"learn": ...}`` line, a
+   ``{"serve_engine": ...}`` line (the engine phase and the
+   ``serve/bench.py`` record), an ``{"apps": ...}`` line, a
+   ``{"learners": ...}`` line, a ``{"streaming": ...}`` line, the
+   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when CUDA is absent or the
 port's package is not beside this script.
@@ -218,9 +245,16 @@ def phase_environment(torch, device_report, card_line):
     return smi, rep["name"]
 
 
-def phase_build(kernels):
+def phase_build(kernels, native):
+    """Every kernel source, one nvcc each, and the native preprocessing
+    library (g++) beside them, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    infos = kernels.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(native.build)
+        infos = kernels.build_all()
+        infos["native_ccsc_data"] = native_build.result()
     wall = time.perf_counter() - t0
     for name, info in infos.items():
         print(f"[2] {name} built in {info['seconds']:.2f} s "
@@ -229,7 +263,8 @@ def phase_build(kernels):
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "smem")):
                 print(f"[2]   {line.strip()}")
-    print(f"[2] all kernels built in {wall:.2f} s (parallel nvcc)")
+    print(f"[2] all kernels and the native library built in {wall:.2f} s "
+          "(parallel nvcc, g++)")
     return infos
 
 
@@ -326,10 +361,12 @@ def _card(torch):
     return props.multi_processor_count, props.L2_cache_size
 
 
-def phase_kernel_vs_plain(torch, kernels, time_ms, bw, flops, seed,
-                          against=None):
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+def _random_k1_args(torch, gen, n, k, f, raised):
+    """K1's arguments for N=n, K=k, F=f drawn from ``gen`` (on the card):
+    complex normal dhat, xi1 and xi2, rho = RHO and dinv = 1/rho, with
+    the last row raised as the Poisson dirac's gradient regularization
+    raises it when ``raised``."""
+    dev = gen.device
 
     def cplx(*shape):
         return torch.complex(
@@ -337,17 +374,23 @@ def phase_kernel_vs_plain(torch, kernels, time_ms, bw, flops, seed,
             torch.randn(shape, generator=gen, device=dev),
         )
 
+    dhat, xi1, xi2 = cplx(k, f), cplx(n, f), cplx(n, k, f)
+    gamma = torch.full((k, f), RHO, device=dev)
+    if raised:  # the dirac row's gradient regularization
+        gamma[k - 1] += 4.0 * torch.rand(f, generator=gen, device=dev)
+    return (dhat, xi1, xi2, RHO, 1.0 / gamma)
+
+
+def phase_kernel_vs_plain(torch, kernels, time_ms, bw, flops, seed,
+                          against=None):
+    gen = torch.Generator(device=torch.device("cuda", 0)).manual_seed(seed)
     cases = []
     for n, k, f, raised in K1_CASES:
-        dhat, xi1, xi2 = cplx(k, f), cplx(n, f), cplx(n, k, f)
-        gamma = torch.full((k, f), RHO, device=dev)
-        if raised:  # the dirac row's gradient regularization
-            gamma[k - 1] += 4.0 * torch.rand(f, generator=gen, device=dev)
-        args = (dhat, xi1, xi2, RHO, 1.0 / gamma)
+        args = _random_k1_args(torch, gen, n, k, f, raised)
         cases.append(_k1_case(torch, kernels, time_ms, bw, flops,
                               _card(torch), args, {"raised_row": raised},
                               against))
-        del dhat, xi1, xi2, gamma, args
+        del args
         torch.cuda.empty_cache()
     return cases
 
@@ -799,14 +842,13 @@ def phase_k2_vs_plain(torch, port, bw, flops, seed):
 
 def _learn_images(port, seed, n, side):
     """n synthetic side x side images: Gaussian-smoothed noise from
-    ``seed``, local_cn, zero mean — the learner CLI's preprocessing."""
+    ``seed``, local_cn and zero mean by the native library — the learner
+    CLI's preprocessing (``load_images_native``'s path)."""
     import numpy as np
 
-    im = port["images"]
     rng = np.random.default_rng(seed)
-    raw = im.smooth_noise_images(rng, n, side)
-    b = np.stack([im.local_contrast_normalize(x) for x in raw])
-    return (b - b.mean(axis=(1, 2), keepdims=True)).astype(np.float32)
+    raw = port["images"].smooth_noise_images(rng, n, side)
+    return port["native"].zero_mean_batch(port["native"].local_cn_batch(raw))
 
 
 def _learn_cfg(port, **kw):
@@ -1378,7 +1420,8 @@ def _learner_check(tag, res, geom, masked):
     return steps, float(norms.max())
 
 
-def _learner_record(torch, tag, res, geom, masked, wall, data_s, launches):
+def _learner_record(torch, tag, res, geom, masked, wall, data_s, launches,
+                    phase=12):
     steps, norm_max = _learner_check(tag, res, geom, masked)
     tr = res.trace
     step_s = [b - a for a, b in zip(tr["tim_vals"], tr["tim_vals"][1:])]
@@ -1394,11 +1437,11 @@ def _learner_record(torch, tag, res, geom, masked, wall, data_s, launches):
         "rolled_back_at": tr.get("rolled_back_at"),
     }
     for i in range(steps):
-        print(f"[12] {tag} step {i + 1}: {step_s[i]:.3f} s (d-pass "
+        print(f"[{phase}] {tag} step {i + 1}: {step_s[i]:.3f} s (d-pass "
               f"{tr['d_pass_ms'][i]:.1f} ms, z-pass {tr['z_pass_ms'][i]:.1f}"
               f" ms), obj_d {tr['obj_vals_d'][-steps + i]:.6g}, obj_z "
               f"{tr['obj_vals_z'][-steps + i]:.6g}")
-    print(f"[12] {tag}: {steps} steps, {rec['steps_per_s']:.4f} steps/s, "
+    print(f"[{phase}] {tag}: {steps} steps, {rec['steps_per_s']:.4f} steps/s, "
           f"wall {wall:.2f} s (data {data_s:.2f} s), max memory allocated "
           f"{rec['max_memory_allocated_bytes'] / 2**30:.2f} GiB, filter norm "
           f"max {norm_max:.6f}, launches {launches}"
@@ -1452,15 +1495,17 @@ def _learn_3d(torch, port, seed, tmp):
     return rec, res, b, geom, cfg
 
 
-def _k1_at_3d_learner(torch, port, time_ms, bw, flops, res, b, geom, cfg):
-    """K1 at the 3D learner's z-solve shape (N = 64 clips, K = 49,
-    F = 60*60*31), on the learned filters' spectra and the clips' data
-    spectra, random code targets, dinv = 1/rho_z: phase 3's checks."""
+def _k1_at_3d_learner(torch, port, time_ms, bw, flops, res, b, geom, cfg,
+                      f64=True, path="learn_3d"):
+    """K1 at the 3D learner's z-solve shape (N = the clips of ``b``,
+    K = 49, F = 60*60*31), on the learned filters' spectra and the clips'
+    data spectra, random code targets, dinv = 1/rho_z: phase 3's checks,
+    and with ``f64`` the float64 comparison."""
     cm, fourier = port["common"], port["fourier"]
     dev = torch.device("cuda", 0)
     bt = torch.from_numpy(b).to(dev)
     fg = cm.FreqGeom.create(geom, bt.shape[-3:])
-    dhat = cm.filters_to_freq(res.d, fg)[:, 0, :].contiguous()
+    dhat = cm.filters_to_freq(res.d.to(dev), fg)[:, 0, :].contiguous()
     bhat = cm.data_to_freq(fourier.pad_spatial(bt, geom.psf_radius), fg)
     xi1 = bhat[:, 0, :].contiguous()
     del bt, bhat
@@ -1471,13 +1516,14 @@ def _k1_at_3d_learner(torch, port, time_ms, bw, flops, res, b, geom, cfg):
     dinv = torch.full((k, f), 1.0 / cfg.rho_z, device=dev)
     case = _k1_case(torch, port["kernels"], time_ms, bw, flops, _card(torch),
                     (dhat, xi1, xi2, float(cfg.rho_z), dinv),
-                    {"path": "learn_3d"})
+                    {"path": path})
     del xi2
     torch.cuda.empty_cache()
-    case["against_f64"] = [
-        _k1_against_f64(torch, port["kernels"], dhat, xi1, dinv,
-                        float(cfg.rho_z), 11 + i)
-        for i in range(K1_F64_DRAWS)]
+    if f64:
+        case["against_f64"] = [
+            _k1_against_f64(torch, port["kernels"], dhat, xi1, dinv,
+                            float(cfg.rho_z), 11 + i)
+            for i in range(K1_F64_DRAWS)]
     del dhat, xi1, dinv
     torch.cuda.empty_cache()
     return case
@@ -1656,15 +1702,16 @@ def _learn_2d_masked(torch, port, seed, tmp):
     return rec
 
 
-def _learner_spread(ra, rb):
+def _learner_spread(ra, rb, skip=0):
     """How far two learns lie apart: the objective traces' largest
-    relative difference and the filters' largest difference over the
-    second's scale."""
+    relative difference (past their first ``skip`` entries: the streaming
+    learner's trace opens with 0.0) and the filters' largest difference
+    over the second's scale."""
     import numpy as np
 
     out = {"obj_max_rel_diff": 0.0}
     for k in ("obj_vals_d", "obj_vals_z"):
-        a, b = np.asarray(ra.trace[k]), np.asarray(rb.trace[k])
+        a, b = np.asarray(ra.trace[k][skip:]), np.asarray(rb.trace[k][skip:])
         if a.shape != b.shape:
             raise RuntimeError(f"{k}: {len(a)} steps against {len(b)}")
         out["obj_max_rel_diff"] = max(out["obj_max_rel_diff"], float(
@@ -1771,6 +1818,351 @@ def phase_learners(torch, port, time_ms, bw, flops, seed):
     return out
 
 
+# the streaming phase (13): the 2D north star of phase 7 in each
+# placement tier, then the 3D learner of phase 12 paged through
+# ``learn_3d.main --streaming``, the hyperspectral app streamed, both
+# learners card vs CPU at reduced sizes, and the native library
+STREAM_TIERS = ("device", "kern", "paged")
+# one outer step a run: the paged 2D step moves 72 GB through pageable
+# copies (~19 s on the first run, PR 9)
+STREAM_STEPS = 1
+STREAM_STEPS_ARGV = ["--max-it", str(STREAM_STEPS), "--tol", "0"]
+STREAM_TIER_AGREE = 1e-6  # the tiers: JAX's tests/test_streaming.py
+# d/z/Dz vs the in-memory learner: JAX's atol 2e-5, on fields of O(1)
+# there; here of max(1, the field's max), as Dz reaches ~10
+STREAM_VS_INMEM = 2e-5
+L3D_STREAM = L3D_ARGV + ["--streaming", "--stream-mode", "paged"]
+LHS_STREAM_BLOCKS = 4
+L2D_STREAM_SMALL = (4, 48, 16)  # card vs CPU: images, side, filters
+NATIVE_LCN = (64, LEARN_SIDE)  # local_cn: images of the learner's side
+NATIVE_FILL = (4, S)  # the smooth fill: phase 4's requests
+
+
+def _copy_rate(torch, nbytes):
+    """Host-to-device and device-to-host rates (bytes/s) of one blocking
+    copy of ``nbytes`` from pageable host memory, as the streaming
+    learner's copies are: the median of 3, host clock around a
+    synchronised copy."""
+    import statistics
+
+    host = torch.empty(nbytes // 4, dtype=torch.float32).uniform_()
+    dev = host.to("cuda")
+    rates = {"h2d": [], "d2h": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = host.to("cuda")
+        torch.cuda.synchronize()
+        rates["h2d"].append(nbytes / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        host = dev.to("cpu")
+        rates["d2h"].append(nbytes / (time.perf_counter() - t0))
+    del host, dev
+    torch.cuda.empty_cache()
+    return {k: statistics.median(v) for k, v in rates.items()}
+
+
+def _max_abs(a, b):
+    return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+
+def _stream_tier_record(torch, tag, res, geom, wall, launches):
+    rec = _learner_record(torch, tag, res, geom, False, wall, 0.0, launches,
+                          phase=13)
+    tr = res.trace
+    rec.update(stream_mode=tr["stream_mode"], h2d_bytes=tr["h2d_bytes"],
+               d2h_bytes=tr["d2h_bytes"])
+    print(f"[13] {tag}: tier {tr['stream_mode']}, host-to-device "
+          f"{[f'{x / 1e9:.2f}' for x in tr['h2d_bytes']]} GB a step, "
+          f"device-to-host {[f'{x / 1e9:.2f}' for x in tr['d2h_bytes']]} GB")
+    return rec
+
+
+def _stream_2d(torch, port, seed):
+    """The 2D north star (phase 7's configuration, fused_z off: the
+    streaming learner never takes K2), the in-memory learner and then
+    each tier from one host init: the tiers within
+    STREAM_TIER_AGREE of each other, the streamed run within JAX's
+    tolerances of the in-memory one, K1 launched max_it_z times a block
+    and a step."""
+    n = LEARN_BLOCKS * LEARN_NI
+    b = _learn_images(port, seed, n, LEARN_SIDE)
+    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
+    cfg = _learn_cfg(port, num_blocks=LEARN_BLOCKS, max_it=STREAM_STEPS)
+    fg = port["common"].FreqGeom.create(geom, (LEARN_SIDE,) * 2)
+    init = port["learn"].init_state(torch.Generator().manual_seed(seed),
+                                    geom, fg, LEARN_BLOCKS, LEARN_NI)
+    # the in-memory learner from the same init, first: its first step
+    # pays the cuFFT plans and the allocator's growth
+    _zero_counts(torch, port)
+    t0 = time.perf_counter()
+    mem = port["consensus"].learn(b, geom, cfg, initial_state=init,
+                                  device="cuda")
+    # to the host: the tiers' peaks below count their own tensors only
+    mem = mem._replace(d=mem.d.cpu(), z=mem.z.cpu(), Dz=mem.Dz.cpu())
+    out = {"in_memory": {
+        "wall_s": time.perf_counter() - t0,
+        "steps_per_s": STREAM_STEPS / mem.trace["tim_vals"][-1],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "d_pass_ms": mem.trace.get("d_pass_ms"),
+        "z_pass_ms": mem.trace.get("z_pass_ms"),
+    }, "tiers": {}}
+    runs = {}
+    for tier in STREAM_TIERS:
+        _zero_counts(torch, port)
+        t0 = time.perf_counter()
+        res = port["streaming"].learn_streaming(
+            b, geom, cfg, stream_mode=tier, initial_state=init,
+            device="cuda")
+        wall = time.perf_counter() - t0
+        launches = _counts(port)
+        rec = _stream_tier_record(torch, f"2D {tier}", res, geom, wall,
+                                  launches)
+        want = {"solve_z_rank1": cfg.max_it_z * LEARN_BLOCKS * rec["steps"],
+                "fused_z_pass_a": 0, "fused_z_pass_b": 0}
+        if rec["steps"] != STREAM_STEPS or launches != want:
+            raise RuntimeError(f"2D {tier}: {rec['steps']} steps, launches "
+                               f"{launches}, want {want}")
+        out["tiers"][tier], runs[tier] = rec, res
+    ref = runs["device"]
+    tiers = {t: {f: _max_abs(getattr(runs[t], f), getattr(ref, f))
+                 for f in ("d", "z", "Dz")} for t in ("kern", "paged")}
+    vs_mem = {f: _max_abs(getattr(ref, f), getattr(mem, f))
+              for f in ("d", "z", "Dz")}
+    scale = {f: max(1.0, float(getattr(mem, f).abs().max()))
+             for f in ("d", "z", "Dz")}
+    vs_mem["obj_max_rel_diff"] = max(
+        abs(a - c) / abs(c) for k in ("obj_vals_d", "obj_vals_z")
+        for a, c in zip(ref.trace[k][1:], mem.trace[k][1:]))
+    out.update(tier_max_abs_diff=tiers, vs_in_memory=vs_mem,
+               vs_in_memory_scale=scale)
+    print(f"[13] 2D tiers vs device: {tiers}; streamed vs in-memory: "
+          f"{vs_mem} (limit {STREAM_VS_INMEM} x {scale}); in-memory "
+          f"{out['in_memory']['steps_per_s']:.3f} "
+          f"steps/s, peak {out['in_memory']['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
+    if any(v > STREAM_TIER_AGREE for t in tiers.values() for v in t.values()):
+        raise RuntimeError(f"the placement tiers disagree: {tiers}")
+    if not (all(vs_mem[f] <= STREAM_VS_INMEM * scale[f] for f in scale)
+            and vs_mem["obj_max_rel_diff"] <= AGREE):
+        raise RuntimeError(f"streamed vs in-memory learner: {vs_mem}")
+    out["launches"] = sum(r["launches"]["solve_z_rank1"]
+                          for r in out["tiers"].values())
+    del runs, mem, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stream_3d(torch, port, seed, tmp, time_ms, bw, flops, inmem_peak):
+    """The 3D learner paged through ``learn_3d.main --streaming``: its
+    peak device memory below phase 12's in-memory peak, K1 launched
+    max_it_z times a block and a step; then K1 at a block's z-solve
+    shape (N = 8 clips, K = 49, F = 111,600) on the learned filters' and
+    block 0's spectra, as phase 12 holds it at N = 64."""
+    app = port["learn_3d"]
+    argv = L3D_STREAM + STREAM_STEPS_ARGV + [
+        "--seed", str(seed), "--device", "cuda",
+        "--out", os.path.join(tmp, "3ds.mat")]
+    args = app.build_parser().parse_args(argv)
+    b = app.load_data(args)
+    geom, cfg = app.problem(args)
+    _zero_counts(torch, port)
+    t0 = time.perf_counter()
+    res = app.main(argv)
+    res.d.cpu()
+    wall = time.perf_counter() - t0
+    launches = _counts(port)
+    rec = _stream_tier_record(torch, "3D paged", res, geom, wall, launches)
+    want = {"solve_z_rank1": cfg.max_it_z * cfg.num_blocks * rec["steps"],
+            "fused_z_pass_a": 0, "fused_z_pass_b": 0}
+    if (rec["steps"] != STREAM_STEPS or launches != want
+            or rec["stream_mode"] != "paged"):
+        raise RuntimeError(f"3D streamed: {rec['steps']} steps, launches "
+                           f"{launches} (want {want}), {rec['stream_mode']}")
+    rec["in_memory_peak_bytes"] = inmem_peak
+    print(f"[13] 3D paged peak {rec['max_memory_allocated_bytes'] / 2**30:.2f}"
+          f" GiB against the in-memory learner's {inmem_peak / 2**30:.2f} GiB "
+          "(phase 12)")
+    if not rec["max_memory_allocated_bytes"] < inmem_peak:
+        raise RuntimeError("the paged 3D learner's peak is not below the "
+                           "in-memory learner's")
+    ni = b.shape[0] // cfg.num_blocks
+    rec["k1_case"] = _k1_at_3d_learner(torch, port, time_ms, bw, flops, res,
+                                       b[:ni], geom, cfg, f64=False,
+                                       path="learn_streaming_3d")
+    del res, b
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _stream_hs(torch, port, seed, tmp):
+    """``learn_hyperspectral --streaming --streaming-blocks 4`` at phase
+    12's width (the W = 31 Woodbury z-solve, auto tier): Dz finite and
+    equal, within 1e-4 of its scale, to the reconstruction of the
+    returned codes by the returned filters plus the smooth_init offset
+    the app subtracted."""
+    import numpy as np
+    import scipy.io
+
+    app, cm, lm = port["learn_hyperspectral"], port["common"], port["learn"]
+    cubes = port["volumes"].synthetic_hyperspectral(
+        n=LHS_CUBES, bands=31, side=LHS_SIDE, seed=seed)
+    path = os.path.join(tmp, "hs_cubes_stream.mat")
+    scipy.io.savemat(path, {"b": np.transpose(cubes, (2, 3, 1, 0))})
+    argv = ["--mat", path, "--streaming", "--streaming-blocks",
+            str(LHS_STREAM_BLOCKS)] + STEPS_ARGV + [
+        "--seed", str(seed), "--device", "cuda",
+        "--out", os.path.join(tmp, "hs_stream.mat")]
+    geom, _ = app.problem(app.build_parser().parse_args(argv), cubes)
+    _zero_counts(torch, port)
+    t0 = time.perf_counter()
+    res = app.main(argv)
+    res.d.cpu()
+    wall = time.perf_counter() - t0
+    launches = _counts(port)
+    rec = _stream_tier_record(torch, "hyperspectral streamed", res, geom,
+                              wall, launches)
+    if rec["steps"] != LEARNER_STEPS or any(launches.values()):
+        raise RuntimeError(f"hyperspectral streamed: {rec['steps']} steps, "
+                           f"launches {launches} (W = 31: want none)")
+    sm = torch.from_numpy(app.gaussian_smooth_init(cubes))
+    fg = cm.FreqGeom.create(geom, (LHS_SIDE,) * 2)
+    dhat = cm.filters_to_freq(res.d.cuda(), fg)
+    raw = torch.cat([lm.f_dz_block(zb.cuda(), dhat, geom, fg,
+                                   (LHS_SIDE,) * 2).cpu() for zb in res.z])
+    err = float((res.Dz - (raw + sm)).abs().max())
+    scale = float(res.Dz.abs().max())
+    rec.update(blocks=res.z.shape[0], offset_max_abs_err=err, dz_max=scale)
+    print(f"[13] hyperspectral streamed ({res.z.shape[0]} blocks, tier "
+          f"{rec['stream_mode']}): Dz vs recon + offset {err:.2e} (max|Dz| "
+          f"{scale:.3f})")
+    if not (torch.isfinite(res.Dz).all() and err <= 1e-4 * scale):
+        raise RuntimeError(f"hyperspectral streamed: Dz lost its offset "
+                           f"({err})")
+    return rec
+
+
+def _stream_card_vs_cpu(torch, port, seed):
+    """The streaming learner paged on the card against the CPU at reduced
+    sizes (2D: 2 blocks of 2 48x48 images, k=16 11x11; 3D: phase 12's
+    L3D_SMALL), from one host init: objective traces and filters within
+    AGREE, or FLOOR_FACTOR times the spread one float32 ulp of the
+    initial dictionary puts into the CPU run where that is larger."""
+    import math
+
+    lm, cm = port["learn"], port["common"]
+    n, side, k = L2D_STREAM_SMALL
+    app = port["learn_3d"]
+    args = app.build_parser().parse_args(
+        L3D_SMALL + STEPS_ARGV + ["--seed", str(seed)])
+    geom3, cfg3 = app.problem(args)
+    cases = {
+        "2D": (_learn_images(port, seed + 3, n, side),
+               port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, k),
+               _learn_cfg(port, num_blocks=2, max_it=LEARNER_STEPS)),
+        "3D": (app.load_data(args), geom3, dataclasses.replace(
+            cfg3, track_objective=True, verbose="none")),
+    }
+    out = {}
+    for tag, (b, geom, cfg) in cases.items():
+        fg = cm.FreqGeom.create(geom, b.shape[-geom.ndim_spatial:])
+        N = cfg.num_blocks
+        init = lm.init_state(torch.Generator().manual_seed(seed + 4), geom,
+                             fg, N, b.shape[0] // N)
+        up = torch.tensor(math.inf)
+        nudged = init._replace(d_local=torch.nextafter(init.d_local, up),
+                               dbar=torch.nextafter(init.dbar, up))
+
+        def run(dev, st, tier="paged"):
+            return port["streaming"].learn_streaming(
+                b, geom, cfg, stream_mode=tier, device=dev, initial_state=st)
+
+        card, cpu, moved = run("cuda", init), run("cpu", init), \
+            run("cpu", nudged)
+        diff = _learner_spread(card, cpu, skip=1)
+        floor = _learner_spread(moved, cpu, skip=1)
+        limits = {key: max(AGREE, FLOOR_FACTOR * floor[key]) for key in diff}
+        ok = all(diff[key] <= limits[key] for key in diff)
+        print(f"[13] {tag} streaming card vs CPU ({list(b.shape)}, k="
+              f"{geom.num_filters}): objective {diff['obj_max_rel_diff']:.2e}"
+              f" (limit {limits['obj_max_rel_diff']:.2e}), filters "
+              f"{diff['d_max_rel_diff']:.2e} (limit "
+              f"{limits['d_max_rel_diff']:.2e})")
+        out[tag] = dict(diff, one_ulp_spread=floor, limits=limits, ok=ok,
+                        data_shape=list(b.shape), k=geom.num_filters)
+        if not ok:
+            raise RuntimeError(f"{tag} streaming card vs CPU: {out[tag]}")
+    return out
+
+
+def _native_check(port, seed, build):
+    """The native preprocessing library: built (phase 2) and loaded, and
+    its local_cn (images of the learner's, NATIVE_LCN) and smooth fill (the
+    requests of phase 4, NATIVE_FILL) within the JAX package's
+    tolerances of their numpy versions (tests/test_native.py: 5e-3 and
+    2e-5), each timed on the host against its numpy version."""
+    import numpy as np
+
+    native, im = port["native"], port["images"]
+    if not native.available():
+        raise RuntimeError("the native preprocessing library is not "
+                           f"available ({build})")
+    rng = np.random.default_rng(seed + 13)
+    raw = im.smooth_noise_images(rng, NATIVE_LCN[0], NATIVE_LCN[1])
+    x, mask = _images(port, seed)
+    out = {"build_s": build["seconds"], "compiled": build["compiled"],
+           "path": os.path.relpath(build["path"], HERE)}
+    for name, fn, ref, tol in (
+        ("local_cn", lambda: native.local_cn_batch(raw),
+         lambda: np.stack([im.local_contrast_normalize(i) for i in raw]),
+         5e-3),
+        ("smooth_fill", lambda: native.smooth_fill_batch(x, mask),
+         lambda: im.smooth_fill_batch(x, mask), 2e-5),
+    ):
+        t0 = time.perf_counter()
+        got = fn()
+        t1 = time.perf_counter()
+        want = ref()
+        t2 = time.perf_counter()
+        err = float(np.abs(got - want).max())
+        out[name] = {"shape": list(got.shape), "max_abs_err": err,
+                     "native_s": t1 - t0, "numpy_s": t2 - t1}
+        print(f"[13] native {name} {list(got.shape)}: max abs err {err:.2e}"
+              f" (limit {tol}), native {t1 - t0:.3f} s, numpy "
+              f"{t2 - t1:.3f} s")
+        if not err <= tol:
+            raise RuntimeError(f"native {name} disagrees with numpy: {err}")
+    return out
+
+
+def phase_streaming(torch, port, time_ms, bw, flops, seed, inmem_3d_peak,
+                    native_build):
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"copy_rate_bytes_per_s": _copy_rate(torch, 1 << 30)}
+    print(f"[13] pageable copies of 1 GiB: host-to-device "
+          f"{out['copy_rate_bytes_per_s']['h2d'] / 1e9:.2f} GB/s, "
+          f"device-to-host {out['copy_rate_bytes_per_s']['d2h'] / 1e9:.2f} "
+          "GB/s")
+    out["2d"] = _stream_2d(torch, port, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    f2 = LEARN_S * (LEARN_S // 2 + 1)
+    out["2d"]["k1_case"] = _k1_case(
+        torch, port["kernels"], time_ms, bw, flops, _card(torch),
+        _random_k1_args(torch, gen, LEARN_NI, LEARN_K, f2, False),
+        {"path": "learn_streaming_2d"})
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["3d"] = _stream_3d(torch, port, seed, tmp, time_ms, bw, flops,
+                               inmem_3d_peak)
+        out["hyperspectral"] = _stream_hs(torch, port, seed, tmp)
+    out["card_vs_cpu"] = _stream_card_vs_cpu(torch, port, seed)
+    out["native"] = _native_check(port, seed, native_build)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[13] streaming phase {out['seconds']:.1f} s")
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, kernel_ms, plain_ms,
                   bound, build_s, **extra):
     return dict(
@@ -1810,6 +2202,7 @@ def main(argv=None) -> int:
             ("reconstruct", "models.reconstruct"),
             ("learn", "models.learn"), ("common", "models.common"),
             ("consensus", "parallel.consensus"),
+            ("streaming", "parallel.streaming"), ("native", "data.native"),
             ("io_mat", "utils.io_mat"), ("images", "data.images"),
             ("device", "utils.device"), ("serve", "serve"),
             ("serve_bench", "serve.bench"),
@@ -1829,7 +2222,7 @@ def main(argv=None) -> int:
     smi, name = phase_environment(torch, port["device"].device_report,
                                   port["serve_bench"].card_line)
     bw, flops = _datasheet(name)
-    build = phase_build(port["kernels"])
+    build = phase_build(port["kernels"], port["native"])
     time_ms = port["device"].device_time_ms
     cases = phase_kernel_vs_plain(
         torch, port["kernels"], time_ms, bw, flops, args.seed,
@@ -1845,19 +2238,27 @@ def main(argv=None) -> int:
     engine = phase_engine(torch, port, args.seed)
     apps = phase_apps(torch, port, time_ms, bw, args.seed)
     learners = phase_learners(torch, port, time_ms, bw, flops, args.seed)
+    streamed = phase_streaming(
+        torch, port, time_ms, bw, flops, args.seed,
+        learners["3d"]["max_memory_allocated_bytes"],
+        build["native_ccsc_data"])
     seconds = time.perf_counter() - t_start
-    print(f"[13] total {seconds:.1f} s")
+    print(f"[14] total {seconds:.1f} s")
 
     main_case = next(c for c in cases if c["n"] == 1 and not c["raised_row"])
     all_cases = cases + list(app_cases.values()) + [
-        learners["3d"]["k1_case"]]
+        learners["3d"]["k1_case"], streamed["2d"]["k1_case"],
+        streamed["3d"]["k1_case"]]
     k1_paths = {"reconstruct": served["launches"],
                 "engine": engine["launches"],
                 "poisson": apps["poisson"]["k1_launches"],
                 "deblur": apps["deblur_video"]["k1_launches"],
                 "learn_3d": learners["3d"]["launches"]["solve_z_rank1"],
                 "learn_2d_masked":
-                    learners["2d_masked"]["launches"]["solve_z_rank1"]}
+                    learners["2d_masked"]["launches"]["solve_z_rank1"],
+                "learn_streaming_2d": streamed["2d"]["launches"],
+                "learn_streaming_3d":
+                    streamed["3d"]["launches"]["solve_z_rank1"]}
     k2_err = {
         "max_abs_err": max(c["z_max_abs_err"] for c in k2["cases"]),
         "max_rel_err": max(c["z_rel_err"] for c in k2["cases"]),
@@ -1901,6 +2302,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serve_engine": engine}))
     print(json.dumps({"apps": dict(apps, k1_app_shapes=app_cases)}))
     print(json.dumps({"learners": learners}))
+    print(json.dumps({"streaming": streamed}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

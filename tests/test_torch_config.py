@@ -257,6 +257,13 @@ def test_port_imports_without_jax_at_runtime():
         "for app in (deblur_video, demosaic_hyperspectral, view_synthesis):\n"
         "    app.build_parser().parse_args(['--synthetic', '--filters', 'y'])\n"
         "volumes.synthetic_video(n=1, side=8, frames=4)\n"
+        "from ccsc_code_iccv2017_torch.parallel import streaming\n"
+        "from ccsc_code_iccv2017_torch.data import native, whitening\n"
+        "from ccsc_code_iccv2017_torch.utils import env\n"
+        "env.env_float('CCSC_STREAM_RESIDENT_GB')\n"
+        "for app in (learn_3d, learn_4d, learn_hyperspectral):\n"
+        "    app.build_parser().parse_args(\n"
+        "        ['--synthetic', '--streaming', '--stream-mode', 'paged'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccsc_code_iccv2017_tpu')]\n"
         "assert not bad, bad\n"

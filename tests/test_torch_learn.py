@@ -469,8 +469,8 @@ def test_cli_learns_and_saves_the_reference_layout(tmp_path):
 
 @pytest.mark.parametrize(
     "flag, item",
-    [(["--mesh", "2"], "item 8"), (["--streaming"], "item 8"),
-     (["--masked", "--stream-mode", "auto"], "item 8"),
+    [(["--mesh", "2"], "item 8"), (["--streaming", "--mesh", "2"], "item 8"),
+     (["--stream-mode", "auto", "--mesh", "2"], "item 8"),
      (["--tune", "auto"], "item 9"), (["--profile-dir", "p"], "item 10")],
 )
 def test_cli_refuses_unported_flags(flag, item):
