@@ -1,8 +1,9 @@
 """The flags the reconstruction and learner apps share (the port's
 counterpart of the JAX package's ``apps/_dispatch.py`` argument helpers),
 the learner CLIs' solver dispatch with its streaming arm
-(:func:`dispatch_learn`), and what a reconstruction app's ``run``
-returns.
+(:func:`dispatch_learn`), their ``--mesh N`` (:func:`run_mesh_ranks`,
+:func:`app_mesh`, :func:`mesh_result`), and what a reconstruction app's
+``run`` returns.
 
 Every flag of the JAX CLIs parses here with the same name, choices and
 default; a non-default value of a feature the port has not ported yet
@@ -148,7 +149,6 @@ def add_learner_args(
 # (argparse dest, the value that asks for nothing, what it is, the
 # ROADMAP.md Queue 1 item that ports it)
 _LEARNER_NOT_PORTED = (
-    ("mesh", 0, "--mesh (the sharded learner)", "8c"),
     ("tune", "off", "--tune (knob autotuning)", "9"),
     ("tune_store", None, "--tune-store (knob autotuning)", "9"),
     ("fft_impl", "xla", "--fft-impl (the matmul-DFT tiers)", "9"),
@@ -187,19 +187,100 @@ def learner_config_kwargs(args: argparse.Namespace) -> dict:
     return kw
 
 
+def _refuse_mesh_flags(args: argparse.Namespace) -> None:
+    if getattr(args, "streaming", False):
+        raise SystemExit(
+            "--streaming is single-device and does not combine with --mesh"
+        )
+    if getattr(args, "stream_mode", None):
+        raise SystemExit("--stream-mode requires --streaming")
+
+
+def _app_rank(rank: int, module: str, argv: list):
+    """One rank of a learner CLI's ``--mesh N``: the app's ``main`` inside
+    the process group; rank 0's result comes back."""
+    import importlib
+
+    res = importlib.import_module(module).main(argv)
+    return res if rank == 0 else None
+
+
+def run_mesh_ranks(module: str, argv, args: argparse.Namespace):
+    """A learner CLI's ``--mesh N`` from outside a process group: start N
+    ranks (``parallel.distributed.launch`` on ``--device``: N GPUs with
+    NCCL on "cuda", refused when fewer are visible; ``gloo`` ranks on
+    "cpu"), each running ``module``'s ``main(argv)``, which joins the
+    group and learns on ``block_mesh(N)``; rank 0 writes the outputs.
+    Returns rank 0's result, or None when this process is a rank already
+    (inside ``launch``, or a ``torchrun`` rank, which joins its group
+    here) or no mesh is asked for: the caller then runs the solve
+    itself."""
+    import os
+    import sys
+
+    import torch.distributed as dist
+
+    if not getattr(args, "mesh", 0) or dist.is_initialized():
+        return None
+    _refuse_mesh_flags(args)
+    from ..parallel import distributed
+
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        # a torchrun rank: join the group the launcher describes
+        try:
+            distributed.initialize(device=args.device)
+        except ValueError as e:  # more ranks than GPUs
+            raise SystemExit(f"--mesh {args.mesh}: {e}")
+        return None
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    try:
+        return distributed.launch(
+            _app_rank, args.mesh, args=(module, argv), device=args.device,
+            threads=None, timeout=distributed.DEFAULT_TIMEOUT_S,
+            join_timeout=24 * 3600.0,
+        )[0]
+    except ValueError as e:  # more ranks than GPUs
+        raise SystemExit(f"--mesh {args.mesh}: {e}")
+
+
+def app_mesh(args: argparse.Namespace):
+    """Inside a rank: the learner CLIs' ``block_mesh(--mesh)``, as the JAX
+    CLIs build it (None without ``--mesh``)."""
+    if not getattr(args, "mesh", 0):
+        return None
+    _refuse_mesh_flags(args)
+    from ..parallel.mesh import block_mesh
+
+    return block_mesh(args.mesh)
+
+
+def mesh_result(res, mesh):
+    """A rank's learner result as the app hands it on: with a mesh, Dz
+    gathered to rank 0 (its z stays rank 0's blocks) and None on the
+    other ranks, which write nothing."""
+    if mesh is None:
+        return res
+    from ..parallel.mesh import gather_blocks
+
+    Dz = gather_blocks(res.Dz.contiguous(), mesh)
+    return res._replace(Dz=Dz) if mesh.rank == 0 else None
+
+
 def dispatch_learn(
     b, geom, cfg, seed: int, device, *, streaming: bool = False,
     stream_mode: Optional[str] = None, solver=None,
     streaming_blocks: Optional[int] = None, streaming_offset=None,
-    forbidden: Optional[dict] = None, **kwargs,
+    forbidden: Optional[dict] = None, mesh=None, **kwargs,
 ):
     """Run a learner CLI's solve: ``solver`` (default the consensus
-    learner, parallel.consensus.learn) with ``kwargs``, or with
-    ``streaming`` the host-streaming learner (the port of the JAX
-    package's ``apps/_dispatch.py::dispatch_learn`` without its mesh,
-    tuning and degrade arms). The random init draws from ``seed``: on
-    ``device`` for the in-memory solvers, on the host for the streaming
-    learner, whose state lives there.
+    learner, parallel.consensus.learn) with ``kwargs`` (and ``mesh``),
+    or with ``streaming`` the host-streaming learner (the port of the
+    JAX package's ``apps/_dispatch.py::dispatch_learn`` without its
+    tuning and degrade arms; streaming refuses a mesh as JAX does). The
+    random init draws from ``seed``: on ``device`` for the in-memory
+    solvers, on the host for the streaming learner, whose state lives
+    there.
 
     The streaming arm takes ``checkpoint_dir`` / ``checkpoint_every``
     and nothing else: a truthy ``forbidden`` entry ({"--cli-flag":
@@ -213,13 +294,17 @@ def dispatch_learn(
 
     if stream_mode and not streaming:
         raise SystemExit("--stream-mode requires --streaming")
+    if streaming and mesh is not None:
+        raise SystemExit(
+            "--streaming is single-device and does not combine with --mesh"
+        )
     if not streaming:
         if solver is None:
             from ..parallel.consensus import learn as solver
         return solver(
             b, geom, cfg, device=device,
             generator=torch.Generator(device=device).manual_seed(seed),
-            **kwargs,
+            mesh=mesh, **kwargs,
         )
     checkpoint_dir = kwargs.pop("checkpoint_dir", None)
     checkpoint_every = kwargs.pop("checkpoint_every", 5)

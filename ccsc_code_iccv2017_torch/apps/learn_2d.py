@@ -1,6 +1,6 @@
 """2D dictionary learning driver (torch port of
-``ccsc_code_iccv2017_tpu.apps.learn_2d``, its single-device consensus
-and masked paths).
+``ccsc_code_iccv2017_tpu.apps.learn_2d``: its consensus path, on one
+device or on ``--mesh N`` ranks, and its masked path).
 
 Reference protocol: CreateImages(path,'local_cn',1,'gray') -> consensus
 learner (kernel [11,11,100], lambda_res=lambda=1.0, max_it=20,
@@ -11,7 +11,10 @@ kernels K2a/K2b; ``--masked`` learns with the masked-boundary learner
 (models.learn_masked at reduce_shape=(), whose z-solve is K1);
 ``--streaming`` with the host-streaming learner (parallel.streaming: one
 consensus block on the card at a time, ``--stream-mode`` its placement
-tier; its z-solve is K1, never K2).
+tier; its z-solve is K1, never K2); ``--mesh N`` with ``block_mesh(N)``:
+N ranks, one per GPU (gloo ranks with ``--device cpu``), each holding
+blocks / N consensus blocks and running K2 on them, rank 0 writing the
+outputs.
 
     python -m ccsc_code_iccv2017_torch.apps.learn_2d --data DIR \\
         [--filters 100 --support 11 --blocks 8 --fused-z --out f.mat]
@@ -42,7 +45,11 @@ def build_parser() -> argparse.ArgumentParser:
     add_mat_layout_arg(p)
     p.add_argument("--size", type=int, default=None, help="resize side")
     p.add_argument("--limit", type=int, default=None)
-    p.add_argument("--mesh", type=int, default=0, help="not ported yet")
+    p.add_argument(
+        "--mesh", type=int, default=0,
+        help="learn on block_mesh(N): N ranks, one per GPU (gloo ranks "
+        "with --device cpu); 0 = one device",
+    )
     p.add_argument("--out", default="Filters_ours_2D_large.mat")
     p.add_argument(
         "--init-filters", default=None,
@@ -90,10 +97,14 @@ def main(argv=None):
                     "(consensus-learner mechanisms)"
                 )
     from ._common import (
-        dispatch_learn, learner_config_kwargs, refuse_unported_learner,
+        app_mesh, dispatch_learn, learner_config_kwargs, mesh_result,
+        refuse_unported_learner, run_mesh_ranks,
     )
 
     refuse_unported_learner(args)
+    ranks = run_mesh_ranks(__spec__.name, argv, args)
+    if ranks is not None:
+        return ranks
     from ..config import LearnConfig, ProblemGeom
     from ..data.images import load_images
     from ..models.learn_masked import learn_masked
@@ -134,18 +145,21 @@ def main(argv=None):
         fused_z=args.fused_z,
         **learner_config_kwargs(args),
     )
-    dev = resolve_device(args.device)
+    mesh = app_mesh(args)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     init_d = load_filters_2d(args.init_filters) if args.init_filters else None
-    res = dispatch_learn(
+    res = mesh_result(dispatch_learn(
         b, geom, cfg, args.seed, dev, streaming=args.streaming,
         stream_mode=args.stream_mode,
-        solver=learn_masked if args.masked else None,
+        solver=learn_masked if args.masked else None, mesh=mesh,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
         init_d=init_d,
         forbidden={"--init-filters": args.init_filters,
                    "--profile-dir": args.profile_dir},
-    )
+    ), mesh)
+    if res is None:  # a rank other than 0 of a mesh writes nothing
+        return None
     save_filters(args.out, res.d, res.trace, layout="2d", Dz=res.Dz)
     print(
         f"saved {tuple(res.d.shape)} filters to {args.out}; total "

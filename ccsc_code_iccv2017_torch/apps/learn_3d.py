@@ -1,5 +1,7 @@
 """3D (video) dictionary learning (torch port of
-``ccsc_code_iccv2017_tpu.apps.learn_3d``, the single-device path).
+``ccsc_code_iccv2017_tpu.apps.learn_3d``, on one device or on
+``--mesh N`` ranks, one per GPU: ``block_mesh(N)``, rank 0 writing the
+outputs).
 
 Reference protocol: the contrast-normalized movie -> 64 random crops of
 50^3 (learn_kernels_3D.m:35-44) -> consensus learner with kernel
@@ -37,7 +39,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tol", type=float, default=1e-2)
     p.add_argument("--rho-d", type=float, default=5000.0)
     p.add_argument("--rho-z", type=float, default=1.0)
-    p.add_argument("--mesh", type=int, default=0, help="not ported yet")
+    p.add_argument(
+        "--mesh", type=int, default=0,
+        help="learn on block_mesh(N): N ranks, one per GPU (gloo ranks "
+        "with --device cpu); 0 = one device",
+    )
     p.add_argument(
         "--streaming", action="store_true",
         help="host-streaming mode: one consensus block on the card at a "
@@ -84,9 +90,15 @@ def problem(args: argparse.Namespace):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from ._common import dispatch_learn, refuse_unported_learner
+    from ._common import (
+        app_mesh, dispatch_learn, mesh_result, refuse_unported_learner,
+        run_mesh_ranks,
+    )
 
     refuse_unported_learner(args)
+    ranks = run_mesh_ranks(__spec__.name, argv, args)
+    if ranks is not None:
+        return ranks
     from ..utils import validate
     from ..utils.device import resolve_device
     from ..utils.io_mat import save_filters
@@ -96,13 +108,16 @@ def main(argv=None):
     geom, cfg = problem(args)
     # fail on garbage inputs HERE, with the file/flag named
     validate.check_learn_data(b, geom, num_blocks=args.blocks)
-    dev = resolve_device(args.device)
-    res = dispatch_learn(
+    mesh = app_mesh(args)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    res = mesh_result(dispatch_learn(
         b, geom, cfg, args.seed, dev, streaming=args.streaming,
-        stream_mode=args.stream_mode,
+        stream_mode=args.stream_mode, mesh=mesh,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
-    )
+    ), mesh)
+    if res is None:  # a rank other than 0 of a mesh writes nothing
+        return None
     save_filters(args.out, res.d, res.trace, layout="3d", Dz=res.Dz)
     print(f"saved {tuple(res.d.shape)} filters to {args.out}")
     return res

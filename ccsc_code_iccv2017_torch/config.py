@@ -288,7 +288,7 @@ class SolveConfig:
 # ServeConfig fields of later ROADMAP.md Queue 1 items: (field, the
 # values that ask for what the port does, the item that ports the rest)
 _SERVE_DEFERRED = (
-    ("mesh_shape", (None, ()), "8c"), ("mesh_devices", (None,), "8c"),
+    ("mesh_shape", (None, ()), "8d"), ("mesh_devices", (None,), "8d"),
     ("tune", ("off",), 9), ("tune_store", (None,), 9),
     ("pipeline_depth", (None, 1), 9),
     ("metrics_dir", (None,), 10), ("slo_p50_ms", (None,), 10),

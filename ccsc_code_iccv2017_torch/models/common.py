@@ -1,6 +1,7 @@
 """Shared model-level plumbing: frequency geometry, spectra, objectives
-(torch port of ``ccsc_code_iccv2017_tpu.models.common``, single-device
-forms — the mesh reductions come with ROADMAP.md Queue 1 item 8c).
+(torch port of ``ccsc_code_iccv2017_tpu.models.common``). The ``mesh`` /
+axis arguments reduce across the ranks of a parallel.mesh.Mesh and are
+the identity without one.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch
 
 from ..config import ProblemGeom
 from ..ops import fourier
+from ..parallel import mesh as mesh_lib
 
 
 class FreqGeom(NamedTuple):
@@ -85,10 +87,16 @@ def codes_from_freq(zhat: torch.Tensor, fg: FreqGeom) -> torch.Tensor:
 
 
 def recon_from_freq(
-    dhat: torch.Tensor, zhat: torch.Tensor, fg: FreqGeom
+    dhat: torch.Tensor, zhat: torch.Tensor, fg: FreqGeom,
+    mesh=None, filter_axis: Optional[str] = None,
 ) -> torch.Tensor:
-    """Dz in real space: [n, *reduce, *spatial] (reduce axes restored)."""
-    Dzh = fourier.apply_dictionary(dhat, zhat)  # [n, W, F]
+    """Dz in real space: [n, *reduce, *spatial] (reduce axes restored).
+    ``filter_axis``: dhat/zhat hold this rank's k shard; the filter sum
+    is completed by one psum over that mesh axis before the inverse
+    FFT."""
+    Dzh = mesh_lib.psum(
+        fourier.apply_dictionary(dhat, zhat), mesh, filter_axis
+    )  # [n, W, F]
     Dzh = Dzh.reshape(Dzh.shape[0], *fg.reduce_shape, *fg.freq_shape)
     return fourier.irfftn_spatial(Dzh, fg.spatial_shape, impl=fg.fft_impl)
 
@@ -118,28 +126,35 @@ def slot_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def rel_change(
-    new: torch.Tensor, old: torch.Tensor, per_slot: bool = False
+    new: torch.Tensor, old: torch.Tensor, per_slot: bool = False,
+    mesh=None, axis=None,
 ) -> torch.Tensor:
     """||new - old|| / ||new|| — the reference's termination metric.
     bf16-stored iterates accumulate in f32. ``per_slot``: one value per
-    leading index ([n]), each slot's own metric."""
+    leading index ([n]), each slot's own metric. ``axis``: the arrays
+    are shards over that mesh axis; both norms are reduced across it, so
+    every rank reads the global metric (and takes the same decision)."""
     total = slot_sum if per_slot else torch.sum
     new = new.to(torch.float32)
     old = old.to(torch.float32)
-    num = total((new - old) ** 2)
-    den = total(new**2)
+    num = mesh_lib.psum(total((new - old) ** 2), mesh, axis)
+    den = mesh_lib.psum(total(new**2), mesh, axis)
     return torch.sqrt(num) / torch.clamp(torch.sqrt(den), min=1e-30)
 
 
 def psnr(
     x: torch.Tensor, ref: torch.Tensor, crop: Sequence[int] = (),
-    per_slot: bool = False,
+    per_slot: bool = False, mesh=None, axis: Optional[str] = None,
 ) -> torch.Tensor:
     """PSNR against a [0,1] reference, optionally cropping a border.
-    ``per_slot``: one value per leading index ([n])."""
+    ``per_slot``: one value per leading index ([n]). ``axis``: a mesh
+    axis of equal-sized batch shards; the mse is averaged over it,
+    which is the global mse."""
     if crop:
         x = fourier.crop_spatial(x, crop)
         ref = fourier.crop_spatial(ref, crop)
     sq = (x - ref) ** 2
     mse = sq.reshape(sq.shape[0], -1).mean(1) if per_slot else torch.mean(sq)
+    if mesh is not None and axis is not None:
+        mse = mesh_lib.psum(mse, mesh, axis) / mesh.shape[axis]
     return 10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-12))

@@ -21,26 +21,37 @@ The L consensus blocks of one device ride a leading axis and every
 per-block solve is batched over it (JAX vmaps); the consensus average is
 a mean over that axis. The steps are written once, as the per-block
 pieces ``f_bhat`` … ``f_dz_block``, which the host-streaming learner
-(parallel.streaming) calls one block at a time. Meshes (the psum over devices), the chunked
-driver and the telemetry extras are not ported yet (ROADMAP.md Queue 1
-items 8c, 9 and 10). The JAX package's documented divergences from the
-reference (coding against the projected consensus dictionary, the
-objective over all blocks, independent per-block z inits) hold here too.
+(parallel.streaming) calls one block at a time.
+
+On a mesh (parallel.mesh, one process per rank) each rank runs the same
+step on its L = N / nb blocks: the consensus mean is one all-reduce over
+'block' per d-iteration, a 'freq' axis splits the per-frequency solves
+(``fslice`` before each solve, ``all_gather_tiled`` after it), and a
+'filter' axis splits the k axis of the filters and codes, with one psum
+per k-sum. The chunked driver and the telemetry extras are not ported
+yet (ROADMAP.md Queue 1 items 9 and 10). The JAX package's documented
+divergences from the reference (coding against the projected consensus
+dictionary, the objective over all blocks, independent per-block z
+inits) hold here too.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import LearnConfig, ProblemGeom
 from ..ops import fourier, freq_solvers, fused_z, proxes
+from ..parallel import mesh as mesh_lib
 from . import common
 
 
 class LearnState(NamedTuple):
-    """Learner state on one device. Block-local fields carry a leading
-    block axis [L, ...]; the consensus fields dbar/udbar do not."""
+    """Learner state on one device (one rank of a mesh). Block-local
+    fields carry a leading block axis [L, ...]; the consensus fields
+    dbar/udbar do not. Under a 'filter' mesh axis every field holds this
+    rank's K / nk filters."""
 
     d_local: torch.Tensor  # [L, k, *reduce, *spatial] full-domain filters
     dual_d: torch.Tensor  # [L, k, *reduce, *spatial]
@@ -104,23 +115,39 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32)
 
 
+def mesh_axes(mesh) -> Tuple[Optional[str], Optional[str], Optional[str]]:
+    """The (block, freq, filter) axis names of a learner mesh, None where
+    the mesh (or None) has no such axis."""
+    if mesh is None:
+        return None, None, None
+    return tuple(a if a in mesh.shape else None
+                 for a in ("block", "freq", "filter"))
+
+
 def _flat_blocks(x: torch.Tensor) -> torch.Tensor:
     """[L, ni, ...] -> [L*ni, ...] (a view of a contiguous tensor)."""
     return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
 
 
-def z_iter_composition(z, dual_z, bhat, zkern, rho, theta, fg):
+def z_iter_composition(z, dual_z, bhat, zkern, rho, theta, fg, mesh=None,
+                       freq_axis=None, filter_axis=None):
     """One z iteration as the composition (models/learn.py:366-383 of
     the JAX package): prox + dual update, torch.fft, the rank-1 solve
     (K1 on the card), inverse FFT. z, dual_z: [M, k, *sp] in their
-    storage dtype; bhat [M, W, F]. -> (z', dual') in the storage dtype.
+    storage dtype; bhat [M, W, F] (this rank's frequency slice under a
+    'freq' axis, as zkern). -> (z', dual') in the storage dtype.
     """
     sd = z.dtype
     z, dual_z = _f32(z), _f32(dual_z)
     u2 = proxes.soft_threshold(z + dual_z, theta)
     dual_z = dual_z + (z - u2)
-    xi2_hat = common.codes_to_freq(u2 - dual_z, fg)
-    zhat_new = freq_solvers.solve_z(zkern, bhat, xi2_hat, rho)
+    xi2_hat = mesh_lib.fslice(common.codes_to_freq(u2 - dual_z, fg), mesh,
+                              freq_axis)
+    zhat_new = mesh_lib.all_gather_tiled(
+        freq_solvers.solve_z(zkern, bhat, xi2_hat, rho, mesh=mesh,
+                             axis_name=filter_axis),
+        mesh, freq_axis,
+    )
     return common.codes_from_freq(zhat_new, fg).to(sd), dual_z.to(sd)
 
 
@@ -157,17 +184,23 @@ def f_bhat(b_nn: torch.Tensor, geom: ProblemGeom,
 
 
 def f_dkern(z_nn: torch.Tensor, bhat_nn: torch.Tensor, cfg: LearnConfig,
-            fg: common.FreqGeom) -> freq_solvers.DSolveKernel:
+            fg: common.FreqGeom, mesh=None, freq_axis=None,
+            filter_axis=None) -> freq_solvers.DSolveKernel:
     """The d-pass kernel of codes z_nn [..., ni, k, *sp] (any storage
     dtype) against their data spectra bhat_nn [..., ni, W, F]: the code
     spectra, the Woodbury inner inverse and the hoisted Z^H b, constant
-    over the max_it_d inner iterations."""
+    over the max_it_d inner iterations (this rank's frequency slice
+    under a 'freq' axis; the code Gram psummed over 'filter')."""
     lead = z_nn.shape[: z_nn.ndim - len(fg.spatial_shape) - 1]
     zhat = common.codes_to_freq(
         _f32(z_nn).reshape(-1, *z_nn.shape[len(lead):]), fg
     )
     zhat = zhat.reshape(*lead, *zhat.shape[1:])  # [..., ni, K, F]
-    return freq_solvers.precompute_d_kernel(zhat, cfg.rho_d, b_hat=bhat_nn)
+    return freq_solvers.precompute_d_kernel(
+        mesh_lib.fslice(zhat, mesh, freq_axis), cfg.rho_d,
+        b_hat=mesh_lib.fslice(bhat_nn, mesh, freq_axis), mesh=mesh,
+        axis_name=filter_axis,
+    )
 
 
 def f_prox(dbar: torch.Tensor, udbar: torch.Tensor, geom: ProblemGeom,
@@ -180,14 +213,20 @@ def f_prox(dbar: torch.Tensor, udbar: torch.Tensor, geom: ProblemGeom,
 
 def f_d_block(kern: freq_solvers.DSolveKernel, d_local: torch.Tensor,
               dual_d: torch.Tensor, u: torch.Tensor, cfg: LearnConfig,
-              fg: common.FreqGeom):
+              fg: common.FreqGeom, mesh=None, freq_axis=None,
+              filter_axis=None):
     """One inner d-iteration of a block (dzParallel.m:110-113): the dual
     step towards the prox ``u`` and the Woodbury solve. d_local, dual_d
     [..., k, *reduce, *sp] in their storage dtype -> (d_new, dual) in
     float32; the caller rounds them to storage."""
     dual_f = _f32(dual_d) + (_f32(d_local) - u)
-    xi_hat = common.full_filters_to_freq(u - dual_f, fg)
-    dhat = freq_solvers.solve_d(kern, None, xi_hat, cfg.rho_d)
+    xi_hat = mesh_lib.fslice(common.full_filters_to_freq(u - dual_f, fg),
+                             mesh, freq_axis)
+    dhat = mesh_lib.all_gather_tiled(
+        freq_solvers.solve_d(kern, None, xi_hat, cfg.rho_d, mesh=mesh,
+                             axis_name=filter_axis),
+        mesh, freq_axis,
+    )
     return _filters_from_freq(dhat, fg), dual_f
 
 
@@ -209,10 +248,13 @@ def f_z_block(z, dual_z, bhat, zkern, cfg: LearnConfig, fg: common.FreqGeom,
     return z, dual_z
 
 
-def _recon(z_nn: torch.Tensor, dhat: torch.Tensor, fg: common.FreqGeom):
-    """(codes in float32, full-domain reconstruction D z)."""
+def _recon(z_nn: torch.Tensor, dhat: torch.Tensor, fg: common.FreqGeom,
+           mesh=None, filter_axis=None):
+    """(codes in float32, full-domain reconstruction D z; its filter sum
+    psummed over ``filter_axis``)."""
     zf = _f32(z_nn)
-    return zf, common.recon_from_freq(dhat, common.codes_to_freq(zf, fg), fg)
+    return zf, common.recon_from_freq(dhat, common.codes_to_freq(zf, fg), fg,
+                                      mesh, filter_axis)
 
 
 def _objective(zf, Dz, b_nn, geom: ProblemGeom, cfg: LearnConfig):
@@ -252,6 +294,7 @@ def outer_step(
     fg: common.FreqGeom,
     num_blocks: int,
     on_phase: Optional[Callable[[str], None]] = None,
+    mesh=None,
 ) -> Tuple[LearnState, OuterMetrics]:
     """One outer consensus iteration over this device's L blocks.
 
@@ -260,8 +303,21 @@ def outer_step(
     device). ``on_phase`` (optional) is called with "d_start", "d_end",
     "z_start" and "z_end" at the phase boundaries — the driver records
     CUDA events there to time the passes apart.
+
+    ``mesh``: this rank's parallel.mesh.Mesh (axes 'block' and at most
+    one of 'freq' / 'filter'); L = N / nb and the state holds this
+    rank's shard. Every metric comes back reduced over the mesh, the
+    same on every rank.
     """
     mark = on_phase or (lambda _name: None)
+    ax_b, ax_f, ax_k = mesh_axes(mesh)
+    if ax_f is not None and ax_k is not None:
+        raise ValueError(
+            "freq and filter tensor parallelism cannot be combined"
+        )
+    # every axis a global scalar crosses (objective, z_diff)
+    global_axes = tuple(a for a in (ax_b, ax_k) if a is not None) or None
+    sh = dict(mesh=mesh, freq_axis=ax_f, filter_axis=ax_k)
     L, ni = b_blocks.shape[0], b_blocks.shape[1]
     bhat = f_bhat(_flat_blocks(b_blocks), geom, fg)  # [L*ni, W, F]
     bhat_blocks = bhat.reshape(L, ni, *bhat.shape[1:])
@@ -270,29 +326,50 @@ def outer_step(
         if not cfg.with_objective:
             # the reference evaluates it only when monitoring wants it
             return torch.zeros((), dtype=torch.float32, device=z.device)
-        return f_obj_block(_flat_blocks(z), _flat_blocks(b_blocks), dhat,
-                           geom, cfg, fg)
+        if mesh is None:
+            return f_obj_block(_flat_blocks(z), _flat_blocks(b_blocks), dhat,
+                               geom, cfg, fg)
+        zf, Dz = _recon(_flat_blocks(z), dhat, fg, mesh, ax_k)
+        fid = common.data_fidelity(Dz, _flat_blocks(b_blocks),
+                                   geom.psf_radius, cfg.lambda_residual)
+        # fid is replicated over 'filter' after Dz's psum; the l1 term is
+        # k-local and reduces over block AND filter
+        return mesh_lib.psum(fid, mesh, ax_b) + mesh_lib.psum(
+            common.l1_penalty(zf, cfg.lambda_prior), mesh, global_axes)
 
     # ---------------- d-pass (dzParallel.m:95-135) -------------------
     mark("d_start")
-    dkern = f_dkern(state.z, bhat_blocks, cfg, fg)  # [L, ...] spectra
+    dkern = f_dkern(state.z, bhat_blocks, cfg, fg, **sh)  # [L, ...] spectra
     dsd = state.d_local.dtype  # d-state storage (d_storage_dtype)
     d_local, dual_d = state.d_local, state.dual_d
     dbar, udbar = state.dbar, state.udbar
     for _ in range(cfg.max_it_d):
         u = f_prox(dbar, udbar, geom, fg)  # global prox (dzParallel.m:107)
-        d_new, dual_f = f_d_block(dkern, d_local, dual_d, u, cfg, fg)
-        dbar = torch.sum(d_new, 0) / num_blocks  # consensus (:115-121)
-        udbar = torch.sum(dual_f, 0) / num_blocks
+        d_new, dual_f = f_d_block(dkern, d_local, dual_d, u, cfg, fg, **sh)
+        if ax_b is None:
+            dbar = torch.sum(d_new, 0) / num_blocks  # consensus (:115-121)
+            udbar = torch.sum(dual_f, 0) / num_blocks
+        else:
+            # the consensus all-reduce: both sums in one collective
+            sums = mesh_lib.psum(
+                torch.stack([torch.sum(d_new, 0), torch.sum(dual_f, 0)]),
+                mesh, ax_b, tag="consensus",
+            ) / num_blocks
+            dbar, udbar = sums[0], sums[1]
         d_local, dual_d = d_new.to(dsd), dual_f.to(dsd)
     del dkern
-    d_diff = common.rel_change(dbar, state.dbar)
+    d_diff = common.rel_change(dbar, state.dbar, mesh=mesh, axis=ax_k)
 
     # the coding dictionary: the projected consensus average (default),
     # or block 1's unprojected local iterate (the reference's exact
     # semantic, dzParallel.m:143)
     if cfg.compat_coding == "block1":
         d_code = _f32(d_local[0])
+        if ax_b is not None:
+            # global block 1 lives on rank 0 of the block axis
+            if mesh.axis_index(ax_b) != 0:
+                d_code = torch.zeros_like(d_code)
+            d_code = mesh_lib.psum(d_code, mesh, ax_b)
     elif cfg.compat_coding == "consensus":
         d_code = f_prox(dbar, udbar, geom, fg)
     else:
@@ -303,21 +380,35 @@ def outer_step(
 
     # ---------------- z-pass (dzParallel.m:140-172) ------------------
     mark("z_start")
-    zkern = freq_solvers.precompute_z_kernel(dhat_z, cfg.rho_z)
+    zkern = freq_solvers.precompute_z_kernel(
+        mesh_lib.fslice(dhat_z, mesh, ax_f), cfg.rho_z, mesh=mesh,
+        axis_name=ax_k,
+    )
     # the JAX gate (models/learn.py:358-364 there): K2 covers the 2D,
-    # W == 1 learner; every other geometry takes the composition, whose
-    # W == 1 z-solve is K1 (a 3D learner) and W > 1 the Woodbury solve
+    # W == 1 learner with neither a 'freq' nor a 'filter' axis; every
+    # other case takes the composition, whose W == 1 z-solve is K1 (a 3D
+    # learner; the plain body under 'filter') and W > 1 the Woodbury
+    # solve
     fused_ok = (
         cfg.fused_z and fg.reduce_size == 1 and len(fg.spatial_shape) == 2
+        and ax_f is None and ax_k is None
     )
+    if fused_ok:
+        z_iter = z_iter_fused
+    elif mesh is None:
+        z_iter = z_iter_composition
+    else:
+        z_iter = functools.partial(z_iter_composition, **sh)
     z, dual_z = f_z_block(
-        _flat_blocks(state.z), _flat_blocks(state.dual_z), bhat, zkern, cfg,
-        fg, z_iter=z_iter_fused if fused_ok else z_iter_composition,
+        _flat_blocks(state.z), _flat_blocks(state.dual_z),
+        mesh_lib.fslice(bhat, mesh, ax_f), zkern, cfg, fg, z_iter=z_iter,
     )
     z = z.reshape(state.z.shape)
     dual_z = dual_z.reshape(state.dual_z.shape)
     mark("z_end")
     num, den = z_diff_sums(z, state.z)
+    if mesh is not None:
+        num, den = mesh_lib.psum(torch.stack([num, den]), mesh, global_axes)
     z_diff = torch.sqrt(num) / torch.clamp(torch.sqrt(den), min=1e-30)
     obj_z = objective(z, dhat_z)
 
@@ -332,24 +423,41 @@ def eval_block(
     cfg: LearnConfig,
     fg: common.FreqGeom,
     with_outputs: bool = True,
+    mesh=None,
 ):
     """(global objective, support filters, cropped per-block Dz
     [L, ni, *reduce, *data_spatial] or None). Sequential over blocks, as
-    in JAX: only one block's code spectra exist at a time."""
+    in JAX: only one block's code spectra exist at a time. On a
+    ``mesh`` the objective is reduced over it, the filters are the whole
+    bank on every rank (gathered over 'filter') and Dz holds this rank's
+    blocks."""
+    ax_b, _, ax_k = mesh_axes(mesh)
     d_proj = f_prox(state.dbar, state.udbar, geom, fg)
     dhat = f_full_dhat(d_proj, fg)
     data_sp = b_blocks.shape[-geom.ndim_spatial:]
-    obj = torch.zeros((), dtype=torch.float32, device=b_blocks.device)
+    zero = torch.zeros((), dtype=torch.float32, device=b_blocks.device)
+    obj, l1 = zero, zero
     Dz_blocks = []
     for zl, bl in zip(state.z, b_blocks):
-        zf, Dz = _recon(zl, dhat, fg)  # z may be stored bf16
-        obj = obj + _objective(zf, Dz, bl, geom, cfg)
+        zf, Dz = _recon(zl, dhat, fg, mesh, ax_k)  # z may be stored bf16
+        if ax_k is None:
+            obj = obj + _objective(zf, Dz, bl, geom, cfg)
+        else:  # fid replicated over 'filter', l1 k-local
+            obj = obj + common.data_fidelity(
+                Dz, bl, geom.psf_radius, cfg.lambda_residual)
+            l1 = l1 + common.l1_penalty(zf, cfg.lambda_prior)
         if with_outputs:
             Dz_blocks.append(
                 fourier.crop_spatial(Dz, geom.psf_radius, data_sp)
             )
     Dz_all = torch.stack(Dz_blocks) if with_outputs else None
-    return obj, extract_filters(d_proj, geom), Dz_all
+    if mesh is not None:
+        obj = mesh_lib.psum(obj, mesh, ax_b)
+        if ax_k is not None:
+            obj = obj + mesh_lib.psum(l1, mesh, (ax_b, ax_k))
+    d_sup = mesh_lib.all_gather_tiled(extract_filters(d_proj, geom), mesh,
+                                      ax_k, dim=0)
+    return obj, d_sup, Dz_all
 
 
 def _filters_from_freq(dhat: torch.Tensor, fg: common.FreqGeom) -> torch.Tensor:

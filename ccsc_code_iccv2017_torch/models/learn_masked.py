@@ -18,9 +18,12 @@ Differences from the consensus learner (models.learn):
 
 Dimension-generic: the hyperspectral learner is reduce_shape=(31,),
 whose z-solve is the W = 31 Woodbury solve; reduce_shape=() is the 2D
-masked learner (``learn_2d --masked``), whose z-solve is K1. The JAX
-package's 'freq'-sharded step and chunked outer loop are not ported yet
-(ROADMAP.md Queue 1 items 8c and 9).
+masked learner (``learn_2d --masked``), whose z-solve is K1. On a 1-D
+('freq',) mesh (parallel.mesh.freq_mesh) the state and data stay
+replicated on every rank and each rank solves an F / nf slice of the
+spectrum, one tiled all-gather per inner iteration reassembling it, as
+the JAX package's 'freq'-sharded step. The chunked outer loop is not
+ported yet (ROADMAP.md Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch
 
 from ..config import LearnConfig, ProblemGeom
 from ..ops import fourier, freq_solvers, proxes
+from ..parallel import mesh as mesh_lib
 from ..utils import checkpoint as ckpt
 from ..utils import resilience, validate
 from ..utils.resilience import console
@@ -94,12 +98,22 @@ def outer_step(
     gamma_div_d: float,
     gamma_div_z: float,
     on_phase: Optional[Callable[[str], None]] = None,
+    mesh=None,
 ) -> Tuple[MaskedLearnState, OuterMetrics]:
     """One outer iteration: d-ADMM (admm_learn.m:102-136) then z-ADMM
-    (:165-200), the JAX package's ``_outer_step_impl`` on one device.
-    ``on_phase`` is called at the pass boundaries (d_start, d_end,
-    z_start, z_end), as in models.learn.outer_step."""
+    (:165-200), the JAX package's ``_outer_step_impl``. ``on_phase`` is
+    called at the pass boundaries (d_start, d_end, z_start, z_end), as
+    in models.learn.outer_step. ``mesh``: a ('freq',) mesh whose ranks
+    each solve their slice of the spectrum (state and data replicated)."""
     mark = on_phase or (lambda _name: None)
+    ax_f = "freq" if mesh is not None else None
+
+    def fslice(x):
+        return mesh_lib.fslice(x, mesh, ax_f)
+
+    def fgather(x):
+        return mesh_lib.all_gather_tiled(x, mesh, ax_f)
+
     g = 60.0 * cfg.lambda_prior / torch.clamp(torch.max(M_pad * b_pad),
                                               min=1e-30)
     Mtb = (b_pad - smoothinit) * M_pad
@@ -126,7 +140,7 @@ def outer_step(
     # ------------------ d-pass (:102-136) ---------------------------
     mark("d_start")
     zhat = common.codes_to_freq(_f32(state.z), fg)
-    dkern = freq_solvers.precompute_d_kernel(zhat, rho_d)
+    dkern = freq_solvers.precompute_d_kernel(fslice(zhat), rho_d)
     theta_d = cfg.lambda_residual / (g / gamma_div_d)
     d_full, du1, du2 = state.d_full, state.dual_d1, state.dual_d2
     dhat = full_to_freq(d_full)
@@ -136,9 +150,11 @@ def outer_step(
         u2 = prox_kernel(d_full - du2)
         du1 = du1 - (v1 - u1)
         du2 = du2 - (d_full - u2)
-        xi1_hat = common.data_to_freq(u1 + du1, fg)
-        xi2_hat = full_to_freq(u2 + du2)
-        dhat_new = freq_solvers.solve_d(dkern, xi1_hat, xi2_hat, rho_d)
+        xi1_hat = fslice(common.data_to_freq(u1 + du1, fg))
+        xi2_hat = fslice(full_to_freq(u2 + du2))
+        dhat_new = fgather(
+            freq_solvers.solve_d(dkern, xi1_hat, xi2_hat, rho_d)
+        )
         d_full = fourier.irfftn_spatial(
             dhat_new.reshape(dhat_new.shape[0], *fg.reduce_shape,
                              *fg.freq_shape),
@@ -156,7 +172,7 @@ def outer_step(
 
     # ------------------ z-pass (:165-200) ---------------------------
     mark("z_start")
-    zkern = freq_solvers.precompute_z_kernel(dhat, rho_z)
+    zkern = freq_solvers.precompute_z_kernel(fslice(dhat), rho_z)
     theta_z = cfg.lambda_residual / (g / gamma_div_z)
     z_s, zdu1, zdu2_s = state.z, state.dual_z1, state.dual_z2
     zh = zhat  # the live spectrum of z
@@ -167,9 +183,11 @@ def outer_step(
         u2 = proxes.soft_threshold(z - zdu2, cfg.lambda_prior / g)
         zdu1 = zdu1 - (v1 - u1)
         zdu2 = zdu2 - (z - u2)
-        xi1_hat = common.data_to_freq(u1 + zdu1, fg)
-        xi2_hat = common.codes_to_freq(u2 + zdu2, fg)
-        zh_new = freq_solvers.solve_z(zkern, xi1_hat, xi2_hat, rho_z)
+        xi1_hat = fslice(common.data_to_freq(u1 + zdu1, fg))
+        xi2_hat = fslice(common.codes_to_freq(u2 + zdu2, fg))
+        zh_new = fgather(
+            freq_solvers.solve_z(zkern, xi1_hat, xi2_hat, rho_z)
+        )
         z_s = common.codes_from_freq(zh_new, fg).to(sd)
         zdu2_s = zdu2.to(sd)
         # carry_freq as in the d-pass (the stored z may be rounded to
@@ -292,13 +310,18 @@ def learn_masked(
     objective rollback (admm_learn.m:204-213) reverts both iterates and
     stops. On the card the trace carries ``d_pass_ms`` / ``z_pass_ms``.
 
-    Not ported yet: ``mesh`` (the 'freq'-sharded step, ROADMAP.md Queue
-    1 item 8c) and the chunked outer loop (item 9).
+    ``mesh``: a 1-D ('freq',) parallel.mesh.Mesh (freq_mesh), called on
+    every rank with the same arguments; the run happens on
+    ``mesh.device``, every rank holds the whole (replicated) state and
+    returns the same result, and the host-side decisions read rank 0's
+    metrics. Checkpoints are written by rank 0.
+
+    Not ported yet: the chunked outer loop (item 9).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the 'freq'-sharded masked learner is not ported yet "
-            "(ROADMAP.md Queue 1 item 8c)"
+    if mesh is not None and mesh.axis_names != ("freq",):
+        raise ValueError(
+            f"learn_masked expects a 1-D ('freq',) mesh, got "
+            f"{mesh.axis_names}"
         )
     if cfg.chunked_driver:
         raise NotImplementedError(
@@ -315,7 +338,12 @@ def learn_masked(
             "compat_coding is only supported by the consensus learner "
             "(models.learn)"
         )
-    dev = resolve_device(device)
+    if mesh is not None and torch.device(device).type != mesh.device.type:
+        raise ValueError(
+            f"device={str(device)!r} but this rank's mesh runs on "
+            f"{mesh.device}"
+        )
+    dev = resolve_device(device) if mesh is None else mesh.device
     b = validate.as_float32(b, dev)
     ndim_s = geom.ndim_spatial
     n = b.shape[0]
@@ -323,6 +351,11 @@ def learn_masked(
     data_sp = tuple(b.shape[-ndim_s:])
     fg = common.FreqGeom.create(geom, data_sp, fft_pad=cfg.fft_pad,
                                 fft_impl=cfg.fft_impl)
+    nf = mesh.shape["freq"] if mesh is not None else 1
+    if fg.num_freq % nf:
+        raise ValueError(
+            f"num_freq={fg.num_freq} not divisible by num_freq_shards={nf}"
+        )
     sd = getattr(torch, cfg.storage_dtype)
     _preflight_hbm(geom, data_sp, n, dev, fg=fg,
                    z_dtype_bytes=torch.finfo(sd).bits // 8)
@@ -408,12 +441,14 @@ def learn_masked(
             new_state, m = outer_step(
                 state, b_pad, M_pad, smoothinit, geom, cfg, fg,
                 gamma_div_d * recov.scale, gamma_div_z * recov.scale,
-                on_phase=timer,
+                on_phase=timer, mesh=mesh,
             )
-            # the one host read of the step (also its device fence)
-            obj_d, obj_z, d_diff, z_diff = torch.stack(
-                [m.obj_d, m.obj_z, m.d_diff, m.z_diff]
-            ).tolist()
+            # the one host read of the step (also its device fence); on a
+            # mesh rank 0's metrics and any rank's shutdown request
+            (obj_d, obj_z, d_diff, z_diff), stop_req = mesh_lib.agree(
+                torch.stack([m.obj_d, m.obj_z, m.d_diff, m.z_diff]),
+                gs.requested, mesh,
+            )
             dt = time.perf_counter() - t0
             t_total += dt
             # non-finite guard: NaN metrics would sail through the
@@ -460,14 +495,13 @@ def learn_masked(
                 f"Diff_d {d_diff:.3g}, Diff_z {z_diff:.3g}",
             )
             it_done = i + 1
-            preempting = gs.requested and i + 1 < cfg.max_it
+            preempting = stop_req and i + 1 < cfg.max_it
             if preempting:
                 trace.setdefault("preemptions", []).append(i + 1)
             if checkpoint_dir is not None and (
                 (i + 1) % checkpoint_every == 0 or preempting
             ):
-                ckpt.save(checkpoint_dir, state, trace, i + 1,
-                          fingerprint=fingerprint)
+                _save(checkpoint_dir, state, trace, i + 1, fingerprint, mesh)
                 saved_it = i + 1
             if preempting:
                 console(cfg, f"preempted: checkpointed iteration {i + 1}, "
@@ -478,8 +512,7 @@ def learn_masked(
             i += 1
 
     if checkpoint_dir is not None and saved_it != it_done:
-        ckpt.save(checkpoint_dir, state, trace, it_done,
-                  fingerprint=fingerprint)
+        _save(checkpoint_dir, state, trace, it_done, fingerprint, mesh)
     dhat = common.full_filters_to_freq(state.d_full, fg)
     d_proj = proxes.kernel_constraint_proj(state.d_full, geom.spatial_support,
                                            fg.spatial_shape)
@@ -488,3 +521,11 @@ def learn_masked(
     Dz = fourier.crop_spatial(Dz, radius, data_sp)
     return LearnResult(extract_filters(d_proj, geom), state.z[None], Dz,
                        trace)
+
+
+def _save(checkpoint_dir, state, trace, it, fingerprint, mesh) -> None:
+    """One checkpoint of the (replicated) state: written by rank 0 of a
+    mesh, every rank waiting for it."""
+    if mesh is None or mesh.rank == 0:
+        ckpt.save(checkpoint_dir, state, trace, it, fingerprint=fingerprint)
+    mesh_lib.barrier(mesh)

@@ -6,8 +6,10 @@ inpainting (gaussian data term + mask), Poisson deconvolution (poisson
 data term + appended dirac with gradient regularization), and blurred
 problems (blur OTF composed into the solve operator), on any geometry:
 2D and 3D spatial supports, and reduce axes (hyperspectral bands,
-lightfield views: W > 1, the Woodbury z-solve), on one device. Meshes,
-telemetry and tuning come with later slices (ROADMAP.md Queue 1).
+lightfield views: W > 1, the Woodbury z-solve), on one device or on a
+mesh of ranks (``mesh=``: the batch split over the first axis, the
+per-frequency solves optionally over a second 'freq' axis). Telemetry
+and tuning come with later slices (ROADMAP.md Queue 1).
 
 The ADMM skeleton is the reference's 2-function consensus form: v1 = Dz
 (data side), v2 = z (sparsity side), scaled duals, and one exact
@@ -30,6 +32,7 @@ import torch
 
 from ..config import ProblemGeom, SolveConfig
 from ..ops import fourier, freq_solvers, proxes
+from ..parallel import mesh as mesh_lib
 from ..utils import validate
 from ..utils.device import resolve_device
 from . import common
@@ -166,11 +169,15 @@ def _grad_diag(fg: common.FreqGeom, lambda_smooth: float,
     return lambda_smooth * tg.reshape(-1)
 
 
-def _plan_arrays(d, prob, cfg, fg, blur_psf):
+def _plan_arrays(d, prob, cfg, fg, blur_psf, fslice=None):
     """The operator-only precompute of one solve: dirac channel, filter
     spectra, blur-OTF composition, dirac gradient diagonal, and the
     per-frequency z-solve factors. Shared by the inline path of
-    ``_reconstruct_impl`` and by :func:`build_plan`."""
+    ``_reconstruct_impl`` and by :func:`build_plan`. ``fslice``: a
+    'freq'-sharded solve's slicer; the z-solve factors are built on this
+    rank's contiguous frequency slice, once per solve."""
+    if fslice is None:
+        fslice = lambda x: x
     geom = prob.geom
     if prob.dirac != "none":
         d = _add_dirac(d, geom, prob.dirac)
@@ -191,7 +198,9 @@ def _plan_arrays(d, prob, cfg, fg, blur_psf):
                                  device=d.device)
         extra_diag[dirac_idx] = tg
     kern = freq_solvers.precompute_z_kernel(
-        dhat_solve, _solve_rho(cfg, fg), extra_diag, herm_inv=cfg.herm_inv,
+        fslice(dhat_solve), _solve_rho(cfg, fg),
+        fslice(extra_diag) if extra_diag is not None else None,
+        herm_inv=cfg.herm_inv,
     )
     return dhat_clean, dhat_solve, kern
 
@@ -213,8 +222,9 @@ def build_plan(
     """Precompute a :class:`ReconPlan` on ``device`` for observations of
     spatial shape ``data_spatial`` (the request shape BEFORE psf
     padding). A plan built with ``blur_psf`` already composes the OTF —
-    callers then pass ``blur_psf=None`` to ``reconstruct``. Meshes are
-    not ported yet (ROADMAP.md Queue 1 item 8c)."""
+    callers then pass ``blur_psf=None`` to ``reconstruct``. Plans
+    sharded over a mesh (mesh serving) are not ported yet (ROADMAP.md
+    Queue 1 item 8d)."""
     dev = resolve_device(device)
     d_t = _as_input("filters", d, dev)
     validate.check_filters(d_t, prob.geom)
@@ -268,14 +278,43 @@ def reconstruct(
     plan: optional :class:`ReconPlan` (build_plan) pinning the operator
     precompute. It must match (prob, cfg, FFT domain, bank, device) or
     the call refuses; a plan built with a blur PSF already composes it,
-    so ``blur_psf`` must be None then. ``mesh`` is not ported yet.
+    so ``blur_psf`` must be None then.
+
+    mesh: a parallel.mesh.Mesh, called on every rank with the same
+    (global) arguments. Its first axis splits the batch (n must divide);
+    an optional second axis, 'freq', splits the per-frequency solves.
+    Every batch-wide scalar (gamma's max, the objective, PSNR, the
+    rel-change of the stop test) is reduced over the batch axis, so every
+    rank stops at the same iteration. The traces come back replicated,
+    ``z`` and ``recon`` as this rank's requests
+    (parallel.mesh.gather_blocks assembles them). The run happens on
+    ``mesh.device``. A plan does not combine with a mesh here.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: sharded reconstruction is not ported yet "
-            "(ROADMAP.md Queue 1 item 8c)"
-        )
-    dev = resolve_device(device)
+        if plan is not None:
+            raise ValueError(
+                "plan does not combine with mesh on this entry point — "
+                "reconstruct() shards by deriving the operator precompute "
+                "on each rank; mesh serving is not ported yet (ROADMAP.md "
+                "Queue 1 item 8d)"
+            )
+        axis = mesh.axis_names[0]
+        nb = mesh.shape[axis]
+        if np.shape(b)[0] % nb:
+            raise ValueError(
+                f"batch {np.shape(b)[0]} not divisible by mesh axis "
+                f"'{axis}' size {nb}"
+            )
+        if len(mesh.axis_names) > 1 and mesh.axis_names[1:] != ("freq",):
+            raise ValueError(
+                f"second mesh axis must be 'freq', got {mesh.axis_names}"
+            )
+        if torch.device(device).type != mesh.device.type:
+            raise ValueError(
+                f"device={str(device)!r} but this rank's mesh runs on "
+                f"{mesh.device}"
+            )
+    dev = resolve_device(device) if mesh is None else mesh.device
     b = _as_input("data", b, dev)
     d_in = d
     d = _as_input("filters", d, dev)
@@ -333,16 +372,32 @@ def reconstruct(
                 f"plan lives on {plan.device} but this call solves on "
                 f"{dev} — build the plan with device={str(dev)!r}"
             )
+    if mesh is None:
+        return _reconstruct_impl(
+            b, d, prob, cfg, mask, smooth_init, blur_psf, x_orig, plan=plan
+        )
+    shard = lambda x: None if x is None else mesh_lib.fslice(
+        x, mesh, axis, dim=0)
     return _reconstruct_impl(
-        b, d, prob, cfg, mask, smooth_init, blur_psf, x_orig, plan=plan
+        shard(b), d, prob, cfg, shard(mask), shard(smooth_init), blur_psf,
+        shard(x_orig), mesh=mesh, axis_name=axis,
+        freq_axis_name="freq" if "freq" in mesh.shape else None,
     )
 
 
 def _reconstruct_impl(
     b, d, prob, cfg, mask, smooth_init, blur_psf, x_orig, plan=None,
-    slotwise=False,
+    slotwise=False, mesh=None, axis_name=None, freq_axis_name=None,
 ) -> ReconResult:
     """The solve on validated float32 tensors, all on one device.
+
+    ``mesh`` / ``axis_name``: the tensors are this rank's batch shard;
+    every batch-wide scalar is reduced over ``axis_name`` (gamma's max
+    by pmax, the objective, PSNR's mse and the rel-change by psum), so
+    the stop test reads the same value on every rank. ``freq_axis_name``:
+    each rank solves its F / nf slice of the spectrum (the z-solve
+    factors built on it once, contiguous, for K1) and one tiled
+    all-gather per iteration reassembles it.
 
     ``slotwise`` (the serving engine's bucket solve): each leading index
     of ``b`` is a slot holding its own n=1 solve, as the JAX engine's
@@ -371,6 +426,12 @@ def _reconstruct_impl(
     dev = b.device
     # sums of the objective: over everything, or per slot
     total = common.slot_sum if slotwise else torch.sum
+
+    def gsum(x):
+        return mesh_lib.psum(x, mesh, axis_name)
+
+    def fslice(x):
+        return mesh_lib.fslice(x, mesh, freq_axis_name)
 
     K = (
         plan.num_filters
@@ -404,7 +465,7 @@ def _reconstruct_impl(
     b_max = (
         torch.amax((M * b).reshape(n, -1), dim=1)
         if slotwise
-        else torch.max(M * b)
+        else mesh_lib.pmax(torch.max(M * b), mesh, axis_name)
     )
     g = cfg.gamma_factor * cfg.lambda_prior / torch.clamp(b_max, min=1e-30)
     gamma1 = g / cfg.gamma_ratio
@@ -419,7 +480,7 @@ def _reconstruct_impl(
         )
     else:
         dhat_clean, dhat_solve, kern = _plan_arrays(
-            d, prob, cfg, fg, blur_psf
+            d, prob, cfg, fg, blur_psf, fslice
         )
 
     channel_mask = None
@@ -463,8 +524,8 @@ def _reconstruct_impl(
         r = fourier.crop_spatial(Dz + smoothinit, radius, data_spatial) - b
         r = M_crop * r
         return (
-            0.5 * cfg.lambda_residual * total(r * r)
-            + cfg.lambda_prior * total(torch.abs(z))
+            0.5 * cfg.lambda_residual * gsum(total(r * r))
+            + cfg.lambda_prior * gsum(total(torch.abs(z)))
         )
 
     def psnr_of(zhat, Dz_solve):
@@ -473,7 +534,8 @@ def _reconstruct_impl(
         # without a blur operator the clean and solve spectra coincide
         Dz = Dz_real(zhat, dhat_clean) if has_blur else Dz_solve
         rec = fourier.crop_spatial(Dz + smoothinit, radius, data_spatial)
-        return common.psnr(rec, x_orig, geom.psf_radius, per_slot=slotwise)
+        return common.psnr(rec, x_orig, geom.psf_radius, per_slot=slotwise,
+                           mesh=mesh, axis=axis_name)
 
     z_shape = (n, K, *fg.spatial_shape)
     z = torch.zeros(z_shape, dtype=torch.float32, device=dev)
@@ -517,16 +579,20 @@ def _reconstruct_impl(
         )
         d1_new = d1 - (v1 - u1)
         d2 = d2 - (z - u2)
-        xi1_hat = common.data_to_freq(u1 + d1_new, fg)
-        xi2_hat = common.codes_to_freq(u2 + d2, fg)
-        zhat_new = freq_solvers.solve_z(
-            kern, xi1_hat, xi2_hat, rho, use_pallas=cfg.use_pallas
+        xi1_hat = fslice(common.data_to_freq(u1 + d1_new, fg))
+        xi2_hat = fslice(common.codes_to_freq(u2 + d2, fg))
+        zhat_new = mesh_lib.all_gather_tiled(
+            freq_solvers.solve_z(
+                kern, xi1_hat, xi2_hat, rho, use_pallas=cfg.use_pallas
+            ),
+            mesh, freq_axis_name,
         )
         z_new = common.codes_from_freq(zhat_new, fg)
         # the iterate's reconstruction: next iteration's v1 AND this
         # iteration's objective/PSNR input — computed exactly once
         v1_new = Dz_real(zhat_new, dhat_solve)
-        diff_d = common.rel_change(z_new, z, per_slot=slotwise)
+        diff_d = common.rel_change(z_new, z, per_slot=slotwise, mesh=mesh,
+                                   axis=axis_name)
         obj_d = objective(z_new, v1_new)
         psnr_d = psnr_of(zhat_new, v1_new)
         z_s_new, d2_s_new = to_store(z_new), to_store(d2)
@@ -555,9 +621,11 @@ def _reconstruct_impl(
         r = fourier.crop_spatial(v1 + smoothinit, radius, data_spatial) - b
         r = M_crop * r
         extras = SolveExtras(
-            obj_fid=0.5 * cfg.lambda_residual * total(r * r),
-            obj_l1=cfg.lambda_prior * total(torch.abs(z)),
-            nonfinite=total(~torch.isfinite(z)).to(torch.int32),
+            obj_fid=0.5 * cfg.lambda_residual * gsum(total(r * r)),
+            obj_l1=cfg.lambda_prior * gsum(total(torch.abs(z))),
+            nonfinite=gsum(
+                total(~torch.isfinite(z)).to(torch.float32)
+            ).to(torch.int32),
         )
 
     Dz = Dz_real(zhat, dhat_clean) + smoothinit

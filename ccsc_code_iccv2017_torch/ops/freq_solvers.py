@@ -17,8 +17,11 @@ linear system per frequency:
   of code spectra, inverted by the Woodbury identity through an
   Ni x Ni Hermitian system (precompute_d_kernel / solve_d).
 
-The JAX package's ``axis_name`` arguments (filter-axis sharding) are
-dropped: meshes wait for ROADMAP.md Queue 1 item 8c. The d-side
+The ``mesh`` / ``axis_name`` arguments are the JAX package's
+filter-axis sharding: the inputs hold this rank's K/nk shard of the
+filters and every k-reduction is one psum over that mesh axis
+(``_ksum``). A filter-sharded W == 1 solve takes the plain body, not K1,
+as JAX does: K1 needs the whole k-sum inside one launch. The d-side
 functions take leading batch axes (the learner's consensus blocks)
 where JAX vmaps.
 """
@@ -28,7 +31,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel import mesh as mesh_lib
 from . import kernels
+
+
+def _ksum(x: torch.Tensor, mesh, axis_name: Optional[str]) -> torch.Tensor:
+    """Sum a k-reduced partial across filter-axis shards (the identity
+    without a filter axis)."""
+    return mesh_lib.psum(x, mesh, axis_name)
 
 
 def hermitian_inverse(
@@ -70,12 +80,16 @@ def precompute_z_kernel(
     rho: float,
     extra_diag: Optional[torch.Tensor] = None,
     herm_inv: Optional[str] = None,
+    mesh=None,
+    axis_name: Optional[str] = None,
 ) -> ZSolveKernel:
     """The per-frequency inverse factors of the z-solve. dhat: [K, W, F];
     extra_diag: optional [K, F] real, added to rho on the diagonal (the
     dirac channel's gradient regularization). ``herm_inv`` selects the
     W > 1 Gram inverse (``hermitian_inverse``) and is not read for
-    W == 1."""
+    W == 1. ``axis_name``: dhat holds this rank's filter shard; the
+    k-sums are psummed over that axis of ``mesh``, so the inner inverse
+    factors come out replicated."""
     K, W, F = dhat.shape
     dhat = dhat.contiguous()  # K1 reads it as one dense [K, F] array
     gamma = torch.full((K, F), float(rho), dtype=torch.float32,
@@ -85,10 +99,16 @@ def precompute_z_kernel(
     dinv = 1.0 / gamma
     if W == 1:
         # scalar inner system: 1 + sum_k |d_k|^2 / Gamma_k
-        m = 1.0 + torch.sum(torch.abs(dhat[:, 0, :]) ** 2 * dinv, dim=0)
+        m = 1.0 + _ksum(
+            torch.sum(torch.abs(dhat[:, 0, :]) ** 2 * dinv, dim=0),
+            mesh, axis_name,
+        )
         return ZSolveKernel(dhat, dinv, None, 1.0 / m)
     # M_f = I_W + A Gamma^{-1} A^H, A = dhat[:, :, f].T (W x K)
-    M = torch.einsum("kvf,kwf->fvw", dhat * dinv[:, None, :], dhat.conj())
+    M = _ksum(
+        torch.einsum("kvf,kwf->fvw", dhat * dinv[:, None, :], dhat.conj()),
+        mesh, axis_name,
+    )
     M = M + torch.eye(W, dtype=M.dtype, device=M.device)
     return ZSolveKernel(dhat, dinv, hermitian_inverse(M, herm_inv), None)
 
@@ -99,6 +119,8 @@ def solve_z(
     xi2_hat: torch.Tensor,
     rho: float,
     use_pallas: bool = False,
+    mesh=None,
+    axis_name: Optional[str] = None,
 ) -> torch.Tensor:
     """Solve (Gamma + A^H A) x = A^H xi1 + rho * xi2 per frequency.
 
@@ -110,9 +132,12 @@ def solve_z(
     the Woodbury body through the precomputed W x W inverse, as torch
     einsums on either device (no TPU kernel covers it). ``use_pallas``
     is accepted for signature parity with the JAX package and not read.
+    ``axis_name``: filter-axis sharding (K is this rank's shard): the
+    plain body with its one k-sum psummed over that axis of ``mesh``.
     """
-    if kernel.minv is not None:
-        return solve_z_reference(kernel, xi1_hat, xi2_hat, rho)
+    if kernel.minv is not None or axis_name is not None:
+        return solve_z_reference(kernel, xi1_hat, xi2_hat, rho,
+                                 mesh=mesh, axis_name=axis_name)
     # K1 reads dense arrays; a spectrum of a strided input may be strided
     return kernels.solve_z_rank1(
         kernel.dhat[:, 0, :],
@@ -128,16 +153,20 @@ def solve_z_reference(
     xi1_hat: torch.Tensor,
     xi2_hat: torch.Tensor,
     rho: float,
+    mesh=None,
+    axis_name: Optional[str] = None,
 ) -> torch.Tensor:
     """The JAX package's einsum body of solve_z (freq_solvers.py:491-501)
     for any W, never launching K1: g = Gamma^{-1}(A^H xi1 + rho xi2),
     t = A g, s = Minv t, z = g - Gamma^{-1} A^H s, Minv the W x W
-    inverse ``minv`` or, for W == 1, the scalar ``minv_diag``."""
+    inverse ``minv`` or, for W == 1, the scalar ``minv_diag``. The one
+    k-sum, t, is psummed over ``axis_name`` (filter sharding)."""
     dhat, dinv = kernel.dhat, kernel.dinv
     dconj = dhat.conj()
     rhs = torch.einsum("kwf,nwf->nkf", dconj, xi1_hat) + rho * xi2_hat
     g = dinv[None] * rhs  # Gamma^{-1} rhs, [N, K, F]
-    t = torch.einsum("kwf,nkf->nwf", dhat, g)  # A Ginv rhs, [N, W, F]
+    t = _ksum(torch.einsum("kwf,nkf->nwf", dhat, g), mesh,
+              axis_name)  # A Ginv rhs, [N, W, F]
     if kernel.minv is None:
         s = kernel.minv_diag[None, None, :] * t
     else:
@@ -165,11 +194,17 @@ def precompute_d_kernel(
     zhat: torch.Tensor,
     rho: float,
     b_hat: Optional[torch.Tensor] = None,
+    mesh=None,
+    axis_name: Optional[str] = None,
 ) -> DSolveKernel:
     """zhat: [..., Ni, K, F]. ``b_hat`` [..., Ni, W, F]: pass the data
-    spectra to hoist the constant Z^H b out of the d-iterations."""
+    spectra to hoist the constant Z^H b out of the d-iterations (k-local).
+    ``axis_name``: K is this rank's filter shard; the code Gram's k-sum
+    is psummed over that axis of ``mesh`` before the complex Cholesky,
+    so the Ni x Ni inverse is replicated across filter shards."""
     Ni = zhat.shape[-3]
-    G = torch.einsum("...nkf,...mkf->...fnm", zhat, zhat.conj())
+    G = _ksum(torch.einsum("...nkf,...mkf->...fnm", zhat, zhat.conj()),
+              mesh, axis_name)
     G = G + rho * torch.eye(Ni, dtype=G.dtype, device=G.device)
     zb = None
     if b_hat is not None:
@@ -182,6 +217,8 @@ def solve_d(
     b_hat: Optional[torch.Tensor],
     xi_hat: torch.Tensor,
     rho: float,
+    mesh=None,
+    axis_name: Optional[str] = None,
 ) -> torch.Tensor:
     """Solve (rho I_K + Z^H Z) x = Z^H b + rho * xi per frequency.
 
@@ -189,6 +226,7 @@ def solve_d(
     xi_hat: [..., K, W, F] target filter spectra -> [..., K, W, F] new
     filter spectra. Woodbury: x = (r - Z^H (rho I + Z Z^H)^{-1} Z r) / rho
     with r = Z^H b + rho * xi (solve_conv_term_D, dParallel.m:252-276).
+    ``axis_name``: filter sharding; the k-sum Z r is psummed over it.
     """
     zhat, ginv = kernel.zhat, kernel.ginv
     if kernel.zb is not None:
@@ -201,6 +239,7 @@ def solve_d(
     else:
         zb = torch.einsum("...nkf,...nwf->...kwf", zhat.conj(), b_hat)
     r = zb + rho * xi_hat
-    t = torch.einsum("...nkf,...kwf->...nwf", zhat, r)
+    t = _ksum(torch.einsum("...nkf,...kwf->...nwf", zhat, r), mesh,
+              axis_name)
     s = torch.einsum("...fnm,...mwf->...nwf", ginv, t)
     return (r - torch.einsum("...nkf,...nwf->...kwf", zhat.conj(), s)) / rho

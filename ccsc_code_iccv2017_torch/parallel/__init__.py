@@ -1,1 +1,1 @@
-"""Learners' outer loops (single device; meshes wait for ROADMAP.md item 8c)."""
+"""Learners' outer loops (consensus, streaming) and the meshes they run on (mesh, distributed)."""

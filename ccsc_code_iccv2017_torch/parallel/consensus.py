@@ -1,5 +1,6 @@
-"""The consensus learner's driver, single device (torch port of the
-per-step branch of ``ccsc_code_iccv2017_tpu.parallel.consensus.learn``).
+"""The consensus learner's driver on one device or on a mesh (torch
+port of the per-step branch of
+``ccsc_code_iccv2017_tpu.parallel.consensus.learn``).
 
 The per-step math lives in models.learn.outer_step; this module is the
 Python outer loop around it with the reference's trace protocol
@@ -8,9 +9,17 @@ dParallel.m:62-71), its rel-change stop (:186-188), the non-finite guard
 that keeps the last good state, rho-backoff recovery, graceful
 preemption and checkpoint cadence/resume. Each outer step reads its four
 metric scalars back in one host sync, as the JAX driver does.
+
+On a mesh (parallel.mesh) every rank runs this loop on its shard: the
+block-local fields hold its L = N / nb blocks (and its K / nk filters
+under 'filter'), dbar/udbar are replicated. Every host-side decision
+(the stop test, the non-finite guard and its backoff, a shutdown
+request) reads values agreed by one collective per step, so no rank can
+leave the others waiting inside a collective.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import Optional
@@ -20,6 +29,8 @@ import torch
 from ..config import LearnConfig, ProblemGeom
 from ..models import common, learn as learn_mod
 from ..ops import fourier
+from . import mesh as mesh_lib
+from .distributed import GlobalBlockArray
 from ..utils import checkpoint as ckpt
 from ..utils import resilience, validate
 from ..utils.resilience import console
@@ -64,31 +75,58 @@ def learn(
     On the card the trace also carries ``d_pass_ms`` / ``z_pass_ms``,
     the device time of each step's two passes (CUDA events).
 
-    Not ported yet: ``mesh`` (ROADMAP.md Queue 1 item 8c),
-    ``profile_dir`` and ``figures_dir`` (item 10), the chunked driver
-    (item 9, refused by LearnConfig) and chaos faults.
+    ``mesh``: a parallel.mesh.Mesh with a 'block' axis and at most one
+    of 'freq' / 'filter' (block_mesh, block_freq_mesh,
+    block_filter_mesh), called on every rank with the same arguments.
+    The run happens on ``mesh.device`` (``device`` must name its type).
+    Every rank draws the global init from ``generator`` (or takes the
+    global ``initial_state`` / checkpoint) and keeps its shard, so a
+    mesh run from seed s equals the one-device run from seed s to within
+    reduction order. On a mesh ``b`` may instead be this rank's blocks,
+    a parallel.distributed.GlobalBlockArray (global_block_array), so no
+    rank holds the whole data. ``d`` and the trace come back replicated; ``z`` and
+    ``Dz`` hold this rank's blocks (parallel.mesh.gather_blocks
+    assembles them). Checkpoints: rank 0 writes the gathered global
+    state in the one-device format.
+
+    Not ported yet: ``profile_dir`` and ``figures_dir`` (item 10), the
+    chunked driver (item 9, refused by LearnConfig) and chaos faults.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the sharded learner is not ported yet "
-            "(ROADMAP.md Queue 1 item 8c)"
-        )
     if profile_dir is not None or figures_dir is not None:
         raise NotImplementedError(
             "profile_dir / figures_dir: profiling and figures are not "
             "ported yet (ROADMAP.md Queue 1 item 10)"
         )
-    validate.check_learn_inputs(b, geom, cfg, init_d=init_d)
-    dev = resolve_device(device)
-    b = validate.as_float32(b, dev)
-    ndim_s = geom.ndim_spatial
-    n = b.shape[0]
     N = cfg.num_blocks
-    ni = n // N
+    ndim_s = geom.ndim_spatial
+    if isinstance(b, GlobalBlockArray):
+        # this rank's blocks only: the whole data is on no rank
+        if mesh is None or b.global_shape[0] != N:
+            raise ValueError(
+                f"a GlobalBlockArray of {b.global_shape[0]} blocks needs "
+                f"its mesh and num_blocks={N}"
+            )
+        L, ni = b.local.shape[0], b.local.shape[1]
+        validate.check_learn_inputs(
+            b.local.reshape(L * ni, *b.local.shape[2:]), geom,
+            dataclasses.replace(cfg, num_blocks=L), init_d=init_d,
+        )
+    else:
+        validate.check_learn_inputs(b, geom, cfg, init_d=init_d)
+        ni = b.shape[0] // N
     fg = common.FreqGeom.create(
-        geom, b.shape[-ndim_s:], fft_pad=cfg.fft_pad, fft_impl=cfg.fft_impl
+        geom, b.local.shape[-ndim_s:] if isinstance(b, GlobalBlockArray)
+        else b.shape[-ndim_s:], fft_pad=cfg.fft_pad, fft_impl=cfg.fft_impl,
     )
-    b_blocks = b.reshape(N, ni, *b.shape[1:])
+    dev = (resolve_device(device) if mesh is None
+           else _check_mesh(mesh, device, geom, fg, N))
+    if isinstance(b, GlobalBlockArray):
+        b_blocks = validate.as_float32(b.local, dev)
+    else:
+        b = validate.as_float32(b, dev)
+        b_blocks = mesh_lib.fslice(b.reshape(N, ni, *b.shape[1:]), mesh,
+                                   "block" if mesh is not None else None,
+                                   dim=0)
 
     if initial_state is not None:
         state = learn_mod.LearnState(
@@ -136,6 +174,8 @@ def learn(
     got = {f: tuple(getattr(state, f).shape) for f in state._fields}
     if got != expect:
         raise ValueError(f"state shapes {got} do not match problem {expect}")
+    if mesh is not None:
+        state = _shard_state(state, mesh)
 
     if resumed_trace is not None:
         trace = resumed_trace
@@ -143,7 +183,8 @@ def learn(
     else:
         obj0 = (
             float(learn_mod.eval_block(
-                state, b_blocks, geom, cfg, fg, with_outputs=False
+                state, b_blocks, geom, cfg, fg, with_outputs=False,
+                mesh=mesh,
             )[0])
             if cfg.with_objective
             else 0.0
@@ -167,12 +208,16 @@ def learn(
         while i < cfg.max_it:
             t0 = time.perf_counter()
             new_state, m = learn_mod.outer_step(
-                state, b_blocks, geom, recov.cfg, fg, N, on_phase=timer
+                state, b_blocks, geom, recov.cfg, fg, N, on_phase=timer,
+                mesh=mesh,
             )
-            # the one host read of the step (also its device fence)
-            obj_d, obj_z, d_diff, z_diff = torch.stack(
-                [m.obj_d, m.obj_z, m.d_diff, m.z_diff]
-            ).tolist()
+            # the one host read of the step (also its device fence); on a
+            # mesh every rank reads rank 0's metrics and any rank's
+            # shutdown request, so every rank decides alike
+            (obj_d, obj_z, d_diff, z_diff), stop_req = mesh_lib.agree(
+                torch.stack([m.obj_d, m.obj_z, m.d_diff, m.z_diff]),
+                gs.requested, mesh,
+            )
             # a non-finite metric means the iterate diverged: keep the
             # last good state (or back off rho and retry from it)
             if not all(
@@ -210,14 +255,13 @@ def learn(
                 f"t {t_total:.2f}s",
             )
             it_done = i + 1
-            preempting = gs.requested and i + 1 < cfg.max_it
+            preempting = stop_req and i + 1 < cfg.max_it
             if preempting:
                 trace.setdefault("preemptions", []).append(i + 1)
             if checkpoint_dir is not None and (
                 (i + 1) % checkpoint_every == 0 or preempting
             ):
-                ckpt.save(checkpoint_dir, state, trace, i + 1,
-                          fingerprint=fingerprint)
+                _save(checkpoint_dir, state, trace, i + 1, fingerprint, mesh)
                 saved_it = i + 1
             if preempting:
                 console(cfg, f"preempted: checkpointed iteration {i + 1}, "
@@ -228,8 +272,98 @@ def learn(
             i += 1
 
     if checkpoint_dir is not None and saved_it != it_done:
-        ckpt.save(checkpoint_dir, state, trace, it_done,
-                  fingerprint=fingerprint)
-    _, d_sup, Dz = learn_mod.eval_block(state, b_blocks, geom, cfg, fg)
-    Dz = Dz.reshape(n, *Dz.shape[2:])
+        _save(checkpoint_dir, state, trace, it_done, fingerprint, mesh)
+    _, d_sup, Dz = learn_mod.eval_block(state, b_blocks, geom, cfg, fg,
+                                        mesh=mesh)
+    Dz = Dz.reshape(-1, *Dz.shape[2:])
     return learn_mod.LearnResult(d_sup, state.z, Dz, trace)
+
+
+def _check_mesh(mesh, device, geom, fg, num_blocks) -> torch.device:
+    """Refuse a mesh the consensus learner cannot run (the JAX package's
+    checks) and return the device this rank runs on."""
+    if torch.device(device).type != mesh.device.type:
+        raise ValueError(
+            f"device={str(device)!r} but this rank's mesh runs on "
+            f"{mesh.device}"
+        )
+    unknown = set(mesh.axis_names) - {"block", "freq", "filter"}
+    if "block" not in mesh.shape or unknown:
+        raise ValueError(
+            "the consensus learner's mesh has a 'block' axis and at most "
+            f"one of 'freq' / 'filter', got {mesh.axis_names}"
+        )
+    if "freq" in mesh.shape and "filter" in mesh.shape:
+        raise ValueError(
+            "freq and filter tensor parallelism cannot be combined"
+        )
+    nb = mesh.shape["block"]
+    if num_blocks % nb:
+        raise ValueError(
+            f"num_blocks={num_blocks} not divisible by mesh 'block' axis {nb}"
+        )
+    nk = mesh.shape.get("filter", 1)
+    if geom.num_filters % nk:
+        raise ValueError(
+            f"num_filters={geom.num_filters} not divisible by mesh "
+            f"'filter' axis {nk}"
+        )
+    nf = mesh.shape.get("freq", 1)
+    if fg.num_freq % nf:
+        raise ValueError(
+            f"num_freq={fg.num_freq} not divisible by num_freq_shards={nf}"
+        )
+    return mesh.device
+
+
+def _shard_state(state: learn_mod.LearnState, mesh) -> learn_mod.LearnState:
+    """This rank's shard of a global state: its blocks of the block-local
+    fields and, under 'filter', its slice of every field's k axis (axis 1
+    of the d fields, 2 of the codes, 0 of dbar/udbar)."""
+    k_ax = "filter" if "filter" in mesh.shape else None
+
+    def shard(x, kdim, blocked=True):
+        if blocked:
+            x = mesh_lib.fslice(x, mesh, "block", dim=0)
+        return mesh_lib.fslice(x, mesh, k_ax, dim=kdim).contiguous()
+
+    out = learn_mod.LearnState(
+        d_local=shard(state.d_local, 1), dual_d=shard(state.dual_d, 1),
+        dbar=shard(state.dbar, 0, False), udbar=shard(state.udbar, 0, False),
+        z=shard(state.z, 2), dual_z=shard(state.dual_z, 2),
+    )
+    del state
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()  # the global init is no longer held
+    return out
+
+
+def _gather_state(state: learn_mod.LearnState, mesh):
+    """The global LearnState of a sharded one, on rank 0 (None on the
+    others); every rank must call it."""
+    filt = "filter" in mesh.shape
+    kdim = {"d_local": 1, "dual_d": 1, "z": 2, "dual_z": 2}
+    fields = {}
+    for f in state._fields:
+        x = getattr(state, f)
+        if f in kdim:
+            spec = {"block": 0, **({"filter": kdim[f]} if filt else {})}
+        else:
+            spec = {"filter": 0} if filt else {}
+        full = mesh_lib.gather(x.to(torch.float32), mesh, spec)
+        # back to the storage dtype (a bf16 -> f32 -> bf16 round trip is
+        # exact), so the file is the one-device format
+        fields[f] = None if full is None else full.to(x.dtype)
+    return learn_mod.LearnState(**fields) if mesh.rank == 0 else None
+
+
+def _save(checkpoint_dir, state, trace, it, fingerprint, mesh) -> None:
+    """One checkpoint: on a mesh, rank 0 writes the gathered global state
+    and every rank waits for it."""
+    if mesh is None:
+        ckpt.save(checkpoint_dir, state, trace, it, fingerprint=fingerprint)
+        return
+    full = _gather_state(state, mesh)
+    if full is not None:
+        ckpt.save(checkpoint_dir, full, trace, it, fingerprint=fingerprint)
+    mesh_lib.barrier(mesh)

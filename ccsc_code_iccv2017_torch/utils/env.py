@@ -14,13 +14,13 @@ import os
 import warnings
 from typing import Dict, Optional
 
-__all__ = ["Knob", "REGISTRY", "env_str", "env_float"]
+__all__ = ["Knob", "REGISTRY", "env_str", "env_float", "env_int"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Knob:
     name: str
-    kind: str  # 'str' | 'float'
+    kind: str  # 'str' | 'float' | 'int'
     default: object
     help: str
     surface: str  # the consuming module
@@ -35,6 +35,14 @@ REGISTRY: Dict[str, Knob] = {
         Knob("CCSC_STREAM_MODE", "str", "auto",
              "force a streaming placement tier: device | kern | paged",
              "parallel.streaming"),
+        Knob("CCSC_DIST_CONNECT_RETRIES", "int", 5,
+             "extra process-group connect attempts of "
+             "parallel.distributed.initialize",
+             "parallel.distributed"),
+        Knob("CCSC_DIST_CONNECT_BACKOFF", "float", 1.0,
+             "seconds before the first connect retry (doubling, capped "
+             "at 30 s)",
+             "parallel.distributed"),
     )
 }
 
@@ -82,4 +90,17 @@ def env_float(name: str, default=_UNSET) -> Optional[float]:
         _warn_once(f"malformed:{name}",
                    f"ignoring malformed env {name}={raw!r} (expected a "
                    "number)")
+        return _default(name, default)
+
+
+def env_int(name: str, default=_UNSET) -> Optional[int]:
+    raw = _raw(name)
+    if raw is None:
+        return _default(name, default)
+    try:
+        return int(raw)
+    except ValueError:
+        _warn_once(f"malformed:{name}",
+                   f"ignoring malformed env {name}={raw!r} (expected an "
+                   "integer)")
         return _default(name, default)

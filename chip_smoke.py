@@ -66,7 +66,9 @@ never exits 0):
    the learner's full launch shape (N=800, K=100, 110x110, float32), K2a
    and K2b each timed against their plain passes and their bounds
    (formulas printed), and one z-iteration of the composition path
-   (cuFFT + K1 + elementwise) as the yardstick.
+   (cuFFT + K1 + elementwise) as the yardstick; and at a rank's launch
+   shape on ``block_mesh(4)`` (N=200, phase 15 (a)), held at the same
+   limits and timed the same way.
 7. Slice 2 learns at full width: k=100 11x11 filters, 8 consensus
    blocks x 100 synthetic 100x100 images (Gaussian-smoothed noise from
    --seed, local_cn and zero mean by the native library), max_it_d=5,
@@ -173,14 +175,43 @@ never exits 0):
    card-vs-CPU limits. The native library: available, its local_cn
    (64 images of 100x100) within 5e-3 and its smooth fill (phase 4's
    requests) within 2e-5 of numpy, both timed beside numpy.
-14. Output: a ``{"kernels": [...]}`` line (K1, K2a, K2b; K1's launches
-   by path: reconstruct, engine, poisson, deblur, learn_3d,
-   learn_2d_masked, learn_streaming_2d, learn_streaming_3d), a
+15. The meshes (``parallel.mesh``, ``parallel.distributed``; run before
+   the output of 14), as SPMD ranks started by ``distributed.launch``:
+   (a) the north star of phase 7 (8 blocks x 100 images, fused_z) for 2
+   outer steps on ``block_mesh(4)``, four ``gloo`` ranks sharing cuda:0
+   (2 blocks each, K2 at N=200), beside the one-card learner from the
+   same init (``parallel.mesh_check.run``): filters within 2e-5, traces
+   rtol 1e-4, the codes gathered on rank 0 within 2e-5 of max(1, max|z|),
+   K2a/K2b launched max_it_z x steps on every rank; per rank peak memory,
+   d-pass and z-pass ms, the consensus all-reduce's ms per d-iteration.
+   (b) The 4 requests of phase 4 (max_it=100, tol=1e-3) solved as one
+   batch by ``reconstruct(mesh=)`` on ``block_mesh(4)`` and on a (2, 2)
+   batch x freq mesh against the one-device solve: the same iterations
+   on every rank, K1 launched once an iteration on every rank, objective
+   rtol 1e-4, reconstructions 1e-4 x max|b|; then K1 at the per-rank
+   shapes (N=1 of F=266*134; N=2 of F/2) held and timed as in phase 3.
+   (c) The consensus learner on ``block_freq_mesh(2, 2)`` (K1 on F/2 bins
+   per rank) and ``block_filter_mesh(2, 2)`` (the plain z-solve body, no
+   K1) at the north star's widths (k=100 11x11, images of 100x100) on
+   4 blocks x 10 images, and the masked learner on ``freq_mesh(4)`` at
+   the hyperspectral app's (k=100 11x11x31, cubes of 31x100x100) on 4
+   cubes, 2 steps each against the one-device runs at (a)'s limits,
+   K1's launches per rank exact; per rank time and peak memory. (d) One NCCL process group of world size 1 in this
+   process (``block_mesh(1)``): one learner step (K2) and one
+   reconstruct through the mesh code, within 1e-6 of the mesh-less
+   calls. Every group has a timeout and ``launch`` a join deadline; a
+   failed rank fails the phase.
+14. Output: a
    ``{"slice": ...}`` line (serving), a ``{"learn": ...}`` line, a
    ``{"serve_engine": ...}`` line (the engine phase and the
    ``serve/bench.py`` record), an ``{"apps": ...}`` line, a
-   ``{"learners": ...}`` line, a ``{"streaming": ...}`` line, the
-   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+   ``{"learners": ...}`` line, a ``{"streaming": ...}`` line, a
+   ``{"mesh": ...}`` line, a ``{"kernels": [...]}`` line (K1, K2a, K2b;
+   K1's launches by path: reconstruct, engine, poisson, deblur,
+   learn_3d, learn_2d_masked, learn_streaming_2d, learn_streaming_3d,
+   mesh_reconstruct, mesh_learn_freq; K2's: learn, mesh_learn_block4,
+   mesh_learn_nccl1), the nvidia-smi line, and last ``{"ok": true,
+   "device": {...}}``.
 
 Exits non-zero without printing a result when CUDA is absent or the
 port's package is not beside this script.
@@ -196,6 +227,13 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "ccsc_code_iccv2017_torch"
+if not os.path.isdir(os.path.join(HERE, PACKAGE)):
+    sys.exit(f"chip_smoke: {PACKAGE}/ is not beside this script — run it "
+             "from a checkout of the repository")
+# the north star's problem, its settings and its images are defined once,
+# in the four-rank check module; the learner phases use them too
+from ccsc_code_iccv2017_torch.parallel import mesh_check  # noqa: E402
+
 BANK = os.path.join(HERE, "artifacts_2d", "learned_bank.mat")
 FAMILY = os.path.join(HERE, "artifacts_family_cpu")
 BANK_3D = os.path.join(FAMILY, "bank_3d.mat")  # k=49 11x11x11
@@ -553,9 +591,10 @@ def phase_card_vs_cpu(torch, port, data):
             "b_max": b_max}
 
 
-LEARN_K, LEARN_SUPPORT, LEARN_SIDE = 100, 11, 100  # the BASELINE learner
+_NS = mesh_check.NORTH_STAR  # the BASELINE learner
+LEARN_K, LEARN_SUPPORT, LEARN_SIDE = _NS["k"], _NS["support"], _NS["side"]
 LEARN_S = LEARN_SIDE + 2 * (LEARN_SUPPORT // 2)  # 110: padded plane side
-LEARN_BLOCKS, LEARN_NI = 8, 100  # N = 800 images, K = 100 filters
+LEARN_BLOCKS, LEARN_NI = _NS["blocks"], _NS["ni"]  # N = 800, K = 100
 
 
 def _fused_inputs(torch, gen, N, Kf, Sy, Sx, dtype, rho=1.0,
@@ -791,6 +830,46 @@ def phase_k2_vs_plain(torch, port, bw, flops, seed):
         raise RuntimeError(f"K2 disagrees with its plain version: {full}")
     cases.append(full)
     del zk, dk, zr, dr
+    # a rank's launch shape on block_mesh(4) (phase 15 (a)): its 2 blocks
+    # of the same planes, held and timed as the full shape
+    nr = N // MESH_RANKS
+    part = (z[:nr], du[:nr], bhat[:nr], dhat, minv)
+    zk, dk = fz.fused_z_iter(*part, rho, theta)
+    zr, dr = fz.fused_z_iter_reference(*part, rho, theta)
+    rank = {
+        "N": nr, "K": Kf, "Sy": S, "Sx": S, "dtype": "float32",
+        "mesh": "block4 rank",
+        "z_max_abs_err": float((zk - zr).abs().max()),
+        "dual_max_abs_err": float((dk - dr).abs().max()),
+    }
+    rank["z_rel_err"] = rank["z_max_abs_err"] / float(zr.abs().max())
+    rank["dual_rel_err"] = rank["dual_max_abs_err"] / float(dr.abs().max())
+    del zk, dk, zr, dr
+    _, tr = fz.pass_a(*part[:4], rho, theta)
+    ra, rb, _ = _k2_cost(nr, Kf, S, S, 4)
+    rank["pass_a"] = dict(
+        kernel_ms=time_ms(lambda: fz.pass_a(*part[:4], rho, theta),
+                          warmup=2, reps=7),
+        plain_ms=time_ms(lambda: fz.reference_pass_a(*part[:4], rho, theta),
+                         warmup=1, reps=5), **_bound(*ra, bw, flops))
+    rank["pass_b"] = dict(
+        kernel_ms=time_ms(lambda: fz.pass_b(*part, tr, rho, theta),
+                          warmup=2, reps=7),
+        plain_ms=time_ms(lambda: fz.reference_pass_b(*part, tr, rho, theta),
+                         warmup=1, reps=5), **_bound(*rb, bw, flops))
+    print(f"[6] K2 N={nr} K={Kf} {S}x{S} float32 (a rank of block_mesh(4)):"
+          f" z' rel err {rank['z_rel_err']:.2e}, dual' rel err "
+          f"{rank['dual_rel_err']:.2e}; pass A "
+          f"{rank['pass_a']['kernel_ms']:.3f} ms (plain "
+          f"{rank['pass_a']['plain_ms']:.3f}, bound "
+          f"{rank['pass_a']['bound_ms']:.3f}), pass B "
+          f"{rank['pass_b']['kernel_ms']:.3f} ms (plain "
+          f"{rank['pass_b']['plain_ms']:.3f}, bound "
+          f"{rank['pass_b']['bound_ms']:.3f})")
+    if not (rank["z_rel_err"] <= 1e-5 and rank["dual_rel_err"] <= 1e-6):
+        raise RuntimeError(f"K2 disagrees with its plain version: {rank}")
+    cases.append(rank)
+    del part, tr
     torch.cuda.empty_cache()
     _, t = fz.pass_a(z, du, bhat, dhat, rho, theta)
     kernel_a = time_ms(lambda: fz.pass_a(z, du, bhat, dhat, rho, theta),
@@ -840,23 +919,8 @@ def phase_k2_vs_plain(torch, port, bw, flops, seed):
     return {"cases": cases, "whole_plane": whole, "timing": timing}
 
 
-def _learn_images(port, seed, n, side):
-    """n synthetic side x side images: Gaussian-smoothed noise from
-    ``seed``, local_cn and zero mean by the native library — the learner
-    CLI's preprocessing (``load_images_native``'s path)."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    raw = port["images"].smooth_noise_images(rng, n, side)
-    return port["native"].zero_mean_batch(port["native"].local_cn_batch(raw))
-
-
 def _learn_cfg(port, **kw):
-    base = dict(max_it_d=5, max_it_z=10, lambda_residual=1.0,
-                lambda_prior=1.0, rho_d=5000.0, rho_z=1.0, tol=0.0,
-                track_objective=True, verbose="none")
-    base.update(kw)
-    return port["config"].LearnConfig(**base)
+    return port["config"].LearnConfig(**{**mesh_check.CFG, **kw})
 
 
 def phase_learn(torch, port, seed):
@@ -866,7 +930,7 @@ def phase_learn(torch, port, seed):
 
     n = LEARN_BLOCKS * LEARN_NI
     t0 = time.perf_counter()
-    b = _learn_images(port, seed, n, LEARN_SIDE)
+    b = mesh_check.training_images(seed, n, LEARN_SIDE)
     data_s = time.perf_counter() - t0
     cfg = _learn_cfg(port, num_blocks=LEARN_BLOCKS, max_it=3, fused_z=True)
     geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
@@ -951,7 +1015,7 @@ def _compare_learns(tag, ra, rb):
 
 
 def phase_fused_vs_composition(torch, port, seed):
-    b = _learn_images(port, seed + 2, 16, LEARN_SIDE)
+    b = mesh_check.training_images(seed + 2, 16, LEARN_SIDE)
     geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
     fz, k1 = port["fused_z"].fused_z_iter, port["kernels"].solve_z_rank1
     runs, counts = {}, {}
@@ -975,7 +1039,7 @@ def phase_fused_vs_composition(torch, port, seed):
 
 
 def phase_learn_card_vs_cpu(torch, port, seed):
-    b = _learn_images(port, seed + 3, 4, 48)
+    b = mesh_check.training_images(seed + 3, 4, 48)
     geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, 16)
     cfg = _learn_cfg(port, num_blocks=2, max_it=2, fused_z=True)
     lm, cm = port["learn"], port["common"]
@@ -1886,7 +1950,7 @@ def _stream_2d(torch, port, seed):
     tolerances of the in-memory one, K1 launched max_it_z times a block
     and a step."""
     n = LEARN_BLOCKS * LEARN_NI
-    b = _learn_images(port, seed, n, LEARN_SIDE)
+    b = mesh_check.training_images(seed, n, LEARN_SIDE)
     geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
     cfg = _learn_cfg(port, num_blocks=LEARN_BLOCKS, max_it=STREAM_STEPS)
     fg = port["common"].FreqGeom.create(geom, (LEARN_SIDE,) * 2)
@@ -2056,7 +2120,7 @@ def _stream_card_vs_cpu(torch, port, seed):
         L3D_SMALL + STEPS_ARGV + ["--seed", str(seed)])
     geom3, cfg3 = app.problem(args)
     cases = {
-        "2D": (_learn_images(port, seed + 3, n, side),
+        "2D": (mesh_check.training_images(seed + 3, n, side),
                port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, k),
                _learn_cfg(port, num_blocks=2, max_it=LEARNER_STEPS)),
         "3D": (app.load_data(args), geom3, dataclasses.replace(
@@ -2163,6 +2227,355 @@ def phase_streaming(torch, port, time_ms, bw, flops, seed, inmem_3d_peak,
     return out
 
 
+# the mesh phase (15): SPMD ranks (parallel.distributed.launch), four
+# gloo ranks sharing cuda:0 (the one-card seam of parallel.mesh.Mesh),
+# then one NCCL rank
+MESH_RANKS = 4
+MESH_STEPS = 2  # (a): the north star's outer steps on block_mesh(4)
+MESH_TRACE_RTOL, MESH_D_ATOL = 1e-4, 2e-5  # the JAX package's mesh limits
+# (c): the learner meshes at phase 12's widths, cut in depth only: the
+# consensus learner at the north star's (k=100 11x11, images of 100x100,
+# F = 110 x 56 = 6160 bins) on 4 blocks x 10 images; the masked learner
+# at the hyperspectral app's (k=100 11x11x31, cubes of 31x100x100,
+# max_it_d = max_it_z = 10) on 4 cubes
+MESH_LEARN_BLOCKS, MESH_LEARN_NI = 4, 10
+MESH_HS_CUBES = 4
+
+
+def _mesh_devices(torch):
+    return [torch.device("cuda", 0)] * MESH_RANKS
+
+
+def _mesh_recon_rank(rank, data, cfg_kw):
+    """(b) on one rank: the sharded reconstruct of the 4 requests on
+    block_mesh(4) and on a (2, 2) batch x freq mesh; K1's launches."""
+    import torch
+
+    from ccsc_code_iccv2017_torch.config import ProblemGeom, SolveConfig
+    from ccsc_code_iccv2017_torch.models import reconstruct as rec
+    from ccsc_code_iccv2017_torch.ops import kernels
+    from ccsc_code_iccv2017_torch.parallel import mesh as mesh_lib
+
+    b, mask, sm, d = data
+    prob = rec.ReconstructionProblem(ProblemGeom((11, 11), d.shape[0]))
+    cfg = SolveConfig(**cfg_kw)
+    devs = _mesh_devices(torch)
+    out = {}
+    for tag, mesh in (
+        ("block4", mesh_lib.block_mesh(MESH_RANKS, devices=devs)),
+        ("batch2_freq2", mesh_lib.make_mesh((2, 2), ("batch", "freq"),
+                                            devices=devs)),
+    ):
+        torch.cuda.synchronize()
+        kernels.solve_z_rank1.launches = 0
+        t0 = time.perf_counter()
+        res = rec.reconstruct(b * mask, d, prob, cfg, mask=mask,
+                              smooth_init=sm, x_orig=b, mesh=mesh,
+                              device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.solve_z_rank1.launches
+        recon = mesh_lib.gather_blocks(res.recon, mesh)
+        out[tag] = dict(
+            wall_s=wall, launches=launches, iters=int(res.trace.num_iters),
+            obj=res.trace.obj_vals.cpu(), psnr=res.trace.psnr_vals.cpu(),
+            local_n=int(res.recon.shape[0]),
+            recon=None if recon is None else recon.cpu(),
+        )
+    return out
+
+
+def _mesh_learn_rank(rank, data, seed):
+    """(c) on one rank: the consensus learner on block_freq_mesh(2, 2) and
+    block_filter_mesh(2, 2), the masked learner on freq_mesh(4)."""
+    import torch
+
+    from ccsc_code_iccv2017_torch.models import learn_masked as lm
+    from ccsc_code_iccv2017_torch.ops import kernels
+    from ccsc_code_iccv2017_torch.parallel import consensus
+    from ccsc_code_iccv2017_torch.parallel import mesh as mesh_lib
+
+    b2d, geom, cfg, bhs, sm, mgeom, mcfg = data
+    devs = _mesh_devices(torch)
+    out = {}
+    for tag, mesh in (
+        ("block2_freq2", mesh_lib.block_freq_mesh(2, 2, devices=devs)),
+        ("block2_filter2", mesh_lib.block_filter_mesh(2, 2, devices=devs)),
+        ("masked_freq4", mesh_lib.freq_mesh(MESH_RANKS, devices=devs)),
+    ):
+        kernels.solve_z_rank1.launches = 0
+        gen = torch.Generator(device=mesh.device).manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if tag.startswith("masked"):
+            res = lm.learn_masked(bhs, mgeom, mcfg, smooth_init=sm, mesh=mesh,
+                                  generator=gen, device="cuda")
+        else:
+            res = consensus.learn(b2d, geom, cfg, mesh=mesh, generator=gen,
+                                  device="cuda")
+        torch.cuda.synchronize()
+        out[tag] = dict(d=res.d.cpu(), trace=res.trace,
+                        launches=kernels.solve_z_rank1.launches,
+                        wall_s=time.perf_counter() - t0,
+                        peak_bytes=torch.cuda.max_memory_allocated())
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_compare(tag, got_d, got_tr, ref_d, ref_tr):
+    import numpy as np
+
+    d_err = float((got_d - ref_d).abs().max())
+    rel = max(float(np.max(np.abs(np.subtract(got_tr[k], ref_tr[k]))
+                           / np.maximum(np.abs(ref_tr[k]), 1e-30)))
+              for k in ("obj_vals_d", "obj_vals_z"))
+    print(f"[15] {tag}: filters {d_err:.2e} from one device, traces "
+          f"{rel:.2e} (rel)")
+    if not (d_err <= MESH_D_ATOL and rel <= MESH_TRACE_RTOL):
+        raise RuntimeError(f"{tag}: mesh run off the one-device run "
+                           f"(filters {d_err:.3e}, traces {rel:.3e})")
+    return {"d_max_abs_err": d_err, "trace_max_rel_err": rel}
+
+
+def _mesh_north_star(torch, port, seed):
+    """(a) the north star on block_mesh(4), four gloo ranks on cuda:0,
+    beside the one-card learner from the same init."""
+    b = mesh_check.training_images(seed, LEARN_BLOCKS * LEARN_NI, LEARN_SIDE)
+    rec = mesh_check.run(b, ranks=MESH_RANKS, steps=MESH_STEPS, seed=seed,
+                         shared=True, log=lambda m: print(f"[15] (a) {m}"))
+    m = rec["mesh"]
+    for r in m["per_rank"]:
+        print(f"[15] (a) rank {r['rank']}: K2 launches {r['launches']}, "
+              f"peak {r['peak_bytes'] / 2**30:.2f} GiB, d-pass "
+              f"{r['d_pass_ms']} ms, z-pass {r['z_pass_ms']} ms")
+    print(f"[15] (a) {rec['steps']} steps: mesh {m['steps_per_s']:.3f} "
+          f"steps/s ({m['steps_per_s_after_first']:.3f} after the first) vs "
+          f"one card {rec['one_card']['steps_per_s']:.3f} "
+          f"({rec['one_card']['steps_per_s_after_first']:.3f}); "
+          f"consensus all-reduce {m['consensus_allreduce_ms_per_d_iter']} "
+          f"ms; d {rec['d_max_abs_err']:.2e}, traces "
+          f"{rec['trace_max_rel_err']:.2e}, z {rec['z_max_abs_err']:.2e} "
+          f"(limit {rec['z_limit']:.2e})")
+    if not rec["ok"]:
+        raise RuntimeError("(a) " + "; ".join(rec["failures"]))
+    return rec
+
+
+def _mesh_reconstruct(torch, port, time_ms, bw, flops, seed):
+    """(b) the sharded reconstruct at the serve shape against the
+    one-device solve of the same 4 requests, and K1 at each per-rank
+    shape against its plain version."""
+    import numpy as np
+
+    cfg_kw = dict(lambda_residual=5.0, lambda_prior=2.0, max_it=100,
+                  tol=1e-3)
+    d = port["io_mat"].load_filters_2d(BANK)
+    b, mask = _images(port, seed)
+    sm = port["images"].smooth_fill_batch(b, mask)
+    rec = port["reconstruct"]
+    prob = rec.ReconstructionProblem(port["config"].ProblemGeom((11, 11), K))
+    cfg = port["config"].SolveConfig(**cfg_kw)
+    k1 = port["kernels"].solve_z_rank1
+    k1.launches = 0
+    one = rec.reconstruct(b * mask, d, prob, cfg, mask=mask, smooth_init=sm,
+                          x_orig=b, device="cuda")
+    one_launches = k1.launches
+    it = int(one.trace.num_iters)
+    ref_obj = one.trace.obj_vals.cpu().numpy().astype(np.float64)
+    ref_rec = one.recon.cpu().numpy()
+    del one
+    torch.cuda.empty_cache()
+    outs = port["distributed"].launch(
+        _mesh_recon_rank, MESH_RANKS, args=((b, mask, sm, d), cfg_kw),
+        device="cuda:0", backend="gloo", threads=None, timeout=300.0,
+        join_timeout=600.0,
+    )
+    b_max = float(np.abs(b * mask).max())
+    out = {"one_device": {"iters": it, "launches": one_launches}}
+    for tag in ("block4", "batch2_freq2"):
+        got = [o[tag] for o in outs]
+        obj = got[0]["obj"].numpy().astype(np.float64)
+        obj_rel = float(np.max(np.abs(obj[:it + 1] - ref_obj[:it + 1])
+                               / np.abs(ref_obj[:it + 1])))
+        rec_abs = float(np.abs(got[0]["recon"].numpy() - ref_rec).max())
+        launches = [g["launches"] for g in got]
+        iters = [g["iters"] for g in got]
+        print(f"[15] (b) {tag}: iterations {iters} (one device {it}), K1 "
+              f"launches per rank {launches}, obj {obj_rel:.2e} (rel), recon "
+              f"{rec_abs:.2e} (b max {b_max:.3f}), wall "
+              f"{max(g['wall_s'] for g in got):.2f} s")
+        if iters != [it] * MESH_RANKS or launches != iters:
+            raise RuntimeError(f"(b) {tag}: iterations {iters} / K1 launches "
+                               f"{launches}, want {it} each")
+        if not (obj_rel <= 1e-4 and rec_abs <= 1e-4 * b_max):
+            raise RuntimeError(f"(b) {tag}: off the one-device solve "
+                               f"({obj_rel:.3e}, {rec_abs:.3e})")
+        out[tag] = {"iters": iters, "launches": launches,
+                    "local_n": got[0]["local_n"], "obj_max_rel_diff": obj_rel,
+                    "recon_max_abs_diff": rec_abs,
+                    "wall_s": [g["wall_s"] for g in got]}
+    # K1 at the per-rank shapes: N=1 of the whole spectrum, N=2 of half
+    gen = torch.Generator(device=torch.device("cuda", 0)).manual_seed(seed)
+    out["k1_cases"] = []
+    for n, f, tag in ((1, F, "block4"), (2, F // 2, "batch2_freq2")):
+        args = _random_k1_args(torch, gen, n, K, f, False)
+        out["k1_cases"].append(_k1_case(
+            torch, port["kernels"], time_ms, bw, flops, _card(torch), args,
+            {"mesh": tag}))
+        del args
+    torch.cuda.empty_cache()
+    out["k1_launches"] = sum(sum(out[t]["launches"])
+                             for t in ("block4", "batch2_freq2"))
+    return out
+
+
+def _mesh_learners(torch, port, seed):
+    """(c) the 'freq' and 'filter' learner meshes and the masked learner
+    on freq_mesh(4) against their one-device runs, at phase 12's widths
+    (the one-device runs' peaks and time beside them)."""
+    b2d = mesh_check.training_images(
+        seed + 5, MESH_LEARN_BLOCKS * MESH_LEARN_NI, LEARN_SIDE)
+    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
+    cfg = _learn_cfg(port, num_blocks=MESH_LEARN_BLOCKS, max_it=MESH_STEPS)
+    app = port["learn_hyperspectral"]
+    bhs = port["volumes"].synthetic_hyperspectral(
+        n=MESH_HS_CUBES, bands=31, side=LHS_SIDE, seed=seed + 6)
+    sm = app.gaussian_smooth_init(bhs)
+    mgeom, mcfg = app.problem(app.build_parser().parse_args(
+        ["--synthetic"] + STEPS_ARGV), bhs)
+    mcfg = dataclasses.replace(mcfg, verbose="none", track_objective=True)
+    data = (b2d, geom, cfg, bhs, sm, mgeom, mcfg)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(seed)
+    k1 = port["kernels"].solve_z_rank1
+    k1.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref = port["consensus"].learn(b2d, geom, cfg, generator=gen(),
+                                  device="cuda")
+    ref_launches = k1.launches
+    ref_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mref = port["learn_masked"].learn_masked(
+        bhs, mgeom, mcfg, smooth_init=sm, generator=gen(), device="cuda")
+    mref_peak = torch.cuda.max_memory_allocated()
+    print(f"[15] (c) one device: consensus {list(b2d.shape)} k={LEARN_K} "
+          f"peak {ref_peak / 2**30:.2f} GiB, masked {list(bhs.shape)} peak "
+          f"{mref_peak / 2**30:.2f} GiB")
+    outs = port["distributed"].launch(
+        _mesh_learn_rank, MESH_RANKS, args=(data, seed), device="cuda:0",
+        backend="gloo", threads=None, timeout=300.0, join_timeout=600.0,
+    )
+    out = {}
+    want_k1 = {"block2_freq2": cfg.max_it_z * MESH_STEPS,
+               "block2_filter2": 0, "masked_freq4": 0}
+    for tag in ("block2_freq2", "block2_filter2", "masked_freq4"):
+        got = [o[tag] for o in outs]
+        r = ref if not tag.startswith("masked") else mref
+        out[tag] = _mesh_compare(f"(c) {tag}", got[0]["d"], got[0]["trace"],
+                                 r.d.cpu(), r.trace)
+        launches = [g["launches"] for g in got]
+        out[tag].update(k1_launches=launches,
+                        wall_s=[g["wall_s"] for g in got],
+                        peak_bytes=[g["peak_bytes"] for g in got])
+        print(f"[15] (c) {tag}: {max(out[tag]['wall_s']):.2f} s, peak "
+              f"{max(out[tag]['peak_bytes']) / 2**30:.2f} GiB a rank")
+        if launches != [want_k1[tag]] * MESH_RANKS:
+            raise RuntimeError(f"(c) {tag}: K1 launches {launches}, want "
+                               f"{want_k1[tag]} on each rank")
+        if any(not torch.equal(g["d"], got[0]["d"]) for g in got):
+            raise RuntimeError(f"(c) {tag}: the ranks' filters differ")
+    out["one_device"] = {"k1_launches": ref_launches,
+                         "consensus_peak_bytes": ref_peak,
+                         "masked_peak_bytes": mref_peak,
+                         "consensus_shape": list(b2d.shape),
+                         "masked_shape": list(bhs.shape)}
+    print(f"[15] (c) K1 launches per rank: "
+          f"{ {t: out[t]['k1_launches'] for t in want_k1} }")
+    return out
+
+
+def _mesh_nccl_one(torch, port, seed):
+    """(d) one NCCL process group of world size 1 (block_mesh(1) in this
+    process): one learner step and one reconstruct through the mesh
+    code, against the mesh-less calls (bitwise, or within 1e-6)."""
+    import numpy as np
+
+    mesh_lib, dist_lib = port["mesh"], port["distributed"]
+    b = mesh_check.training_images(seed + 3, 4, 48)
+    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, 16)
+    cfg = _learn_cfg(port, num_blocks=2, max_it=1, fused_z=True)
+    fz = port["fused_z"].fused_z_iter
+    mesh = mesh_lib.block_mesh(1)
+    try:
+        if mesh.backend != "nccl":
+            raise RuntimeError(f"(d) backend {mesh.backend}, want nccl")
+        runs = {}
+        for tag, m in (("plain", None), ("mesh1", mesh)):
+            fz.launches_a = fz.launches_b = 0
+            if m is not None:
+                m.time_collectives = True
+            runs[tag] = port["consensus"].learn(
+                b, geom, cfg, mesh=m, device="cuda",
+                generator=torch.Generator(device="cuda").manual_seed(seed))
+            runs[tag + "_k2"] = [fz.launches_a, fz.launches_b]
+        cons = mesh.collective_ms()
+        mesh.time_collectives = False
+        d_err = float((runs["mesh1"].d - runs["plain"].d).abs().max())
+        z_err = float((runs["mesh1"].z - runs["plain"].z).abs().max())
+        bitwise = bool(torch.equal(runs["mesh1"].d, runs["plain"].d)
+                       and torch.equal(runs["mesh1"].z, runs["plain"].z))
+        ri, rm = _images(port, seed)
+        rec = port["reconstruct"]
+        prob = rec.ReconstructionProblem(
+            port["config"].ProblemGeom((11, 11), K))
+        rcfg = port["config"].SolveConfig(lambda_residual=5.0,
+                                          lambda_prior=2.0, max_it=10,
+                                          tol=0.0)
+        d = port["io_mat"].load_filters_2d(BANK)
+        rr = {t: rec.reconstruct(ri[:1] * rm[:1], d, prob, rcfg,
+                                 mask=rm[:1], x_orig=ri[:1], mesh=m,
+                                 device="cuda")
+              for t, m in (("plain", None), ("mesh1", mesh))}
+        r_err = float((rr["mesh1"].recon - rr["plain"].recon).abs().max())
+        r_bitwise = bool(torch.equal(rr["mesh1"].recon, rr["plain"].recon))
+    finally:
+        dist_lib.shutdown()
+    out = {"backend": "nccl", "world_size": 1,
+           "learn_d_max_abs_diff": d_err, "learn_z_max_abs_diff": z_err,
+           "learn_bitwise": bitwise, "k2_launches": runs["mesh1_k2"],
+           "consensus_allreduce_ms": cons.get("consensus", []),
+           "learn_step_s": {t: runs[t].trace["tim_vals"][-1]
+                            for t in ("plain", "mesh1")},
+           "recon_max_abs_diff": r_err, "recon_bitwise": r_bitwise}
+    print(f"[15] (d) NCCL world 1: learner step bitwise {bitwise} (d "
+          f"{d_err:.1e}, z {z_err:.1e}), K2 {runs['mesh1_k2']}, step "
+          f"{out['learn_step_s']} s, consensus all-reduce "
+          f"{np.median(out['consensus_allreduce_ms']):.4f} ms (median); "
+          f"reconstruct bitwise {r_bitwise} ({r_err:.1e})")
+    if not (d_err <= 1e-6 and z_err <= 1e-6 and r_err <= 1e-6):
+        raise RuntimeError(f"(d) the mesh of one is off the mesh-less call: "
+                           f"{out}")
+    if runs["mesh1_k2"] != [cfg.max_it_z] * 2:
+        raise RuntimeError(f"(d) K2 launches {runs['mesh1_k2']}")
+    return out
+
+
+def phase_mesh(torch, port, time_ms, bw, flops, seed):
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {"north_star": _mesh_north_star(torch, port, seed)}
+    out["reconstruct"] = _mesh_reconstruct(torch, port, time_ms, bw, flops,
+                                           seed)
+    out["learners"] = _mesh_learners(torch, port, seed)
+    out["nccl_world_1"] = _mesh_nccl_one(torch, port, seed)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[15] mesh phase {out['seconds']:.1f} s")
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, kernel_ms, plain_ms,
                   bound, build_s, **extra):
     return dict(
@@ -2188,10 +2601,6 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available — this script drives "
               "the port on an NVIDIA card", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(HERE, PACKAGE)):
-        print(f"chip_smoke: {PACKAGE}/ is not beside this script — run "
-              "it from a checkout of the repository", file=sys.stderr)
-        return 2
     import importlib
 
     port = {
@@ -2215,6 +2624,7 @@ def main(argv=None) -> int:
             ("deblur_video", "apps.deblur_video"),
             ("demosaic_hyperspectral", "apps.demosaic_hyperspectral"),
             ("view_synthesis", "apps.view_synthesis"),
+            ("mesh", "parallel.mesh"), ("distributed", "parallel.distributed"),
         )
     }
 
@@ -2242,13 +2652,14 @@ def main(argv=None) -> int:
         torch, port, time_ms, bw, flops, args.seed,
         learners["3d"]["max_memory_allocated_bytes"],
         build["native_ccsc_data"])
+    mesh = phase_mesh(torch, port, time_ms, bw, flops, args.seed)
     seconds = time.perf_counter() - t_start
     print(f"[14] total {seconds:.1f} s")
 
     main_case = next(c for c in cases if c["n"] == 1 and not c["raised_row"])
     all_cases = cases + list(app_cases.values()) + [
         learners["3d"]["k1_case"], streamed["2d"]["k1_case"],
-        streamed["3d"]["k1_case"]]
+        streamed["3d"]["k1_case"]] + mesh["reconstruct"]["k1_cases"]
     k1_paths = {"reconstruct": served["launches"],
                 "engine": engine["launches"],
                 "poisson": apps["poisson"]["k1_launches"],
@@ -2258,7 +2669,18 @@ def main(argv=None) -> int:
                     learners["2d_masked"]["launches"]["solve_z_rank1"],
                 "learn_streaming_2d": streamed["2d"]["launches"],
                 "learn_streaming_3d":
-                    streamed["3d"]["launches"]["solve_z_rank1"]}
+                    streamed["3d"]["launches"]["solve_z_rank1"],
+                "mesh_reconstruct": mesh["reconstruct"]["k1_launches"],
+                "mesh_learn_freq": sum(
+                    mesh["learners"]["block2_freq2"]["k1_launches"])}
+    ns_ranks = mesh["north_star"]["mesh"]["per_rank"]
+    k2_paths = {p: {
+        "learn": learn["launches"][f"fused_z_{p}"],
+        "mesh_learn_block4": sum(r["launches"][i] for r in ns_ranks),
+        "mesh_learn_nccl1": mesh["nccl_world_1"]["k2_launches"][i],
+    } for i, p in enumerate(("pass_a", "pass_b"))}
+    k2_rank = next(c for c in k2["cases"] if c.get("mesh"))
+    k2_rank_shape = {k: k2_rank[k] for k in ("N", "K", "Sy", "Sx", "dtype")}
     k2_err = {
         "max_abs_err": max(c["z_max_abs_err"] for c in k2["cases"]),
         "max_rel_err": max(c["z_rel_err"] for c in k2["cases"]),
@@ -2280,7 +2702,7 @@ def main(argv=None) -> int:
         _kernel_entry(
             f"fused_z_{p}", "fused_z.cu",
             f"ccsc_code_iccv2017_tpu/ops/pallas_fused_z.py:{line}",
-            learn["launches"][f"fused_z_{p}"],
+            sum(k2_paths[p].values()),
             k2["timing"][p]["kernel_ms"], k2["timing"][p]["plain_ms"],
             k2["timing"][p], build["fused_z"]["seconds"],
             max_abs_err=k2_err["max_abs_err"],
@@ -2288,12 +2710,13 @@ def main(argv=None) -> int:
             timing_shape=k2["timing"]["shape"],
             composition_iter_ms=k2["timing"]["composition_iter_ms"],
             formulation_ops_ms=k2["timing"][p]["formulation_ops_ms"],
+            launches_by_path=k2_paths[p],
+            mesh_rank_timing=dict(shape=k2_rank_shape, **k2_rank[p]),
         )
         for p, line in (("pass_a", 235), ("pass_b", 280))
     ]}
     kernels_line["kernels"][1]["cases"] = k2_err["cases"]
     kernels_line["kernels"][1]["whole_plane_vs_f64"] = k2["whole_plane"]
-    print(json.dumps(kernels_line))
     print(json.dumps({"slice": dict(served, card_vs_cpu=agree)}))
     print(json.dumps({"learn": dict(
         learn, fused_vs_composition=fused_vs_comp, card_vs_cpu=learn_agree,
@@ -2303,6 +2726,9 @@ def main(argv=None) -> int:
     print(json.dumps({"apps": dict(apps, k1_app_shapes=app_cases)}))
     print(json.dumps({"learners": learners}))
     print(json.dumps({"streaming": streamed}))
+    print(json.dumps({"mesh": mesh}))
+    # the kernels line last but two: the end of the output carries it
+    print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

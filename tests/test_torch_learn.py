@@ -431,11 +431,27 @@ def test_init_state_shapes_and_storage():
     assert torch.equal(st.d_local[0], st.dbar)
 
 
+def _fake_mesh(**shape):
+    """The attributes the drivers' mesh checks read (they refuse before
+    any collective, so no process group is needed)."""
+    import types
+
+    return types.SimpleNamespace(shape=dict(shape), axis_names=tuple(shape),
+                                 device=torch.device("cpu"))
+
+
 def test_learn_refuses_unported_arguments():
     b = _golden_data()
-    for kw, item in ((dict(mesh=object()), "item 8"),
-                     (dict(profile_dir="p"), "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
+    # a mesh whose 'block' axis does not divide num_blocks=2 (JAX's
+    # refusal), profiling (not ported yet)
+    for kw, exc, match in (
+        (dict(mesh=_fake_mesh(block=3)), ValueError,
+         "not divisible by mesh 'block' axis 3"),
+        (dict(mesh=_fake_mesh(block=1, freq=1, filter=1)), ValueError,
+         "cannot be combined"),
+        (dict(profile_dir="p"), NotImplementedError, "item 10"),
+    ):
+        with pytest.raises(exc, match=match):
             consensus.learn(b, ProblemGeom(*GEOM), LearnConfig(**GOLDEN_KW),
                             device="cpu", **kw)
 
@@ -469,8 +485,9 @@ def test_cli_learns_and_saves_the_reference_layout(tmp_path):
 
 @pytest.mark.parametrize(
     "flag, item",
-    [(["--mesh", "2"], "item 8"), (["--streaming", "--mesh", "2"], "item 8"),
-     (["--stream-mode", "auto", "--mesh", "2"], "item 8"),
+    [(["--mesh", "64"], "needs 64 GPUs"),  # more ranks than GPUs on cuda
+     (["--streaming", "--mesh", "2"], "does not combine with --mesh"),
+     (["--stream-mode", "auto", "--mesh", "2"], "requires --streaming"),
      (["--tune", "auto"], "item 9"), (["--profile-dir", "p"], "item 10")],
 )
 def test_cli_refuses_unported_flags(flag, item):

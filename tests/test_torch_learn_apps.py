@@ -164,16 +164,19 @@ def test_filter_files_cross_between_the_packages(tmp_path, layout):
 
 
 @pytest.mark.parametrize("name, flags, item", [
-    ("learn_3d", ["--streaming", "--mesh", "2"], "item 8c"),
+    ("learn_3d", ["--streaming", "--mesh", "2"],
+     "does not combine with --mesh"),
     ("learn_3d", ["--stream-mode", "auto", "--outer-chunk", "2"], "item 9"),
-    ("learn_3d", ["--mesh", "2"], "item 8c"),
+    ("learn_3d", ["--mesh", "2", "--stream-mode", "paged"],
+     "requires --streaming"),
     ("learn_3d", ["--tune", "auto"], "item 9"),
     ("learn_3d", ["--outer-chunk", "2"], "item 9"),
     ("learn_3d", ["--auto-degrade"], "item 10"),
     ("learn_3d", ["--metrics-dir", "m"], "item 10"),
     ("learn_3d", ["--watchdog"], "item 10"),
     ("learn_4d", ["--streaming", "--metrics-dir", "m"], "item 10"),
-    ("learn_4d", ["--mesh", "2"], "item 8c"),
+    ("learn_4d", ["--mesh", "2", "--streaming"],
+     "does not combine with --mesh"),
     ("learn_4d", ["--outer-chunk", "3"], "item 9"),
     ("learn_hyperspectral", ["--streaming", "--auto-degrade"], "item 10"),
     ("learn_hyperspectral", ["--streaming-blocks", "2", "--tune", "auto"],

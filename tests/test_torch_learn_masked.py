@@ -377,9 +377,13 @@ def test_masked_2d_z_solve_is_k1_plain_on_the_cpu(monkeypatch):
 def test_refusals():
     ga = GEOMS["hs"]
     b, sm = _data(ga)
-    with pytest.raises(NotImplementedError, match="item 8c"):
+    import types
+
+    # JAX's refusal: the masked learner shards 'freq' only
+    with pytest.raises(ValueError, match="expects a 1-D"):
         tlm.learn_masked(b, ProblemGeom(*ga), LearnConfig(verbose="none"),
-                         device="cpu", mesh=object())
+                         device="cpu",
+                         mesh=types.SimpleNamespace(axis_names=("block",)))
     with pytest.raises(ValueError, match="consensus learner"):
         tlm.learn_masked(b, ProblemGeom(*ga),
                          LearnConfig(verbose="none", compat_coding="block1"),

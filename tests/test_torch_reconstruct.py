@@ -282,7 +282,7 @@ def _refusal_cases():
         ("bank", dict(call_bank_scale=2.0), "different dictionary"),
         ("filters", dict(call_bank_k=5), "filter"),
         ("device", dict(build_device="meta"), None),
-        ("mesh", dict(call=dict(mesh=object())), "item 8"),
+        ("mesh", dict(call=dict(mesh=object())), "plan does not combine"),
     ], base
 
 
@@ -305,8 +305,7 @@ def test_plan_mismatch_refusals(case):
         dd = dd[: spec["call_bank_k"]]
         call_prob = tr.ReconstructionProblem(ProblemGeom((5, 5), spec["call_bank_k"]))
         plan = dataclasses.replace(plan, prob=call_prob)
-    exc = NotImplementedError if name == "mesh" else ValueError
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match=match):
         tr.reconstruct(
             x * mask, dd, call_prob, call_cfg, mask=mask, plan=plan,
             device="cpu", **spec.get("call", {}),
