@@ -288,7 +288,6 @@ class SolveConfig:
 # ServeConfig fields of later ROADMAP.md Queue 1 items: (field, the
 # values that ask for what the port does, the item that ports the rest)
 _SERVE_DEFERRED = (
-    ("mesh_shape", (None, ()), "8d"), ("mesh_devices", (None,), "8d"),
     ("tune", ("off",), 9), ("tune_store", (None,), 9),
     ("pipeline_depth", (None, 1), 9),
     ("metrics_dir", (None,), 10), ("slo_p50_ms", (None,), 10),
@@ -311,11 +310,22 @@ class ServeConfig:
     ``buckets`` is ``((slots, spatial_shape), ...)``: a request is padded
     (mask-excluded) up to the smallest bucket that fits, and up to
     ``slots`` requests ride one dispatch of that bucket. The port serves
-    ``buckets``, ``max_wait_ms``, ``return_codes``, ``verbose`` and
+    ``buckets``, ``max_wait_ms``, ``return_codes``, ``verbose``,
     ``aot_warmup`` (one short warm dispatch per bucket at construction,
-    which builds the kernels and the cuFFT plans); every other field
-    refuses a value other than its default with ``NotImplementedError``
-    naming the ROADMAP.md item that ports it.
+    which builds the kernels and the cuFFT plans), ``mesh_shape`` and
+    ``mesh_devices``; every other field refuses a value other than its
+    default with ``NotImplementedError`` naming the ROADMAP.md item that
+    ports it.
+
+    ``mesh_shape`` ``(batch,)`` or ``(batch, freq)`` serves every bucket
+    from a mesh of devices driven by the engine's one process (None:
+    the ``CCSC_SERVE_MESH`` env knob, else one device; ``()``: one
+    device regardless of the knob): each bucket's slots split over the
+    batch axis, and each slot's per-frequency z-solves over 'freq'.
+    ``mesh_devices`` names the card index of each mesh position in
+    row-major order (batch outer); an index may repeat, so
+    ``mesh_devices=(0, 0)`` runs two positions on one card. Every
+    bucket's slots must divide by the batch axis.
     """
 
     buckets: Tuple[Tuple[int, Tuple[int, ...]], ...]

@@ -286,6 +286,41 @@ def z_diff_sums(z_new: torch.Tensor, z_old: torch.Tensor):
     return torch.sum((zn - _f32(z_old)) ** 2), torch.sum(zn * zn)
 
 
+def fused_z_ok(cfg: LearnConfig, fg: common.FreqGeom, mesh,
+               device: torch.device) -> bool:
+    """Whether a z-pass runs the fused kernels K2a/K2b. The JAX gate
+    (models/learn.py:358-364 there): ``cfg.fused_z`` on the 2D, W == 1
+    learner with neither a 'freq' nor a 'filter' axis; plus, on the
+    card, the plane must fit K2's shared memory (``ops.fused_z.fits``;
+    square planes up to 168²), a shape test made before any launch.
+    Every other case takes the composition, whose W == 1 z-solve is K1
+    (a 3D learner, a plane above K2's limit; the plain body under
+    'filter') and W > 1 the Woodbury solve. On the CPU K2's plain
+    version takes any plane, as JAX's fused path does."""
+    _, ax_f, ax_k = mesh_axes(mesh)
+    return (
+        cfg.fused_z and fg.reduce_size == 1 and len(fg.spatial_shape) == 2
+        and ax_f is None and ax_k is None
+        and (device.type != "cuda" or fused_z.fits(*fg.spatial_shape))
+    )
+
+
+def fused_z_note(cfg: LearnConfig, fg: common.FreqGeom, mesh,
+                 device: torch.device) -> Optional[str]:
+    """The console note for a ``fused_z`` run whose plane K2 cannot
+    hold on the card (the gate sends its z-passes to the composition);
+    None otherwise."""
+    if not cfg.fused_z or fused_z_ok(cfg, fg, mesh, device):
+        return None
+    if not fused_z_ok(cfg, fg, mesh, torch.device("cpu")):
+        return None  # not a K2 geometry at all: JAX's gate, no note
+    Sy, Sx = fg.spatial_shape
+    return (f"fused_z: a {Sy}x{Sx} plane exceeds K2's shared memory "
+            f"({max(fused_z.smem_bytes(Sy, Sx, b) for b in (False, True))}"
+            f" > {fused_z._MAX_SMEM} bytes a block); the z-passes run the "
+            "composition (cuFFT + K1)")
+
+
 def outer_step(
     state: LearnState,
     b_blocks: torch.Tensor,
@@ -384,16 +419,7 @@ def outer_step(
         mesh_lib.fslice(dhat_z, mesh, ax_f), cfg.rho_z, mesh=mesh,
         axis_name=ax_k,
     )
-    # the JAX gate (models/learn.py:358-364 there): K2 covers the 2D,
-    # W == 1 learner with neither a 'freq' nor a 'filter' axis; every
-    # other case takes the composition, whose W == 1 z-solve is K1 (a 3D
-    # learner; the plain body under 'filter') and W > 1 the Woodbury
-    # solve
-    fused_ok = (
-        cfg.fused_z and fg.reduce_size == 1 and len(fg.spatial_shape) == 2
-        and ax_f is None and ax_k is None
-    )
-    if fused_ok:
+    if fused_z_ok(cfg, fg, mesh, b_blocks.device):
         z_iter = z_iter_fused
     elif mesh is None:
         z_iter = z_iter_composition

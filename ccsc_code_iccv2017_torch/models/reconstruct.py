@@ -205,6 +205,88 @@ def _plan_arrays(d, prob, cfg, fg, blur_psf, fslice=None):
     return dhat_clean, dhat_solve, kern
 
 
+def check_mesh_plan(
+    mesh_shape: Tuple[int, ...],
+    slots: int,
+    num_freq: int,
+    buckets=None,
+) -> None:
+    """Refuse a serving mesh that cannot shard this plan's solve: the
+    batch axis must divide ``slots`` (the bucket's concurrent request
+    count; each position takes slots/batch whole n=1 solves) and the
+    optional second axis must divide the FFT domain's frequency count.
+    ``buckets`` (the engine's full (slots, spatial) table, when known)
+    makes the error actionable at the configuration that caused it.
+    The JAX package's checks and messages."""
+    mesh_shape = tuple(int(a) for a in mesh_shape)
+    blist = (
+        list(buckets) if buckets is not None else f"slots={slots}"
+    )
+    if len(mesh_shape) < 1 or len(mesh_shape) > 2:
+        raise ValueError(
+            f"serving mesh shape must be (batch,) or (batch, freq), "
+            f"got {mesh_shape}"
+        )
+    if slots % mesh_shape[0]:
+        raise ValueError(
+            f"mesh batch axis {mesh_shape[0]} does not divide the "
+            f"bucket's {slots} slot(s) — every bucket's slots must be "
+            f"a multiple of the batch axis (buckets: {blist}); "
+            "resize the buckets or the mesh"
+        )
+    if len(mesh_shape) > 1 and num_freq % mesh_shape[1]:
+        raise ValueError(
+            f"mesh freq axis {mesh_shape[1]} does not divide the "
+            f"plan's {num_freq} frequency bins (buckets: {blist}) — "
+            "pick a freq axis that divides the FFT domain (fft_pad "
+            "'pow2' helps) or drop the second mesh axis"
+        )
+
+
+def slice_kern(kern: freq_solvers.ZSolveKernel, index: int,
+               parts: int) -> freq_solvers.ZSolveKernel:
+    """Bins [index * F / parts, (index + 1) * F / parts) of every
+    z-solve factor, each contiguous: the frequency axis is trailing for
+    ``dhat`` / ``dinv`` / ``minv_diag`` and leading for ``minv`` (the
+    JAX package's ``plan_freq_specs`` partition). Every factor is
+    per-frequency independent, so the slice holds the same bits the
+    unsliced solve uses at those bins."""
+    F = kern.dinv.shape[-1]
+    if F % parts:
+        raise ValueError(f"{F} frequency bins do not split in {parts}")
+    m = F // parts
+
+    def cut(x, dim):
+        return None if x is None else x.narrow(dim, index * m, m).contiguous()
+
+    return freq_solvers.ZSolveKernel(
+        dhat=cut(kern.dhat, -1), dinv=cut(kern.dinv, -1),
+        minv=cut(kern.minv, 0), minv_diag=cut(kern.minv_diag, -1),
+    )
+
+
+def place_plan(plan: "ReconPlan", device, freq_index: int = 0,
+               num_freq: int = 1) -> "ReconPlan":
+    """One serving-mesh position's copy of ``plan`` on ``device``: the
+    spectra replicated (the FFT boundary reads the whole spectrum), the
+    z-solve factors cut to the position's ``freq_index``-th of
+    ``num_freq`` bin slices and kept resident there (the JAX package's
+    ``plan_freq_specs`` placement; ``_reconstruct_impl`` takes it with
+    ``kern_presliced``). Tensors already on ``device`` are shared, not
+    copied."""
+    dev = torch.device(device)
+    kern = plan.kern if num_freq == 1 else slice_kern(
+        plan.kern, freq_index, num_freq)
+    to = lambda t: None if t is None else t.to(dev)  # noqa: E731
+    clean = to(plan.dhat_clean)
+    solve = (clean if plan.dhat_solve is plan.dhat_clean
+             else to(plan.dhat_solve))
+    return dataclasses.replace(
+        plan, dhat_clean=clean, dhat_solve=solve,
+        kern=freq_solvers.ZSolveKernel(*(to(t) for t in kern)),
+    )
+
+
 def _as_input(name, x, device):
     """An entry-point array (numpy or tensor) as float32 on ``device``;
     None passes through."""
@@ -218,13 +300,21 @@ def build_plan(
     data_spatial: Tuple[int, ...],
     blur_psf=None,
     device="cuda",
+    mesh_shape: Optional[Tuple[int, ...]] = None,
+    slots: Optional[int] = None,
+    buckets=None,
 ) -> ReconPlan:
     """Precompute a :class:`ReconPlan` on ``device`` for observations of
     spatial shape ``data_spatial`` (the request shape BEFORE psf
     padding). A plan built with ``blur_psf`` already composes the OTF —
-    callers then pass ``blur_psf=None`` to ``reconstruct``. Plans
-    sharded over a mesh (mesh serving) are not ported yet (ROADMAP.md
-    Queue 1 item 8d)."""
+    callers then pass ``blur_psf=None`` to ``reconstruct``.
+
+    ``mesh_shape``/``slots``/``buckets``: the serving-mesh contract
+    (serve.CodecEngine with ServeConfig.mesh_shape). The plan's arrays
+    are the same either way (:func:`place_plan` puts a copy on each
+    position), but an incompatible mesh (batch axis not dividing the
+    bucket's slots, freq axis not dividing the FFT domain) is refused
+    HERE, before any work, with the bucket table in the error."""
     dev = resolve_device(device)
     d_t = _as_input("filters", d, dev)
     validate.check_filters(d_t, prob.geom)
@@ -233,6 +323,11 @@ def build_plan(
         prob.geom, data_spatial, pad=prob.pad, fft_pad=cfg.fft_pad,
         fft_impl=cfg.fft_impl,
     )
+    if mesh_shape is not None:
+        check_mesh_plan(
+            mesh_shape, slots if slots is not None else 1,
+            fg.num_freq, buckets=buckets,
+        )
     dhat_clean, dhat_solve, kern = _plan_arrays(
         d_t, prob, cfg, fg, _as_input("blur_psf", blur_psf, dev)
     )
@@ -288,15 +383,20 @@ def reconstruct(
     rank stops at the same iteration. The traces come back replicated,
     ``z`` and ``recon`` as this rank's requests
     (parallel.mesh.gather_blocks assembles them). The run happens on
-    ``mesh.device``. A plan does not combine with a mesh here.
+    ``mesh.device``. A plan does not combine with a mesh here: the
+    plan-backed sharded solve is the mesh serving engine's.
     """
     if mesh is not None:
         if plan is not None:
             raise ValueError(
-                "plan does not combine with mesh on this entry point — "
-                "reconstruct() shards by deriving the operator precompute "
-                "on each rank; mesh serving is not ported yet (ROADMAP.md "
-                "Queue 1 item 8d)"
+                "plan does not combine with mesh on this entry point "
+                "— reconstruct() shards by deriving the operator "
+                "precompute inside each shard. For a plan-backed "
+                "sharded solve, serve through the mesh engine: "
+                "ServeConfig(mesh_shape=(batch[, freq])) (or "
+                "CCSC_SERVE_MESH / serve.bench --mesh) places this "
+                "plan on every mesh position with per-slot results "
+                "equal to the single-device engine's"
             )
         axis = mesh.axis_names[0]
         nb = mesh.shape[axis]
@@ -388,6 +488,7 @@ def reconstruct(
 def _reconstruct_impl(
     b, d, prob, cfg, mask, smooth_init, blur_psf, x_orig, plan=None,
     slotwise=False, mesh=None, axis_name=None, freq_axis_name=None,
+    kern_presliced=False,
 ) -> ReconResult:
     """The solve on validated float32 tensors, all on one device.
 
@@ -413,7 +514,12 @@ def _reconstruct_impl(
     runs once per iteration for all slots, one K1 launch on the card.
     The traces are then [n, max_it + 1] and ``num_iters`` an [n] int32
     tensor; with one slot the results are the plain path's, bit for bit
-    on the CPU."""
+    on the CPU.
+
+    With a ``plan`` and ``freq_axis_name`` (the mesh serving engine on
+    a 'freq' axis, with ``axis_name`` None: slots reduce nothing), the
+    plan's z-solve factors are cut to this position's bins, or, with
+    ``kern_presliced``, already hold only them (``place_plan``)."""
     geom = prob.geom
     ndim_s = geom.ndim_spatial
     data_spatial = tuple(b.shape[-ndim_s:])
@@ -478,6 +584,9 @@ def _reconstruct_impl(
         dhat_clean, dhat_solve, kern = (
             plan.dhat_clean, plan.dhat_solve, plan.kern,
         )
+        if freq_axis_name is not None and not kern_presliced:
+            kern = slice_kern(kern, mesh.axis_index(freq_axis_name),
+                              mesh.shape[freq_axis_name])
     else:
         dhat_clean, dhat_solve, kern = _plan_arrays(
             d, prob, cfg, fg, blur_psf, fslice

@@ -19,14 +19,19 @@ and stores honour the storage dtype (float32 or bfloat16); all math is
 f32. The k-sum of pass A runs in a fixed order per image, so two
 launches on the same inputs give the same bits.
 
+A block holds one whole plane in shared memory, so K2 takes planes up
+to :data:`_MAX_SMEM` bytes (:func:`smem_bytes`, square planes up to
+168²); :func:`fits` is the shape test the learner's gate reads before
+it routes a z-pass here (``models/learn.py::fused_z_ok``).
+
 ``fused_z_iter`` takes the plain version ``fused_z_iter_reference`` only
 for tensors on the CPU; for CUDA tensors it launches both kernels or
-raises. ``fused_z_iter.launches_a`` / ``.launches_b`` count launches.
+raises. ``fused_z_iter.launches_a`` / ``.launches_b`` count launches
+(``kernels.count_launch``, under a lock).
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
@@ -36,11 +41,11 @@ from . import kernels, proxes
 # the card's per-block shared-memory limit (H100: 227 KB)
 _MAX_SMEM = 232448
 STORAGE_DTYPES = (torch.float32, torch.bfloat16)
+# csrc/fused_z.cu's kMaxFactor: the longest sub-DFT of a split axis
+_MAX_FACTOR = 16
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = kernels.library("fused_z")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ccsc_fused_z_pass_a.argtypes = [p, p, p, p, p, p, i, i, i, i, f, f,
                                         i, p]
@@ -51,6 +56,51 @@ def _library() -> ctypes.CDLL:
     lib.ccsc_fused_z_smem_bytes.argtypes = [i, i, i]
     lib.ccsc_fused_z_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    return kernels.bound_library("fused_z", _bind)
+
+
+def plan_axis(S: int) -> Tuple[int, int]:
+    """``csrc/fused_z.cu::plan_axis``: an axis S = P * Q, P the largest
+    divisor with P <= sqrt(S); (1, S), the dense routines, where none
+    exists or Q would exceed the longest sub-DFT."""
+    P = 1
+    p = 2
+    while p * p <= S:
+        if S % p == 0:
+            P = p
+        p += 1
+    if P == 1 or S // P > _MAX_FACTOR:
+        return 1, S
+    return P, S // P
+
+
+def _odd_pitch(n: int) -> int:
+    return n | 1
+
+
+def smem_bytes(Sy: int, Sx: int, pass_b: bool) -> int:
+    """Shared memory one block of a pass takes for an Sy x Sx plane: the
+    twin of ``csrc/fused_z.cu::smem_bytes`` (held to the library's
+    ``ccsc_fused_z_smem_bytes`` on the card)."""
+    Fx = Sx // 2 + 1
+    tw = 8 * (Sx + Sy)
+    a = 8 * Sy * _odd_pitch(Fx)
+    if plan_axis(Sx)[0] > 1:
+        r = 8 * ((Sy + 1) // 2) * _odd_pitch(Sx)
+    else:
+        r = 4 * Sy * Sx
+    if pass_b and plan_axis(Sy)[0] == 1 and a > r:
+        r = a
+    return tw + a + r + 4 * (Sx + Sy)
+
+
+def fits(Sy: int, Sx: int) -> bool:
+    """Whether both passes take an Sy x Sx plane within the card's
+    per-block shared memory."""
+    return all(smem_bytes(Sy, Sx, b) <= _MAX_SMEM for b in (False, True))
 
 
 def reference_pass_a(
@@ -150,8 +200,11 @@ def _launch_args(z, N, K, Sy, Sx, rho, theta):
         if need > _MAX_SMEM:
             raise ValueError(
                 f"a {Sy}x{Sx} plane needs {need} bytes of shared memory "
-                f"per block, above the card's {_MAX_SMEM}; larger planes "
-                "wait for the K2 perf item (ROADMAP.md Queue 2)"
+                f"per block, above the card's {_MAX_SMEM}: K2 holds a "
+                "whole plane a block. The learner's gate "
+                "(models/learn.py::fused_z_ok) routes such planes to the "
+                "composition z-iteration (K1); call that, or tile the "
+                "plane first (ROADMAP.md Queue 2 item 2)"
             )
     return (N, K, Sy, Sx, 1.0 / float(rho), float(theta),
             int(z.dtype == torch.bfloat16),
@@ -184,7 +237,7 @@ def pass_a(z, dual, bhat, dhat, rho, theta):
         )
     if rc != 0:
         raise RuntimeError(f"K2a launch failed: cudaError {rc}")
-    fused_z_iter.launches_a += 1
+    kernels.count_launch(fused_z_iter, "launches_a")
     return dual_new, t
 
 
@@ -206,7 +259,7 @@ def pass_b(z, dual, bhat, dhat, minv_diag, t, rho, theta):
         )
     if rc != 0:
         raise RuntimeError(f"K2b launch failed: cudaError {rc}")
-    fused_z_iter.launches_b += 1
+    kernels.count_launch(fused_z_iter, "launches_b")
     return z_new
 
 

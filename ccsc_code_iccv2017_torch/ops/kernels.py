@@ -34,7 +34,9 @@ on ``torch.cuda.current_stream()`` and never synchronise.
 
 ``solve_z_rank1`` takes the plain version ``solve_z_rank1_reference``
 only for tensors on the CPU; for CUDA tensors it launches K1 or raises.
-``solve_z_rank1.launches`` counts kernel launches. K2 (the fused
+``solve_z_rank1.launches`` counts kernel launches. The serving engine's
+mesh launches from one thread per position, so the libraries load once
+under a lock and every count is bumped under one. K2 (the fused
 learner z-iteration) lives in ``ops/fused_z.py`` and is built here too.
 """
 from __future__ import annotations
@@ -45,6 +47,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Optional, Sequence
 
@@ -141,16 +144,23 @@ def build(name: str = "solve_z_rank1") -> dict:
     return build_all([name])[name]
 
 
-@functools.cache
-def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu``, built on first
-    use."""
-    return ctypes.CDLL(build(name)["path"])
+_LOAD_LOCK = threading.Lock()
+_LIBRARIES: Dict[str, ctypes.CDLL] = {}
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = library("solve_z_rank1")
+def bound_library(name: str, bind) -> ctypes.CDLL:
+    """The shared library of ``csrc/<name>.cu``, built and loaded on
+    first use and passed once through ``bind`` (which declares its entry
+    points' types). One lock covers the build and the load, so threads
+    that reach a kernel together build it once."""
+    with _LOAD_LOCK:
+        lib = _LIBRARIES.get(name)
+        if lib is None:
+            lib = _LIBRARIES[name] = bind(ctypes.CDLL(build(name)["path"]))
+        return lib
+
+
+def _bind_k1(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.ccsc_solve_z_rank1
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -159,6 +169,10 @@ def _library() -> ctypes.CDLL:
     ]
     fn.restype = ctypes.c_int
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    return bound_library("solve_z_rank1", _bind_k1)
 
 
 @functools.cache
@@ -212,16 +226,33 @@ def solve_z_rank1_reference(
     rho: float,
     dinv: torch.Tensor,
 ) -> torch.Tensor:
-    """Plain torch version of K1 (same math, same order of the two
-    k-reductions as the TPU kernel's body, pallas_kernels.py:94-107)."""
-    d = dhat[None]  # [1, K, F]
+    """Plain torch version of K1 (same math as the TPU kernel's body,
+    pallas_kernels.py:94-107), in real arithmetic on the real and
+    imaginary parts, with its two k-sums run k innermost (a row
+    reduction per image and frequency). Each bin's bits then do not
+    depend on how many bins the call holds, so a solve split over a
+    'freq' mesh axis gives the whole-spectrum solve's bits, as K1 does
+    on the card; torch's CPU complex product and middle-axis sums round
+    a vector body and its tail differently."""
+    dr, di = dhat.real[None], dhat.imag[None]  # [1, K, F]
     gi = dinv[None]
-    g = gi * (d.conj() * xi1[:, None, :] + rho * xi2)
-    t = (d * g).sum(dim=1, keepdim=True)  # [N, 1, F]
-    den = 1.0 + ((d.real * d.real + d.imag * d.imag) * gi).sum(
-        dim=1, keepdim=True
-    )
-    return g - gi * d.conj() * (t / den)
+    x1r, x1i = xi1.real[:, None, :], xi1.imag[:, None, :]
+    # g = dinv (conj(d) xi1 + rho xi2)
+    gr = gi * (dr * x1r + di * x1i + rho * xi2.real)
+    gj = gi * (dr * x1i - di * x1r + rho * xi2.imag)
+    # t = sum_k d_k g_k, den = 1 + sum_k |d_k|^2 dinv_k
+    tr = _ksum(dr * gr - di * gj)
+    tj = _ksum(dr * gj + di * gr)
+    den = 1.0 + _ksum((dr * dr + di * di) * gi)
+    qr, qj = tr / den, tj / den
+    # z = g - dinv conj(d) t / den
+    return torch.complex(gr - gi * (dr * qr + di * qj),
+                         gj - gi * (dr * qj - di * qr))
+
+
+def _ksum(x: torch.Tensor) -> torch.Tensor:
+    """[N, K, F] -> [N, 1, F], summed over k with k innermost."""
+    return x.transpose(1, 2).contiguous().sum(-1).unsqueeze(1)
 
 
 def _check(name, x, shape, dtype, device):
@@ -277,8 +308,16 @@ def solve_z_rank1(
         )
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc} (plan {plan})")
-    solve_z_rank1.launches += 1
+    count_launch(solve_z_rank1)
     return z
 
 
 solve_z_rank1.launches = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn, attr: str = "launches") -> None:
+    """One more launch on ``fn.<attr>``: a read-modify-write under a
+    lock, so concurrent launching threads lose no count."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)

@@ -197,6 +197,9 @@ def learn(
             "d_diff": [0.0],
             "z_diff": [0.0],
         }
+    note = learn_mod.fused_z_note(cfg, fg, mesh, dev)
+    if note is not None:
+        console(cfg, note)
     recov = resilience.RecoveryManager(cfg, trace)
     timer = PhaseTimer(dev)
     t_total = trace["tim_vals"][-1]

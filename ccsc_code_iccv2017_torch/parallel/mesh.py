@@ -26,6 +26,11 @@ once runs on one device and on a mesh:
 Everything a rank reduces is float32 or complex64 (complex tensors
 travel as their real view); a ``gloo`` group stages CUDA tensors
 through the host.
+
+The serving engine's mesh is in-process instead (``parallel.local_mesh.
+LocalMesh``: one thread per position, no process group): ``fslice`` and
+``all_gather_tiled`` take it as they take a :class:`Mesh`, and ``psum``
+/ ``pmax`` refuse it, since a served slot reduces nothing across slots.
 """
 from __future__ import annotations
 
@@ -285,6 +290,12 @@ def _timed(mesh: Mesh, axis_key: str, fn):
 
 
 def _all_reduce(x, mesh: Mesh, names, op, tag=None):
+    if getattr(mesh, "in_process", False):
+        raise RuntimeError(
+            f"a reduction over {names} on the in-process serving mesh: "
+            "a served slot reduces nothing across slots (pass "
+            "axis_name=None for the batch axis)"
+        )
     buf = _to_wire(x, mesh)
     if set(names) == set(mesh.axis_names):
         groups = [None]  # every axis: the world group
@@ -356,6 +367,8 @@ def all_gather_tiled(x: torch.Tensor, mesh: Optional[Mesh],
     identity without a mesh or an axis."""
     if mesh is None or axis is None:
         return x
+    if getattr(mesh, "in_process", False):
+        return mesh.all_gather_tiled(x, axis, dim)
     n = mesh.shape[axis]
     d = dim % x.ndim
     buf = _to_wire(x, mesh)

@@ -3,7 +3,7 @@ solve's time goes on the card.
 
     python -m ccsc_code_iccv2017_torch.profile_solve [--size 256]
         [--max-it 100] [--tol 1e-3] [--slots 0] [--requests SLOTS]
-        [--app inpaint|demosaic]
+        [--app inpaint|demosaic] [--mesh SPEC] [--mesh-devices 0,0]
 
 Profiles, with ``torch.profiler``, inpainting requests against the
 repo's k=100 11x11 bank (Gaussian-smoothed noise images from
@@ -23,7 +23,10 @@ Woodbury z-solve):
   iteration commit through the frozen-slot selects). The window runs
   from the first submit to the last result, so it holds the canvas fill,
   the copies to the card, the solve, the readbacks and the worker
-  thread's hand-off.
+  thread's hand-off. ``--mesh SPEC`` (``BATCH`` or ``BATCHxFREQ``)
+  serves it from a mesh engine on the first prod(SPEC) cards, or on
+  the cards ``--mesh-devices`` names (an index may repeat: positions
+  sharing one card); the busy share is then given per card too.
 
 Each runs once unprofiled first (kernels, cuFFT plans, the allocator).
 Prints the device kernels ranked by their summed time and, as its last
@@ -46,7 +49,7 @@ import torch
 from .config import ProblemGeom, ServeConfig, SolveConfig
 from .data.images import smooth_fill_batch, smooth_noise_images
 from .models.reconstruct import ReconstructionProblem, build_plan, reconstruct
-from .serve.engine import CodecEngine
+from .serve.engine import CodecEngine, parse_mesh_shape
 from .utils.device import resolve_device
 from .utils.io_mat import load_filters_2d
 
@@ -126,7 +129,8 @@ def _demosaic(size, seed, max_it, tol, dev):
     return run, lambda: None
 
 
-def _engine(d, prob, cfg, size, seed, dev, slots, n):
+def _engine(d, prob, cfg, size, seed, dev, slots, n, mesh=None,
+            mesh_devices=None):
     """One engine dispatch of ``n`` requests: (run, close) where run()
     submits them, waits for every result and returns the dispatch's
     iterations and its own wall seconds."""
@@ -134,7 +138,8 @@ def _engine(d, prob, cfg, size, seed, dev, slots, n):
     # the lane gathers every submit; set_max_wait_ms(0) then flushes it
     eng = CodecEngine(d, prob, cfg, ServeConfig(
         buckets=((slots, (size, size)),), max_wait_ms=60_000.0,
-        verbose="none"), device=dev)
+        verbose="none", mesh_shape=mesh if mesh is not None else (),
+        mesh_devices=mesh_devices), device=dev)
 
     def run():
         eng.set_max_wait_ms(60_000.0)
@@ -153,6 +158,28 @@ def _engine(d, prob, cfg, size, seed, dev, slots, n):
     return run, eng.close
 
 
+def busy_by_card(prof) -> dict:
+    """Per card index, the device time its kernels cover (µs): the union
+    of their intervals, so kernels of positions that share a card and
+    overlap count once."""
+    spans = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.setdefault(e.device_index, []).append(
+                (e.time_range.start, e.time_range.end))
+    out = {}
+    for idx, iv in spans.items():
+        iv.sort()
+        total, (lo, hi) = 0.0, iv[0]
+        for a, b in iv[1:]:
+            if a > hi:
+                total, lo, hi = total + hi - lo, a, b
+            else:
+                hi = max(hi, b)
+        out[idx] = total + hi - lo
+    return out
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--size", type=int, default=256)
@@ -164,9 +191,16 @@ def main(argv=None) -> dict:
     p.add_argument("--requests", type=int, default=None)
     p.add_argument("--app", default="inpaint", choices=["inpaint",
                                                           "demosaic"])
+    p.add_argument("--mesh", default=None, metavar="SPEC")
+    p.add_argument("--mesh-devices", default=None, metavar="LIST")
     args = p.parse_args(argv)
     if args.app != "inpaint" and args.slots:
         p.error("--slots profiles the inpainting engine only")
+    if args.mesh and not args.slots:
+        p.error("--mesh profiles the engine: give --slots")
+    mesh = parse_mesh_shape(args.mesh) if args.mesh else None
+    mesh_devices = (tuple(int(i) for i in args.mesh_devices.split(","))
+                    if args.mesh_devices else None)
     dev = resolve_device("cuda")
 
     n = args.requests or max(args.slots, 1)
@@ -180,7 +214,7 @@ def main(argv=None) -> dict:
                           max_it=args.max_it, tol=args.tol)
         if args.slots:
             run, close = _engine(d, prob, cfg, args.size, args.seed, dev,
-                                 args.slots, n)
+                                 args.slots, n, mesh, mesh_devices)
         else:
             run, close = _direct(d, prob, cfg, args.size, args.seed, dev)
     try:
@@ -206,6 +240,7 @@ def main(argv=None) -> dict:
     busy_us = sum(r[1] for r in rows)
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
+    by_card = busy_by_card(prof)
     kinds = {}
     for key, us, _ in rows:
         kinds[kernel_kind(key)] = kinds.get(kernel_kind(key), 0.0) + us
@@ -234,6 +269,14 @@ def main(argv=None) -> dict:
         "top": [{"kernel": k[:120], "ms": us / 1e3, "count": c}
                 for k, us, c in rows[: args.top]],
         "by_kind_ms": {kind: us / 1e3 for kind, us in kinds.items()},
+        "mesh": args.mesh, "mesh_devices": mesh_devices,
+        # per card: the union of its kernels' intervals over the wall,
+        # and over the dispatch's own wall
+        "busy_share_by_card": {str(i): us / wall_us
+                               for i, us in by_card.items()},
+        "dispatch_busy_share_by_card": (
+            {str(i): us / (1e6 * dispatch_s) for i, us in by_card.items()}
+            if dispatch_s else None),
     }
     print(json.dumps(out))
     return out

@@ -3,6 +3,7 @@
     python -m ccsc_code_iccv2017_torch.serve.bench [--requests 40]
         [--padded 2] [--slots 4] [--side 256] [--pad-side 240]
         [--max-it 100] [--tol 1e-3] [--seed 0] [--device cuda]
+        [--mesh SPEC] [--mesh-devices 0,0]
 
 One stream of inpainting requests against the repo's k=100 11x11 bank
 (``--requests`` Gaussian-smoothed noise images of ``--side``² and
@@ -17,6 +18,21 @@ its full dispatches alone), the engine's p50, p90 and largest latency
 (no p99: a stream of tens of requests cannot support it), the largest
 valid-region relative difference between the two, slots, bucket, and
 on the card its name and power limit. It writes no ledger.
+
+``--mesh SPEC`` (``BATCH`` or ``BATCHxFREQ``, e.g. ``4`` or ``2x2``;
+default the ``CCSC_SERVE_MESH`` env knob) adds the mesh arm: the same
+stream through a mesh engine on the first prod(SPEC) cards, or on the
+cards ``--mesh-devices`` names (an index may repeat: positions sharing
+one card) (``ServeConfig.mesh_shape`` / ``mesh_devices``), beside the
+baseline engine, which pins one
+device (``mesh_shape=()``). It records ``mesh``, ``mesh_devices``,
+``mesh_requests_per_sec``, ``speedup_mesh_vs_default``,
+``mesh_max_rel_err_vs_loop`` and ``mesh_warmup_s``, the mesh engine's
+latencies and per-position loop iterations and all-gathers, and the
+all-gather's ms an iteration on each position (CUDA events on its
+stream) over one more full dispatch; or ``mesh_skipped`` with the reason
+when the cards cannot back the mesh or it does not divide the bucket. A
+malformed spec refuses before any work.
 """
 from __future__ import annotations
 
@@ -36,7 +52,8 @@ from ..data.images import smooth_fill_batch, smooth_noise_images
 from ..models.reconstruct import ReconstructionProblem, build_plan, reconstruct
 from ..utils.device import resolve_device
 from ..utils.io_mat import load_filters_2d
-from .engine import CodecEngine, _bucket_name
+from ..utils import env, validate
+from .engine import CodecEngine, _bucket_name, parse_mesh_shape
 
 BANK = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -165,6 +182,77 @@ def record(engine: CodecEngine, served, engine_s: float, submit_s: float,
     return rec
 
 
+def mesh_record(engine: CodecEngine, served, engine_s: float,
+                warm_s: float, looped, base_rps: float) -> Dict:
+    """The mesh arm's fields, from one mesh engine run on the stream."""
+    lat_ms = 1e3 * np.array([s.latency_s for s in served])
+    log = engine.dispatch_log
+    slots = engine.buckets[0][0]
+    full = [e for e in log if e["requests"] == slots]
+    rps = len(served) / engine_s
+    return {
+        "mesh": "x".join(str(a) for a in engine.mesh_shape),
+        "mesh_devices": engine.devices,
+        "mesh_position_devices": [str(v) for v in engine.position_devices],
+        "mesh_requests_per_sec": rps,
+        "mesh_full_dispatch_requests_per_sec": (
+            sum(e["requests"] for e in full)
+            / sum(e["wall_s"] for e in full) if full else None),
+        "speedup_mesh_vs_default": rps / base_rps,
+        "mesh_max_rel_err_vs_loop": max_rel_diff(served, looped),
+        "mesh_warmup_s": warm_s,
+        "mesh_p50_ms": float(np.percentile(lat_ms, 50)),
+        "mesh_p90_ms": float(np.percentile(lat_ms, 90)),
+        "mesh_max_ms": float(lat_ms.max()),
+        "mesh_served_iters": [int(s.trace.num_iters) for s in served],
+        "mesh_dispatch_iters": [e["iters"] for e in log],
+        "mesh_position_iters": [e["position_iters"] for e in log],
+        "mesh_gathers": [e["gathers"] for e in log],
+    }
+
+
+def gather_ms(engine: CodecEngine, request: Dict) -> Dict:
+    """One more full dispatch of ``request`` repeated in every slot with
+    the mesh's all-gathers timed: per position, the median ms of its
+    gathers and their count."""
+    mesh = engine.mesh
+    slots = engine.buckets[0][0]
+    engine.set_max_wait_ms(60_000.0)
+    mesh.collective_ms()  # clear
+    mesh.time_collectives = True
+    try:
+        futs = [engine.submit(**request) for _ in range(slots)]
+        for f in futs:
+            f.result(timeout=600)
+    finally:
+        mesh.time_collectives = False
+        engine.set_max_wait_ms(engine.serve_cfg.max_wait_ms)
+    per = mesh.collective_ms()
+    return {"gather_ms_median": [float(np.median(m)) if m else None
+                                 for m in per],
+            "gathers": [len(m) for m in per]}
+
+
+def run_mesh_arm(d, prob, cfg, reqs, spec_shape, bucket, dev, looped,
+                 base_rps, mesh_devices=None) -> Dict:
+    """The mesh arm, or ``mesh_skipped`` with the reason when the cards
+    cannot back the mesh or it cannot shard the bucket."""
+    try:
+        t0 = time.perf_counter()
+        eng = CodecEngine(d, prob, cfg, ServeConfig(
+            buckets=(bucket,), verbose="none", mesh_shape=spec_shape,
+            mesh_devices=mesh_devices), device=dev)
+    except (ValueError, validate.CCSCInputError) as e:
+        return {"mesh_skipped": str(e)}
+    with eng:
+        warm_s = time.perf_counter() - t0
+        served, engine_s, _ = run_engine(eng, reqs)
+        out = mesh_record(eng, served, engine_s, warm_s, looped, base_rps)
+        if "freq" in eng.mesh.shape:
+            out["mesh_gather_timing"] = gather_ms(eng, reqs[0])
+    return out
+
+
 def main(argv=None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--requests", type=int, default=40)
@@ -176,7 +264,18 @@ def main(argv=None) -> Dict:
     p.add_argument("--tol", type=float, default=1e-3)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--mesh", default=None, metavar="SPEC",
+                   help="serving mesh BATCH or BATCHxFREQ for the mesh "
+                        "arm (default: CCSC_SERVE_MESH)")
+    p.add_argument("--mesh-devices", default=None, metavar="LIST",
+                   help="card index of each mesh position, e.g. 0,0")
     args = p.parse_args(argv)
+    # a malformed spec is the caller's error: refuse before any work
+    spec = args.mesh if args.mesh is not None else env.env_str(
+        "CCSC_SERVE_MESH")
+    mesh_shape = parse_mesh_shape(spec) if spec else None
+    mesh_devices = (tuple(int(i) for i in args.mesh_devices.split(","))
+                    if args.mesh_devices else None)
     dev = resolve_device(args.device)
 
     d = load_filters_2d(BANK)
@@ -187,12 +286,17 @@ def main(argv=None) -> Dict:
         [args.side] * args.requests + [args.pad_side] * args.padded,
         args.seed,
     )
+    bucket = (args.slots, (args.side, args.side))
     with CodecEngine(d, prob, cfg, ServeConfig(
-            buckets=((args.slots, (args.side, args.side)),),
-            verbose="none"), device=dev) as eng:
+            buckets=(bucket,), verbose="none", mesh_shape=()),
+            device=dev) as eng:
         served, engine_s, submit_s = run_engine(eng, reqs)
         looped, loop_s = run_direct_loop(d, prob, cfg, reqs, dev)
         out = record(eng, served, engine_s, submit_s, looped, loop_s, dev)
+    if mesh_shape is not None:
+        out.update(run_mesh_arm(d, prob, cfg, reqs, mesh_shape, bucket, dev,
+                                looped, out["engine_requests_per_sec"],
+                                mesh_devices))
     print(json.dumps(out))
     return out
 

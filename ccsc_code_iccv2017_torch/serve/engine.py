@@ -25,20 +25,36 @@ many requests:
    iteration for all slots. Filler slots carry zero data and a zero
    mask and stop after one iteration.
 
+4. **Mesh serving** (``ServeConfig.mesh_shape`` or ``CCSC_SERVE_MESH``):
+   one engine process drives every position of a (batch[, 'freq'])
+   mesh (``parallel.local_mesh.LocalMesh``), each position a device
+   with its own worker thread and CUDA stream and its own copy of each
+   bucket's plan (``models.reconstruct.place_plan``). A dispatch
+   scatters the bucket's slots over the batch axis; each position runs
+   the slot-wise solve on its slots with no collective (as the JAX
+   batch-mesh program, which lowers to zero collectives). On a 'freq'
+   axis each position of a group solves its F / nf bins against its
+   resident slice of the z-solve factors, and one all-gather an
+   iteration reassembles the z-spectrum, so the group's positions hold
+   the same spectrum and stop at the same iteration. Results assemble
+   in slot order; a position that raises fails the whole dispatch.
+
 The host reads one scalar per iteration per bucket (the count of
-active slots) instead of one per request. Dispatch is synchronous in
-one worker thread, which pins the engine's device and surfaces every
-exception on its batch's futures; nothing falls back to the CPU.
-Meshes, tuning, pipelining, telemetry, capture, artifacts and staged
-warmup are later ROADMAP.md Queue 1 items (8-11); ``ServeConfig``
-refuses them.
+active slots; on a mesh, per position) instead of one per request.
+Dispatch is synchronous in one worker thread, which pins the engine's
+device (or hands the shards to the positions' threads) and surfaces
+every exception on its batch's futures; nothing falls back to the CPU.
+Tuning, pipelining, telemetry, capture, artifacts and staged warmup are
+later ROADMAP.md Queue 1 items (9-11); ``ServeConfig`` refuses them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,8 +66,10 @@ from ..models.reconstruct import (
     SolveExtras,
     _reconstruct_impl,
     build_plan,
+    place_plan,
 )
-from ..utils import validate
+from ..parallel.local_mesh import LocalMesh, MeshBarrierError
+from ..utils import env, validate
 from ..utils.device import resolve_device
 from . import registry
 from .quality import valid_region_psnr
@@ -125,6 +143,86 @@ def pick_bucket(
     )
 
 
+def parse_mesh_shape(spec: str) -> Tuple[int, ...]:
+    """Parse a serving-mesh spec string — ``"BATCH"`` or
+    ``"BATCHxFREQ"`` (e.g. ``"4"``, ``"2x2"``) — into the
+    ServeConfig.mesh_shape tuple. Shared by the CCSC_SERVE_MESH env
+    fallback and ``serve.bench --mesh``, so the grammar cannot drift."""
+    # empty segments are not filtered: a truncated '4x' must refuse, not
+    # serve a (4,) batch-only mesh
+    parts = spec.lower().replace("*", "x").split("x")
+    try:
+        shape = tuple(int(p) for p in parts)
+    except ValueError:
+        shape = ()
+    if not 1 <= len(shape) <= 2 or any(a < 1 for a in shape):
+        raise ValueError(
+            f"mesh spec {spec!r} is not BATCH or BATCHxFREQ with "
+            "positive integer axes (e.g. '8' or '4x2')"
+        )
+    return shape
+
+
+def _device_pool(device: torch.device) -> Optional[List[torch.device]]:
+    """The devices a mesh of ``device``'s type may take: every visible
+    card, or None for the CPU (every position is the CPU)."""
+    if device.type != "cuda":
+        return None
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _resolve_mesh(serve_cfg: ServeConfig, device: torch.device):
+    """Resolve the engine's mesh: ServeConfig.mesh_shape, else the
+    CCSC_SERVE_MESH env knob, else None (one device). Returns ``(mesh,
+    shape, note)``: a :class:`LocalMesh` (batch axis first, 'freq'
+    second when 2-D), and a console note when a non-strict resolution
+    fell back. On the card the positions are ``cuda:mesh_devices[i]``,
+    else the first prod(shape) visible cards; with fewer visible cards
+    than the mesh needs, CCSC_SERVE_MESH_STRICT (default on) refuses
+    with the shortage, and 0 falls back to a single-device engine."""
+    shape = serve_cfg.mesh_shape
+    if shape == ():
+        # explicitly one device (the bench's baseline): the env knob
+        # must not re-arm it
+        return None, None, None
+    if shape is None:
+        spec = env.env_str("CCSC_SERVE_MESH")
+        if not spec:
+            return None, None, None
+        try:
+            shape = parse_mesh_shape(spec)
+        except ValueError as e:
+            raise validate.CCSCInputError(str(e))
+    need = math.prod(shape)
+    pool = _device_pool(device)
+    if pool is None:
+        devs = [device] * need
+    elif serve_cfg.mesh_devices is not None:
+        missing = [i for i in serve_cfg.mesh_devices if i >= len(pool)]
+        if missing:
+            raise validate.CCSCInputError(
+                f"mesh_devices {serve_cfg.mesh_devices} names device "
+                f"index(es) {missing} but only {len(pool)} device(s) "
+                "are visible"
+            )
+        devs = [pool[i] for i in serve_cfg.mesh_devices]
+    else:
+        devs = pool
+    if len(devs) < need:
+        msg = (
+            f"serving mesh {shape} needs {need} device(s) but only "
+            f"{len(devs)} are visible — shrink the mesh, share a card "
+            "by repeating its index in mesh_devices (e.g. "
+            "mesh_devices=(0, 0)), or set CCSC_SERVE_MESH_STRICT=0 to "
+            "fall back to a single-device engine"
+        )
+        if env.env_flag("CCSC_SERVE_MESH_STRICT"):
+            raise validate.CCSCInputError(msg)
+        return None, None, f"serve: {msg}; serving single-device"
+    names = ("batch",) if len(shape) == 1 else ("batch", "freq")
+    return LocalMesh(shape, names, devs[:need]), tuple(shape), None
+
+
 class CodecEngine:
     """Pin (bank, problem, config) once; serve many requests.
 
@@ -133,7 +231,9 @@ class CodecEngine:
     per bucket. The per-request path is: cheap shape/finite checks,
     queue, one batched dispatch, slice. ``submit`` may be called from
     any thread; one worker thread owns dispatch order and the device.
-    ``device`` (default ``"cuda"``) raises when CUDA is absent.
+    ``device`` (default ``"cuda"``) raises when CUDA is absent; on a
+    mesh its type picks the pool the positions come from (cards, or
+    the CPU for every position).
     """
 
     def __init__(
@@ -158,6 +258,13 @@ class CodecEngine:
         self.geom = geom
         ndim_s = geom.ndim_spatial
         self.device = resolve_device(device)
+        self._mesh, self._mesh_shape, note = _resolve_mesh(
+            serve_cfg, self.device)
+        if note:
+            print(note, flush=True)
+        if self._mesh is not None:
+            self.device = self._mesh.devices[0]
+        self._pools: List[ThreadPoolExecutor] = []
 
         # once-per-engine validation (requests get the cheap subset)
         validate.check_solve_config(cfg)
@@ -216,9 +323,25 @@ class CodecEngine:
         self._latencies: List[float] = []
         # one entry per request dispatch: its requests, the iterations
         # it ran (max num_iters over its batch: one K1 launch each on
-        # the card) and its wall seconds (canvas fill to last readback)
+        # the card), the loop iterations and all-gathers of each mesh
+        # position, and its wall seconds (canvas fill to last readback)
         self._dispatch_log: List[Dict[str, object]] = []
 
+        if self._mesh is not None:
+            # one worker thread per position, holding its position, its
+            # device and its stream for the engine's life
+            self._streams: List[Optional[torch.cuda.Stream]] = (
+                [None] * self._mesh.size)
+            self._pools = [
+                ThreadPoolExecutor(
+                    1, thread_name_prefix=f"ccsc-serve-pos{pos}",
+                    initializer=self._enter_position, initargs=(pos,),
+                )
+                for pos in range(self._mesh.size)
+            ]
+        where = (self.device if self._mesh is None else
+                 f"mesh {self._mesh_shape} on "
+                 f"{[str(v) for v in self._mesh.devices]}")
         for bkey in self._buckets:
             t0 = time.perf_counter()
             plan = self._install_plan(default_digest, bkey, d)
@@ -226,7 +349,7 @@ class CodecEngine:
                 self._warm_dispatch(bkey, plan)
             if serve_cfg.verbose != "none":
                 print(f"serve: bucket {_bucket_name(*bkey)} warm in "
-                      f"{time.perf_counter() - t0:.3f} s on {self.device}")
+                      f"{time.perf_counter() - t0:.3f} s on {where}")
 
         self._worker = threading.Thread(
             target=self._work_loop, name="ccsc-serve", daemon=True
@@ -240,21 +363,124 @@ class CodecEngine:
         slots, spatial = bkey
         zeros = np.zeros((slots, *self.geom.reduce_shape, *spatial),
                          np.float32)
-        out = self._solve(plan, zeros, zeros, zeros, None,
-                          dataclasses.replace(self.cfg, max_it=1))
-        out.trace.num_iters.cpu()
+        self._solve(plan, zeros, zeros, zeros, None,
+                    dataclasses.replace(self.cfg, max_it=1))
 
-    def _solve(self, plan, bb, mm, ss, xx, cfg):
-        """The bucket's slot-wise solve on the engine's device."""
-        dev = self.device
+    def _solve(self, plan, bb, mm, ss, xx, cfg) -> Dict[str, object]:
+        """The bucket's slot-wise solve, read back to the host: on the
+        engine's device, or scattered over the mesh's positions
+        (``plan`` is then the list of their plans)."""
+        if self._mesh is not None:
+            return self._solve_mesh(plan, bb, mm, ss, xx, cfg)
+        out = self._slotwise(self.device, plan, bb, mm, ss, xx, cfg)
+        host = self._readback(out, cfg, xx is not None)
+        host["position_iters"] = [int(host["iters"].max())]
+        host["gathers"] = [0]
+        return host
 
+    def _slotwise(self, dev, plan, bb, mm, ss, xx, cfg, mesh=None):
         def put(a):
             return None if a is None else torch.from_numpy(a).to(dev)
 
+        has_freq = mesh is not None and "freq" in mesh.shape
         return _reconstruct_impl(
             put(bb), None, self.prob, cfg, put(mm), put(ss), None, put(xx),
-            plan=plan, slotwise=True,
+            plan=plan, slotwise=True, mesh=mesh,
+            freq_axis_name="freq" if has_freq else None,
+            kern_presliced=has_freq,
         )
+
+    def _readback(self, out, cfg, has_x: bool) -> Dict[str, object]:
+        """One slot-wise result as host arrays. Trace readbacks only
+        where the config tracks them; untracked traces are zeros on the
+        device and zeros here."""
+        iters = out.trace.num_iters.cpu().numpy()
+        zeros_tr = np.zeros((iters.shape[0], cfg.max_it + 1), np.float32)
+        ex = out.trace.extras
+        return {
+            "iters": iters,
+            "obj": (out.trace.obj_vals.cpu().numpy() if cfg.with_objective
+                    else zeros_tr),
+            "psnr": (out.trace.psnr_vals.cpu().numpy()
+                     if cfg.with_psnr and has_x else zeros_tr),
+            "diff": (out.trace.diff_vals.cpu().numpy()
+                     if cfg.with_objective or cfg.track_diagnostics
+                     else zeros_tr),
+            "recon": out.recon.cpu().numpy(),
+            "z": (out.z.cpu().numpy() if self.serve_cfg.return_codes
+                  else None),
+            "extras": (None if ex is None
+                       else [t.cpu().numpy() for t in ex]),
+        }
+
+    # -- the mesh's positions ------------------------------------------
+    def _enter_position(self, pos: int) -> None:
+        """A position thread's start: its mesh position, its device as
+        the thread's current card, and its own stream."""
+        self._mesh.enter(pos)
+        dev = self._mesh.devices[pos]
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            self._streams[pos] = torch.cuda.Stream(dev)
+
+    def _run_position(self, pos, plan, bb, mm, ss, xx, cfg):
+        """One position's shard of a dispatch, on its own thread and
+        stream, read back to the host. A failure aborts the mesh's
+        barriers so the peers fail at once instead of waiting out the
+        timeout."""
+        mesh = self._mesh
+        dev = mesh.devices[pos]
+        stream = self._streams[pos]
+        try:
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                out = self._slotwise(dev, plan, bb, mm, ss, xx, cfg, mesh)
+                return self._readback(out, cfg, xx is not None)
+        except BaseException:
+            mesh.abort()
+            raise
+
+    def _solve_mesh(self, plans, bb, mm, ss, xx, cfg) -> Dict[str, object]:
+        """Scatter the bucket's slots over the batch axis, run every
+        position, and assemble the batch groups' results in slot order
+        (a 'freq' group's positions hold the same result; its first is
+        read). Any position's exception fails the dispatch, the first
+        root cause before the barrier errors it caused."""
+        mesh = self._mesh
+        nb = mesh.mesh_shape[0]
+        nf = mesh.size // nb
+        per = bb.shape[0] // nb
+        mesh.reset()
+        futs = []
+        for pos in range(mesh.size):
+            sl = slice((pos // nf) * per, (pos // nf + 1) * per)
+            futs.append(self._pools[pos].submit(
+                self._run_position, pos, plans[pos], bb[sl], mm[sl], ss[sl],
+                None if xx is None else xx[sl], cfg,
+            ))
+        results, errors = [], []
+        for f in futs:
+            try:
+                results.append(f.result())
+            except BaseException as e:  # every position ends first
+                errors.append(e)
+        gathers = mesh.gathers()
+        mesh.reset()  # drops the last iteration's deposits
+        if errors:
+            root = [e for e in errors if not isinstance(e, MeshBarrierError)]
+            raise (root or errors)[0]
+        leads = results[::nf]
+        host = {}
+        for key in ("iters", "obj", "psnr", "diff", "recon", "z"):
+            vals = [r[key] for r in leads]
+            host[key] = None if vals[0] is None else np.concatenate(vals)
+        host["extras"] = (
+            None if leads[0]["extras"] is None else
+            [np.concatenate([r["extras"][i] for r in leads])
+             for i in range(len(leads[0]["extras"]))])
+        host["position_iters"] = [int(r["iters"].max()) for r in results]
+        host["gathers"] = gathers
+        return host
 
     # ------------------------------------------------------------------
     def bucket_for(self, spatial: Sequence[int]) -> Tuple[int, Tuple[int, ...]]:
@@ -466,22 +692,9 @@ class CodecEngine:
             if p.x_orig is not None:
                 xx[sl] = p.x_orig
         out = self._solve(plan, bb, mm, ss, xx, cfg)
-        iters = out.trace.num_iters.cpu().numpy()
-
-        # trace readbacks only where the config tracks them; untracked
-        # traces are zeros on the device and zeros here
-        zeros_tr = np.zeros((slots, cfg.max_it + 1), np.float32)
-        obj = (out.trace.obj_vals.cpu().numpy() if cfg.with_objective
-               else zeros_tr)
-        psnr = (out.trace.psnr_vals.cpu().numpy()
-                if cfg.with_psnr and has_x else zeros_tr)
-        diff = (out.trace.diff_vals.cpu().numpy()
-                if cfg.with_objective or cfg.track_diagnostics else zeros_tr)
-        recon = out.recon.cpu().numpy()
-        z = out.z.cpu().numpy() if self.serve_cfg.return_codes else None
-        ex = out.trace.extras
-        if ex is not None:
-            ex = [t.cpu().numpy() for t in ex]
+        iters, obj, psnr, diff = (out[k] for k in ("iters", "obj", "psnr",
+                                                   "diff"))
+        recon, z, ex = out["recon"], out["z"], out["extras"]
         t_done = time.perf_counter()
         self._release_digest()
 
@@ -513,9 +726,11 @@ class CodecEngine:
         with self._lock:
             self._n_dispatches += 1
             self._occupancy_sum += len(batch) / slots
-            self._dispatch_log.append({"requests": len(batch),
-                                       "iters": max_it,
-                                       "wall_s": t_done - t0})
+            self._dispatch_log.append({
+                "requests": len(batch), "iters": max_it,
+                "position_iters": out["position_iters"],
+                "gathers": out["gathers"], "wall_s": t_done - t0,
+            })
 
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, object]:
@@ -544,16 +759,46 @@ class CodecEngine:
     @property
     def dispatch_log(self) -> List[Dict[str, object]]:
         """One dict per request dispatch, in order: ``requests`` (real
-        slots), ``iters`` (the max of num_iters over its batch) and
-        ``wall_s`` (canvas fill to the last readback)."""
+        slots), ``iters`` (the max of num_iters over its batch),
+        ``position_iters`` (the loop iterations of each mesh position,
+        one z-solve launch each; one entry without a mesh), ``gathers``
+        (each position's all-gathers: one an iteration on a 'freq'
+        axis, else 0) and ``wall_s`` (canvas fill to the last
+        readback)."""
         with self._lock:
             return [dict(e) for e in self._dispatch_log]
 
     @property
     def dispatch_iters(self) -> List[int]:
         """Iterations each request dispatch ran, in order (the max of
-        num_iters over its batch): one z-solve launch each."""
+        num_iters over its batch, and over the mesh's positions): one
+        z-solve launch each on one device."""
         return [e["iters"] for e in self.dispatch_log]
+
+    @property
+    def devices(self) -> int:
+        """Number of mesh positions this engine solves on (1 for a
+        single-device engine)."""
+        return 1 if self._mesh is None else self._mesh.size
+
+    @property
+    def mesh_shape(self) -> Optional[Tuple[int, ...]]:
+        """The resolved serving-mesh shape ((batch,) or (batch, freq)),
+        or None for a single-device engine."""
+        return self._mesh_shape
+
+    @property
+    def mesh(self) -> Optional[LocalMesh]:
+        """The in-process mesh of the positions (None without one); its
+        ``time_collectives`` / ``collective_ms`` time the all-gathers."""
+        return self._mesh
+
+    @property
+    def position_devices(self) -> List[torch.device]:
+        """The device of each mesh position ([the engine's device]
+        without a mesh)."""
+        return ([self.device] if self._mesh is None
+                else list(self._mesh.devices))
 
     @property
     def closed(self) -> bool:
@@ -562,9 +807,16 @@ class CodecEngine:
 
     # -- multi-bank serving --------------------------------------------
     def _plan_for(self, digest: str, bkey):
-        """The plan serving ``(digest, bucket)``: an LRU hit, or a
-        rebuild from the retained bank."""
-        plan = self._plan_cache.get(digest, bkey)
+        """The plan serving ``(digest, bucket)`` (on a mesh, the list of
+        the positions' plans): an LRU hit, or a rebuild from the
+        retained bank."""
+        if self._mesh is None:
+            plan = self._plan_cache.get(digest, bkey)
+        else:
+            plan = [self._plan_cache.get(digest, (bkey, pos))
+                    for pos in range(self._mesh.size)]
+            if any(p is None for p in plan):
+                plan = None
         if plan is not None:
             return plan
         d = self._banks.get(digest)
@@ -577,15 +829,32 @@ class CodecEngine:
 
     def _install_plan(self, digest: str, bkey, d):
         """Build one bucket's plan for one bank and insert it into the
-        LRU, pinning the digests with queued work against eviction."""
+        LRU, pinning the digests with queued work against eviction. On a
+        mesh the plan is built once (the mesh refused first if it cannot
+        shard the bucket) and placed on every position, keyed (digest,
+        (bucket, position)); returns the list of the positions' plans."""
+        mesh = self._mesh
         plan = build_plan(
             d, self.prob, self.cfg, bkey[1], blur_psf=self._blur_psf,
             device=self.device,
+            mesh_shape=self._mesh_shape, slots=bkey[0],
+            buckets=self._buckets if mesh is not None else None,
         )
         with self._cv:
             pin = {lane[1] for lane, lst in self._pending.items() if lst}
-        self._plan_cache.put(digest, bkey, plan, pin=pin)
-        return plan
+        if mesh is None:
+            self._plan_cache.put(digest, bkey, plan, pin=pin)
+            return plan
+        nf = mesh.size // mesh.mesh_shape[0]
+        plans = [place_plan(plan, dev, pos % nf, nf)
+                 for pos, dev in enumerate(mesh.devices)]
+        for dev in {v for v in mesh.devices if v.type == "cuda"}:
+            # the placement copies ran on the default streams; the
+            # positions read the plans on their own
+            torch.cuda.synchronize(dev)
+        for pos, p in enumerate(plans):
+            self._plan_cache.put(digest, (bkey, pos), p, pin=pin | {digest})
+        return plans
 
     def add_bank(self, d, blur_psf=None) -> str:
         """Register a bank and build its per-bucket plans without
@@ -710,6 +979,8 @@ class CodecEngine:
         worker = getattr(self, "_worker", None)
         if worker is not None:
             worker.join()
+        for pool in getattr(self, "_pools", ()):
+            pool.shutdown(wait=True)
 
     def close(self):
         """Flush every pending request and stop the worker. Re-entrant

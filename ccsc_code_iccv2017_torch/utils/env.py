@@ -14,13 +14,14 @@ import os
 import warnings
 from typing import Dict, Optional
 
-__all__ = ["Knob", "REGISTRY", "env_str", "env_float", "env_int"]
+__all__ = ["Knob", "REGISTRY", "env_str", "env_float", "env_int",
+           "env_flag"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Knob:
     name: str
-    kind: str  # 'str' | 'float' | 'int'
+    kind: str  # 'str' | 'float' | 'int' | 'flag'
     default: object
     help: str
     surface: str  # the consuming module
@@ -43,6 +44,19 @@ REGISTRY: Dict[str, Knob] = {
              "seconds before the first connect retry (doubling, capped "
              "at 30 s)",
              "parallel.distributed"),
+        Knob("CCSC_SERVE_MESH", "str", None,
+             "serving-mesh shape 'BATCH' or 'BATCHxFREQ' (e.g. '4', "
+             "'2x2'): every bucket's slots split over the mesh's batch "
+             "axis and its z-solves over 'freq' (fallback of "
+             "ServeConfig.mesh_shape; mesh_shape=() pins an engine to one "
+             "device regardless); every bucket's slots must divide by "
+             "BATCH",
+             "serve.engine, serve.bench"),
+        Knob("CCSC_SERVE_MESH_STRICT", "flag", True,
+             "refuse a serving mesh the visible devices cannot back (the "
+             "shortage in the error); 0 falls back to a single-device "
+             "engine with a console note instead",
+             "serve.engine"),
     )
 }
 
@@ -104,3 +118,12 @@ def env_int(name: str, default=_UNSET) -> Optional[int]:
                    f"ignoring malformed env {name}={raw!r} (expected an "
                    "integer)")
         return _default(name, default)
+
+
+def env_flag(name: str, default=_UNSET) -> bool:
+    """Truthy unless unset/empty/'0' (any explicit non-zero value arms
+    the switch); unset falls back to the declared default."""
+    raw = _raw(name)
+    if raw is None:
+        return bool(_default(name, default))
+    return raw != "0"

@@ -201,17 +201,39 @@ never exits 0):
    reconstruct through the mesh code, within 1e-6 of the mesh-less
    calls. Every group has a timeout and ``launch`` a join deadline; a
    failed rank fails the phase.
+16. Mesh serving (``serve.CodecEngine`` with ``ServeConfig.mesh_shape``;
+   run after 15, before the output of 14): (a) phase 10's 42 requests
+   through the single-device engine, a (2,) engine with
+   ``mesh_devices=(0, 0)`` and a (2, 2) batch x freq engine with
+   ``mesh_devices=(0, 0, 0, 0)``: the positions share cuda:0, each on
+   its own thread and stream. Each request of a mesh engine against the
+   single-device engine's: the same iterations and within 1e-4 *
+   max|b| at the bucket's shape, 1e-3 * max|b| padded. K1's count is
+   set to 0 just before each engine's stream and must equal the sum
+   over dispatches and positions of the positions' loop iterations;
+   on (2, 2) every position all-gathers once an iteration, on (2,)
+   never. Requests/s over the window and over full dispatches, latency
+   p50/p90/max, per engine. (b) K1 at the positions' shapes (N=2 of
+   F=266*134 for (2,); N=2 of F/2 for (2, 2)) held and timed as in
+   phase 3. (c) K2's plane-size gate: ``ops.fused_z.smem_bytes`` equals
+   the library's ``ccsc_fused_z_smem_bytes`` for every Sy, Sx in
+   16..300 and both passes; one ``learn_2d``-configured consensus step
+   (k=100 11x11, 2 blocks x 4 images of 256x256: 266x266 planes, above
+   K2's limit) with fused_z=True runs without raising, launches K1
+   max_it_z times and K2 never, and its filters and obj_z equal, bit
+   for bit, the same step with fused_z=False.
 14. Output: a
    ``{"slice": ...}`` line (serving), a ``{"learn": ...}`` line, a
    ``{"serve_engine": ...}`` line (the engine phase and the
    ``serve/bench.py`` record), an ``{"apps": ...}`` line, a
    ``{"learners": ...}`` line, a ``{"streaming": ...}`` line, a
-   ``{"mesh": ...}`` line, a ``{"kernels": [...]}`` line (K1, K2a, K2b;
-   K1's launches by path: reconstruct, engine, poisson, deblur,
-   learn_3d, learn_2d_masked, learn_streaming_2d, learn_streaming_3d,
-   mesh_reconstruct, mesh_learn_freq; K2's: learn, mesh_learn_block4,
-   mesh_learn_nccl1), the nvidia-smi line, and last ``{"ok": true,
-   "device": {...}}``.
+   ``{"mesh": ...}`` line, a ``{"serve_mesh": ...}`` line, a
+   ``{"kernels": [...]}`` line (K1, K2a, K2b; K1's launches by path:
+   reconstruct, engine, poisson, deblur, learn_3d, learn_2d_masked,
+   learn_streaming_2d, learn_streaming_3d, mesh_reconstruct,
+   mesh_learn_freq, serve_mesh, learn_2d_256_gate; K2's: learn,
+   mesh_learn_block4, mesh_learn_nccl1), the nvidia-smi line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when CUDA is absent or the
 port's package is not beside this script.
@@ -2576,6 +2598,197 @@ def phase_mesh(torch, port, time_ms, bw, flops, seed):
     return out
 
 
+# the mesh serving phase (16): phase 10's stream through engines whose
+# mesh positions share cuda:0 (repeated mesh_devices), beside the
+# single-device engine; then K2's plane-size gate at 256²
+SERVE_MESHES = (((2,), (0, 0)), ((2, 2), (0, 0, 0, 0)))
+GATE_BLOCKS, GATE_NI = 2, 4  # (c): the learn_2d step at 256²
+SMEM_SIDES = range(16, 301)
+
+
+def _serve_mesh_engine(torch, port, seed, mesh_shape, mesh_devices):
+    """One engine over phase 10's requests, K1's count set to 0 just
+    before the stream and read just after: (served, record)."""
+    import numpy as np
+
+    bench, kernels = port["serve_bench"], port["kernels"]
+    d = port["io_mat"].load_filters_2d(BANK)
+    prob = port["reconstruct"].ReconstructionProblem(
+        port["config"].ProblemGeom((11, 11), K))
+    cfg = port["config"].SolveConfig(lambda_residual=5.0, lambda_prior=2.0,
+                                     max_it=100, tol=1e-3)
+    reqs = bench.make_requests(ENGINE_SIDES, seed + 4)
+    t0 = time.perf_counter()
+    with port["serve"].CodecEngine(
+            d, prob, cfg, port["config"].ServeConfig(
+                buckets=((ENGINE_SLOTS, (S, S)),), verbose="none",
+                mesh_shape=mesh_shape, mesh_devices=mesh_devices),
+            device="cuda") as eng:
+        warm_s = time.perf_counter() - t0
+        kernels.solve_z_rank1.launches = 0
+        served, engine_s, submit_s = bench.run_engine(eng, reqs)
+        launches = kernels.solve_z_rank1.launches
+        log = eng.dispatch_log
+        devices = [str(v) for v in eng.position_devices]
+    full = [e for e in log if e["requests"] == ENGINE_SLOTS]
+    lat = 1e3 * np.array([r.latency_s for r in served])
+    rec = {
+        "mesh": list(mesh_shape), "position_devices": devices,
+        "warm_s": warm_s, "engine_wall_s": engine_s,
+        "submit_wall_s": submit_s,
+        "requests_per_sec": len(served) / engine_s,
+        "full_dispatch_requests_per_sec": (
+            sum(e["requests"] for e in full) / sum(e["wall_s"] for e in full)
+            if full else None),
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p90_ms": float(np.percentile(lat, 90)), "max_ms": float(lat.max()),
+        "k1_launches": launches,
+        "dispatch_requests": [e["requests"] for e in log],
+        "dispatch_iters": [e["iters"] for e in log],
+        "position_iters": [e["position_iters"] for e in log],
+        "gathers": [e["gathers"] for e in log],
+        "dispatch_ms": [1e3 * e["wall_s"] for e in log],
+    }
+    want = sum(sum(e["position_iters"]) for e in log)
+    tag = "x".join(map(str, mesh_shape)) or "one device"
+    print(f"[16] (a) {tag} on {devices}: warm {warm_s:.2f} s; "
+          f"{len(served)} requests in {engine_s * 1e3:.1f} ms over "
+          f"{len(log)} dispatches ({rec['requests_per_sec']:.3f} requests/s,"
+          f" {rec['full_dispatch_requests_per_sec']:.3f} over full "
+          f"dispatches; p50 {rec['p50_ms']:.1f} ms, p90 {rec['p90_ms']:.1f}"
+          f" ms, max {rec['max_ms']:.1f} ms); K1 launches {launches} (sum of "
+          f"the positions' iterations {want}); gathers {rec['gathers']}")
+    if launches != want:
+        raise RuntimeError(f"{tag}: K1 launched {launches} times for "
+                           f"position iterations {rec['position_iters']}")
+    for e in log:
+        gathers_want = (e["position_iters"] if len(mesh_shape) == 2
+                        else [0] * len(e["position_iters"]))
+        if e["gathers"] != gathers_want:
+            raise RuntimeError(f"{tag}: gathers {e['gathers']} for position "
+                               f"iterations {e['position_iters']}")
+    return reqs, served, rec
+
+
+def _serve_mesh_vs_one(tag, reqs, served, ref):
+    """Each request of a mesh engine against the single-device engine's:
+    phase 10's limits."""
+    import numpy as np
+
+    worst = {"exact": 0.0, "padded": 0.0}
+    for i, (q, s, r) in enumerate(zip(reqs, served, ref)):
+        side = q["b"].shape[0]
+        b_max = float(np.abs(q["b"]).max())
+        err = float(np.abs(s.recon - r.recon).max()) / b_max
+        exact = side == S
+        if not (np.isfinite(s.recon).all() and s.recon.shape == (side, side)):
+            raise RuntimeError(f"{tag} request {i}: bad recon "
+                               f"{s.recon.shape}")
+        if exact and (int(s.trace.num_iters) != int(r.trace.num_iters)
+                      or not err <= 1e-4):
+            raise RuntimeError(
+                f"{tag} request {i}: {int(s.trace.num_iters)} iterations vs "
+                f"{int(r.trace.num_iters)}, diff {err:.3e} of max|b|")
+        if not exact and not err <= 1e-3:
+            raise RuntimeError(f"{tag} padded request {i}: diff {err:.3e}")
+        key = "exact" if exact else "padded"
+        worst[key] = max(worst[key], err)
+    print(f"[16] (a) {tag} vs one device: max|diff| / max|b| "
+          f"{worst['exact']:.2e} (exact), {worst['padded']:.2e} (padded), "
+          f"the same iterations")
+    return worst
+
+
+def _fused_gate(torch, port, seed):
+    """(c) K2's plane-size gate: the smem twin against the library, then
+    one learn_2d-configured consensus step at 256² (266² planes, above
+    K2's limit) with fused_z on and off from one init."""
+    import numpy as np
+
+    fz, lib = port["fused_z"], port["fused_z"]._library()
+    bad = [(sy, sx, pb) for sy in SMEM_SIDES for sx in SMEM_SIDES
+           for pb in (0, 1)
+           if fz.smem_bytes(sy, sx, bool(pb))
+           != lib.ccsc_fused_z_smem_bytes(sy, sx, pb)]
+    if bad:
+        raise RuntimeError(f"smem_bytes twin differs from the library at "
+                           f"{bad[:5]} ({len(bad)} cases)")
+    n_pairs = len(SMEM_SIDES) ** 2
+    side = S
+    b = mesh_check.training_images(seed + 16, GATE_BLOCKS * GATE_NI, side)
+    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
+    fg = port["common"].FreqGeom.create(geom, (side, side))
+    k1, fzi = port["kernels"].solve_z_rank1, fz.fused_z_iter
+    runs, counts, wall = {}, {}, {}
+    for fused in (True, False):
+        cfg = _learn_cfg(port, num_blocks=GATE_BLOCKS, max_it=1,
+                         fused_z=fused)
+        k1.launches = fzi.launches_a = fzi.launches_b = 0
+        t0 = time.perf_counter()
+        runs[fused] = port["consensus"].learn(
+            b, geom, cfg, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(seed),
+        )
+        wall[fused] = time.perf_counter() - t0
+        counts[fused] = [k1.launches, fzi.launches_a, fzi.launches_b]
+    want = _learn_cfg(port).max_it_z
+    da, db = (runs[f].d.cpu().numpy() for f in (True, False))
+    za, zb = (runs[f].trace["obj_vals_z"] for f in (True, False))
+    print(f"[16] (c) smem twin == library for {n_pairs} planes x 2 passes; "
+          f"a {fg.spatial_shape[0]}x{fg.spatial_shape[1]} plane: fits "
+          f"{fz.fits(*fg.spatial_shape)}; one step fused_z=True in "
+          f"{wall[True]:.2f} s, launches (K1, K2a, K2b) {counts[True]}, "
+          f"fused_z=False {counts[False]}; filters bitwise "
+          f"{bool(np.array_equal(da, db))}, obj_z {za} vs {zb}")
+    if fz.fits(*fg.spatial_shape):
+        raise RuntimeError(f"{fg.spatial_shape} should exceed K2's limit")
+    if counts[True] != [want, 0, 0] or counts[False] != [want, 0, 0]:
+        raise RuntimeError(f"gate launches {counts}, want [{want}, 0, 0]")
+    if not (np.array_equal(da, db) and za == zb):
+        raise RuntimeError("fused_z=True at 266² is not the composition's "
+                           "bits")
+    return {"smem_pairs_checked": n_pairs, "plane": list(fg.spatial_shape),
+            "launches": {"fused_z_true": counts[True],
+                         "fused_z_false": counts[False]},
+            "obj_vals_z": za, "wall_s": wall[True], "bitwise": True}
+
+
+def phase_serve_mesh(torch, port, time_ms, bw, flops, seed):
+    """16: mesh serving on one card, then K1 at the positions' shapes,
+    then K2's gate."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reqs, ref, one = _serve_mesh_engine(torch, port, seed, (), None)
+    out = {"one_device": one, "meshes": {}}
+    for shape, devs in SERVE_MESHES:
+        tag = "x".join(map(str, shape))
+        _, served, rec = _serve_mesh_engine(torch, port, seed, shape, devs)
+        rec["vs_one_device"] = _serve_mesh_vs_one(tag, reqs, served, ref)
+        rec["speedup_vs_one_device"] = (rec["requests_per_sec"]
+                                        / one["requests_per_sec"])
+        out["meshes"][tag] = rec
+        del served
+        torch.cuda.empty_cache()
+    # (b) K1 at each position's shape: N=2 slots of the whole spectrum
+    # ((2,)), N=2 of half of it ((2, 2))
+    gen = torch.Generator(device=torch.device("cuda", 0)).manual_seed(seed)
+    out["k1_cases"] = []
+    for n, f, tag in ((2, F, "serve_mesh_2"), (2, F // 2, "serve_mesh_2x2")):
+        args = _random_k1_args(torch, gen, n, K, f, False)
+        out["k1_cases"].append(_k1_case(
+            torch, port["kernels"], time_ms, bw, flops, _card(torch), args,
+            {"mesh": tag}))
+        del args
+    torch.cuda.empty_cache()
+    out["fused_gate"] = _fused_gate(torch, port, seed)
+    out["k1_launches"] = sum(r["k1_launches"] for r in
+                             [one, *out["meshes"].values()])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[16] mesh serving phase {out['seconds']:.1f} s")
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, kernel_ms, plain_ms,
                   bound, build_s, **extra):
     return dict(
@@ -2653,13 +2866,16 @@ def main(argv=None) -> int:
         learners["3d"]["max_memory_allocated_bytes"],
         build["native_ccsc_data"])
     mesh = phase_mesh(torch, port, time_ms, bw, flops, args.seed)
+    serve_mesh = phase_serve_mesh(torch, port, time_ms, bw, flops,
+                                  args.seed)
     seconds = time.perf_counter() - t_start
     print(f"[14] total {seconds:.1f} s")
 
     main_case = next(c for c in cases if c["n"] == 1 and not c["raised_row"])
     all_cases = cases + list(app_cases.values()) + [
         learners["3d"]["k1_case"], streamed["2d"]["k1_case"],
-        streamed["3d"]["k1_case"]] + mesh["reconstruct"]["k1_cases"]
+        streamed["3d"]["k1_case"]] + mesh["reconstruct"]["k1_cases"] + \
+        serve_mesh["k1_cases"]
     k1_paths = {"reconstruct": served["launches"],
                 "engine": engine["launches"],
                 "poisson": apps["poisson"]["k1_launches"],
@@ -2672,7 +2888,11 @@ def main(argv=None) -> int:
                     streamed["3d"]["launches"]["solve_z_rank1"],
                 "mesh_reconstruct": mesh["reconstruct"]["k1_launches"],
                 "mesh_learn_freq": sum(
-                    mesh["learners"]["block2_freq2"]["k1_launches"])}
+                    mesh["learners"]["block2_freq2"]["k1_launches"]),
+                "serve_mesh": serve_mesh["k1_launches"],
+                "learn_2d_256_gate": sum(
+                    serve_mesh["fused_gate"]["launches"][k][0]
+                    for k in ("fused_z_true", "fused_z_false"))}
     ns_ranks = mesh["north_star"]["mesh"]["per_rank"]
     k2_paths = {p: {
         "learn": learn["launches"][f"fused_z_{p}"],
@@ -2727,6 +2947,7 @@ def main(argv=None) -> int:
     print(json.dumps({"learners": learners}))
     print(json.dumps({"streaming": streamed}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"serve_mesh": serve_mesh}))
     # the kernels line last but two: the end of the output carries it
     print(json.dumps(kernels_line))
     print(smi)

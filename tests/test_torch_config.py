@@ -261,6 +261,11 @@ def test_port_imports_without_jax_at_runtime():
         "from ccsc_code_iccv2017_torch.data import native, whitening\n"
         "from ccsc_code_iccv2017_torch.utils import env\n"
         "env.env_float('CCSC_STREAM_RESIDENT_GB')\n"
+        "env.env_flag('CCSC_SERVE_MESH_STRICT')\n"
+        "from ccsc_code_iccv2017_torch.parallel import local_mesh\n"
+        "local_mesh.LocalMesh((2, 2), ('batch', 'freq'), ['cpu'] * 4)\n"
+        "assert engine.parse_mesh_shape('2x2') == (2, 2)\n"
+        "bench.main.__doc__\n"
         "for app in (learn_3d, learn_4d, learn_hyperspectral):\n"
         "    app.build_parser().parse_args(\n"
         "        ['--synthetic', '--streaming', '--stream-mode', 'paged'])\n"

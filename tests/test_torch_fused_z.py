@@ -245,3 +245,74 @@ def test_kernels_match_plain_on_card(dtype, Sy, Sx):
     scale = float(zr.float().abs().max())
     err = float((z1.float() - zr.float()).abs().max())
     assert err <= (1e-5 if dtype == "float32" else 0.02) * scale, err
+
+
+# ---- K2's plane-size gate: a plane K2 cannot hold takes the composition
+
+
+def _cuda_smem_bytes(Sy, Sx, pass_b):
+    """csrc/fused_z.cu's smem_bytes, plan_axis and odd_pitch written out
+    again from the source: an independent yardstick for the twin."""
+    def split_p(S):  # plan_axis(S).P
+        divs = [p for p in range(2, int(S**0.5) + 1) if S % p == 0]
+        P = divs[-1] if divs else 1
+        return 1 if P == 1 or S // P > 16 else P
+
+    Fx = Sx // 2 + 1
+    tw = 8 * (Sx + Sy)
+    a = 8 * Sy * (Fx | 1)
+    r = (8 * ((Sy + 1) // 2) * (Sx | 1) if split_p(Sx) > 1
+         else 4 * Sy * Sx)
+    if pass_b and split_p(Sy) == 1 and a > r:
+        r = a
+    return tw + a + r + 4 * (Sx + Sy)
+
+
+@pytest.mark.parametrize("Sy", range(16, 301, 7))
+def test_smem_bytes_twin_matches_the_cuda_formula(Sy):
+    """The Python twin against the source's formula for Sy in 16..300
+    (every 7th) and every Sx in 16..300, both passes; on the card
+    chip_smoke.py phase 16 holds it to the library's own
+    ccsc_fused_z_smem_bytes for every pair."""
+    for Sx in range(16, 301):
+        for pass_b in (False, True):
+            assert tfz.smem_bytes(Sy, Sx, pass_b) == _cuda_smem_bytes(
+                Sy, Sx, pass_b), (Sy, Sx, pass_b)
+
+
+def test_fits_square_planes_up_to_168():
+    assert [S for S in range(16, 301) if tfz.fits(S, S)] == list(
+        range(16, 169))
+    assert tfz.fits(110, 110)  # the north star's padded plane
+    assert not tfz.fits(266, 266)  # 256² images padded by 11x11 filters
+    assert tfz.plan_axis(110) == (10, 11) and tfz.plan_axis(13) == (1, 13)
+
+
+def test_fused_z_gate_sends_large_planes_on_the_card_to_composition():
+    """``models.learn.fused_z_ok`` decides by shape before any launch:
+    a 266² plane on a CUDA-typed device takes the composition (and
+    says so), on the CPU K2's plain version takes it, as JAX's fused
+    path does; a 110² plane takes K2 on either."""
+    from ccsc_code_iccv2017_torch.config import LearnConfig, ProblemGeom
+    from ccsc_code_iccv2017_torch.models import common, learn
+
+    geom = ProblemGeom((11, 11), 100)
+    cfg = LearnConfig(fused_z=True, verbose="none")
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    big = common.FreqGeom.create(geom, (256, 256))
+    small = common.FreqGeom.create(geom, (100, 100))
+    assert big.spatial_shape == (266, 266)
+    assert not learn.fused_z_ok(cfg, big, None, cuda)
+    assert learn.fused_z_ok(cfg, big, None, cpu)
+    assert learn.fused_z_ok(cfg, small, None, cuda)
+    note = learn.fused_z_note(cfg, big, None, cuda)
+    assert "266x266" in note and "composition" in note
+    assert learn.fused_z_note(cfg, big, None, cpu) is None
+    assert learn.fused_z_note(cfg, small, None, cuda) is None
+    off = LearnConfig(fused_z=False, verbose="none")
+    assert not learn.fused_z_ok(off, small, None, cpu)
+    assert learn.fused_z_note(off, big, None, cuda) is None
+    geom3 = ProblemGeom((5, 5, 5), 4)
+    fg3 = common.FreqGeom.create(geom3, (12, 12, 12))
+    assert not learn.fused_z_ok(cfg, fg3, None, cpu)
+    assert learn.fused_z_note(cfg, fg3, None, cuda) is None

@@ -13,6 +13,9 @@ card only: ``test_kernel_matches_plain_on_card`` there and
 ``chip_smoke.py`` phase 3.
 """
 import re
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -131,3 +134,74 @@ def test_plan_writes_each_output_once(N, K, F, sm, l2):
 def test_plan_refuses_what_the_kernel_cannot_take(args):
     with pytest.raises(ValueError):
         kernels.k1_launch_plan(*args)
+
+
+# ---- the wrappers' bookkeeping under concurrent serving threads
+
+
+def _hammer(fn, threads=8):
+    barrier = threading.Barrier(threads)
+
+    def run():
+        barrier.wait()
+        fn()
+
+    ts = [threading.Thread(target=run) for _ in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in ts)
+
+
+def test_launch_counts_are_exact_under_eight_threads(monkeypatch):
+    """Eight threads bump K1's and K2's launch counts (the wrappers'
+    ``count_launch``) 20,000 times each: no count is lost."""
+    from ccsc_code_iccv2017_torch.ops import fused_z
+
+    monkeypatch.setattr(kernels.solve_z_rank1, "launches", 0)
+    monkeypatch.setattr(fused_z.fused_z_iter, "launches_a", 0)
+    monkeypatch.setattr(fused_z.fused_z_iter, "launches_b", 0)
+    sys.setswitchinterval(1e-6)  # switch threads as often as possible
+    try:
+        def bump():
+            for _ in range(20_000):
+                kernels.count_launch(kernels.solve_z_rank1)
+                kernels.count_launch(fused_z.fused_z_iter, "launches_a")
+                kernels.count_launch(fused_z.fused_z_iter, "launches_b")
+
+        _hammer(bump)
+    finally:
+        sys.setswitchinterval(0.005)
+    assert kernels.solve_z_rank1.launches == 160_000
+    assert fused_z.fused_z_iter.launches_a == 160_000
+    assert fused_z.fused_z_iter.launches_b == 160_000
+
+
+def test_library_builds_and_binds_once_under_eight_threads(monkeypatch):
+    """Eight positions reaching K1 at once: one build, one load, one
+    bind, and every thread gets the same library (a mocked build and
+    load: no nvcc here)."""
+    calls = {"build": 0, "load": 0, "bind": 0}
+
+    def build(name):
+        calls["build"] += 1
+        time.sleep(0.05)  # a slow build: the others must wait for it
+        return {"path": f"/lib{name}.so"}
+
+    class FakeLib:
+        def __init__(self, path):
+            calls["load"] += 1
+            self.path = path
+
+    def bind(lib):
+        calls["bind"] += 1
+        return lib
+
+    monkeypatch.setattr(kernels, "build", build)
+    monkeypatch.setattr(kernels.ctypes, "CDLL", FakeLib)
+    monkeypatch.setattr(kernels, "_LIBRARIES", {})
+    got = []
+    _hammer(lambda: got.append(kernels.bound_library("k", bind)))
+    assert calls == {"build": 1, "load": 1, "bind": 1}
+    assert len(got) == 8 and all(g is got[0] for g in got)

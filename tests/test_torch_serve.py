@@ -492,8 +492,6 @@ def test_valid_region_psnr_matches_jax():
 @pytest.mark.parametrize(
     "kw, item",
     [
-        (dict(mesh_shape=(2,)), 8),
-        (dict(mesh_shape=(1,), mesh_devices=(0,)), 8),
         (dict(tune="auto"), 9),
         (dict(tune_store="tuned.json"), 9),
         (dict(pipeline_depth=2), 9),
