@@ -8,10 +8,10 @@ the learner CLIs' solver dispatch with its streaming arm
 Every flag of the JAX CLIs parses here with the same name, choices and
 default; a non-default value of a feature the port has not ported yet
 is refused where the config reads it (``config.SolveConfig`` for
-``--fft-impl``, ``--tune`` and ``--metrics-dir``) or by
-:func:`refuse_unported` (``--tune-store``), or for the learners by
+``--fft-impl`` and ``--tune``) or by :func:`refuse_unported`
+(``--tune-store``), or for the learners by
 :func:`refuse_unported_learner`, naming the ROADMAP.md item that ports
-it.
+it. ``--metrics-dir`` writes the run's telemetry stream (utils.obs).
 """
 from __future__ import annotations
 
@@ -47,9 +47,14 @@ def add_perf_args(parser: argparse.ArgumentParser, fft_pad: bool = True) -> None
 
 
 def add_obs_args(parser: argparse.ArgumentParser) -> None:
+    """The shared telemetry flag: --metrics-dir maps to
+    LearnConfig.metrics_dir / SolveConfig.metrics_dir (utils.obs)."""
     parser.add_argument(
         "--metrics-dir", default=None,
-        help="telemetry stream directory (telemetry is not ported yet)",
+        help="write a structured JSONL telemetry stream (run metadata, "
+        "per-step metrics, kernel-library compile records, roofline, "
+        "heartbeats) into this directory; render it with the JAX "
+        "package's scripts/obs_report.py",
     )
 
 
@@ -156,9 +161,7 @@ _LEARNER_NOT_PORTED = (
     ("donate_state", False, "--donate-state (chunked outer steps)", "9"),
     ("auto_degrade", False, "--auto-degrade (the OOM downgrade ladder)",
      "10"),
-    ("metrics_dir", None, "--metrics-dir (run telemetry)", "10"),
     ("watchdog", False, "--watchdog (the dispatch-fence watchdog)", "10"),
-    ("profile_dir", None, "--profile-dir (profiler traces)", "10"),
 )
 
 
@@ -178,7 +181,7 @@ def learner_config_kwargs(args: argparse.Namespace) -> dict:
         verbose=args.verbose, fft_pad=args.fft_pad,
         storage_dtype=args.storage_dtype,
         max_recoveries=args.max_recoveries, rho_backoff=args.rho_backoff,
-        watchdog_slack=args.watchdog_slack,
+        watchdog_slack=args.watchdog_slack, metrics_dir=args.metrics_dir,
     )
     if hasattr(args, "d_storage_dtype"):
         kw["d_storage_dtype"] = args.d_storage_dtype

@@ -55,7 +55,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--init-filters", default=None,
         help="warm-start dictionary .mat (e.g. a previous --out)",
     )
-    p.add_argument("--profile-dir", default=None, help="not ported yet")
+    p.add_argument(
+        "--profile-dir", default=None,
+        help="capture a torch.profiler trace of the step loop (Chrome "
+        "trace JSON; TensorBoard's PyTorch profiler plugin reads the dir)",
+    )
     p.add_argument(
         "--streaming", action="store_true",
         help="host-streaming mode: one consensus block on the card at a "
@@ -75,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     add_learner_args(p, masked_carry=True)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--verbose", default="brief", choices=["none", "brief"])
+    p.add_argument("--verbose", default="brief",
+                   choices=["none", "brief", "all"])
     return p
 
 
@@ -155,6 +160,9 @@ def main(argv=None):
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
         init_d=init_d,
+        # the consensus learner's profiler (the masked path refused the
+        # flag above)
+        **({} if args.masked else {"profile_dir": args.profile_dir}),
         forbidden={"--init-filters": args.init_filters,
                    "--profile-dir": args.profile_dir},
     ), mesh)

@@ -52,7 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="3D_video_filters.mat")
     add_learner_args(p)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--verbose", default="brief", choices=["none", "brief"])
+    p.add_argument("--verbose", default="brief",
+                   choices=["none", "brief", "all"])
     return p
 
 

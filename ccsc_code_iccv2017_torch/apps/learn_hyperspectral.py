@@ -52,7 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "largest divisor of n not above it)")
     add_learner_args(p, masked_carry=True, d_storage=False)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--verbose", default="brief", choices=["none", "brief"])
+    p.add_argument("--verbose", default="brief",
+                   choices=["none", "brief", "all"])
     return p
 
 

@@ -4,11 +4,12 @@ A jax-free copy of ``ccsc_code_iccv2017_tpu.config``'s ``ProblemGeom``,
 ``GEOM_2D``, ``LearnConfig``, ``SolveConfig`` and ``ServeConfig``: every
 field, name and default is identical (tests/test_torch_config.py holds
 the two side by side), so a configuration reads the same in both
-packages. The port implements the single-device reconstruction
-solves, the single-device consensus and masked learners and the
-single-device serving engine; the fields it does not implement yet
-refuse a non-default value with ``NotImplementedError`` naming the
-ROADMAP.md item that ports them, instead of being silently ignored.
+packages. The port implements the reconstruction solves, the
+consensus, masked and streaming learners, the serving engine and their
+run telemetry (``metrics_dir``, the SLO targets, ``verbose='all'``
+figures); the fields it does not implement yet refuse a non-default
+value with ``NotImplementedError`` naming the ROADMAP.md item that ports
+them, instead of being silently ignored.
 """
 from __future__ import annotations
 
@@ -100,6 +101,9 @@ class LearnConfig:
       tensor the composition path's z-solve always runs K1.
     - ``storage_dtype`` / ``d_storage_dtype``: ``float32`` or
       ``bfloat16`` (f32 math, rounded store, as in JAX).
+    - ``metrics_dir``: the run's telemetry stream (utils.obs);
+      ``verbose='all'`` also writes per-iteration figures as PNG files
+      (utils.display).
     """
 
     lambda_residual: float = 1.0
@@ -140,8 +144,9 @@ class LearnConfig:
 
     @property
     def with_obs_metrics(self) -> bool:
-        """Telemetry scalars ride the step only with ``metrics_dir``,
-        which the port does not implement yet: always False here."""
+        """True when the step computes the telemetry scalars
+        (models.learn.ObsExtras): only with ``metrics_dir`` set, so an
+        un-instrumented run computes exactly what it did before."""
         return self.metrics_dir is not None
 
     def __post_init__(self):
@@ -185,14 +190,8 @@ class LearnConfig:
             )
         if self.tune != "off":
             raise _not_ported(f"tune={self.tune!r} (knob autotuning)", item9)
-        if self.metrics_dir is not None:
-            raise _not_ported("metrics_dir (run telemetry)", item10)
         if self.watchdog:
             raise _not_ported("watchdog (the dispatch-fence watchdog)", item10)
-        if self.verbose == "all":
-            raise _not_ported(
-                "verbose='all' (per-iteration figures)", item10
-            )
 
     @property
     def chunked_driver(self) -> bool:
@@ -260,11 +259,6 @@ class SolveConfig:
                 f"tune={self.tune!r}: knob autotuning is not ported yet "
                 "(ROADMAP.md Queue 1 item 9); use tune='off'"
             )
-        if self.metrics_dir is not None:
-            raise NotImplementedError(
-                "metrics_dir: run telemetry is not ported yet "
-                "(ROADMAP.md Queue 1 item 10); leave it None"
-            )
         if self.fft_impl != "xla":
             raise NotImplementedError(
                 f"fft_impl={self.fft_impl!r}: the matmul-DFT tiers are "
@@ -290,9 +284,7 @@ class SolveConfig:
 _SERVE_DEFERRED = (
     ("tune", ("off",), 9), ("tune_store", (None,), 9),
     ("pipeline_depth", (None, 1), 9),
-    ("metrics_dir", (None,), 10), ("slo_p50_ms", (None,), 10),
-    ("slo_p99_ms", (None,), 10), ("slo_check_s", (None,), 10),
-    ("slo_profile_dir", (None,), 10), ("capture_dir", (None, ""), 10),
+    ("capture_dir", (None, ""), 10),
     ("compile_cache", (None,), 11), ("artifact_store", (None, ""), 11),
     ("replica_id", (None,), 11), ("staged_warmup", (None, False), 11),
     ("warm_order", (None,), 11), ("warm_rank_capture", (None, ""), 11),
@@ -312,10 +304,12 @@ class ServeConfig:
     ``slots`` requests ride one dispatch of that bucket. The port serves
     ``buckets``, ``max_wait_ms``, ``return_codes``, ``verbose``,
     ``aot_warmup`` (one short warm dispatch per bucket at construction,
-    which builds the kernels and the cuFFT plans), ``mesh_shape`` and
-    ``mesh_devices``; every other field refuses a value other than its
-    default with ``NotImplementedError`` naming the ROADMAP.md item that
-    ports it.
+    which builds the kernels and the cuFFT plans), ``mesh_shape``,
+    ``mesh_devices``, ``metrics_dir`` (the engine's telemetry stream) and
+    the SLO fields (``slo_p50_ms``, ``slo_p99_ms``, ``slo_check_s``,
+    ``slo_profile_dir``: serve.slo); every other field refuses a value
+    other than its default with ``NotImplementedError`` naming the
+    ROADMAP.md item that ports it.
 
     ``mesh_shape`` ``(batch,)`` or ``(batch, freq)`` serves every bucket
     from a mesh of devices driven by the engine's one process (None:

@@ -28,8 +28,10 @@ step on its L = N / nb blocks: the consensus mean is one all-reduce over
 'block' per d-iteration, a 'freq' axis splits the per-frequency solves
 (``fslice`` before each solve, ``all_gather_tiled`` after it), and a
 'filter' axis splits the k axis of the filters and codes, with one psum
-per k-sum. The chunked driver and the telemetry extras are not ported
-yet (ROADMAP.md Queue 1 items 9 and 10). The JAX package's documented
+per k-sum. The chunked driver is not ported yet (ROADMAP.md Queue 1
+item 9). With ``cfg.metrics_dir`` the step also computes the telemetry
+scalars (:class:`ObsExtras`), which ride the step's one host read. The
+JAX package's documented
 divergences from the reference (coding against the projected consensus
 dictionary, the objective over all blocks, independent per-block z
 inits) hold here too.
@@ -61,15 +63,35 @@ class LearnState(NamedTuple):
     dual_z: torch.Tensor  # [L, ni, k, *spatial]
 
 
+class ObsExtras(NamedTuple):
+    """Telemetry scalars of a step (``cfg.with_obs_metrics``, utils.obs),
+    0-d float32 tensors computed next to the metrics, so they leave the
+    card in the step's one host read:
+
+    - ``obj_fid`` / ``obj_l1``: the z-pass objective split into its
+      data-fidelity and sparsity terms (0 when the objective is not
+      tracked, as obj_z);
+    - ``consensus_dis``: RMS consensus disagreement of the per-block
+      dictionaries, sqrt(mean_i ||d_i - dbar||^2) / ||dbar||;
+    - ``nonfinite_z``: the count of non-finite entries of the new codes.
+    """
+
+    obj_fid: torch.Tensor
+    obj_l1: torch.Tensor
+    consensus_dis: torch.Tensor
+    nonfinite_z: torch.Tensor
+
+
 class OuterMetrics(NamedTuple):
     """0-d float32 tensors on the state's device (read by the driver in
-    one host sync per step). The JAX package's telemetry ``extras`` wait
-    for ROADMAP.md Queue 1 item 10."""
+    one host sync per step)."""
 
     obj_d: torch.Tensor  # global objective after the d-pass
     obj_z: torch.Tensor  # global objective after the z-pass
     d_diff: torch.Tensor  # rel change of the consensus dictionary
     z_diff: torch.Tensor  # rel change of codes (global norm)
+    # telemetry scalars, None unless cfg.with_obs_metrics
+    extras: Optional[ObsExtras] = None
 
 
 def init_state(
@@ -263,12 +285,23 @@ def _objective(zf, Dz, b_nn, geom: ProblemGeom, cfg: LearnConfig):
     ) + common.l1_penalty(zf, cfg.lambda_prior)
 
 
+def f_obj_parts(z_nn, b_nn, dhat, geom: ProblemGeom, cfg: LearnConfig,
+                fg: common.FreqGeom):
+    """(data fidelity, sparsity) of codes z_nn [M, k, *sp] against
+    unpadded data b_nn [M, *reduce, *data_sp] (0-d float32 each); their
+    sum is :func:`f_obj_block`."""
+    zf, Dz = _recon(z_nn, dhat, fg)
+    return (common.data_fidelity(Dz, b_nn, geom.psf_radius,
+                                 cfg.lambda_residual),
+            common.l1_penalty(zf, cfg.lambda_prior))
+
+
 def f_obj_block(z_nn, b_nn, dhat, geom: ProblemGeom, cfg: LearnConfig,
                 fg: common.FreqGeom) -> torch.Tensor:
     """The objective of codes z_nn [M, k, *sp] against unpadded data
     b_nn [M, *reduce, *data_sp] (0-d float32)."""
-    zf, Dz = _recon(z_nn, dhat, fg)
-    return _objective(zf, Dz, b_nn, geom, cfg)
+    fid, l1 = f_obj_parts(z_nn, b_nn, dhat, geom, cfg, fg)
+    return fid + l1
 
 
 def f_dz_block(z_nn, dhat, geom: ProblemGeom,
@@ -357,20 +390,26 @@ def outer_step(
     bhat = f_bhat(_flat_blocks(b_blocks), geom, fg)  # [L*ni, W, F]
     bhat_blocks = bhat.reshape(L, ni, *bhat.shape[1:])
 
-    def objective(z, dhat):
+    def objective_parts(z, dhat):
+        """(fidelity, sparsity); their sum is the objective."""
         if not cfg.with_objective:
             # the reference evaluates it only when monitoring wants it
-            return torch.zeros((), dtype=torch.float32, device=z.device)
+            zero = torch.zeros((), dtype=torch.float32, device=z.device)
+            return zero, zero
         if mesh is None:
-            return f_obj_block(_flat_blocks(z), _flat_blocks(b_blocks), dhat,
+            return f_obj_parts(_flat_blocks(z), _flat_blocks(b_blocks), dhat,
                                geom, cfg, fg)
         zf, Dz = _recon(_flat_blocks(z), dhat, fg, mesh, ax_k)
         fid = common.data_fidelity(Dz, _flat_blocks(b_blocks),
                                    geom.psf_radius, cfg.lambda_residual)
         # fid is replicated over 'filter' after Dz's psum; the l1 term is
         # k-local and reduces over block AND filter
-        return mesh_lib.psum(fid, mesh, ax_b) + mesh_lib.psum(
+        return mesh_lib.psum(fid, mesh, ax_b), mesh_lib.psum(
             common.l1_penalty(zf, cfg.lambda_prior), mesh, global_axes)
+
+    def objective(z, dhat):
+        fid, l1 = objective_parts(z, dhat)
+        return fid + l1
 
     # ---------------- d-pass (dzParallel.m:95-135) -------------------
     mark("d_start")
@@ -436,10 +475,25 @@ def outer_step(
     if mesh is not None:
         num, den = mesh_lib.psum(torch.stack([num, den]), mesh, global_axes)
     z_diff = torch.sqrt(num) / torch.clamp(torch.sqrt(den), min=1e-30)
-    obj_z = objective(z, dhat_z)
+    fid_z, l1_z = objective_parts(z, dhat_z)
+    obj_z = fid_z + l1_z
+
+    extras = None
+    if cfg.with_obs_metrics:
+        # telemetry scalars beside the metrics: they leave the card in
+        # the same host read, never a fresh one (utils.obs)
+        nonfinite_z = mesh_lib.psum(
+            torch.sum(~torch.isfinite(_f32(z))).to(torch.float32), mesh,
+            global_axes)
+        dn = _f32(d_local) - dbar[None]
+        cons_num = mesh_lib.psum(torch.sum(dn * dn), mesh, global_axes)
+        cons_den = mesh_lib.psum(torch.sum(dbar * dbar), mesh, ax_k)
+        consensus_dis = torch.sqrt(cons_num / num_blocks) / torch.clamp(
+            torch.sqrt(cons_den), min=1e-30)
+        extras = ObsExtras(fid_z, l1_z, consensus_dis, nonfinite_z)
 
     new_state = LearnState(d_local, dual_d, dbar, udbar, z, dual_z)
-    return new_state, OuterMetrics(obj_d, obj_z, d_diff, z_diff)
+    return new_state, OuterMetrics(obj_d, obj_z, d_diff, z_diff, extras)
 
 
 def eval_block(

@@ -23,7 +23,10 @@ masked learner (``learn_2d --masked``), whose z-solve is K1. On a 1-D
 replicated on every rank and each rank solves an F / nf slice of the
 spectrum, one tiled all-gather per inner iteration reassembling it, as
 the JAX package's 'freq'-sharded step. The chunked outer loop is not
-ported yet (ROADMAP.md Queue 1 item 9).
+ported yet (ROADMAP.md Queue 1 item 9). With ``cfg.metrics_dir`` the
+run writes its telemetry stream under ``algorithm="masked_admm"``
+(utils.obs): its roofline records carry it/s only, as the JAX package
+has no cost model of the masked objective.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from ..config import LearnConfig, ProblemGeom
 from ..ops import fourier, freq_solvers, proxes
 from ..parallel import mesh as mesh_lib
 from ..utils import checkpoint as ckpt
-from ..utils import resilience, validate
+from ..utils import obs, resilience, validate
 from ..utils.resilience import console
 from ..utils.device import PhaseTimer, resolve_device
 from . import common
@@ -360,6 +363,31 @@ def learn_masked(
     _preflight_hbm(geom, data_sp, n, dev, fg=fg,
                    z_dtype_bytes=torch.finfo(sd).bits // 8)
 
+    run = obs.start_run(
+        cfg.metrics_dir, algorithm="masked_admm", verbose=cfg.verbose,
+        geom=geom, cfg=cfg,
+        fingerprint=resilience.config_fingerprint(geom, cfg, "masked_admm"),
+        mesh=mesh, device=dev, data_shape=list(b.shape),
+    )
+    try:
+        return _learn_masked_impl(
+            b, geom, cfg, smooth_init, init_d, generator, gamma_div_d,
+            gamma_div_z, mesh, checkpoint_dir, checkpoint_every, dev,
+            initial_state, fg, sd, run,
+        )
+    finally:
+        # idempotent backstop: only an escaping exception lands here with
+        # the run still open
+        run.close(status="error")
+
+
+def _learn_masked_impl(
+    b, geom, cfg, smooth_init, init_d, generator, gamma_div_d, gamma_div_z,
+    mesh, checkpoint_dir, checkpoint_every, dev, initial_state, fg, sd, run,
+):
+    n = b.shape[0]
+    radius = geom.psf_radius
+    data_sp = tuple(b.shape[-geom.ndim_spatial:])
     b_pad = fourier.pad_spatial(b, radius, target=fg.spatial_shape)
     # the mask is zero over ALL padding (incl. any fast-FFT extra), so
     # the masked data prox excludes it (admm_learn.m:255)
@@ -468,6 +496,7 @@ def learn_masked(
                 if ev is None:
                     break
                 trace.setdefault("recoveries", []).append(ev)
+                run.event("recovery", **ev)
                 continue  # retry iteration i with backed-off gammas
             # rollback (admm_learn.m:204-213), armed only when the
             # objective is tracked (untracked steps return 0.0)
@@ -489,6 +518,12 @@ def learn_masked(
             if phases is not None:
                 trace.setdefault("d_pass_ms", []).append(phases[0])
                 trace.setdefault("z_pass_ms", []).append(phases[1])
+            run.step(
+                it=i + 1, obj_d=obj_d, obj_z=obj_z, d_diff=d_diff,
+                z_diff=z_diff, t_total=round(t_total, 4),
+            )
+            run.chunk(i, 1, 1, dt)
+            run.heartbeat(i + 1, dt)
             console(
                 cfg,
                 f"Iter {i + 1}, Obj_d {obj_d:.5g}, Obj_z {obj_z:.5g}, "
@@ -498,6 +533,7 @@ def learn_masked(
             preempting = stop_req and i + 1 < cfg.max_it
             if preempting:
                 trace.setdefault("preemptions", []).append(i + 1)
+                run.event("preemption", iteration=i + 1, signum=gs.signum)
             if checkpoint_dir is not None and (
                 (i + 1) % checkpoint_every == 0 or preempting
             ):
@@ -519,6 +555,7 @@ def learn_masked(
     zhat = common.codes_to_freq(_f32(state.z), fg)
     Dz = common.recon_from_freq(dhat, zhat, fg) + smoothinit
     Dz = fourier.crop_spatial(Dz, radius, data_sp)
+    run.close(status="ok", iterations=it_done, wall_s=round(t_total, 4))
     return LearnResult(extract_filters(d_proj, geom), state.z[None], Dz,
                        trace)
 

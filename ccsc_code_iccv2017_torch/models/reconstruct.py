@@ -8,8 +8,10 @@ problems (blur OTF composed into the solve operator), on any geometry:
 2D and 3D spatial supports, and reduce axes (hyperspectral bands,
 lightfield views: W > 1, the Woodbury z-solve), on one device or on a
 mesh of ranks (``mesh=``: the batch split over the first axis, the
-per-frequency solves optionally over a second 'freq' axis). Telemetry
-and tuning come with later slices (ROADMAP.md Queue 1).
+per-frequency solves optionally over a second 'freq' axis). With
+``cfg.metrics_dir`` a call writes its telemetry stream (utils.obs,
+``algorithm="reconstruct"``). Tuning comes with a later slice
+(ROADMAP.md Queue 1 item 9).
 
 The ADMM skeleton is the reference's 2-function consensus form: v1 = Dz
 (data side), v2 = z (sparsity side), scaled duals, and one exact
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -385,7 +388,15 @@ def reconstruct(
     (parallel.mesh.gather_blocks assembles them). The run happens on
     ``mesh.device``. A plan does not combine with a mesh here: the
     plan-backed sharded solve is the mesh serving engine's.
+
+    ``cfg.metrics_dir``: the call writes a ``"reconstruct"`` telemetry
+    run (see :func:`_reconstruct_observed`).
     """
+    if cfg.metrics_dir is not None:
+        return _reconstruct_observed(
+            b, d, prob, cfg, mask, smooth_init, blur_psf, x_orig, mesh, plan,
+            device,
+        )
     if mesh is not None:
         if plan is not None:
             raise ValueError(
@@ -483,6 +494,57 @@ def reconstruct(
         shard(x_orig), mesh=mesh, axis_name=axis,
         freq_axis_name="freq" if "freq" in mesh.shape else None,
     )
+
+
+def _reconstruct_observed(
+    b, d, prob, cfg, mask, smooth_init, blur_psf, x_orig, mesh, plan, device,
+):
+    """Telemetry around one :func:`reconstruct` call (its
+    ``cfg.metrics_dir``): the run metadata, the 1-based ``step`` records
+    of the trace the solve returned, one ``roofline`` record, a
+    ``heartbeat`` and the ``summary`` (iterations, wall seconds, initial
+    and final objective). The solve itself runs untouched (the same call
+    with ``metrics_dir=None``); the stream costs one read of its three
+    traces after it, none inside the loop."""
+    from ..utils import obs
+
+    dev = resolve_device(device) if mesh is None else mesh.device
+    run = obs.start_run(
+        cfg.metrics_dir, algorithm="reconstruct", verbose=cfg.verbose,
+        geom=prob.geom, cfg=cfg, mesh=mesh, device=dev,
+        data_shape=list(np.shape(b)),
+        problem={"pad": prob.pad, "dirac": prob.dirac,
+                 "data_term": prob.data_term},
+    )
+    try:
+        t0 = time.perf_counter()
+        res = reconstruct(
+            b, d, prob, dataclasses.replace(cfg, metrics_dir=None),
+            mask=mask, smooth_init=smooth_init, blur_psf=blur_psf,
+            x_orig=x_orig, mesh=mesh, plan=plan, device=device,
+        )
+        tr = res.trace
+        # the traces' one read (also the fence the wall time needs)
+        obj, psnr, diff = torch.stack(
+            [tr.obj_vals, tr.psnr_vals, tr.diff_vals]).double().cpu().numpy()
+        dt = time.perf_counter() - t0
+        n_it = int(tr.num_iters)
+        # trace index 0 is the pre-iteration state; step records are
+        # 1-based like every learner's
+        for it in range(1, min(n_it + 1, obj.shape[0])):
+            run.step(it=it, obj=float(obj[it]), psnr=float(psnr[it]),
+                     diff=float(diff[it]))
+        if n_it > 0:
+            run.chunk(0, n_it, n_it, dt)
+            run.heartbeat(n_it, dt)
+        run.close(
+            status="ok", iterations=n_it, wall_s=round(dt, 4),
+            initial_obj=float(obj[0]) if obj.shape[0] else None,
+            final_obj=float(obj[min(n_it, obj.shape[0] - 1)]),
+        )
+        return res
+    finally:
+        run.close(status="error")
 
 
 def _reconstruct_impl(

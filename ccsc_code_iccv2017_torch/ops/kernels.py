@@ -30,7 +30,10 @@ arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``ccsc_code_iccv2017_torch/build/`` at first use (the file name carries
 the source's hash, so an edited source rebuilds), loaded with ctypes.
 ``build_all()`` starts one nvcc per source at once. The wrappers launch
-on ``torch.cuda.current_stream()`` and never synchronise.
+on ``torch.cuda.current_stream()`` and never synchronise. Each nvcc
+build and each load of a built library is reported to the open
+telemetry runs (``utils.obs.report_compile``: a ``compile`` record of
+kind ``build`` or ``load``).
 
 ``solve_z_rank1`` takes the plain version ``solve_z_rank1_reference``
 only for tensors on the CPU; for CUDA tensors it launches K1 or raises.
@@ -52,6 +55,8 @@ import time
 from typing import Dict, Optional, Sequence
 
 import torch
+
+from ..utils import obs
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -134,6 +139,7 @@ def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
         os.replace(tmp, lib_path)
         out[name] = {"path": lib_path, "compiled": True,
                      "seconds": seconds, "log": log}
+        obs.report_compile("build", name, seconds)
     if failed:
         raise RuntimeError("\n".join(failed))
     return out
@@ -156,7 +162,10 @@ def bound_library(name: str, bind) -> ctypes.CDLL:
     with _LOAD_LOCK:
         lib = _LIBRARIES.get(name)
         if lib is None:
-            lib = _LIBRARIES[name] = bind(ctypes.CDLL(build(name)["path"]))
+            path = build(name)["path"]
+            t0 = time.perf_counter()
+            lib = _LIBRARIES[name] = bind(ctypes.CDLL(path))
+            obs.report_compile("load", name, time.perf_counter() - t0)
         return lib
 
 

@@ -10,6 +10,15 @@ that keeps the last good state, rho-backoff recovery, graceful
 preemption and checkpoint cadence/resume. Each outer step reads its four
 metric scalars back in one host sync, as the JAX driver does.
 
+With ``cfg.metrics_dir`` the run writes its telemetry stream (utils.obs):
+run metadata, one ``step`` record per adopted step with the ObsExtras
+fields, its ``roofline`` (the analytic utils.perfmodel cost) and
+``heartbeat``, ``recovery`` / ``preemption`` / checkpoint records, the
+section timers and a closing ``summary``. The extras leave the card in
+the step's one host read, and every record is written after it, so the
+stream adds no read and no launch, and the trajectory is the one without
+it. On a mesh every rank writes its own ``events-pNNNNN.jsonl``.
+
 On a mesh (parallel.mesh) every rank runs this loop on its shard: the
 block-local fields hold its L = N / nb blocks (and its K / nk filters
 under 'filter'), dbar/udbar are replicated. Every host-side decision
@@ -32,7 +41,7 @@ from ..ops import fourier
 from . import mesh as mesh_lib
 from .distributed import GlobalBlockArray
 from ..utils import checkpoint as ckpt
-from ..utils import resilience, validate
+from ..utils import obs, perfmodel, profiling, resilience, validate
 from ..utils.resilience import console
 from ..utils.device import PhaseTimer, resolve_device
 
@@ -89,14 +98,16 @@ def learn(
     assembles them). Checkpoints: rank 0 writes the gathered global
     state in the one-device format.
 
-    Not ported yet: ``profile_dir`` and ``figures_dir`` (item 10), the
-    chunked driver (item 9, refused by LearnConfig) and chaos faults.
+    ``profile_dir`` captures a ``torch.profiler`` trace of the step loop
+    (utils.profiling.xla_trace; each step is the span ``ccsc_outer_<i>``),
+    kernels on the card included. ``verbose='all'`` writes per-iteration
+    figures (the filter mosaic and original-vs-iterate panels, PNG) into
+    ``figures_dir`` (default ``ccsc_figures``); on a mesh rank 0 writes
+    them. ``cfg.metrics_dir``: the telemetry stream (module docstring).
+
+    Not ported yet: the chunked driver (item 9, refused by LearnConfig)
+    and chaos faults.
     """
-    if profile_dir is not None or figures_dir is not None:
-        raise NotImplementedError(
-            "profile_dir / figures_dir: profiling and figures are not "
-            "ported yet (ROADMAP.md Queue 1 item 10)"
-        )
     N = cfg.num_blocks
     ndim_s = geom.ndim_spatial
     if isinstance(b, GlobalBlockArray):
@@ -127,7 +138,51 @@ def learn(
         b_blocks = mesh_lib.fslice(b.reshape(N, ni, *b.shape[1:]), mesh,
                                    "block" if mesh is not None else None,
                                    dim=0)
+    data_shape = [N * ni, *b_blocks.shape[2:]]
 
+    run = obs.start_run(
+        cfg.metrics_dir, algorithm="consensus", verbose=cfg.verbose,
+        geom=geom, cfg=cfg,
+        fingerprint=resilience.config_fingerprint(geom, cfg, "consensus"),
+        mesh=mesh, device=dev, data_shape=data_shape,
+    )
+    try:
+        step_cost = None
+        if run.active:
+            # the analytic cost of one outer step of THIS problem: each
+            # step's achieved rate is scored against it (roofline)
+            step_cost = perfmodel.analytic_outer_step_cost(
+                num_blocks=N, ni=ni, k=geom.num_filters,
+                spatial=fg.spatial_shape, num_freq=fg.num_freq,
+                max_it_d=cfg.max_it_d, max_it_z=cfg.max_it_z,
+                reduce_size=geom.reduce_size,
+                state_dtype_bytes=getattr(torch, cfg.storage_dtype).itemsize,
+                d_state_dtype_bytes=getattr(
+                    torch, cfg.d_storage_dtype).itemsize,
+                fft_impl=cfg.fft_impl,
+                fused_z=learn_mod.fused_z_ok(cfg, fg, mesh, dev),
+                donate_state=cfg.donate_state,
+            )
+            if run.memwatch is not None:
+                run.modeled_hbm_bytes = int(perfmodel.inmem_learn_estimate(
+                    data_shape, geom, cfg)[0])
+        return _learn_impl(
+            b_blocks, geom, cfg, generator, mesh, checkpoint_dir,
+            checkpoint_every, init_d, profile_dir, figures_dir, dev,
+            initial_state, fg, N, ni, run, step_cost,
+        )
+    finally:
+        # idempotent: the normal path closed with status='ok' already
+        run.close(status="error")
+
+
+def _learn_impl(
+    b_blocks, geom, cfg, generator, mesh, checkpoint_dir, checkpoint_every,
+    init_d, profile_dir, figures_dir, dev, initial_state, fg, N, ni, run,
+    step_cost,
+):
+    timers = profiling.SectionTimers()
+    t_setup0 = time.perf_counter()
     if initial_state is not None:
         state = learn_mod.LearnState(
             *(t.to(dev).contiguous() for t in initial_state)
@@ -205,22 +260,28 @@ def learn(
     t_total = trace["tim_vals"][-1]
     it_done = start_it
     saved_it = None  # last iteration committed to the checkpoint dir
+    timers.add("setup", time.perf_counter() - t_setup0)
 
-    with resilience.GracefulShutdown() as gs:
+    with resilience.GracefulShutdown() as gs, \
+            profiling.xla_trace(profile_dir, dev):
         i = start_it
         while i < cfg.max_it:
             t0 = time.perf_counter()
-            new_state, m = learn_mod.outer_step(
-                state, b_blocks, geom, recov.cfg, fg, N, on_phase=timer,
-                mesh=mesh,
-            )
-            # the one host read of the step (also its device fence); on a
-            # mesh every rank reads rank 0's metrics and any rank's
-            # shutdown request, so every rank decides alike
-            (obj_d, obj_z, d_diff, z_diff), stop_req = mesh_lib.agree(
-                torch.stack([m.obj_d, m.obj_z, m.d_diff, m.z_diff]),
-                gs.requested, mesh,
-            )
+            with profiling.annotate(f"ccsc_outer_{i}"):
+                new_state, m = learn_mod.outer_step(
+                    state, b_blocks, geom, recov.cfg, fg, N, on_phase=timer,
+                    mesh=mesh,
+                )
+                # the one host read of the step (also its device fence),
+                # the telemetry scalars in it; on a mesh every rank reads
+                # rank 0's metrics and any rank's shutdown request, so
+                # every rank decides alike
+                vals, stop_req = mesh_lib.agree(
+                    torch.stack([m.obj_d, m.obj_z, m.d_diff, m.z_diff,
+                                 *(m.extras or ())]),
+                    gs.requested, mesh,
+                )
+            obj_d, obj_z, d_diff, z_diff = vals[:4]
             # a non-finite metric means the iterate diverged: keep the
             # last good state (or back off rho and retry from it)
             if not all(
@@ -238,9 +299,11 @@ def learn(
                 if ev is None:
                     break
                 trace.setdefault("recoveries", []).append(ev)
+                run.event("recovery", **ev)
                 continue  # retry iteration i with the backed-off rho
             state = new_state
             dt = time.perf_counter() - t0
+            timers.add("step", dt)
             t_total += dt
             trace["obj_vals_d"].append(obj_d)
             trace["obj_vals_z"].append(obj_z)
@@ -251,21 +314,35 @@ def learn(
             if phases is not None:
                 trace.setdefault("d_pass_ms", []).append(phases[0])
                 trace.setdefault("z_pass_ms", []).append(phases[1])
+            run.step(
+                it=i + 1, obj_d=obj_d, obj_z=obj_z, d_diff=d_diff,
+                z_diff=z_diff, t_total=round(t_total, 4),
+                **_extras_fields(vals[4:]),
+            )
+            run.chunk(i, 1, 1, dt, cost=step_cost)
+            run.heartbeat(i + 1, dt)
             console(
                 cfg,
                 f"Iter {i + 1}, Obj_d {obj_d:.4g}, Obj_z {obj_z:.4g}, "
                 f"Diff_d {d_diff:.3g}, Diff_z {z_diff:.3g}, "
                 f"t {t_total:.2f}s",
             )
+            if cfg.verbose == "all":
+                _write_figures(figures_dir or "ccsc_figures", i + 1, state,
+                              b_blocks, geom, cfg, fg, mesh)
             it_done = i + 1
             preempting = stop_req and i + 1 < cfg.max_it
             if preempting:
                 trace.setdefault("preemptions", []).append(i + 1)
+                run.event("preemption", iteration=i + 1, signum=gs.signum)
             if checkpoint_dir is not None and (
                 (i + 1) % checkpoint_every == 0 or preempting
             ):
-                _save(checkpoint_dir, state, trace, i + 1, fingerprint, mesh)
+                with timers.section("checkpoint"):
+                    _save(checkpoint_dir, state, trace, i + 1, fingerprint,
+                          mesh)
                 saved_it = i + 1
+                run.drain_timers(timers)
             if preempting:
                 console(cfg, f"preempted: checkpointed iteration {i + 1}, "
                               "exiting cleanly", always=True)
@@ -275,11 +352,51 @@ def learn(
             i += 1
 
     if checkpoint_dir is not None and saved_it != it_done:
-        _save(checkpoint_dir, state, trace, it_done, fingerprint, mesh)
+        with timers.section("checkpoint"):
+            _save(checkpoint_dir, state, trace, it_done, fingerprint, mesh)
+    with timers.section("final_eval"):
+        _, d_sup, Dz = learn_mod.eval_block(state, b_blocks, geom, cfg, fg,
+                                            mesh=mesh)
+        Dz = Dz.reshape(-1, *Dz.shape[2:])
+    run.drain_timers(timers)
+    run.close(status="ok", iterations=it_done, wall_s=round(t_total, 4))
+    return learn_mod.LearnResult(d_sup, state.z, Dz, trace)
+
+
+def _extras_fields(vals) -> dict:
+    """The ObsExtras values of a step's host read (in field order) as
+    step-record fields; none without telemetry."""
+    if not vals:
+        return {}
+    fid, l1, dis, nonf = vals
+    return {"obj_fid": fid, "obj_l1": l1, "consensus_dis": dis,
+            "nonfinite_z": int(nonf)}
+
+
+def _write_figures(figdir, it, state, b_blocks, geom, cfg, fg, mesh=None):
+    """The iteration's filter mosaic and original-vs-iterate panels
+    (display_func, dParallel.m:326-369) as ``filters_NNN.png`` and
+    ``iterates_NNN.png``. Every rank of a mesh evaluates; rank 0
+    writes."""
+    import os
+
+    from ..utils import display
+
     _, d_sup, Dz = learn_mod.eval_block(state, b_blocks, geom, cfg, fg,
                                         mesh=mesh)
-    Dz = Dz.reshape(-1, *Dz.shape[2:])
-    return learn_mod.LearnResult(d_sup, state.z, Dz, trace)
+    if mesh is not None and mesh.rank != 0:
+        return
+    os.makedirs(figdir, exist_ok=True)
+    display.save_filter_mosaic(
+        os.path.join(figdir, f"filters_{it:03d}.png"),
+        d_sup.cpu().numpy(), title=f"iter {it}",
+    )
+    flat_Dz = Dz.reshape(-1, *Dz.shape[2:]).cpu().numpy()
+    flat_b = b_blocks.reshape(-1, *b_blocks.shape[2:]).cpu().numpy()
+    display.save_iterate_panel(
+        os.path.join(figdir, f"iterates_{it:03d}.png"),
+        list(flat_b[:3]), list(flat_Dz[:3]), title=f"iter {it}",
+    )
 
 
 def _check_mesh(mesh, device, geom, fg, num_blocks) -> torch.device:

@@ -40,8 +40,11 @@ Differences from the JAX module: ``generator`` (a torch.Generator) and
 drawn on the host from seed 0 and placed block by block. The d-pass
 kernel hoists Z^H b, as the port's in-memory learner does, so the paged
 d-pass uploads no data spectra. The z-diff sums run on the card in every
-tier. The chunked cadence (``outer_chunk > 1``, item 9), telemetry and
-the watchdog (item 10) and chaos faults are not ported.
+tier. With ``cfg.metrics_dir`` the run writes its telemetry stream under
+``algorithm="consensus_streaming"`` (utils.obs), each step scored
+against the consensus step's analytic cost (the host copies of the paged
+tiers are not in that model). The chunked cadence (``outer_chunk > 1``,
+item 9), the watchdog (item 10) and chaos faults are not ported.
 """
 from __future__ import annotations
 
@@ -55,7 +58,7 @@ from ..config import LearnConfig, ProblemGeom
 from ..models import common, learn as learn_mod
 from ..ops import freq_solvers
 from ..utils import checkpoint as ckpt
-from ..utils import env, resilience, validate
+from ..utils import env, obs, perfmodel, resilience, validate
 from ..utils.device import PhaseTimer, resolve_device
 from ..utils.resilience import console
 
@@ -188,7 +191,6 @@ def learn_streaming(
         )
     for unported, what, item in (
         (cfg.outer_chunk > 1, "outer_chunk > 1 (the chunked cadence)", 9),
-        (cfg.metrics_dir is not None, "metrics_dir (run telemetry)", 10),
         (cfg.watchdog, "watchdog (the dispatch-fence watchdog)", 10),
     ):
         if unported:
@@ -209,6 +211,30 @@ def learn_streaming(
     )
     b_blocks = b.reshape(N, ni, *b.shape[1:])
 
+    run = obs.start_run(
+        cfg.metrics_dir, algorithm="consensus_streaming",
+        verbose=cfg.verbose, geom=geom, cfg=cfg,
+        fingerprint=resilience.config_fingerprint(
+            geom, cfg, "consensus_streaming"),
+        device=dev, data_shape=list(b.shape), stream_mode=stream_mode,
+    )
+    try:
+        return _learn_streaming_impl(
+            b_blocks, geom, cfg, generator, stream_mode, checkpoint_dir,
+            checkpoint_every, dev, initial_state, fg, run,
+        )
+    finally:
+        # idempotent backstop for escaping exceptions
+        run.close(status="error")
+
+
+def _learn_streaming_impl(
+    b_blocks, geom, cfg, generator, stream_mode, checkpoint_dir,
+    checkpoint_every, dev, initial_state, fg, run,
+):
+    host = torch.device("cpu")
+    N, ni = b_blocks.shape[0], b_blocks.shape[1]
+    data_sp = tuple(b_blocks.shape[-geom.ndim_spatial:])
     d_shape = (geom.num_filters, *geom.reduce_shape, *fg.spatial_shape)
     z_shape = (N, ni, geom.num_filters, *fg.spatial_shape)
     expect = dict(d_local=(N, *d_shape), dual_d=(N, *d_shape),
@@ -258,8 +284,9 @@ def learn_streaming(
     recov = resilience.RecoveryManager(cfg, trace)
 
     budget = env.env_float("CCSC_STREAM_RESIDENT_GB") * 1e9
-    mode = select_tier(placement_bytes(b.shape, geom, cfg, fg), budget,
-                       stream_mode or env.env_str("CCSC_STREAM_MODE"))
+    mode = select_tier(
+        placement_bytes((N * ni, *b_blocks.shape[2:]), geom, cfg, fg),
+        budget, stream_mode or env.env_str("CCSC_STREAM_MODE"))
     trace["stream_mode"] = mode
     device_state = mode == "device"
     kern_resident = mode in ("device", "kern")
@@ -319,6 +346,19 @@ def learn_streaming(
     saved_it = None  # last iteration committed to the checkpoint dir
     diverged = False
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    step_cost = None
+    if run.active:
+        # the streamed math is the consensus outer step, so its analytic
+        # roofline applies (the paged tiers' host copies are not in it)
+        step_cost = perfmodel.analytic_outer_step_cost(
+            num_blocks=N, ni=ni, k=geom.num_filters,
+            spatial=fg.spatial_shape, num_freq=fg.num_freq,
+            max_it_d=cfg.max_it_d, max_it_z=cfg.max_it_z,
+            reduce_size=geom.reduce_size,
+            state_dtype_bytes=getattr(torch, cfg.storage_dtype).itemsize,
+            d_state_dtype_bytes=getattr(torch, cfg.d_storage_dtype).itemsize,
+            fft_impl=cfg.fft_impl,
+        )
 
     with resilience.GracefulShutdown() as gs:
         i = start_it
@@ -402,6 +442,7 @@ def learn_streaming(
                     # restore the last good step's state and replay with
                     # the backed-off rho
                     trace.setdefault("recoveries", []).append(ev)
+                    run.event("recovery", **ev)
                     (d_local, dual_d, z, dual_z, dbar, udbar,
                      i) = _restore(rec_snap)
                     continue
@@ -427,6 +468,10 @@ def learn_streaming(
             if phases is not None:
                 trace.setdefault("d_pass_ms", []).append(phases[0])
                 trace.setdefault("z_pass_ms", []).append(phases[1])
+            run.step(it=i + 1, obj_d=o_d, obj_z=o_z, d_diff=dd, z_diff=zd,
+                     t_total=round(t_total, 4))
+            run.chunk(i, 1, 1, dt, cost=step_cost)
+            run.heartbeat(i + 1, dt)
             console(cfg, f"Iter {i + 1}, Obj_z {o_z:.4g}, Diff_d {dd:.3g}, "
                          f"Diff_z {zd:.3g}, t {t_total:.2f}s")
             it_done = i + 1
@@ -435,6 +480,7 @@ def learn_streaming(
             preempting = gs.requested and it_done < cfg.max_it
             if preempting:
                 trace.setdefault("preemptions", []).append(it_done)
+                run.event("preemption", iteration=it_done, signum=gs.signum)
             if checkpoint_dir is not None and (
                 it_done % checkpoint_every == 0 or preempting
             ):
@@ -458,6 +504,7 @@ def learn_streaming(
         learn_mod.f_dz_block(mv.up(z[nn]), dhat_z, geom, fg, data_sp).cpu()
         for nn in range(N)
     ])
+    run.close(status="ok", iterations=it_done, wall_s=round(t_total, 4))
     return learn_mod.LearnResult(
         learn_mod.extract_filters(d_proj, geom).cpu(),
         torch.stack([x.cpu() for x in z]), Dz, trace,

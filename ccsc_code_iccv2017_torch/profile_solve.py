@@ -60,6 +60,8 @@ BANK_HS = os.path.join(REPO, "artifacts_family_cpu", "bank_hs.mat")
 # kernel-name fragments of each kind, first match wins
 KINDS = (
     ("K1", ("k1_registers", "k1_loop")),
+    ("K2a", ("fused_z_pass_a",)),
+    ("K2b", ("fused_z_pass_b",)),
     ("cufft", ("fft", "FFT")),
     ("cublas_cusolver", ("gemm", "gemv", "Gemm", "Gemv", "potrf", "potri",
                          "trsm", "trmm", "syrk", "herk", "cholesky",

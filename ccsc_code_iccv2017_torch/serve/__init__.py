@@ -1,7 +1,8 @@
-"""Serving: the single-device reconstruction engine (torch port of
-``ccsc_code_iccv2017_tpu.serve``'s ``CodecEngine`` core, its plan LRU
-and its valid-region PSNR). The fleet, federation, capture/replay,
-tenancy, SLO and telemetry layers are ROADMAP.md Queue 1 items 10-11.
+"""Serving: the reconstruction engine (torch port of
+``ccsc_code_iccv2017_tpu.serve``'s ``CodecEngine`` core on one device or
+a mesh, its plan LRU, its valid-region PSNR, and its telemetry and SLO
+layer, ``serve.slo``). Capture is ROADMAP.md Queue 1 item 10; the
+fleet, federation, replay, tenancy and quality plane are item 11.
 """
 from .engine import (
     CodecEngine,

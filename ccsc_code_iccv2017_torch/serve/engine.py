@@ -39,13 +39,27 @@ many requests:
    the same spectrum and stop at the same iteration. Results assemble
    in slot order; a position that raises fails the whole dispatch.
 
+5. **Telemetry and SLOs** (``ServeConfig.metrics_dir``, ``slo_*``): the
+   engine's run (utils.obs, ``algorithm="serve"``) records each bucket's
+   warmup, each request's ``request`` / ``engine_queue`` / ``solve``
+   spans (written retrospectively, utils.trace) and ``serve_request``
+   record, each dispatch's ``serve_dispatch`` with its
+   perfmodel.serving_bound, and the SLO monitor's ``slo_breach`` /
+   ``slo_histogram`` records (serve.slo). The first breach arms a
+   one-shot profiler capture of the next dispatch
+   (``slo_profile_dir``), recorded as ``slo_profile`` even when that
+   dispatch raises. ``stats()`` reads its percentiles from the O(1)
+   latency histograms. Only the dispatching thread writes spans and
+   serve records; the quality plane's ``quality_*`` records belong to
+   ROADMAP.md Queue 1 item 11.
+
 The host reads one scalar per iteration per bucket (the count of
 active slots; on a mesh, per position) instead of one per request.
 Dispatch is synchronous in one worker thread, which pins the engine's
 device (or hands the shards to the positions' threads) and surfaces
 every exception on its batch's futures; nothing falls back to the CPU.
-Tuning, pipelining, telemetry, capture, artifacts and staged warmup are
-later ROADMAP.md Queue 1 items (9-11); ``ServeConfig`` refuses them.
+Tuning, pipelining, capture, artifacts and staged warmup are later
+ROADMAP.md Queue 1 items (9-11); ``ServeConfig`` refuses them.
 """
 from __future__ import annotations
 
@@ -69,9 +83,11 @@ from ..models.reconstruct import (
     place_plan,
 )
 from ..parallel.local_mesh import LocalMesh, MeshBarrierError
-from ..utils import env, validate
+from ..utils import env, obs, perfmodel, profiling, validate
+from ..utils import trace as trace_util
 from ..utils.device import resolve_device
 from . import registry
+from . import slo as _slo
 from .quality import valid_region_psnr
 
 
@@ -118,6 +134,7 @@ class _Pending:
     digest: str = ""  # the bank digest bound at admission
     bank_id: Optional[str] = None
     deadline: Optional[float] = None  # absolute epoch seconds
+    trace_id: Optional[str] = None  # the request's span tree (utils.trace)
 
 
 def _bucket_name(slots: int, spatial: Tuple[int, ...]) -> str:
@@ -260,8 +277,6 @@ class CodecEngine:
         self.device = resolve_device(device)
         self._mesh, self._mesh_shape, note = _resolve_mesh(
             serve_cfg, self.device)
-        if note:
-            print(note, flush=True)
         if self._mesh is not None:
             self.device = self._mesh.devices[0]
         self._pools: List[ThreadPoolExecutor] = []
@@ -282,6 +297,42 @@ class CodecEngine:
                 )
         if blur_psf is not None:
             validate.check_finite("blur_psf", blur_psf)
+
+        # SLO layer: per-phase latency histograms and declared targets,
+        # checked on the dispatch path; a breach may arm a one-shot
+        # profiler capture of the next dispatch
+        self._slo = _slo.SloMonitor(
+            _slo.resolve_targets(serve_cfg.slo_p50_ms, serve_cfg.slo_p99_ms),
+            check_s=serve_cfg.slo_check_s,
+        )
+        self._slo_profile_dir = (serve_cfg.slo_profile_dir
+                                 or env.env_str("CCSC_SLO_XPROF_DIR"))
+        self._profile_armed: Optional[str] = None
+        self._profiled = False
+        self._replica_id = serve_cfg.replica_id
+        self._knob_dict = {
+            k: getattr(cfg, k) for k in ("fft_impl", "fft_pad",
+                                         "storage_dtype", "use_pallas",
+                                         "herm_inv")
+        }
+        self._knob_dict.update(tune=serve_cfg.tune, tuned=False)
+        if self._mesh_shape:
+            self._knob_dict["devices"] = self.devices
+            self._knob_dict["mesh"] = "x".join(map(str, self._mesh_shape))
+        self._run = obs.start_run(
+            serve_cfg.metrics_dir, algorithm="serve",
+            verbose=serve_cfg.verbose, geom=geom, cfg=cfg, mesh=self._mesh,
+            device=self.device,
+            buckets=[{"slots": s, "spatial": list(sp)}
+                     for s, sp in serve_cfg.buckets],
+            compile_cache=None, serve_devices=self.devices,
+            serve_mesh=list(self._mesh_shape) if self._mesh_shape else None,
+            problem={"pad": prob.pad, "dirac": prob.dirac,
+                     "data_term": prob.data_term},
+        )
+        if note:
+            self._run.console(note, tier="always")
+
         try:
             self._build(d, blur_psf)
         except BaseException:
@@ -290,6 +341,7 @@ class CodecEngine:
             with self._close_lock:
                 self._close_started = True
             self._stop_worker()
+            self._run.close(status="error")
             self._close_done.set()
             raise
 
@@ -320,7 +372,7 @@ class CodecEngine:
         self._max_wait_s = serve_cfg.max_wait_ms / 1e3
         self._n_dispatches = 0
         self._occupancy_sum = 0.0
-        self._latencies: List[float] = []
+        self._max_latency_s = 0.0
         # one entry per request dispatch: its requests, the iterations
         # it ran (max num_iters over its batch: one K1 launch each on
         # the card), the loop iterations and all-gathers of each mesh
@@ -342,14 +394,42 @@ class CodecEngine:
         where = (self.device if self._mesh is None else
                  f"mesh {self._mesh_shape} on "
                  f"{[str(v) for v in self._mesh.devices]}")
-        for bkey in self._buckets:
+        t_warm0 = time.perf_counter()
+        for stage, bkey in enumerate(self._buckets):
             t0 = time.perf_counter()
-            plan = self._install_plan(default_digest, bkey, d)
+            plan = self._install_plan(default_digest, bkey, d,
+                                      announce=False)
             if serve_cfg.aot_warmup:
                 self._warm_dispatch(bkey, plan)
-            if serve_cfg.verbose != "none":
-                print(f"serve: bucket {_bucket_name(*bkey)} warm in "
-                      f"{time.perf_counter() - t0:.3f} s on {where}")
+            dt = time.perf_counter() - t0
+            name = _bucket_name(*bkey)
+            # "compiled": the warm dispatch built the kernels and the
+            # cuFFT plans; "lazy": the first request pays them
+            source = "compiled" if serve_cfg.aot_warmup else "lazy"
+            self._emit(
+                "serve_warmup", bucket=name, aot=bool(serve_cfg.aot_warmup),
+                source=source, warmup_s=round(dt, 4), fetch_s=None,
+                compile_s=None, devices=self.devices, digest=default_digest,
+                mesh=list(self._mesh_shape) if self._mesh_shape else None,
+                knobs=self._knob_dict,
+            )
+            self._emit(
+                "warmup_stage", bucket=name, stage=stage,
+                n_stages=len(self._buckets), source=source,
+                ready_s=round(time.perf_counter() - t_warm0, 4),
+            )
+            self._run.console(f"serve: bucket {name} warm in {dt:.3f} s on "
+                              f"{where}", tier="brief")
+        total = time.perf_counter() - t_warm0
+        self._emit(
+            "serve_ready", n_buckets=len(self._buckets),
+            warmup_s=round(total, 4), first_ready_s=round(total, 4),
+            staged=False, n_fetched=0,
+            n_compiled=len(self._buckets) if serve_cfg.aot_warmup else 0,
+            persistent_cache_hits=None, devices=self.devices,
+            mesh=list(self._mesh_shape) if self._mesh_shape else None,
+            knobs=self._knob_dict,
+        )
 
         self._worker = threading.Thread(
             target=self._work_loop, name="ccsc-serve", daemon=True
@@ -483,6 +563,18 @@ class CodecEngine:
         return host
 
     # ------------------------------------------------------------------
+    def _emit(self, type_: str, **fields) -> None:
+        """Every serve record rides through here, so it carries the
+        replica identity (None for a standalone engine), as in the JAX
+        package."""
+        self._run.event(type_, replica_id=self._replica_id, **fields)
+
+    def _emit_span(self, type_: str, **fields) -> None:
+        """Span-event adapter for utils.trace: ``_emit`` stamps the
+        replica id itself."""
+        fields.pop("replica_id", None)
+        self._emit(type_, **fields)
+
     def bucket_for(self, spatial: Sequence[int]) -> Tuple[int, Tuple[int, ...]]:
         """Smallest configured bucket that fits ``spatial``."""
         return pick_bucket(self._buckets, spatial)
@@ -536,6 +628,7 @@ class CodecEngine:
             x_orig=host(x_orig), spatial=spatial, future=Future(),
             t_submit=time.perf_counter(), bank_id=bank_id,
             deadline=deadline,
+            trace_id=trace_util.new_trace_id() if self._run.active else None,
         )
         with self._cv:
             if self._closed or self._close_started:
@@ -632,12 +725,15 @@ class CodecEngine:
                     self._pending[key] = self._pending[key][slots:]
                     self._n_pending -= len(batch)
                     self._dispatching = key[1]
+                    depth_after = self._n_pending
             for p in expired:
                 # a cancelled future is dropped; a live one fails
                 if p.future.set_running_or_notify_cancel():
                     p.future.set_exception(
                         DeadlineExceeded("dispatch", p.deadline)
                     )
+                    self._emit("deadline_exceeded", where="dispatch",
+                               deadline=round(p.deadline, 3))
             if key is None:
                 continue
             # a client-cancelled request is dropped here: set_result on
@@ -646,11 +742,12 @@ class CodecEngine:
                      if p.future.set_running_or_notify_cancel()]
             try:
                 if batch:
-                    self._dispatch(key, batch)
+                    self._dispatch(key, batch, depth_after)
             except Exception as e:
                 for p in batch:
                     if not p.future.done():
                         p.future.set_exception(e)
+                self._emit("serve_error", error=str(e)[:300])
             finally:
                 self._release_digest()
 
@@ -662,9 +759,12 @@ class CodecEngine:
         with self._cv:
             self._dispatching = None
 
-    def _dispatch(self, key, batch: List[_Pending]) -> None:
+    def _dispatch(self, key, batch: List[_Pending], depth_after: int) -> None:
         """One synchronous dispatch: canvas fill, the bucket's slot-wise
-        solve, readback, per-request crop and futures."""
+        solve, readback, per-request crop and futures, then the
+        dispatch's telemetry (spans, serve records, the SLO tick).
+        ``depth_after``: the requests still queued once this batch was
+        taken."""
         bkey, digest = key
         slots, spatial = bkey
         geom = self.geom
@@ -691,7 +791,15 @@ class CodecEngine:
                 ss[sl] = p.smooth_init
             if p.x_orig is not None:
                 xx[sl] = p.x_orig
-        out = self._solve(plan, bb, mm, ss, xx, cfg)
+        # a breach armed a ONE-SHOT capture of this dispatch (serve.slo);
+        # it is consumed and recorded even when the solve raises
+        prof_dir, self._profile_armed = self._profile_armed, None
+        try:
+            with profiling.xla_trace(prof_dir, self.device):
+                out = self._solve(plan, bb, mm, ss, xx, cfg)
+        finally:
+            if prof_dir:
+                self._emit("slo_profile", trace_dir=prof_dir, bucket=name)
         iters, obj, psnr, diff = (out[k] for k in ("iters", "obj", "psnr",
                                                    "diff"))
         recon, z, ex = out["recon"], out["z"], out["extras"]
@@ -699,6 +807,21 @@ class CodecEngine:
         self._release_digest()
 
         max_it = int(iters[: len(batch)].max())
+        dt = t_done - t0
+        # the dispatch is on the books before any of its futures resolves,
+        # so a client holding its result sees it in stats() and the log
+        occ = len(batch) / slots
+        with self._lock:
+            self._n_dispatches += 1
+            self._occupancy_sum += occ
+            self._dispatch_log.append({
+                "requests": len(batch), "iters": max_it,
+                "position_iters": out["position_iters"],
+                "gathers": out["gathers"], "wall_s": dt,
+            })
+        # span timestamps on the wall clock, from the perf-counter
+        # measurements through one offset
+        wall_off = time.time() - time.perf_counter()
         for i, p in enumerate(batch):
             crop = tuple(slice(0, s) for s in p.spatial)
             rec_i = recon[i][(..., *crop)]
@@ -720,35 +843,91 @@ class CodecEngine:
                 latency_s=t_done - p.t_submit,
                 z=z[i] if z is not None else None,
             )
-            with self._lock:
-                self._latencies.append(res.latency_s)
+            with self._lock:  # stats() reads the two together
+                self._slo.observe("queue", res.wait_s * 1e3)
+                self._slo.observe("solve", dt * 1e3)
+                self._slo.observe("total", res.latency_s * 1e3)
+                self._max_latency_s = max(self._max_latency_s,
+                                          res.latency_s)
+            if p.trace_id is not None:
+                # retrospective spans: start and end written together,
+                # so no failure can orphan a span_start
+                root = trace_util.emit_span(
+                    self._emit_span, trace_id=p.trace_id,
+                    span=trace_util.ROOT_SPAN,
+                    t_start=wall_off + p.t_submit, t_end=wall_off + t_done,
+                )
+                trace_util.emit_span(
+                    self._emit_span, trace_id=p.trace_id,
+                    span="engine_queue", parent_span=root,
+                    t_start=wall_off + p.t_submit, t_end=wall_off + t0,
+                )
+                trace_util.emit_span(
+                    self._emit_span, trace_id=p.trace_id, span="solve",
+                    parent_span=root, t_start=wall_off + t0,
+                    t_end=wall_off + t_done, bucket=name,
+                    iters=int(iters[i]),
+                )
             p.future.set_result(res)
-        with self._lock:
-            self._n_dispatches += 1
-            self._occupancy_sum += len(batch) / slots
-            self._dispatch_log.append({
-                "requests": len(batch), "iters": max_it,
-                "position_iters": out["position_iters"],
-                "gathers": out["gathers"], "wall_s": t_done - t0,
-            })
+            self._emit(
+                "serve_request", trace_id=p.trace_id, bucket=name,
+                spatial=list(p.spatial), wait_ms=round(res.wait_s * 1e3, 3),
+                latency_ms=round(res.latency_s * 1e3, 3),
+                iters=int(iters[i]), psnr=res.psnr, bank_id=p.bank_id,
+                tenant=None,
+            )
+        it_rate = max_it / dt if dt > 0 and max_it else 0.0
+        # the full-bucket ceiling at this dispatch's measured iteration
+        # rate: the achieved len(batch)/dt sits below it by the unfilled
+        # slots
+        bound = perfmodel.serving_bound(it_rate, max(max_it, 1), slots,
+                                        occupancy=1.0)
+        self._emit(
+            "serve_dispatch", bucket=name, digest=digest, n=len(batch),
+            slots=slots, occupancy=round(occ, 4), queue_depth=depth_after,
+            dt_s=round(dt, 5), max_iters=max_it,
+            it_per_sec=round(it_rate, 3),
+            requests_per_sec=round(len(batch) / dt if dt > 0 else 0.0, 3),
+            bound_requests_per_sec=round(bound["requests_per_sec"], 3),
+        )
+        # the SLO check (cadence-gated in the monitor): breaches and
+        # histogram snapshots land in the stream, and the first breach
+        # arms the one-shot capture of the NEXT dispatch
+        breaches, snaps = self._slo.tick()
+        for br in breaches:
+            self._emit("slo_breach", **br)
+        for sn in snaps:
+            self._emit("slo_histogram", **sn)
+        if breaches and self._slo_profile_dir and not self._profiled:
+            self._profiled = True
+            self._profile_armed = self._slo_profile_dir
 
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, object]:
-        """Request-latency percentiles (exact, from the list of served
-        latencies) and dispatch aggregates."""
+        """Request-latency percentiles and dispatch aggregates. The
+        percentiles come from the streaming log-bucketed histogram of
+        submit-to-result latency (serve.slo: O(1) memory on a long-lived
+        engine, each within one bucket width of the exact value), the
+        numbers the ``slo_histogram`` records quote."""
         with self._lock:
-            lat = list(self._latencies)
             n_disp, occ = self._n_dispatches, self._occupancy_sum
+            max_s = self._max_latency_s
+            n = self._slo.n("total")
+            ms = {q: self._slo.percentile("total", q) for q in (0.50, 0.99)}
 
-        def pct(q):
-            return float(np.percentile(lat, q)) if lat else None
+        def seconds(v):
+            if v is None:
+                return None
+            # an answer clamped to the largest latency is that latency,
+            # in seconds as measured (not via the ms round trip)
+            return max_s if v >= max_s * 1e3 else v / 1e3
 
         return {
-            "n_requests": len(lat),
+            "n_requests": n,
             "n_dispatches": n_disp,
             "mean_occupancy": occ / n_disp if n_disp else 0.0,
-            "p50_latency_s": pct(50),
-            "p99_latency_s": pct(99),
+            "p50_latency_s": seconds(ms[0.50]),
+            "p99_latency_s": seconds(ms[0.99]),
         }
 
     @property
@@ -827,13 +1006,17 @@ class CodecEngine:
             )
         return self._install_plan(digest, bkey, d)
 
-    def _install_plan(self, digest: str, bkey, d):
+    def _install_plan(self, digest: str, bkey, d, announce: bool = True):
         """Build one bucket's plan for one bank and insert it into the
         LRU, pinning the digests with queued work against eviction. On a
         mesh the plan is built once (the mesh refused first if it cannot
         shard the bucket) and placed on every position, keyed (digest,
-        (bucket, position)); returns the list of the positions' plans."""
+        (bucket, position)); returns the list of the positions' plans.
+        ``announce``: write ``bank_plan_build`` / ``bank_plan_evict`` (the
+        warmup's own installs are ``serve_warmup`` records instead, as in
+        the JAX package)."""
         mesh = self._mesh
+        t0 = time.perf_counter()
         plan = build_plan(
             d, self.prob, self.cfg, bkey[1], blur_psf=self._blur_psf,
             device=self.device,
@@ -843,7 +1026,9 @@ class CodecEngine:
         with self._cv:
             pin = {lane[1] for lane, lst in self._pending.items() if lst}
         if mesh is None:
-            self._plan_cache.put(digest, bkey, plan, pin=pin)
+            evicted = self._plan_cache.put(digest, bkey, plan, pin=pin)
+            if announce:
+                self._emit_plan_build(digest, bkey, t0, evicted)
             return plan
         nf = mesh.size // mesh.mesh_shape[0]
         plans = [place_plan(plan, dev, pos % nf, nf)
@@ -852,9 +1037,29 @@ class CodecEngine:
             # the placement copies ran on the default streams; the
             # positions read the plans on their own
             torch.cuda.synchronize(dev)
+        evicted = []
         for pos, p in enumerate(plans):
-            self._plan_cache.put(digest, (bkey, pos), p, pin=pin | {digest})
+            evicted += self._plan_cache.put(digest, (bkey, pos), p,
+                                            pin=pin | {digest})
+        # a mesh key is (digest, (bucket, position)): one record a bucket
+        evicted = list(dict.fromkeys((dg, k[0]) for dg, k in evicted))
+        if announce:
+            self._emit_plan_build(digest, bkey, t0, evicted)
         return plans
+
+    def _emit_plan_build(self, digest: str, bkey, t0: float,
+                         evicted) -> None:
+        """``bank_plan_build`` for a built plan, ``bank_plan_evict`` for
+        each plan its insertion evicted."""
+        self._emit(
+            "bank_plan_build", digest=digest, bucket=_bucket_name(*bkey),
+            build_s=round(time.perf_counter() - t0, 4),
+            plan_bytes=self._plan_cache.total_bytes,
+        )
+        for ev_digest, ev_bkey in evicted:
+            self._emit("bank_plan_evict", digest=ev_digest,
+                       bucket=_bucket_name(*ev_bkey),
+                       plan_bytes=self._plan_cache.total_bytes)
 
     def add_bank(self, d, blur_psf=None) -> str:
         """Register a bank and build its per-bucket plans without
@@ -959,6 +1164,8 @@ class CodecEngine:
                 taken.extend(self._pending[k])
                 self._n_pending -= len(self._pending[k])
                 self._pending[k] = []
+        if taken:
+            self._emit("serve_drain", n=len(taken))
         out = []
         for p in taken:
             p.future.cancel()
@@ -983,10 +1190,11 @@ class CodecEngine:
             pool.shutdown(wait=True)
 
     def close(self):
-        """Flush every pending request and stop the worker. Re-entrant
-        and race-safe: the first caller shuts down, the others block
-        until it has finished. A no-op on an engine whose constructor
-        raised."""
+        """Flush every pending request, stop the worker, and close the
+        telemetry run: one closing ``slo_histogram`` per phase, then the
+        summary with the latency percentiles. Re-entrant and race-safe:
+        the first caller shuts down, the others block until it has
+        finished. A no-op on an engine whose constructor raised."""
         with self._close_lock:
             owner = not self._close_started
             self._close_started = True
@@ -995,6 +1203,19 @@ class CodecEngine:
             return
         try:
             self._stop_worker()
+            run = getattr(self, "_run", None)  # None: validation raised
+            if run is not None and not run.closed:
+                if run.active:
+                    for sn in self._slo.final()[1]:
+                        self._emit("slo_histogram", **sn)
+                st = self.stats()
+                run.close(
+                    status="ok", n_requests=st["n_requests"],
+                    n_dispatches=st["n_dispatches"],
+                    mean_occupancy=round(st["mean_occupancy"], 4),
+                    **{k: (None if st[k] is None else round(st[k], 5))
+                       for k in ("p50_latency_s", "p99_latency_s")},
+                )
         finally:
             self._close_done.set()
 

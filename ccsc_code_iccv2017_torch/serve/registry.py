@@ -1,7 +1,8 @@
 """Bank identity and the per-bank plan LRU of the serving engine (the
 torch port of ``ccsc_code_iccv2017_tpu.serve.registry``'s
-``bank_digest`` and ``PlanCache``; the durable ``BankRegistry`` and the
-measured-memory sample belong to ROADMAP.md Queue 1 items 11 and 10)."""
+``bank_digest`` and ``PlanCache``). The durable ``BankRegistry`` and
+the plan cache's measured-memory sample (utils.memwatch, ported with the
+run telemetry) belong to ROADMAP.md Queue 1 item 11."""
 from __future__ import annotations
 
 import threading

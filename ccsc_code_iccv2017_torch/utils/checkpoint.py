@@ -1,6 +1,8 @@
 """Mid-run checkpoint/resume for the learner (a copy of
-``ccsc_code_iccv2017_tpu.utils.checkpoint`` without its chaos and
-telemetry hooks, for torch state).
+``ccsc_code_iccv2017_tpu.utils.checkpoint`` without its chaos hooks,
+for torch state). Each committed save and each load is a
+``checkpoint_save`` / ``checkpoint_load`` record of the current
+telemetry run (utils.obs), as in the JAX package.
 
 The file format is the JAX package's, so a checkpoint written by either
 package resumes in the other: ``ccsc_state.npz`` holds one array per
@@ -100,6 +102,15 @@ def save(
     os.replace(tmp, final)
     _atomic_write_bytes(path_dir, _STATE + _SHA_SUFFIX, sha.encode())
     _atomic_write_bytes(path_dir, _TRACE, trace_blob)
+    # one record per committed generation, and a durability point for
+    # the event stream itself
+    from . import obs
+
+    obs.record("checkpoint_save", iteration=int(it), path=final,
+               bytes=os.path.getsize(final))
+    run = obs.current_run()
+    if run is not None and run.active:
+        run.writer.sync()
     return final
 
 
@@ -201,6 +212,11 @@ def load(path_dir: str, expect_fingerprint: Optional[str] = None):
                     "trace (crash mid-save?) — resuming its state with a "
                     "fresh trace"
                 )
+            from . import obs
+
+            obs.record("checkpoint_load", iteration=int(got[2]),
+                       path=os.path.join(path_dir, state_name),
+                       generation="prev" if idx > 0 else "newest")
             return got
     if had_newest or os.path.exists(os.path.join(path_dir, _STATE_PREV)):
         raise RuntimeError(

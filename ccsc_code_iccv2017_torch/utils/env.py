@@ -21,7 +21,7 @@ __all__ = ["Knob", "REGISTRY", "env_str", "env_float", "env_int",
 @dataclasses.dataclass(frozen=True)
 class Knob:
     name: str
-    kind: str  # 'str' | 'float' | 'int' | 'flag'
+    kind: str  # 'str' | 'path' | 'float' | 'int' | 'flag'
     default: object
     help: str
     surface: str  # the consuming module
@@ -52,6 +52,44 @@ REGISTRY: Dict[str, Knob] = {
              "device regardless); every bucket's slots must divide by "
              "BATCH",
              "serve.engine, serve.bench"),
+        Knob("CCSC_GIT_SHA", "str", None,
+             "git revision override for run_meta provenance (deployed "
+             "copies without a .git)",
+             "utils.obs"),
+        Knob("CCSC_OBS_HEARTBEAT_S", "float", 30.0,
+             "per-host heartbeat cadence in seconds (0 = every fence)",
+             "utils.obs"),
+        Knob("CCSC_INMEM_HBM_GB", "float", 14.0,
+             "device byte budget of the in-memory learn preflight",
+             "utils.perfmodel"),
+        Knob("CCSC_MEMWATCH", "flag", True,
+             "sample torch.cuda.memory_stats() at dispatch fences for the "
+             "measured device-memory watermark (0 disables the poller)",
+             "utils.memwatch, utils.obs"),
+        Knob("CCSC_MEM_DELTA_FRAC", "float", 0.5,
+             "modeled-vs-measured peak-memory relative delta above which "
+             "the mem_watermark record is flagged",
+             "utils.memwatch"),
+        Knob("CCSC_MEM_DUMP_DIR", "path", None,
+             "OOM forensic dump directory override (default: the run's "
+             "metrics dir, else the system temp dir)",
+             "utils.memwatch"),
+        Knob("CCSC_SLO_P50_MS", "float", None,
+             "declared p50 submit->result latency target in ms (fallback "
+             "of ServeConfig.slo_p50_ms; unset = no p50 SLO)",
+             "serve.slo"),
+        Knob("CCSC_SLO_P99_MS", "float", None,
+             "declared p99 submit->result latency target in ms (fallback "
+             "of ServeConfig.slo_p99_ms; unset = no p99 SLO)",
+             "serve.slo"),
+        Knob("CCSC_SLO_CHECK_S", "float", 5.0,
+             "SLO check + slo_histogram snapshot cadence in seconds",
+             "serve.slo"),
+        Knob("CCSC_SLO_XPROF_DIR", "path", None,
+             "arm a one-shot profiler capture (utils.profiling.xla_trace) "
+             "around the next dispatch after an SLO breach, written here "
+             "(fallback of ServeConfig.slo_profile_dir; unset = off)",
+             "serve.slo, serve.engine"),
         Knob("CCSC_SERVE_MESH_STRICT", "flag", True,
              "refuse a serving mesh the visible devices cannot back (the "
              "shortage in the error); 0 falls back to a single-device "

@@ -1,6 +1,6 @@
 """Run resilience: divergence recovery, graceful preemption, run identity
-(a copy of ``ccsc_code_iccv2017_tpu.utils.resilience`` without its
-telemetry hooks; messages go to stdout).
+(a copy of ``ccsc_code_iccv2017_tpu.utils.resilience``; its messages
+go through the current telemetry run's console, utils.obs).
 
 - ``RecoveryManager`` — rho-backoff divergence recovery: when the
   driver's non-finite guard fires it keeps the last good state,
@@ -11,7 +11,8 @@ telemetry hooks; messages go to stdout).
   exit at the next iteration boundary. A second signal forces the
   previous behaviour.
 - ``console`` — the learners' run messages, silenced by
-  ``verbose='none'`` unless ``always``.
+  ``verbose='none'`` unless ``always``; each printed line is also a
+  ``log`` record of the current run (utils.obs).
 - ``config_fingerprint`` — a stable identity hash of the problem, the
   same fields and the same hex digest as the JAX package, so a JAX
   checkpoint resumes in the port and vice versa (utils.checkpoint).
@@ -35,8 +36,14 @@ __all__ = [
 
 def console(cfg, msg: str, always: bool = False) -> None:
     """Print a learner's run message unless ``cfg.verbose == 'none'``
-    (``always`` prints regardless)."""
-    if always or cfg.verbose != "none":
+    (``always`` prints regardless), through the current run's console
+    when one is open, so the line is also a ``log`` record."""
+    from . import obs
+
+    run = obs.current_run()
+    if run is not None:
+        run.console(msg, tier="always" if always else "brief")
+    elif always or cfg.verbose != "none":
         print(msg, flush=True)
 
 
@@ -113,12 +120,14 @@ class RecoveryManager:
             "rho_d": float(self._base.rho_d * self.scale),
             "rho_z": float(self._base.rho_z * self.scale),
         }
-        print(
+        from . import obs
+
+        obs.console(
             f"Iter {failed_it}: divergence recovery {self.used}/"
             f"{self._base.max_recoveries} — restoring last good state, "
             f"backing off rho to scale {self.scale:g} "
             f"(rho_d={ev['rho_d']:g}, rho_z={ev['rho_z']:g})",
-            flush=True,
+            tier="always",
         )
         return ev
 
@@ -147,10 +156,12 @@ class GracefulShutdown:
             return
         self.requested = True
         self.signum = signum
-        print(
+        from . import obs
+
+        obs.console(
             f"received signal {signum}: will checkpoint and exit at the "
             "next iteration boundary (signal again to force)",
-            flush=True,
+            tier="always",
         )
 
     def _restore(self):

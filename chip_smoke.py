@@ -222,16 +222,53 @@ never exits 0):
    K2's limit) with fused_z=True runs without raising, launches K1
    max_it_z times and K2 never, and its filters and obj_z equal, bit
    for bit, the same step with fused_z=False.
+17. Run telemetry (``utils.obs``; run after 16, before the output of
+   14): (a) phase 7's learner (its configuration and seed) for
+   TEL_STEPS=2 steps three times: plain, with ``metrics_dir``, and with
+   ``metrics_dir`` and ``profile_dir``. K2a and K2b launch max_it_z x 2
+   times in each; every record carries the fields
+   ``analysis/obs_schema.py`` requires; 2 ``step`` records with
+   ``nonfinite_z`` 0 and obj_fid + obj_l1 = obj_z (rel 1e-5); each
+   ``roofline`` record on the ``h100`` row with 0 < hbm_frac <= 1.05 and a
+   positive bound; one ``mem_watermark`` whose ``peak_hbm_bytes`` equals
+   ``torch.cuda.max_memory_allocated()`` read right after the run (the
+   phase resets the peak before it); one ``summary`` with status ok; d
+   and the traces bitwise the plain run's, and the plain run's traces
+   bitwise phase 7's first 2 steps (if phase 7 does not repeat bit for
+   bit, the telemetry runs are held to the plain run's spread from it
+   and the finding printed); the profiler trace holds as many K2a and
+   K2b kernel events (``profile_solve.kernel_kind``) as the counters.
+   (b) Phase 10's 42 requests through a 4-slot 256x256 engine three
+   times: plain (this phase's baseline), with ``metrics_dir``, and with
+   ``metrics_dir``, ``slo_p99_ms=0.001``, ``slo_check_s=0.001`` and
+   ``slo_profile_dir``. Each: K1 launched the dispatches' iterations,
+   every request bitwise phase 10's, ``stats()`` p99 within one
+   histogram bucket of the exact p99; with a stream, 42 complete span
+   trees {request, engine_queue, solve}, one ``serve_request`` per
+   request and one ``serve_dispatch`` per dispatch, matching the
+   dispatch log; with the SLO, exactly one ``slo_profile``, whose trace
+   holds as many K1 kernel events as its dispatch's iterations.
+   Requests/s over the window and over the dispatches beside phase
+   10's. (c) One 256x256 request through
+   ``reconstruct(plan=...)`` untraced and with ``SolveConfig(
+   metrics_dir=)``: bitwise the same, K1 launched its iterations both
+   times, ``step`` records 1..n_it and ``summary.iterations`` n_it. (d)
+   ``learn_3d --synthetic --metrics-dir`` in a fresh process (1 step):
+   its stream validates and holds one ``compile`` record, kind
+   ``load``, for ``solve_z_rank1`` (built in phase 2), and no ``build``.
 14. Output: a
    ``{"slice": ...}`` line (serving), a ``{"learn": ...}`` line, a
    ``{"serve_engine": ...}`` line (the engine phase and the
    ``serve/bench.py`` record), an ``{"apps": ...}`` line, a
    ``{"learners": ...}`` line, a ``{"streaming": ...}`` line, a
    ``{"mesh": ...}`` line, a ``{"serve_mesh": ...}`` line, a
+   ``{"telemetry": ...}`` line (17's counts and seconds, with and
+   without telemetry and the profiler), a
    ``{"kernels": [...]}`` line (K1, K2a, K2b; K1's launches by path:
    reconstruct, engine, poisson, deblur, learn_3d, learn_2d_masked,
    learn_streaming_2d, learn_streaming_3d, mesh_reconstruct,
-   mesh_learn_freq, serve_mesh, learn_2d_256_gate; K2's: learn,
+   mesh_learn_freq, serve_mesh, learn_2d_256_gate, telemetry_engine,
+   telemetry_reconstruct; K2's: learn, learn_telemetry,
    mesh_learn_block4, mesh_learn_nccl1), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1148,7 +1185,7 @@ def phase_engine(torch, port, seed):
           f"{record['loop_requests_per_sec']:.3f} requests/s")
     return {"slots": ENGINE_SLOTS, "warm_s": warm_s, "launches": launches,
             "dispatch_iters": dispatch_iters, "requests": out,
-            "bench": record}
+            "bench": record, "served": served}
 
 
 def _app_argv(port, tmp, seed):
@@ -2789,6 +2826,394 @@ def phase_serve_mesh(torch, port, time_ms, bw, flops, seed):
     return out
 
 
+# the telemetry phase (17): phase 7's learner instrumented and profiled,
+# phase 10's stream through instrumented engines, one direct request and
+# a learner CLI in a fresh process
+TEL_STEPS = 2
+TEL_CLI = ["--synthetic", "--clips", "4", "--clip-size", "16",
+           "--clip-frames", "12", "--filters", "8", "--support", "5",
+           "--support-t", "5", "--blocks", "2", "--max-it", "1", "--tol",
+           "0", "--verbose", "none"]
+
+
+def _stream(port, path):
+    """The records of a metrics dir, each held to the declared schema."""
+    schema = port["obs_schema"]
+    events = port["obs"].read_events(path)
+    for e in events:
+        missing = schema.required_fields(e["type"]) - set(e)
+        if missing:
+            raise RuntimeError(f"{path}: a {e['type']} record lacks "
+                               f"{sorted(missing)}")
+    by = {}
+    for e in events:
+        by.setdefault(e["type"], []).append(e)
+    return events, by
+
+
+def _trace_kernels(port, path):
+    """Kernel events of the one profiler trace in ``path`` by
+    profile_solve.kernel_kind: {kind: count}."""
+    names = [n for n in os.listdir(path) if n.endswith(".pt.trace.json")]
+    if len(names) != 1:
+        raise RuntimeError(f"{path}: expected one trace file, got {names}")
+    with open(os.path.join(path, names[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kinds = {}
+    for e in events:
+        if str(e.get("cat", "")).lower() == "kernel":
+            k = port["profile_solve"].kernel_kind(e.get("name", ""))
+            kinds[k] = kinds.get(k, 0) + 1
+    if not kinds:
+        raise RuntimeError(f"{path}: the trace holds no kernel events")
+    return kinds
+
+
+def _tel_learn(torch, port, seed, phase7, tmp):
+    """(a) phase 7's learner for TEL_STEPS steps: plain, with metrics_dir,
+    and with metrics_dir and profile_dir."""
+    import numpy as np
+
+    b = mesh_check.training_images(seed, LEARN_BLOCKS * LEARN_NI, LEARN_SIDE)
+    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
+    fz = port["fused_z"].fused_z_iter
+    want = mesh_check.CFG["max_it_z"] * TEL_STEPS
+    runs = {}
+    for tag in ("plain", "metrics", "profiled"):
+        mdir = None if tag == "plain" else os.path.join(tmp, f"a_{tag}")
+        pdir = os.path.join(tmp, "a_trace") if tag == "profiled" else None
+        cfg = _learn_cfg(port, num_blocks=LEARN_BLOCKS, max_it=TEL_STEPS,
+                         fused_z=True, metrics_dir=mdir)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fz.launches_a = fz.launches_b = 0
+        t0 = time.perf_counter()
+        res = port["consensus"].learn(b, geom, cfg, generator=gen,
+                                      device="cuda", profile_dir=pdir)
+        peak = torch.cuda.max_memory_allocated()
+        wall = time.perf_counter() - t0
+        launches = (fz.launches_a, fz.launches_b)
+        tr = res.trace
+        rec = {"wall_s": wall, "launches": list(launches),
+               "steps_per_s": TEL_STEPS / tr["tim_vals"][-1],
+               "step_s": np.diff(tr["tim_vals"]).tolist(),
+               "max_memory_allocated_bytes": peak,
+               "d": res.d.cpu().numpy(),
+               "traces": {k: tr[k] for k in ("obj_vals_d", "obj_vals_z",
+                                              "d_diff", "z_diff")}}
+        del res
+        print(f"[17] (a) {tag}: {TEL_STEPS} steps in {wall:.2f} s "
+              f"({rec['steps_per_s']:.3f} steps/s, steps "
+              f"{[round(x, 3) for x in rec['step_s']]} s); K2 launches "
+              f"{launches}, peak {peak / 2**30:.2f} GiB")
+        if launches != (want, want):
+            raise RuntimeError(f"(a) {tag}: K2 launches {launches}, want "
+                               f"{want} each")
+        if mdir is not None:
+            _, by = _stream(port, mdir)
+            steps = by.get("step", [])
+            if [s["it"] for s in steps] != list(range(1, TEL_STEPS + 1)):
+                raise RuntimeError(f"(a) {tag}: step records {steps}")
+            for s in steps:
+                if s["nonfinite_z"] != 0 or not abs(
+                        s["obj_fid"] + s["obj_l1"] - s["obj_z"]) <= \
+                        1e-5 * abs(s["obj_z"]):
+                    raise RuntimeError(f"(a) {tag}: step record {s}")
+            roofs = by.get("roofline", [])
+            if len(roofs) != TEL_STEPS or not all(
+                    r["chip"] == "h100" and 0 < r["hbm_frac"] <= 1.05
+                    and r["bound_it_per_sec"] > 0 for r in roofs):
+                raise RuntimeError(f"(a) {tag}: roofline records {roofs}")
+            wm = by.get("mem_watermark", [])
+            if len(wm) != 1 or wm[0]["peak_hbm_bytes"] != peak:
+                raise RuntimeError(f"(a) {tag}: mem_watermark {wm} vs "
+                                   f"max_memory_allocated {peak}")
+            summ = by.get("summary", [])
+            if [x["status"] for x in summ] != ["ok"]:
+                raise RuntimeError(f"(a) {tag}: summaries {summ}")
+            rec["roofline"] = [{k: r[k] for k in (
+                "it_per_sec", "hbm_frac", "mfu", "achieved_gbps",
+                "achieved_tflops", "bound_it_per_sec", "roofline_frac")}
+                for r in roofs]
+            rec["modeled_hbm_bytes"] = wm[0]["modeled_hbm_bytes"]
+            rec["n_records"] = summ[0]["n_events"]
+            print(f"[17] (a) {tag}: roofline hbm_frac "
+                  f"{[r['hbm_frac'] for r in roofs]}, bound "
+                  f"{roofs[0]['bound_it_per_sec']:.3f} it/s; "
+                  f"mem_watermark {peak} bytes = max_memory_allocated")
+        if pdir is not None:
+            kinds = _trace_kernels(port, pdir)
+            rec["trace_kernels"] = kinds
+            print(f"[17] (a) profiler trace kernels by kind: {kinds}")
+            if (kinds.get("K2a"), kinds.get("K2b")) != launches:
+                raise RuntimeError(f"(a) the trace holds K2a/K2b "
+                                   f"{kinds.get('K2a')}/{kinds.get('K2b')} "
+                                   f"kernel events, the counters {launches}")
+        runs[tag] = rec
+    # the trajectory: bitwise phase 7's first steps and the plain run's
+    n = TEL_STEPS + 1
+    ref7 = {k: phase7[k][:n] for k in ("obj_vals_d", "obj_vals_z")}
+    plain = runs["plain"]
+    repeatable = all(plain["traces"][k] == ref7[k] for k in ref7)
+    spread = max(max(abs(a - c) for a, c in zip(plain["traces"][k], ref7[k]))
+                 for k in ref7)
+    for tag in ("metrics", "profiled"):
+        r = runs[tag]
+        d_diff = float(np.abs(r["d"] - plain["d"]).max())
+        tr_diff = max(max(abs(a - c) for a, c in zip(r["traces"][k],
+                                                     plain["traces"][k]))
+                      for k in plain["traces"])
+        r["d_max_abs_diff_vs_plain"] = d_diff
+        r["trace_max_abs_diff_vs_plain"] = tr_diff
+        ok = (d_diff == 0.0 and tr_diff == 0.0) if repeatable else \
+            tr_diff <= spread
+        if not ok:
+            raise RuntimeError(f"(a) {tag}: d {d_diff:.3e}, traces "
+                               f"{tr_diff:.3e} from the plain run "
+                               f"(phase 7 repeatable: {repeatable}, "
+                               f"spread {spread:.3e})")
+    print(f"[17] (a) plain run bitwise phase 7's first {TEL_STEPS} steps: "
+          f"{repeatable} (spread {spread:.3e}); the telemetry runs bitwise "
+          "the plain run")
+    for r in runs.values():
+        del r["d"]
+    return {"repeatable_vs_phase7": repeatable, "spread_vs_phase7": spread,
+            "runs": runs,
+            "slowdown_metrics": runs["metrics"]["wall_s"]
+            / runs["plain"]["wall_s"],
+            "slowdown_profiled": runs["profiled"]["wall_s"]
+            / runs["plain"]["wall_s"]}
+
+
+def _tel_engine(torch, port, seed, phase10, tmp, tag):
+    """(b) phase 10's 42 requests through a 4-slot 256² engine: ``plain``
+    (the same phase's baseline), ``metrics`` (metrics_dir) and
+    ``slo_profiled`` (metrics_dir and a 1 µs p99 target that arms the
+    one-shot capture). Every request bitwise phase 10's; with a stream,
+    its spans and records."""
+    import numpy as np
+
+    bench, kernels = port["serve_bench"], port["kernels"]
+    d = port["io_mat"].load_filters_2d(BANK)
+    prob = port["reconstruct"].ReconstructionProblem(
+        port["config"].ProblemGeom((11, 11), K))
+    cfg = port["config"].SolveConfig(lambda_residual=5.0, lambda_prior=2.0,
+                                     max_it=100, tol=1e-3)
+    reqs = bench.make_requests(ENGINE_SIDES, seed + 4)
+    mdir = None if tag == "plain" else os.path.join(tmp, f"b_{tag}")
+    pdir = os.path.join(tmp, f"b_{tag}_trace")
+    slo_kw = (dict(slo_p99_ms=0.001, slo_check_s=0.001,
+                   slo_profile_dir=pdir) if tag == "slo_profiled" else {})
+    with port["serve"].CodecEngine(
+            d, prob, cfg, port["config"].ServeConfig(
+                buckets=((ENGINE_SLOTS, (S, S)),), verbose="none",
+                metrics_dir=mdir, **slo_kw),
+            device="cuda") as eng:
+        kernels.solve_z_rank1.launches = 0
+        served, engine_s, submit_s = bench.run_engine(eng, reqs)
+        launches = kernels.solve_z_rank1.launches
+    # read once close() has drained the worker: the stream is complete
+    log, st = eng.dispatch_log, eng.stats()
+    if launches != sum(e["iters"] for e in log):
+        raise RuntimeError(f"(b) {tag}: K1 launched {launches} times for "
+                           f"dispatches of {[e['iters'] for e in log]}")
+    for i, (s, r) in enumerate(zip(served, phase10["served"])):
+        if not (np.array_equal(s.recon, r.recon)
+                and int(s.trace.num_iters) == int(r.trace.num_iters)):
+            raise RuntimeError(f"(b) {tag}: request {i} differs from phase "
+                               f"10's: max|diff| "
+                               f"{float(np.abs(s.recon - r.recon).max()):.3e}")
+    lat_ms = [1e3 * s.latency_s for s in served]
+    exact = port["obs"].percentile(lat_ms, 0.99)
+    hist = port["slo"].Histogram.of(lat_ms)
+    p99 = 1e3 * st["p99_latency_s"]
+    if not abs(p99 - exact) <= hist.bucket_width_ms(exact):
+        raise RuntimeError(f"(b) {tag}: stats() p99 {p99:.3f} ms vs exact "
+                           f"{exact:.3f} ms (bucket "
+                           f"{hist.bucket_width_ms(exact)})")
+    rec = {"requests_per_sec": len(served) / engine_s,
+           "engine_wall_s": engine_s, "submit_wall_s": submit_s,
+           "k1_launches": launches, "dispatches": len(log),
+           "dispatch_ms": [1e3 * e["wall_s"] for e in log],
+           "stats_p99_ms": p99, "exact_p99_ms": exact}
+    walls = [e["wall_s"] for e in log]
+    reqs_n = [e["requests"] for e in log]
+    if mdir is not None:
+        events, by = _stream(port, mdir)
+        traces = port["trace"].assemble(events)
+        full = [t for t in traces.values() if t.complete and {
+            s.name for s in t.spans.values()} == {"request", "engine_queue",
+                                                  "solve"}]
+        if len(full) != len(reqs) or len(traces) != len(reqs):
+            raise RuntimeError(f"(b) {tag}: {len(full)} complete traces of "
+                               f"{len(traces)}, want {len(reqs)}")
+        disp = by.get("serve_dispatch", [])
+        if len(by.get("serve_request", [])) != len(reqs) or [
+                (e["n"], e["max_iters"]) for e in disp] != [
+                (e["requests"], e["iters"]) for e in log]:
+            raise RuntimeError(f"(b) {tag}: serve_dispatch records "
+                               f"{[(e['n'], e['max_iters']) for e in disp]}"
+                               " vs the dispatch log")
+        rec["n_records"] = len(events)
+        if slo_kw:
+            profs = by.get("slo_profile", [])
+            if len(profs) != 1 or not by.get("slo_breach"):
+                raise RuntimeError(f"(b) {tag}: slo_profile records {profs}")
+            # the dispatch the capture held: the first serve_dispatch
+            # record after the slo_profile record
+            i0 = events.index(profs[0])
+            profiled = next(e for e in events[i0:]
+                            if e["type"] == "serve_dispatch")
+            kinds = _trace_kernels(port, pdir)
+            rec.update(profiled_dispatch_iters=profiled["max_iters"],
+                       trace_kernels=kinds)
+            print(f"[17] (b) {tag}: the SLO capture holds {kinds} for a "
+                  f"dispatch of {profiled['max_iters']} iterations")
+            if kinds.get("K1") != profiled["max_iters"]:
+                raise RuntimeError(f"(b) the SLO capture holds "
+                                   f"{kinds.get('K1')} K1 kernel events for "
+                                   f"{profiled['max_iters']} iterations")
+            # the rate without the captured dispatch
+            j = disp.index(profiled)
+            walls, reqs_n = walls[:j] + walls[j + 1:], \
+                reqs_n[:j] + reqs_n[j + 1:]
+    rec["dispatch_requests_per_sec"] = sum(reqs_n) / sum(walls)
+    b10 = phase10["bench"]
+    rate10 = 1e3 * sum(b10["dispatch_requests"]) / sum(b10["dispatch_ms"])
+    print(f"[17] (b) {tag}: {rec['requests_per_sec']:.3f} requests/s over "
+          f"the window (submits {1e3 * submit_s:.0f} ms), "
+          f"{rec['dispatch_requests_per_sec']:.3f} over its unprofiled "
+          f"dispatches, vs phase 10's {b10['engine_requests_per_sec']:.3f} "
+          f"and {rate10:.3f}; stats() p99 {p99:.1f} ms vs exact "
+          f"{exact:.1f} ms; every request bitwise phase 10's"
+          + ("" if mdir is None else f"; {len(reqs)} complete span trees"))
+    return rec
+
+
+def _tel_reconstruct(torch, port, seed, tmp):
+    """(c) one 256² request through reconstruct(plan=...), untraced and
+    with SolveConfig(metrics_dir=)."""
+    import numpy as np
+
+    kernels = port["kernels"]
+    rmod = port["reconstruct"]
+    d = port["io_mat"].load_filters_2d(BANK)
+    prob = rmod.ReconstructionProblem(port["config"].ProblemGeom((11, 11), K))
+    kw = dict(lambda_residual=5.0, lambda_prior=2.0, max_it=100, tol=1e-3)
+    q = port["serve_bench"].make_requests([S], seed + 4)[0]
+    plan = rmod.build_plan(d, prob, port["config"].SolveConfig(**kw), (S, S),
+                           device="cuda")
+    mdir = os.path.join(tmp, "c")
+    out = {}
+    for tag, cfg in (("plain", port["config"].SolveConfig(**kw)),
+                     ("metrics", port["config"].SolveConfig(
+                         **kw, metrics_dir=mdir))):
+        torch.cuda.synchronize()
+        kernels.solve_z_rank1.launches = 0
+        t0 = time.perf_counter()
+        res = rmod.reconstruct(
+            q["b"][None], d, prob, cfg, mask=q["mask"][None],
+            smooth_init=q["smooth_init"][None], x_orig=q["x_orig"][None],
+            plan=plan, device="cuda")
+        recon = res.recon.cpu().numpy()
+        out[tag] = {"wall_s": time.perf_counter() - t0,
+                    "k1_launches": kernels.solve_z_rank1.launches,
+                    "iters": int(res.trace.num_iters), "recon": recon}
+    p, m = out["plain"], out["metrics"]
+    _, by = _stream(port, mdir)
+    steps = [s["it"] for s in by.get("step", [])]
+    summ = by.get("summary", [{}])[-1]
+    print(f"[17] (c) direct request: {p['iters']} iterations, K1 "
+          f"{p['k1_launches']} / {m['k1_launches']} launches, "
+          f"{p['wall_s']:.3f} s untraced, {m['wall_s']:.3f} s traced; steps "
+          f"{steps[:1]}..{steps[-1:]}, summary iterations "
+          f"{summ.get('iterations')}")
+    if not (np.array_equal(p["recon"], m["recon"])
+            and p["k1_launches"] == m["k1_launches"] == p["iters"]
+            and steps == list(range(1, p["iters"] + 1))
+            and summ.get("iterations") == p["iters"]):
+        raise RuntimeError(f"(c) the traced request differs: {out}")
+    for r in out.values():
+        del r["recon"]
+    # the fixed cost of a run: open it (run_meta, git_sha, memwatch) and
+    # close it (the summary, an fsync)
+    t0 = time.perf_counter()
+    sha = port["obs"].git_sha()
+    t1 = time.perf_counter()
+    run = port["obs"].start_run(os.path.join(tmp, "c_empty"),
+                                algorithm="reconstruct", verbose="none",
+                                device="cuda")
+    run.close(status="ok")
+    out["git_sha_s"] = t1 - t0
+    out["empty_run_s"] = time.perf_counter() - t1
+    print(f"[17] (c) an empty run opens and closes in "
+          f"{out['empty_run_s']:.4f} s (git_sha {out['git_sha_s']:.4f} s, "
+          f"{sha})")
+    return out
+
+
+def _tel_cli(port, tmp):
+    """(d) learn_3d in a fresh process with --metrics-dir: its stream
+    validates, and its one compile record loads K1 (built in phase 2)."""
+    import subprocess
+
+    mdir = os.path.join(tmp, "d")
+    cmd = [sys.executable, "-m", f"{PACKAGE}.apps.learn_3d", *TEL_CLI,
+           "--metrics-dir", mdir, "--device", "cuda",
+           "--out", os.path.join(tmp, "d_filters.mat")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=600,
+                          env=dict(os.environ, PYTHONPATH=HERE))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"(d) learn_3d exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    _, by = _stream(port, mdir)
+    comp = [(c["kind"], c["fun_name"]) for c in by.get("compile", [])]
+    algo = [m["algorithm"] for m in by.get("run_meta", [])]
+    print(f"[17] (d) learn_3d --metrics-dir in a fresh process: {wall:.1f} s,"
+          f" runs {algo}, compile records {comp}")
+    if comp != [("load", "solve_z_rank1")] or algo != ["consensus"] or [
+            x["status"] for x in by.get("summary", [])] != ["ok"]:
+        raise RuntimeError(f"(d) compile records {comp}, runs {algo}")
+    return {"wall_s": wall, "compile": comp,
+            "steps": len(by.get("step", []))}
+
+
+def phase_telemetry(torch, port, seed, phase7, phase10):
+    """17: the run telemetry on the card: (a) the learner, (b) the
+    engine, (c) the direct reconstruct, (d) a learner CLI."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ccsc-telemetry-")
+    try:
+        out = {"learn": _tel_learn(torch, port, seed, phase7, tmp)}
+        torch.cuda.empty_cache()
+        out["engine"] = {
+            tag: _tel_engine(torch, port, seed, phase10, tmp, tag)
+            for tag in ("plain", "metrics", "slo_profiled")}
+        out["engine"]["phase10_requests_per_sec"] = \
+            phase10["bench"]["engine_requests_per_sec"]
+        # phase 10's rate over its dispatches' summed walls: the
+        # telemetry engines' dispatch_requests_per_sec compares with it
+        bench10 = phase10["bench"]
+        out["engine"]["phase10_dispatch_requests_per_sec"] = (
+            1e3 * sum(bench10["dispatch_requests"])
+            / sum(bench10["dispatch_ms"]))
+        out["reconstruct"] = _tel_reconstruct(torch, port, seed, tmp)
+        out["cli"] = _tel_cli(port, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[17] telemetry phase {out['seconds']:.1f} s")
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, kernel_ms, plain_ms,
                   bound, build_s, **extra):
     return dict(
@@ -2838,6 +3263,9 @@ def main(argv=None) -> int:
             ("demosaic_hyperspectral", "apps.demosaic_hyperspectral"),
             ("view_synthesis", "apps.view_synthesis"),
             ("mesh", "parallel.mesh"), ("distributed", "parallel.distributed"),
+            ("obs", "utils.obs"), ("obs_schema", "analysis.obs_schema"),
+            ("trace", "utils.trace"), ("slo", "serve.slo"),
+            ("profile_solve", "profile_solve"),
         )
     }
 
@@ -2868,6 +3296,8 @@ def main(argv=None) -> int:
     mesh = phase_mesh(torch, port, time_ms, bw, flops, args.seed)
     serve_mesh = phase_serve_mesh(torch, port, time_ms, bw, flops,
                                   args.seed)
+    telemetry = phase_telemetry(torch, port, args.seed, learn, engine)
+    engine.pop("served")
     seconds = time.perf_counter() - t_start
     print(f"[14] total {seconds:.1f} s")
 
@@ -2892,10 +3322,18 @@ def main(argv=None) -> int:
                 "serve_mesh": serve_mesh["k1_launches"],
                 "learn_2d_256_gate": sum(
                     serve_mesh["fused_gate"]["launches"][k][0]
-                    for k in ("fused_z_true", "fused_z_false"))}
+                    for k in ("fused_z_true", "fused_z_false")),
+                "telemetry_engine": sum(
+                    r["k1_launches"] for k, r in telemetry["engine"].items()
+                    if isinstance(r, dict)),
+                "telemetry_reconstruct": sum(
+                    telemetry["reconstruct"][k]["k1_launches"]
+                    for k in ("plain", "metrics"))}
     ns_ranks = mesh["north_star"]["mesh"]["per_rank"]
     k2_paths = {p: {
         "learn": learn["launches"][f"fused_z_{p}"],
+        "learn_telemetry": sum(r["launches"][i] for r in
+                               telemetry["learn"]["runs"].values()),
         "mesh_learn_block4": sum(r["launches"][i] for r in ns_ranks),
         "mesh_learn_nccl1": mesh["nccl_world_1"]["k2_launches"][i],
     } for i, p in enumerate(("pass_a", "pass_b"))}
@@ -2948,6 +3386,7 @@ def main(argv=None) -> int:
     print(json.dumps({"streaming": streamed}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"serve_mesh": serve_mesh}))
+    print(json.dumps({"telemetry": telemetry}))
     # the kernels line last but two: the end of the output carries it
     print(json.dumps(kernels_line))
     print(smi)

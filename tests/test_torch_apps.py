@@ -183,10 +183,33 @@ def test_app_defaults_to_cuda_and_refuses_unported_flags(app, tmp_path):
         (["--tune", "auto"], "item 9"),
         (["--tune-store", str(tmp_path / "t.json")], "item 9"),
         (["--fft-impl", "matmul"], "item 9"),
-        (["--metrics-dir", str(tmp_path / "m")], "item 10"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             tapp.main(cpu + extra)
+
+
+@pytest.mark.parametrize("app", ["poisson"] + sorted(APPS))
+def test_app_metrics_dir_writes_its_stream(app, tmp_path):
+    """``--metrics-dir``, refused until the port wrote the stream: every
+    solve of the app is a "reconstruct" run (the Poisson app solves each
+    image on its own), each closing with the iterations it ran."""
+    from ccsc_code_iccv2017_torch.utils import obs
+
+    if app == "poisson":
+        tapp, argv = tpoisson, _poisson_argv(tmp_path)
+    else:
+        tapp, _, argv_of = APPS[app]
+        argv = argv_of(tmp_path)
+    m = str(tmp_path / "m")
+    res = tapp.main(argv + ["--device", "cpu", "--metrics-dir", m])
+    results = res if isinstance(res, list) else [res]
+    ev = obs.read_events(m)
+    metas = [e for e in ev if e["type"] == "run_meta"]
+    sums = [e for e in ev if e["type"] == "summary"]
+    assert [e["algorithm"] for e in metas] == ["reconstruct"] * len(results)
+    assert [e["status"] for e in sums] == ["ok"] * len(results)
+    assert [e["iterations"] for e in sums] == [
+        int(r.trace.num_iters) for r in results]
 
 
 def test_psf_matches_jax():

@@ -72,7 +72,6 @@ def test_invalid_values_refused_like_jax(kw):
     [
         (dict(tune="auto"), "item 9"),
         (dict(tune="sweep"), "item 9"),
-        (dict(metrics_dir="/nonexistent"), "item 10"),
         (dict(fft_impl="matmul"), "item 9"),
     ],
 )
@@ -80,6 +79,14 @@ def test_unported_fields_raise_naming_roadmap(kw, item):
     jcfg.SolveConfig(**kw)  # valid in the JAX package
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         tcfg.SolveConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [dict(metrics_dir="/nonexistent")])
+def test_solve_values_ported_construct(kw):
+    """The run telemetry's field, which the port refused until it wrote
+    the stream: it constructs as in the JAX package."""
+    t, j = tcfg.SolveConfig(**kw), jcfg.SolveConfig(**kw)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
 
 
 @pytest.mark.parametrize(
@@ -113,12 +120,17 @@ def test_serve_buckets_normalized_like_jax():
     "kw",
     [dict(mesh_shape=()), dict(pipeline_depth=1), dict(capture_dir=""),
      dict(artifact_store=""), dict(staged_warmup=False),
-     dict(warm_rank_capture=""), dict(tune="off")],
+     dict(warm_rank_capture=""), dict(tune="off"), dict(metrics_dir="m"),
+     dict(slo_p50_ms=10.0), dict(slo_p99_ms=10.0), dict(slo_check_s=1.0),
+     dict(slo_profile_dir="p")],
 )
 def test_serve_values_meaning_the_port_construct(kw):
     """Values that ask for what the port does (single device, depth 1,
-    explicitly off) are not refused."""
-    tcfg.ServeConfig(buckets=((2, (8, 8)),), **kw)
+    explicitly off, the engine's telemetry and SLO fields) are not
+    refused."""
+    t = tcfg.ServeConfig(buckets=((2, (8, 8)),), **kw)
+    j = jcfg.ServeConfig(buckets=((2, (8, 8)),), **kw)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
 
 
 @pytest.mark.parametrize("verbose", ["none", "brief"])
@@ -150,9 +162,7 @@ def test_learn_invalid_values_refused_like_jax(kw):
         (dict(donate_state=True), "Queue 1 item 9"),
         (dict(fft_impl="matmul"), "Queue 1 item 9"),
         (dict(tune="auto"), "Queue 1 item 9"),
-        (dict(metrics_dir="/nonexistent"), "Queue 1 item 10"),
         (dict(watchdog=True), "Queue 1 item 10"),
-        (dict(verbose="all"), "Queue 1 item 10"),
     ],
 )
 def test_learn_unported_fields_raise_naming_roadmap(kw, item):
@@ -164,14 +174,17 @@ def test_learn_unported_fields_raise_naming_roadmap(kw, item):
 @pytest.mark.parametrize(
     "kw",
     [dict(fused_z_precision="high"), dict(fused_z_precision="default"),
-     dict(carry_freq=True)],
+     dict(carry_freq=True), dict(metrics_dir="/nonexistent"),
+     dict(verbose="all")],
 )
 def test_learn_knobs_ported_in_the_learner_slice_construct(kw):
     """K2's precision tiers (all run its float32 body) and the masked
     learner's carry_freq, which the port refused until it learned the 3D,
-    4D and hyperspectral problems."""
+    4D and hyperspectral problems; the run telemetry's metrics_dir and
+    verbose='all' (figures), refused until it wrote the stream."""
     t, j = tcfg.LearnConfig(**kw), jcfg.LearnConfig(**kw)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.with_obs_metrics == j.with_obs_metrics
 
 
 def test_learn_ported_knobs_construct():
@@ -262,6 +275,14 @@ def test_port_imports_without_jax_at_runtime():
         "from ccsc_code_iccv2017_torch.utils import env\n"
         "env.env_float('CCSC_STREAM_RESIDENT_GB')\n"
         "env.env_flag('CCSC_SERVE_MESH_STRICT')\n"
+        "from ccsc_code_iccv2017_torch.utils import (\n"
+        "    display, memwatch, obs, perfmodel, profiling, trace)\n"
+        "from ccsc_code_iccv2017_torch.analysis import obs_schema\n"
+        "from ccsc_code_iccv2017_torch.serve import slo\n"
+        "env.env_float('CCSC_OBS_HEARTBEAT_S')\n"
+        "env.env_float('CCSC_SLO_CHECK_S')\n"
+        "assert perfmodel.detect_chip('cpu') == 'cpu'\n"
+        "slo.Histogram.of([1.0, 2.0]).percentile(0.5)\n"
         "from ccsc_code_iccv2017_torch.parallel import local_mesh\n"
         "local_mesh.LocalMesh((2, 2), ('batch', 'freq'), ['cpu'] * 4)\n"
         "assert engine.parse_mesh_shape('2x2') == (2, 2)\n"

@@ -307,7 +307,8 @@ def test_fused_z_on_other_geometry_raises():
         fused_z=fused, verbose="none", track_objective=True), fg, 1)
         for fused in (True, False)]
     for a, c in zip(out[0][0] + out[0][1], out[1][0] + out[1][1]):
-        assert torch.equal(a, c)
+        # OuterMetrics.extras is None without metrics_dir
+        assert (a is None and c is None) or torch.equal(a, c)
 
 
 # the 3D and 4D learners' geometries at a tiny size: (geometry args, data
@@ -442,14 +443,13 @@ def _fake_mesh(**shape):
 
 def test_learn_refuses_unported_arguments():
     b = _golden_data()
-    # a mesh whose 'block' axis does not divide num_blocks=2 (JAX's
-    # refusal), profiling (not ported yet)
+    # a mesh whose 'block' axis does not divide num_blocks=2, and one
+    # with both 'freq' and 'filter' (JAX's refusals)
     for kw, exc, match in (
         (dict(mesh=_fake_mesh(block=3)), ValueError,
          "not divisible by mesh 'block' axis 3"),
         (dict(mesh=_fake_mesh(block=1, freq=1, filter=1)), ValueError,
          "cannot be combined"),
-        (dict(profile_dir="p"), NotImplementedError, "item 10"),
     ):
         with pytest.raises(exc, match=match):
             consensus.learn(b, ProblemGeom(*GEOM), LearnConfig(**GOLDEN_KW),
@@ -488,11 +488,31 @@ def test_cli_learns_and_saves_the_reference_layout(tmp_path):
     [(["--mesh", "64"], "needs 64 GPUs"),  # more ranks than GPUs on cuda
      (["--streaming", "--mesh", "2"], "does not combine with --mesh"),
      (["--stream-mode", "auto", "--mesh", "2"], "requires --streaming"),
-     (["--tune", "auto"], "item 9"), (["--profile-dir", "p"], "item 10")],
+     (["--tune", "auto"], "item 9")],
 )
 def test_cli_refuses_unported_flags(flag, item):
     with pytest.raises(SystemExit, match=item):
         tapp.main(["--data", "x", *flag])
+
+
+@pytest.mark.parametrize("flag", ["--profile-dir", "--metrics-dir"])
+def test_cli_accepts_telemetry_flags(tmp_path, flag):
+    """``--profile-dir`` and ``--metrics-dir``, refused until the port
+    captured traces and wrote the stream, each leave their files."""
+    data = str(tmp_path / "imgs")
+    _write_pngs(data)
+    out_dir = tmp_path / "out"
+    tapp.main([
+        "--data", data, "--filters", "4", "--support", "5", "--blocks", "2",
+        "--max-it", "2", "--max-it-d", "2", "--max-it-z", "2", "--fused-z",
+        "--out", str(tmp_path / "f.mat"), "--device", "cpu",
+        "--verbose", "none", flag, str(out_dir),
+    ])
+    names = os.listdir(out_dir)
+    if flag == "--profile-dir":
+        assert any(n.endswith(".pt.trace.json") for n in names), names
+    else:
+        assert names == ["events-p00000.jsonl"]
 
 
 @pytest.mark.parametrize("flags, why", [

@@ -172,9 +172,7 @@ def test_filter_files_cross_between_the_packages(tmp_path, layout):
     ("learn_3d", ["--tune", "auto"], "item 9"),
     ("learn_3d", ["--outer-chunk", "2"], "item 9"),
     ("learn_3d", ["--auto-degrade"], "item 10"),
-    ("learn_3d", ["--metrics-dir", "m"], "item 10"),
     ("learn_3d", ["--watchdog"], "item 10"),
-    ("learn_4d", ["--streaming", "--metrics-dir", "m"], "item 10"),
     ("learn_4d", ["--mesh", "2", "--streaming"],
      "does not combine with --mesh"),
     ("learn_4d", ["--outer-chunk", "3"], "item 9"),
@@ -188,6 +186,28 @@ def test_refused_flags_name_their_item(name, flags, item):
     _, tapp = _apps(name)
     with pytest.raises(SystemExit, match=item):
         tapp.main(["--synthetic", *flags, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name, flags, algorithm", [
+    ("learn_3d", [], "consensus"),
+    ("learn_4d", ["--streaming"], "consensus_streaming"),
+])
+def test_metrics_dir_writes_the_stream(tmp_path, name, flags, algorithm):
+    """``--metrics-dir``, refused until the port wrote the stream, reaches
+    the learner: one run of its algorithm, a step record per step."""
+    from ccsc_code_iccv2017_torch.utils import obs
+
+    _, tapp = _apps(name)
+    m = str(tmp_path / "m")
+    argv, _ = APP_ARGV[name]
+    tapp.main(argv + flags + ["--metrics-dir", m, "--device", "cpu",
+                              "--verbose", "none",
+                              "--out", str(tmp_path / "t.mat")])
+    ev = obs.read_events(m)
+    assert [e["algorithm"] for e in ev if e["type"] == "run_meta"] == [
+        algorithm]
+    assert [e["it"] for e in ev if e["type"] == "step"] == [1, 2]
+    assert [e["status"] for e in ev if e["type"] == "summary"] == ["ok"]
 
 
 def test_apps_default_to_the_card():

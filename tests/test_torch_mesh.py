@@ -10,6 +10,8 @@ hang fails these tests and never the suite) runs every case's port side
 package's mesh tests (tests/test_learn.py): filters and Dz atol 2e-5,
 objective traces rtol 1e-4; the gathered codes 2e-5 of max(1, max|z|).
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -94,7 +96,12 @@ def _spec(name):
 
 
 @pytest.fixture(scope="module")
-def port_runs():
+def stream_dir(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("mesh_stream"))
+
+
+@pytest.fixture(scope="module")
+def port_runs(stream_dir):
     """Every case's port side, run once on 4 gloo ranks: per rank
     {case: result}."""
     runs = [(name, "learn", LEARN_CASES[name][4], _spec(name))
@@ -103,6 +110,9 @@ def port_runs():
     nan["cfg"].update(max_recoveries=1, max_it=3)
     nan["poison_rank"] = 1
     runs.append(("nan_backoff", "nan_backoff", ("block_mesh", (4,)), nan))
+    streamed = _spec("block4_n8")
+    streamed["cfg"].update(metrics_dir=stream_dir, max_it=2)
+    runs.append(("streamed", "learn", ("block_mesh", (4,)), streamed))
     return distributed.launch(cases.run_cases, 4, args=(runs,),
                               device="cpu", timeout=60.0,
                               join_timeout=240.0)
@@ -172,3 +182,31 @@ def test_one_ranks_non_finite_step_backs_every_rank_off(port_runs):
     assert len(runs[0]["trace"]["obj_vals_z"]) == 1 + 3
     assert torch.isfinite(runs[0]["z"]).all()
     assert torch.isfinite(runs[0]["d"]).all()
+
+
+def test_each_rank_writes_its_own_stream(port_runs, stream_dir):
+    """``metrics_dir`` on block_mesh(4): one ``events-pNNNNN.jsonl`` a
+    rank, NNNNN its torch.distributed rank; the telemetry scalars are
+    reduced over the mesh, so every rank records the same steps, and the
+    trajectory is the untraced run's."""
+    from ccsc_code_iccv2017_torch.utils import obs
+
+    assert sorted(os.listdir(stream_dir)) == [
+        f"events-p{r:05d}.jsonl" for r in range(4)]
+    steps = []
+    for r in range(4):
+        ev = obs.read_events(os.path.join(stream_dir,
+                                          f"events-p{r:05d}.jsonl"))
+        meta = [e for e in ev if e["type"] == "run_meta"]
+        assert len(meta) == 1 and meta[0]["process_index"] == r
+        assert meta[0]["process_count"] == 4
+        assert meta[0]["mesh_shape"] == {"block": 4}
+        assert {e["host"] for e in ev} == {r}
+        steps.append([{k: e[k] for k in ("it", "obj_z", "obj_fid", "obj_l1",
+                                         "consensus_dis", "nonfinite_z")}
+                      for e in ev if e["type"] == "step"])
+        assert [e["status"] for e in ev if e["type"] == "summary"] == ["ok"]
+    assert [s["it"] for s in steps[0]] == [1, 2]
+    assert all(s == steps[0] for s in steps[1:])
+    plain = port_runs[0]["block4_n8"]["trace"]["obj_vals_z"][:3]
+    assert port_runs[0]["streamed"]["trace"]["obj_vals_z"] == plain

@@ -495,11 +495,6 @@ def test_valid_region_psnr_matches_jax():
         (dict(tune="auto"), 9),
         (dict(tune_store="tuned.json"), 9),
         (dict(pipeline_depth=2), 9),
-        (dict(metrics_dir="m"), 10),
-        (dict(slo_p50_ms=10.0), 10),
-        (dict(slo_p99_ms=10.0), 10),
-        (dict(slo_check_s=1.0), 10),
-        (dict(slo_profile_dir="p"), 10),
         (dict(capture_dir="c"), 10),
         (dict(compile_cache="cc"), 11),
         (dict(artifact_store="a"), 11),

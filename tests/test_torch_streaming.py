@@ -321,11 +321,10 @@ def test_refusals_name_their_reason_or_item():
             b, geom, dataclasses.replace(base, compat_coding="block1"),
             device="cpu")
     # the config refuses these first; the streaming learner holds its
-    # own line too (its chunk cadence and telemetry are separate items)
+    # own line too (its chunk cadence and the watchdog are separate items)
     for field, value, match in (
         ("donate_state", True, "donate_state"),
         ("outer_chunk", 2, "item 9"),
-        ("metrics_dir", "m", "item 10"),
         ("watchdog", True, "item 10"),
     ):
         with pytest.raises((ValueError, NotImplementedError), match=match):
