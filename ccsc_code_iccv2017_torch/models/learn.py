@@ -482,18 +482,29 @@ def outer_step(
     if cfg.with_obs_metrics:
         # telemetry scalars beside the metrics: they leave the card in
         # the same host read, never a fresh one (utils.obs)
-        nonfinite_z = mesh_lib.psum(
-            torch.sum(~torch.isfinite(_f32(z))).to(torch.float32), mesh,
-            global_axes)
-        dn = _f32(d_local) - dbar[None]
-        cons_num = mesh_lib.psum(torch.sum(dn * dn), mesh, global_axes)
-        cons_den = mesh_lib.psum(torch.sum(dbar * dbar), mesh, ax_k)
-        consensus_dis = torch.sqrt(cons_num / num_blocks) / torch.clamp(
-            torch.sqrt(cons_den), min=1e-30)
-        extras = ObsExtras(fid_z, l1_z, consensus_dis, nonfinite_z)
+        extras = obs_extras(z, d_local, dbar, fid_z, l1_z, num_blocks,
+                            mesh=mesh, global_axes=global_axes, ax_k=ax_k)
 
     new_state = LearnState(d_local, dual_d, dbar, udbar, z, dual_z)
     return new_state, OuterMetrics(obj_d, obj_z, d_diff, z_diff, extras)
+
+
+def obs_extras(z, d_local, dbar, fid_z, l1_z, num_blocks: int,
+               mesh=None, global_axes=None, ax_k=None) -> ObsExtras:
+    """The step's :class:`ObsExtras` from its new codes ``z``, the
+    per-block dictionaries ``d_local`` and their consensus ``dbar``, and
+    the z-pass objective's two terms: a pass over z and one over its
+    non-finite mask (the count), and one over ``d_local``. On a mesh the sums reduce over the
+    step's global axes (``dbar``'s norm over 'filter' alone)."""
+    nonfinite_z = mesh_lib.psum(
+        torch.sum(~torch.isfinite(_f32(z))).to(torch.float32), mesh,
+        global_axes)
+    dn = _f32(d_local) - dbar[None]
+    cons_num = mesh_lib.psum(torch.sum(dn * dn), mesh, global_axes)
+    cons_den = mesh_lib.psum(torch.sum(dbar * dbar), mesh, ax_k)
+    consensus_dis = torch.sqrt(cons_num / num_blocks) / torch.clamp(
+        torch.sqrt(cons_den), min=1e-30)
+    return ObsExtras(fid_z, l1_z, consensus_dis, nonfinite_z)
 
 
 def eval_block(

@@ -505,7 +505,8 @@ def _reconstruct_observed(
     ``heartbeat`` and the ``summary`` (iterations, wall seconds, initial
     and final objective). The solve itself runs untouched (the same call
     with ``metrics_dir=None``); the stream costs one read of its three
-    traces after it, none inside the loop."""
+    traces after it, none inside the loop. (The JAX function reads the
+    iteration count, its fence, and then the three traces.)"""
     from ..utils import obs
 
     dev = resolve_device(device) if mesh is None else mesh.device
@@ -528,7 +529,8 @@ def _reconstruct_observed(
         obj, psnr, diff = torch.stack(
             [tr.obj_vals, tr.psnr_vals, tr.diff_vals]).double().cpu().numpy()
         dt = time.perf_counter() - t0
-        n_it = int(tr.num_iters)
+        # the host loop's own counter (a Python int): no read
+        n_it = tr.num_iters
         # trace index 0 is the pre-iteration state; step records are
         # 1-based like every learner's
         for it in range(1, min(n_it + 1, obj.shape[0])):

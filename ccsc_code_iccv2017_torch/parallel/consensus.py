@@ -165,7 +165,7 @@ def learn(
             )
             if run.memwatch is not None:
                 run.modeled_hbm_bytes = int(perfmodel.inmem_learn_estimate(
-                    data_shape, geom, cfg)[0])
+                    data_shape, geom, cfg))
         return _learn_impl(
             b_blocks, geom, cfg, generator, mesh, checkpoint_dir,
             checkpoint_every, init_d, profile_dir, figures_dir, dev,

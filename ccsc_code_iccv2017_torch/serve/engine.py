@@ -372,7 +372,6 @@ class CodecEngine:
         self._max_wait_s = serve_cfg.max_wait_ms / 1e3
         self._n_dispatches = 0
         self._occupancy_sum = 0.0
-        self._max_latency_s = 0.0
         # one entry per request dispatch: its requests, the iterations
         # it ran (max num_iters over its batch: one K1 launch each on
         # the card), the loop iterations and all-gathers of each mesh
@@ -843,12 +842,10 @@ class CodecEngine:
                 latency_s=t_done - p.t_submit,
                 z=z[i] if z is not None else None,
             )
-            with self._lock:  # stats() reads the two together
+            with self._lock:  # stats() reads n and percentiles together
                 self._slo.observe("queue", res.wait_s * 1e3)
                 self._slo.observe("solve", dt * 1e3)
                 self._slo.observe("total", res.latency_s * 1e3)
-                self._max_latency_s = max(self._max_latency_s,
-                                          res.latency_s)
             if p.trace_id is not None:
                 # retrospective spans: start and end written together,
                 # so no failure can orphan a span_start
@@ -911,23 +908,18 @@ class CodecEngine:
         numbers the ``slo_histogram`` records quote."""
         with self._lock:
             n_disp, occ = self._n_dispatches, self._occupancy_sum
-            max_s = self._max_latency_s
             n = self._slo.n("total")
             ms = {q: self._slo.percentile("total", q) for q in (0.50, 0.99)}
 
-        def seconds(v):
-            if v is None:
-                return None
-            # an answer clamped to the largest latency is that latency,
-            # in seconds as measured (not via the ms round trip)
-            return max_s if v >= max_s * 1e3 else v / 1e3
+        def to_s(v):
+            return None if v is None else v / 1e3
 
         return {
             "n_requests": n,
             "n_dispatches": n_disp,
             "mean_occupancy": occ / n_disp if n_disp else 0.0,
-            "p50_latency_s": seconds(ms[0.50]),
-            "p99_latency_s": seconds(ms[0.99]),
+            "p50_latency_s": to_s(ms[0.50]),
+            "p99_latency_s": to_s(ms[0.99]),
         }
 
     @property

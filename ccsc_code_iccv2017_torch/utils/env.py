@@ -59,9 +59,6 @@ REGISTRY: Dict[str, Knob] = {
         Knob("CCSC_OBS_HEARTBEAT_S", "float", 30.0,
              "per-host heartbeat cadence in seconds (0 = every fence)",
              "utils.obs"),
-        Knob("CCSC_INMEM_HBM_GB", "float", 14.0,
-             "device byte budget of the in-memory learn preflight",
-             "utils.perfmodel"),
         Knob("CCSC_MEMWATCH", "flag", True,
              "sample torch.cuda.memory_stats() at dispatch fences for the "
              "measured device-memory watermark (0 disables the poller)",

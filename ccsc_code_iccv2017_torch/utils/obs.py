@@ -33,6 +33,7 @@ no ``Run`` method touches a device tensor.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -71,18 +72,37 @@ def git_sha() -> Optional[str]:
     override = _env.env_str("CCSC_GIT_SHA")
     if override:
         return override
+    return _checkout_sha(_REPO_ROOT)
+
+
+# the directory that holds the package: the top of its checkout
+_REPO_ROOT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+@functools.lru_cache(maxsize=None)
+def _checkout_sha(root: str) -> Optional[str]:
+    """HEAD of the git checkout whose top is ``root``, read once a
+    process; None when ``root`` is not the top of a checkout. The search
+    for a .git stops at ``root``'s parent, so a copy without its own
+    .git never stamps a surrounding repository's revision."""
     try:
         out = subprocess.run(
-            ["git", "rev-parse", "HEAD"],
-            cwd=os.path.dirname(os.path.abspath(__file__)),
+            ["git", "rev-parse", "--show-toplevel", "HEAD"],
+            cwd=root,
             capture_output=True,
             text=True,
             timeout=10,
+            env=dict(os.environ,
+                     GIT_CEILING_DIRECTORIES=os.path.dirname(root)),
         )
-        sha = out.stdout.strip()
-        return sha if out.returncode == 0 and sha else None
     except (OSError, subprocess.SubprocessError):
         return None
+    lines = out.stdout.splitlines()
+    if out.returncode != 0 or len(lines) != 2:
+        return None
+    top, sha = lines
+    return sha if os.path.realpath(top) == os.path.realpath(root) else None
 
 
 def _process_group():

@@ -170,16 +170,15 @@ def analytic_outer_step_cost(
 
 
 def inmem_learn_estimate(b_shape, geom, cfg):
-    """Pre-flight byte estimate of the in-memory consensus learner's peak
-    working set, and the device budget to compare it against: ~5 live
-    full-batch complex code spectra inside the z iteration plus the z /
-    dual state (and, without ``cfg.donate_state``, one more copy of the
-    output state). Returns (est_bytes, budget_bytes); the budget is
-    ``CCSC_INMEM_HBM_GB``."""
+    """Byte estimate of the in-memory consensus learner's peak working
+    set: ~5 live full-batch complex code spectra inside the z iteration
+    plus the z / dual state (and, without ``cfg.donate_state``, one more
+    copy of the output state). The JAX function also returns a device
+    budget; the port has no caller that needs one (the masked learner
+    checks the card itself, ``torch.cuda.mem_get_info``)."""
     import torch
 
     from ..models.common import FreqGeom
-    from . import env as _env
 
     fg_est = FreqGeom.create(
         geom, tuple(b_shape[-geom.ndim_spatial:]),
@@ -199,8 +198,7 @@ def inmem_learn_estimate(b_shape, geom, cfg):
             + 2 * N * k * W * S * db  # d_local + dual_d
             + 2 * k * W * S * 4  # dbar + udbar (f32)
         )
-    budget = _env.env_float("CCSC_INMEM_HBM_GB") * 1e9
-    return est, budget
+    return est
 
 
 def bound_iters_per_sec(

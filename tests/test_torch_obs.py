@@ -244,6 +244,35 @@ def test_device_tensors_are_refused_in_records():
         obs._json_default(torch.ones(1, device="meta"))
 
 
+def test_git_sha_reads_only_its_own_checkout(tmp_path, monkeypatch):
+    """The revision stamped into run_meta is the HEAD of the checkout
+    whose top holds the package: a copy without its own .git inside
+    another repository stamps None, not that repository's HEAD. The
+    override wins over both."""
+    import subprocess
+
+    def git(cwd, *args):
+        return subprocess.run(
+            ["git", "-c", "user.name=t", "-c", "user.email=t@t", *args],
+            cwd=cwd, check=True, capture_output=True, text=True,
+        ).stdout.strip()
+
+    outer, copy, inner = tmp_path / "outer", tmp_path / "outer" / "copy", \
+        tmp_path / "outer" / "inner"
+    copy.mkdir(parents=True)
+    inner.mkdir()
+    shas = {}
+    for repo in (outer, inner):
+        git(repo, "init", "-q")
+        git(repo, "commit", "-q", "--allow-empty", "-m", "c")
+        shas[repo] = git(repo, "rev-parse", "HEAD")
+    assert obs._checkout_sha(str(outer)) == shas[outer]
+    assert obs._checkout_sha(str(inner)) == shas[inner]
+    assert obs._checkout_sha(str(copy)) is None
+    monkeypatch.setenv("CCSC_GIT_SHA", "abc123")
+    assert obs.git_sha() == "abc123"
+
+
 # ------------------------------------------------------------------
 # kernel-library compile records
 # ------------------------------------------------------------------
@@ -340,9 +369,10 @@ def test_inmem_estimate_equals_jax():
 
     kw = dict(num_blocks=2, storage_dtype="bfloat16")
     shape = (8, 20, 20)
+    # the JAX function returns (bytes, budget); the port the bytes alone
     assert perfmodel.inmem_learn_estimate(
         shape, ProblemGeom((5, 5), 6), LearnConfig(**kw)) == \
-        jperf.inmem_learn_estimate(shape, JGeom((5, 5), 6), JCfg(**kw))
+        jperf.inmem_learn_estimate(shape, JGeom((5, 5), 6), JCfg(**kw))[0]
 
 
 # ------------------------------------------------------------------

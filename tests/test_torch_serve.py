@@ -534,7 +534,10 @@ def test_return_codes_and_stats():
     assert res.psnr == pytest.approx(
         serve.valid_region_psnr(res.recon, x, (2, 2)))
     assert st["n_requests"] == 1
-    assert st["p50_latency_s"] == st["p99_latency_s"] == res.latency_s
+    # one request: both percentiles are the histogram's largest
+    # observation, its milliseconds, back in seconds
+    assert st["p50_latency_s"] == st["p99_latency_s"] == \
+        res.latency_s * 1e3 / 1e3
 
 
 def test_engine_on_card_launches_k1_once_per_iteration():

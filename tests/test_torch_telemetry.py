@@ -283,6 +283,38 @@ def test_engine_stream_traces_and_histograms(tmp_path, mesh):
     assert summ["status"] == "ok" and summ["n_requests"] == 5
 
 
+def test_engine_stats_percentiles_below_the_max():
+    """With a few hundred latencies the p50 and p99 fall below the
+    largest one, so the histogram answers from its bucket edges, not its
+    clamp to the max: ``stats()`` holds each within one bucket width of
+    the exact nearest-rank value, and equals JAX's ``stats()`` source
+    (its SloMonitor's percentile over 1e3) exactly. The latencies are
+    fed to the engine's monitor as the dispatch loop feeds it."""
+    from ccsc_code_iccv2017_tpu.serve import slo as jslo
+
+    lat_ms = np.random.default_rng(3).lognormal(np.log(80.0), 0.6, 300)
+    eng = _port_engine(_bank(), buckets=((1, (12, 12)),))
+    jmon = jslo.SloMonitor()
+    try:
+        for v in lat_ms:
+            eng._slo.observe("total", float(v))
+            jmon.observe("total", float(v))
+        st = eng.stats()
+    finally:
+        eng.close()
+    assert st["n_requests"] == len(lat_ms)
+    hist = slo.Histogram()
+    for v in lat_ms:
+        hist.observe(float(v))
+    for key, q in (("p50_latency_s", 0.50), ("p99_latency_s", 0.99)):
+        exact = obs.percentile(list(lat_ms), q)
+        assert exact < lat_ms.max()
+        got_ms = 1e3 * st[key]
+        assert got_ms < lat_ms.max()
+        assert abs(got_ms - exact) <= hist.bucket_width_ms(exact), key
+        assert st[key] == jmon.percentile("total", q) / 1e3, key
+
+
 def test_engine_slo_breach_takes_one_profile(tmp_path):
     """A 1 µs p99 target breaches at the first check: exactly one capture
     of the next dispatch, recorded as ``slo_profile``, its trace file on
