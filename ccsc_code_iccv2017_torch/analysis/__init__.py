@@ -1,3 +1,4 @@
 """The telemetry stream's declared schema (``obs_schema``, a copy of
-the JAX package's registry). The JAX package's static-analysis passes
-lint that package and are not ported."""
+the JAX package's registry) and the durable perf ledger (``ledger``, a
+copy of the JAX package's without its seeders). The JAX package's
+static-analysis passes lint that package and are not ported."""

@@ -1,7 +1,7 @@
 """The flags the reconstruction and learner apps share (the port's
 counterpart of the JAX package's ``apps/_dispatch.py`` argument helpers),
-the learner CLIs' solver dispatch with its streaming arm
-(:func:`dispatch_learn`), their ``--mesh N`` (:func:`run_mesh_ranks`,
+the learner CLIs' solver dispatch with its streaming arm and its
+out-of-memory downgrade ladder (:func:`dispatch_learn`), their ``--mesh N`` (:func:`run_mesh_ranks`,
 :func:`app_mesh`, :func:`mesh_result`), and what a reconstruction app's
 ``run`` returns.
 
@@ -11,12 +11,15 @@ is refused where the config reads it (``config.SolveConfig`` for
 ``--fft-impl`` and ``--tune``) or by :func:`refuse_unported`
 (``--tune-store``), or for the learners by
 :func:`refuse_unported_learner`, naming the ROADMAP.md item that ports
-it. ``--metrics-dir`` writes the run's telemetry stream (utils.obs).
+it. ``--metrics-dir`` writes the run's telemetry stream (utils.obs);
+``--watchdog`` arms the dispatch-fence watchdog (utils.watchdog) and
+``--auto-degrade`` the downgrade ladder.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -126,12 +129,24 @@ def add_learner_args(
     )
     parser.add_argument(
         "--watchdog", action="store_true",
-        help="the dispatch-fence watchdog (not ported yet)",
+        help="arm the dispatch-fence watchdog: a step whose host read "
+        "exceeds its roofline-derived deadline emits a `stall` record "
+        "and (CCSC_WATCHDOG_ACTION=abort, the default) hard-exits with "
+        "code 87 so a supervisor can restart from the last checkpoint "
+        "(LearnConfig.watchdog; utils.watchdog)",
     )
-    parser.add_argument("--watchdog-slack", type=float, default=20.0)
+    parser.add_argument(
+        "--watchdog-slack", type=float, default=20.0,
+        help="slack multiplier on the roofline-derived per-iteration "
+        "time before a fence is declared hung (LearnConfig.watchdog_slack)",
+    )
     parser.add_argument(
         "--auto-degrade", action="store_true",
-        help="the out-of-memory downgrade ladder (not ported yet)",
+        help="on a preflight memory overflow (CCSC_INMEM_HBM_GB, else the "
+        "card's free memory) or a torch.OutOfMemoryError in the first "
+        "step, step down to --streaming instead of erroring (JAX's "
+        "donate and chunk rungs wait for the chunked driver); every "
+        "downgrade is a `degrade` record and in trace['degrades']",
     )
     parser.add_argument("--checkpoint-dir", default=None)
     parser.add_argument("--checkpoint-every", type=int, default=5)
@@ -159,9 +174,6 @@ _LEARNER_NOT_PORTED = (
     ("fft_impl", "xla", "--fft-impl (the matmul-DFT tiers)", "9"),
     ("outer_chunk", 1, "--outer-chunk (chunked outer steps)", "9"),
     ("donate_state", False, "--donate-state (chunked outer steps)", "9"),
-    ("auto_degrade", False, "--auto-degrade (the OOM downgrade ladder)",
-     "10"),
-    ("watchdog", False, "--watchdog (the dispatch-fence watchdog)", "10"),
 )
 
 
@@ -181,7 +193,8 @@ def learner_config_kwargs(args: argparse.Namespace) -> dict:
         verbose=args.verbose, fft_pad=args.fft_pad,
         storage_dtype=args.storage_dtype,
         max_recoveries=args.max_recoveries, rho_backoff=args.rho_backoff,
-        watchdog_slack=args.watchdog_slack, metrics_dir=args.metrics_dir,
+        watchdog=args.watchdog, watchdog_slack=args.watchdog_slack,
+        metrics_dir=args.metrics_dir,
     )
     if hasattr(args, "d_storage_dtype"):
         kw["d_storage_dtype"] = args.d_storage_dtype
@@ -270,20 +283,161 @@ def mesh_result(res, mesh):
     return res._replace(Dz=Dz) if mesh.rank == 0 else None
 
 
+def _retry_discards_progress(metrics_dir, checkpoint_dir, t_start) -> bool:
+    """Whether re-running the solver after a runtime OOM would discard
+    completed work: with a checkpoint dir the retry resumes, and an
+    attempt that recorded no step died before its first step, the
+    ladder's target. Only a checkpoint-less attempt with recorded steps
+    (a late OOM) must surface the error instead of silently starting the
+    learn over."""
+    if checkpoint_dir:
+        return False
+    if metrics_dir is None:
+        return False  # no evidence either way; a first-step OOM is the norm
+    from ..utils import obs
+
+    return any(
+        e.get("type") == "step" and e.get("t", 0.0) >= t_start
+        for e in obs.read_events(metrics_dir)
+    )
+
+
+def _looks_oom(e: BaseException) -> bool:
+    """A device-memory failure (``torch.OutOfMemoryError``; the shared
+    recognizer utils.memwatch.is_oom)."""
+    from ..utils import memwatch
+
+    return memwatch.is_oom(e)
+
+
+def _can_stream(mesh, solver, forbidden, kwargs) -> bool:
+    """Whether the streaming rung is open from this call: the streaming
+    learner is single-device consensus and takes only the checkpoint
+    options, and an existing checkpoint must not be the in-memory
+    learner's (its fingerprint differs, so the streaming learner would
+    refuse to resume it; stopping here keeps the OOM as the error)."""
+    import os
+
+    if mesh is not None or solver is not None:
+        return False
+    if any(v for v in (forbidden or {}).values()):
+        return False
+    # `is not None`: option values can be arrays
+    if any(v is not None for k, v in kwargs.items()
+           if k not in ("checkpoint_dir", "checkpoint_every")):
+        return False
+    ckdir = kwargs.get("checkpoint_dir")
+    if ckdir and any(
+        os.path.exists(os.path.join(ckdir, f))
+        for f in ("ccsc_state.npz", "ccsc_state.prev.npz")
+    ):
+        return False
+    return True
+
+
+def _rung_cfg(cfg, **change):
+    """``cfg`` with one rung's change, or None when the port's LearnConfig
+    refuses that knob (``donate_state``, ``outer_chunk > 1``: ROADMAP.md
+    Queue 1 item 9), so the ladder passes over the rung."""
+    try:
+        return dataclasses.replace(cfg, **change)
+    except NotImplementedError:
+        return None
+
+
+def _next_rung(cfg, streaming, mesh, solver, forbidden, kwargs,
+               runtime=False):
+    """The next downgrade, ``(new_cfg, new_streaming, rung_name)``, or
+    None when the ladder is exhausted. JAX's order: ``donate`` (drops
+    the output-state copy), ``chunk`` (runtime only: outer_chunk=1), then
+    ``streaming`` (host-resident state, bounded device memory). A rung
+    whose knob the port refuses is passed over, so today the port steps
+    straight to ``streaming``."""
+    if streaming:
+        return None
+    if not cfg.donate_state:
+        donated = _rung_cfg(cfg, donate_state=True)
+        if donated is not None:
+            return donated, False, "donate"
+    if runtime and cfg.outer_chunk > 1:
+        chunk1 = _rung_cfg(cfg, outer_chunk=1)
+        if chunk1 is not None:
+            return chunk1, False, "chunk"
+    if _can_stream(mesh, solver, forbidden, kwargs):
+        # the streaming learner refuses donate_state
+        return dataclasses.replace(cfg, donate_state=False), True, "streaming"
+    return None
+
+
+class _DegradeLog:
+    """The ladder's downgrade records, mirrored into the obs stream: the
+    learner's run is not open at preflight (and is closed when its OOM
+    reaches the ladder), so they go to their own
+    ``events-pNNNNN-dispatch.jsonl`` in the same metrics dir, which
+    ``utils.obs.read_events`` merges into the run's stream."""
+
+    def __init__(self, metrics_dir: Optional[str]):
+        import os
+
+        from ..utils import obs
+
+        self.events: list = []
+        self._writer = None
+        self._host = obs._process_index()
+        if metrics_dir is not None:
+            self._writer = obs.EventWriter(os.path.join(
+                metrics_dir, f"events-p{self._host:05d}-dispatch.jsonl"))
+
+    def record(self, rung: str, stage: str, **fields) -> None:
+        import time
+
+        ev = {"rung": rung, "stage": stage, **fields}
+        self.events.append(ev)
+        print(f"auto-degrade [{stage}]: stepping down to '{rung}' "
+              + ", ".join(f"{k}={v}" for k, v in fields.items()),
+              flush=True)
+        if self._writer is not None:
+            self._writer.write({"t": time.time(), "type": "degrade",
+                                "host": self._host, **ev})
+
+    def oom_forensics(self, e: BaseException, metrics_dir) -> None:
+        """The utils.memwatch OOM dump (every device's memory stats and
+        the error) beside the stream, and its ``mem_oom_dump`` record in
+        the dispatch file: the learner's own run is already closed."""
+        import time
+
+        from ..utils import memwatch
+
+        path = memwatch.oom_dump(e, dump_dir=metrics_dir)
+        if path is None:
+            return
+        print(f"auto-degrade: OOM forensic dump written to {path}",
+              flush=True)
+        if self._writer is not None:
+            self._writer.write({"t": time.time(), "type": "mem_oom_dump",
+                                "host": self._host, "path": path,
+                                "error": str(e)[:300]})
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
+
+
 def dispatch_learn(
     b, geom, cfg, seed: int, device, *, streaming: bool = False,
     stream_mode: Optional[str] = None, solver=None,
     streaming_blocks: Optional[int] = None, streaming_offset=None,
-    forbidden: Optional[dict] = None, mesh=None, **kwargs,
+    forbidden: Optional[dict] = None, mesh=None, auto_degrade: bool = False,
+    **kwargs,
 ):
     """Run a learner CLI's solve: ``solver`` (default the consensus
     learner, parallel.consensus.learn) with ``kwargs`` (and ``mesh``),
     or with ``streaming`` the host-streaming learner (the port of the
     JAX package's ``apps/_dispatch.py::dispatch_learn`` without its
-    tuning and degrade arms; streaming refuses a mesh as JAX does). The
-    random init draws from ``seed``: on ``device`` for the in-memory
-    solvers, on the host for the streaming learner, whose state lives
-    there.
+    tuning arm; streaming refuses a mesh as JAX does). The random init
+    draws from ``seed``: on ``device`` for the in-memory solvers, on the
+    host for the streaming learner, whose state lives there.
 
     The streaming arm takes ``checkpoint_dir`` / ``checkpoint_every``
     and nothing else: a truthy ``forbidden`` entry ({"--cli-flag":
@@ -292,15 +446,103 @@ def dispatch_learn(
     added back to Dz after it (the hyperspectral app's smooth_init, so
     Dz is the full reconstruction, as the masked learner's);
     ``streaming_blocks`` becomes cfg.num_blocks, shrunk to the largest
-    divisor of n not above it."""
-    import torch
+    divisor of n not above it.
 
+    ``auto_degrade`` (``--auto-degrade``) arms JAX's downgrade ladder:
+    when the preflight estimate (utils.perfmodel.inmem_learn_estimate)
+    exceeds the device budget, or the solver raises
+    ``torch.OutOfMemoryError``, the run steps down a rung and retries;
+    each downgrade is a ``degrade`` record (and each OOM a forensic dump
+    and its ``mem_oom_dump`` record) in the stream's
+    ``events-pNNNNN-dispatch.jsonl`` and lands in ``trace['degrades']``.
+    The port's LearnConfig refuses the ``donate`` and ``chunk`` rungs'
+    knobs (ROADMAP.md Queue 1 item 9), so its ladder steps straight to
+    ``streaming``. Default off: an explicit OOM beats a silent strategy
+    change."""
     if stream_mode and not streaming:
         raise SystemExit("--stream-mode requires --streaming")
     if streaming and mesh is not None:
         raise SystemExit(
             "--streaming is single-device and does not combine with --mesh"
         )
+    once = functools.partial(
+        _dispatch_once, b, geom, seed, device, stream_mode=stream_mode,
+        solver=solver, streaming_blocks=streaming_blocks,
+        streaming_offset=streaming_offset, forbidden=forbidden, mesh=mesh)
+    if not auto_degrade:
+        return once(cfg, streaming, kwargs)
+
+    import gc
+    import time
+
+    import torch
+
+    log = _DegradeLog(cfg.metrics_dir)
+    try:
+        if not streaming and solver is None:
+            # the estimate models the consensus learner's working set; a
+            # custom solver (the masked learner) takes only the runtime
+            # rung below
+            from ..utils import perfmodel
+
+            est, budget = perfmodel.inmem_learn_estimate(
+                np.shape(b), geom, cfg, device=device)
+            while est > budget:
+                rung = _next_rung(cfg, streaming, mesh, solver, forbidden,
+                                  kwargs)
+                if rung is None:
+                    break  # ladder exhausted; run as configured
+                cfg, streaming, name = rung
+                log.record(name, "preflight", est_gb=round(est / 1e9, 2),
+                           budget_gb=round(budget / 1e9, 2))
+                if streaming:
+                    break  # host-resident state: bounded by design
+                est, budget = perfmodel.inmem_learn_estimate(
+                    np.shape(b), geom, cfg, device=device)
+        while True:
+            t_attempt = time.time()
+            try:
+                res = once(cfg, streaming, dict(kwargs))
+                break
+            except Exception as e:
+                if not _looks_oom(e):
+                    raise
+                # forensics first: whatever the ladder decides, the OOM
+                # leaves a device-memory post-mortem
+                log.oom_forensics(e, cfg.metrics_dir)
+                if _retry_discards_progress(
+                        cfg.metrics_dir, kwargs.get("checkpoint_dir"),
+                        t_attempt):
+                    print("auto-degrade: a late OOM interrupted completed "
+                          "iterations and no --checkpoint-dir is set — "
+                          "surfacing the error instead of silently "
+                          "restarting the learn from scratch", flush=True)
+                    raise
+                rung = _next_rung(cfg, streaming, mesh, solver, forbidden,
+                                  kwargs, runtime=True)
+                if rung is None:
+                    raise
+                cfg, streaming, name = rung
+                log.record(name, "dispatch", error=str(e)[:300])
+            # the failed attempt's tensors died with its frames: hand the
+            # cached blocks back before the next rung allocates
+            gc.collect()
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        log.close()
+    if log.events and isinstance(res.trace, dict):
+        res.trace["degrades"] = log.events
+    return res
+
+
+def _dispatch_once(b, geom, seed, device, cfg, streaming, kwargs, *,
+                   stream_mode, solver, streaming_blocks, streaming_offset,
+                   forbidden, mesh):
+    """One attempt of :func:`dispatch_learn` with ``cfg`` (the in-memory
+    solver, or with ``streaming`` the host-streaming learner)."""
+    import torch
+
     if not streaming:
         if solver is None:
             from ..parallel.consensus import learn as solver

@@ -160,6 +160,7 @@ def main(argv=None):
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
         init_d=init_d,
+        auto_degrade=args.auto_degrade,
         # the consensus learner's profiler (the masked path refused the
         # flag above)
         **({} if args.masked else {"profile_dir": args.profile_dir}),

@@ -127,6 +127,7 @@ def main(argv=None):
         b, geom, cfg, args.seed, dev, streaming=args.streaming,
         stream_mode=args.stream_mode, mesh=mesh,
         checkpoint_dir=args.checkpoint_dir,
+        auto_degrade=args.auto_degrade,
         checkpoint_every=args.checkpoint_every,
     ), mesh)
     if res is None:  # a rank other than 0 of a mesh writes nothing

@@ -127,6 +127,7 @@ def main(argv=None):
             stream_mode=args.stream_mode,
             streaming_blocks=args.streaming_blocks, streaming_offset=sm,
             checkpoint_dir=args.checkpoint_dir,
+            auto_degrade=args.auto_degrade,
             checkpoint_every=args.checkpoint_every,
             # --streaming swaps in the consensus learner, which has no
             # warm start and no re-transform to carry
@@ -136,6 +137,7 @@ def main(argv=None):
         res = dispatch_learn(
             b, geom, cfg, args.seed, dev, stream_mode=args.stream_mode,
             solver=learn_masked, smooth_init=sm,
+            auto_degrade=args.auto_degrade,
             init_d=load_filters_hyperspectral(args.init) if args.init
             else None,
             checkpoint_dir=args.checkpoint_dir,

@@ -104,6 +104,9 @@ class LearnConfig:
     - ``metrics_dir``: the run's telemetry stream (utils.obs);
       ``verbose='all'`` also writes per-iteration figures as PNG files
       (utils.display).
+    - ``watchdog`` / ``watchdog_slack``: the dispatch-fence watchdog
+      (utils.watchdog) around each step's one host read; its deadline
+      comes from the H100 row of the roofline on the card.
     """
 
     lambda_residual: float = 1.0
@@ -179,7 +182,6 @@ class LearnConfig:
             )
         # what the port does not implement yet
         item9 = "ROADMAP.md Queue 1 item 9"
-        item10 = "ROADMAP.md Queue 1 item 10"
         if self.outer_chunk > 1 or self.donate_state:
             raise _not_ported(
                 "outer_chunk > 1 / donate_state (the chunked driver)", item9
@@ -190,8 +192,6 @@ class LearnConfig:
             )
         if self.tune != "off":
             raise _not_ported(f"tune={self.tune!r} (knob autotuning)", item9)
-        if self.watchdog:
-            raise _not_ported("watchdog (the dispatch-fence watchdog)", item10)
 
     @property
     def chunked_driver(self) -> bool:
@@ -284,7 +284,6 @@ class SolveConfig:
 _SERVE_DEFERRED = (
     ("tune", ("off",), 9), ("tune_store", (None,), 9),
     ("pipeline_depth", (None, 1), 9),
-    ("capture_dir", (None, ""), 10),
     ("compile_cache", (None,), 11), ("artifact_store", (None, ""), 11),
     ("replica_id", (None,), 11), ("staged_warmup", (None, False), 11),
     ("warm_order", (None,), 11), ("warm_rank_capture", (None, ""), 11),
@@ -305,9 +304,11 @@ class ServeConfig:
     ``buckets``, ``max_wait_ms``, ``return_codes``, ``verbose``,
     ``aot_warmup`` (one short warm dispatch per bucket at construction,
     which builds the kernels and the cuFFT plans), ``mesh_shape``,
-    ``mesh_devices``, ``metrics_dir`` (the engine's telemetry stream) and
+    ``mesh_devices``, ``metrics_dir`` (the engine's telemetry stream),
     the SLO fields (``slo_p50_ms``, ``slo_p99_ms``, ``slo_check_s``,
-    ``slo_profile_dir``: serve.slo); every other field refuses a value
+    ``slo_profile_dir``: serve.slo) and ``capture_dir`` (workload
+    capture of a standalone engine: serve.capture; None falls back to
+    ``CCSC_CAPTURE_DIR``, "" is off); every other field refuses a value
     other than its default with ``NotImplementedError`` naming the
     ROADMAP.md item that ports it.
 

@@ -363,6 +363,7 @@ def outer_step(
     num_blocks: int,
     on_phase: Optional[Callable[[str], None]] = None,
     mesh=None,
+    poison: Optional[torch.Tensor] = None,
 ) -> Tuple[LearnState, OuterMetrics]:
     """One outer consensus iteration over this device's L blocks.
 
@@ -376,6 +377,12 @@ def outer_step(
     one of 'freq' / 'filter'); L = N / nb and the state holds this
     rank's shard. Every metric comes back reduced over the mesh, the
     same on every rank.
+
+    ``poison`` (chaos testing only, utils.faults): a 0-d bool tensor on
+    the state's device; where true, the z iterate is NaN after the
+    z-pass (a ``torch.where`` on the card, no host read), so z_diff and
+    obj_z go non-finite exactly as on a real blow-up. None (the
+    default) launches nothing.
     """
     mark = on_phase or (lambda _name: None)
     ax_b, ax_f, ax_k = mesh_axes(mesh)
@@ -470,6 +477,10 @@ def outer_step(
     )
     z = z.reshape(state.z.shape)
     dual_z = dual_z.reshape(state.dual_z.shape)
+    if poison is not None:
+        # chaos injection: NaN the iterate so every downstream metric
+        # goes non-finite exactly like a real blow-up
+        z = torch.where(poison, torch.full_like(z, float("nan")), z)
     mark("z_end")
     num, den = z_diff_sums(z, state.z)
     if mesh is not None:

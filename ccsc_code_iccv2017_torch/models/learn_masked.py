@@ -40,6 +40,7 @@ from ..config import LearnConfig, ProblemGeom
 from ..ops import fourier, freq_solvers, proxes
 from ..parallel import mesh as mesh_lib
 from ..utils import checkpoint as ckpt
+from ..utils import faults, watchdog
 from ..utils import obs, resilience, validate
 from ..utils.resilience import console
 from ..utils.device import PhaseTimer, resolve_device
@@ -102,12 +103,16 @@ def outer_step(
     gamma_div_z: float,
     on_phase: Optional[Callable[[str], None]] = None,
     mesh=None,
+    poison: Optional[torch.Tensor] = None,
 ) -> Tuple[MaskedLearnState, OuterMetrics]:
     """One outer iteration: d-ADMM (admm_learn.m:102-136) then z-ADMM
     (:165-200), the JAX package's ``_outer_step_impl``. ``on_phase`` is
     called at the pass boundaries (d_start, d_end, z_start, z_end), as
     in models.learn.outer_step. ``mesh``: a ('freq',) mesh whose ranks
-    each solve their slice of the spectrum (state and data replicated)."""
+    each solve their slice of the spectrum (state and data replicated).
+    ``poison`` (chaos testing, utils.faults): a 0-d bool tensor; where
+    true the z iterate is NaN after the z-pass (models.learn.outer_step's
+    seam); None launches nothing."""
     mark = on_phase or (lambda _name: None)
     ax_f = "freq" if mesh is not None else None
 
@@ -197,6 +202,10 @@ def outer_step(
         # bf16; the carried spectrum is not, as in JAX)
         zh = zh_new if carry else common.codes_to_freq(_f32(z_s), fg)
     del zkern
+    if poison is not None:
+        # chaos injection: NaN the iterate so z_diff/obj_z go non-finite
+        # exactly like a real blow-up
+        z_s = torch.where(poison, torch.full_like(z_s, float("nan")), z_s)
     mark("z_end")
     z_diff = common.rel_change(z_s, state.z)
     obj_z = objective(z_s, zh, dhat) if cfg.with_objective else zero
@@ -312,6 +321,10 @@ def learn_masked(
     retries. SIGTERM/SIGINT checkpoint and exit at the next step. The
     objective rollback (admm_learn.m:204-213) reverts both iterates and
     stops. On the card the trace carries ``d_pass_ms`` / ``z_pass_ms``.
+    ``cfg.watchdog`` arms the dispatch-fence watchdog around each step's
+    host read (no cost model here, so the ``CCSC_WATCHDOG_MIN_S`` floor
+    governs, as in JAX); ``CCSC_FAULT_*`` arm the chaos faults
+    (utils.faults), at the consensus learner's points.
 
     ``mesh``: a 1-D ('freq',) parallel.mesh.Mesh (freq_mesh), called on
     every rank with the same arguments; the run happens on
@@ -369,13 +382,19 @@ def learn_masked(
         fingerprint=resilience.config_fingerprint(geom, cfg, "masked_admm"),
         mesh=mesh, device=dev, data_shape=list(b.shape),
     )
+    # hang/stall watchdog: no analytic cost model for the masked
+    # objective, so the MIN_S floor (plus the first fence's build
+    # allowance) governs its deadlines
+    wd = watchdog.maybe_start(cfg, algorithm="masked_admm", device=dev)
     try:
         return _learn_masked_impl(
             b, geom, cfg, smooth_init, init_d, generator, gamma_div_d,
             gamma_div_z, mesh, checkpoint_dir, checkpoint_every, dev,
-            initial_state, fg, sd, run,
+            initial_state, fg, sd, run, wd,
         )
     finally:
+        if wd is not None:
+            wd.stop()
         # idempotent backstop: only an escaping exception lands here with
         # the run still open
         run.close(status="error")
@@ -384,6 +403,7 @@ def learn_masked(
 def _learn_masked_impl(
     b, geom, cfg, smooth_init, init_d, generator, gamma_div_d, gamma_div_z,
     mesh, checkpoint_dir, checkpoint_every, dev, initial_state, fg, sd, run,
+    wd=None,
 ):
     n = b.shape[0]
     radius = geom.psf_radius
@@ -464,19 +484,33 @@ def _learn_masked_impl(
     prev = state
     with resilience.GracefulShutdown() as gs:
         i = start_it
+        fresh_step = True  # the first fence builds the kernels
         while i < cfg.max_it:
             t0 = time.perf_counter()
+            na = faults.nan_iteration()
+            if wd is not None:
+                wd.arm(1, f"masked_outer_{i}",
+                       may_compile=fresh_step or na == i + 1)
+            poison = (torch.ones((), dtype=torch.bool, device=dev)
+                      if na == i + 1 else None)
             new_state, m = outer_step(
                 state, b_pad, M_pad, smoothinit, geom, cfg, fg,
                 gamma_div_d * recov.scale, gamma_div_z * recov.scale,
-                on_phase=timer, mesh=mesh,
+                on_phase=timer, mesh=mesh, poison=poison,
             )
+            if poison is not None:
+                faults.consume_nan()
             # the one host read of the step (also its device fence); on a
             # mesh rank 0's metrics and any rank's shutdown request
             (obj_d, obj_z, d_diff, z_diff), stop_req = mesh_lib.agree(
                 torch.stack([m.obj_d, m.obj_z, m.d_diff, m.z_diff]),
                 gs.requested, mesh,
             )
+            # injected hang fires INSIDE the armed fence (utils.faults)
+            faults.hang_tick(i + 1)
+            if wd is not None:
+                wd.disarm()
+            fresh_step = False
             dt = time.perf_counter() - t0
             t_total += dt
             # non-finite guard: NaN metrics would sail through the
@@ -497,6 +531,7 @@ def _learn_masked_impl(
                     break
                 trace.setdefault("recoveries", []).append(ev)
                 run.event("recovery", **ev)
+                fresh_step = True  # as JAX's gamma rebuild (a recompile)
                 continue  # retry iteration i with backed-off gammas
             # rollback (admm_learn.m:204-213), armed only when the
             # objective is tracked (untracked steps return 0.0)
@@ -530,7 +565,11 @@ def _learn_masked_impl(
                 f"Diff_d {d_diff:.3g}, Diff_z {z_diff:.3g}",
             )
             it_done = i + 1
-            preempting = stop_req and i + 1 < cfg.max_it
+            faults.sigterm_tick(i + 1)
+            # one device: the SIGTERM fault's request counts now, as in
+            # JAX; on a mesh the next step's agreed read carries it
+            preempting = (stop_req or (mesh is None and gs.requested)) \
+                and i + 1 < cfg.max_it
             if preempting:
                 trace.setdefault("preemptions", []).append(i + 1)
                 run.event("preemption", iteration=i + 1, signum=gs.signum)

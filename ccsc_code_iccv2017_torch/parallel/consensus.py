@@ -10,6 +10,14 @@ that keeps the last good state, rho-backoff recovery, graceful
 preemption and checkpoint cadence/resume. Each outer step reads its four
 metric scalars back in one host sync, as the JAX driver does.
 
+The robustness hooks are the JAX driver's: with ``cfg.watchdog`` a
+utils.watchdog.DispatchWatchdog is armed around each step's one host
+read (its deadline the perfmodel roofline bound of the step times
+``cfg.watchdog_slack``; on a mesh every rank arms its own), and the
+chaos faults of utils.faults fire at the same points (the NaN poison
+inside the step, the hang inside the armed fence, SIGTERM at the
+boundary). With every hook off they add no launch and no host read.
+
 With ``cfg.metrics_dir`` the run writes its telemetry stream (utils.obs):
 run metadata, one ``step`` record per adopted step with the ObsExtras
 fields, its ``roofline`` (the analytic utils.perfmodel cost) and
@@ -41,7 +49,8 @@ from ..ops import fourier
 from . import mesh as mesh_lib
 from .distributed import GlobalBlockArray
 from ..utils import checkpoint as ckpt
-from ..utils import obs, perfmodel, profiling, resilience, validate
+from ..utils import faults, obs, perfmodel, profiling, resilience, validate
+from ..utils import watchdog
 from ..utils.resilience import console
 from ..utils.device import PhaseTimer, resolve_device
 
@@ -105,8 +114,10 @@ def learn(
     ``figures_dir`` (default ``ccsc_figures``); on a mesh rank 0 writes
     them. ``cfg.metrics_dir``: the telemetry stream (module docstring).
 
-    Not ported yet: the chunked driver (item 9, refused by LearnConfig)
-    and chaos faults.
+    ``cfg.watchdog`` arms the dispatch-fence watchdog (module
+    docstring); ``CCSC_FAULT_*`` arm the chaos faults (utils.faults).
+
+    Not ported yet: the chunked driver (item 9, refused by LearnConfig).
     """
     N = cfg.num_blocks
     ndim_s = geom.ndim_spatial
@@ -146,11 +157,13 @@ def learn(
         fingerprint=resilience.config_fingerprint(geom, cfg, "consensus"),
         mesh=mesh, device=dev, data_shape=data_shape,
     )
+    wd = None
     try:
         step_cost = None
-        if run.active:
+        if run.active or cfg.watchdog:
             # the analytic cost of one outer step of THIS problem: each
-            # step's achieved rate is scored against it (roofline)
+            # step's achieved rate is scored against it (roofline), and
+            # the watchdog derives its fence deadline from its bound
             step_cost = perfmodel.analytic_outer_step_cost(
                 num_blocks=N, ni=ni, k=geom.num_filters,
                 spatial=fg.spatial_shape, num_freq=fg.num_freq,
@@ -164,14 +177,20 @@ def learn(
                 donate_state=cfg.donate_state,
             )
             if run.memwatch is not None:
-                run.modeled_hbm_bytes = int(perfmodel.inmem_learn_estimate(
-                    data_shape, geom, cfg))
+                est, _budget = perfmodel.inmem_learn_estimate(
+                    data_shape, geom, cfg, device=dev)
+                run.modeled_hbm_bytes = int(est)
+        # hang/stall watchdog: armed around every step's fence below
+        wd = watchdog.maybe_start(cfg, cost=step_cost,
+                                  algorithm="consensus", device=dev)
         return _learn_impl(
             b_blocks, geom, cfg, generator, mesh, checkpoint_dir,
             checkpoint_every, init_d, profile_dir, figures_dir, dev,
-            initial_state, fg, N, ni, run, step_cost,
+            initial_state, fg, N, ni, run, step_cost, wd,
         )
     finally:
+        if wd is not None:
+            wd.stop()
         # idempotent: the normal path closed with status='ok' already
         run.close(status="error")
 
@@ -179,7 +198,7 @@ def learn(
 def _learn_impl(
     b_blocks, geom, cfg, generator, mesh, checkpoint_dir, checkpoint_every,
     init_d, profile_dir, figures_dir, dev, initial_state, fg, N, ni, run,
-    step_cost,
+    step_cost, wd=None,
 ):
     timers = profiling.SectionTimers()
     t_setup0 = time.perf_counter()
@@ -265,13 +284,24 @@ def _learn_impl(
     with resilience.GracefulShutdown() as gs, \
             profiling.xla_trace(profile_dir, dev):
         i = start_it
+        fresh_step = True  # the first fence builds the kernels
         while i < cfg.max_it:
             t0 = time.perf_counter()
+            na = faults.nan_iteration()
+            if wd is not None:
+                wd.arm(1, f"ccsc_outer_{i}",
+                       may_compile=fresh_step or na == i + 1)
             with profiling.annotate(f"ccsc_outer_{i}"):
+                # chaos injection (utils.faults): the step NaNs its
+                # iterate on the card
+                poison = (torch.ones((), dtype=torch.bool, device=dev)
+                          if na == i + 1 else None)
                 new_state, m = learn_mod.outer_step(
                     state, b_blocks, geom, recov.cfg, fg, N, on_phase=timer,
-                    mesh=mesh,
+                    mesh=mesh, poison=poison,
                 )
+                if poison is not None:
+                    faults.consume_nan()
                 # the one host read of the step (also its device fence),
                 # the telemetry scalars in it; on a mesh every rank reads
                 # rank 0's metrics and any rank's shutdown request, so
@@ -281,6 +311,11 @@ def _learn_impl(
                                  *(m.extras or ())]),
                     gs.requested, mesh,
                 )
+            # injected hang fires INSIDE the armed fence (utils.faults)
+            faults.hang_tick(i + 1)
+            if wd is not None:
+                wd.disarm()
+            fresh_step = False
             obj_d, obj_z, d_diff, z_diff = vals[:4]
             # a non-finite metric means the iterate diverged: keep the
             # last good state (or back off rho and retry from it)
@@ -300,6 +335,7 @@ def _learn_impl(
                     break
                 trace.setdefault("recoveries", []).append(ev)
                 run.event("recovery", **ev)
+                fresh_step = True  # as JAX's rho rebuild (a recompile)
                 continue  # retry iteration i with the backed-off rho
             state = new_state
             dt = time.perf_counter() - t0
@@ -331,7 +367,12 @@ def _learn_impl(
                 _write_figures(figures_dir or "ccsc_figures", i + 1, state,
                               b_blocks, geom, cfg, fg, mesh)
             it_done = i + 1
-            preempting = stop_req and i + 1 < cfg.max_it
+            faults.sigterm_tick(i + 1)
+            # one device: a request raised after the step's read (the
+            # SIGTERM fault) counts now, as in JAX; on a mesh the next
+            # step's agreed read carries it, so every rank decides alike
+            preempting = (stop_req or (mesh is None and gs.requested)) \
+                and i + 1 < cfg.max_it
             if preempting:
                 trace.setdefault("preemptions", []).append(i + 1)
                 run.event("preemption", iteration=i + 1, signum=gs.signum)

@@ -43,8 +43,9 @@ d-pass uploads no data spectra. The z-diff sums run on the card in every
 tier. With ``cfg.metrics_dir`` the run writes its telemetry stream under
 ``algorithm="consensus_streaming"`` (utils.obs), each step scored
 against the consensus step's analytic cost (the host copies of the paged
-tiers are not in that model). The chunked cadence (``outer_chunk > 1``,
-item 9), the watchdog (item 10) and chaos faults are not ported.
+tiers are not in that model). The watchdog and the chaos faults are the
+JAX module's (utils.watchdog, utils.faults). The chunked cadence
+(``outer_chunk > 1``) is ROADMAP.md Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -58,7 +59,8 @@ from ..config import LearnConfig, ProblemGeom
 from ..models import common, learn as learn_mod
 from ..ops import freq_solvers
 from ..utils import checkpoint as ckpt
-from ..utils import env, obs, perfmodel, resilience, validate
+from ..utils import env, faults, obs, perfmodel, resilience, validate
+from ..utils import watchdog
 from ..utils.device import PhaseTimer, resolve_device
 from ..utils.resilience import console
 
@@ -173,6 +175,10 @@ def learn_streaming(
     ``cfg.max_recoveries > 0`` the state of the last good step is
     restored, rho backs off by ``cfg.rho_backoff`` and the step is
     replayed. SIGTERM/SIGINT checkpoint and exit at the next step.
+    ``cfg.watchdog`` arms the dispatch-fence watchdog around each step
+    (its one host read is the fence), seeded with the consensus step's
+    analytic cost, as in JAX; ``CCSC_FAULT_*`` arm the chaos faults
+    (utils.faults: the NaN poisons block 0's codes of its step).
 
     Returns d, z and Dz on the host. The trace also carries, per step,
     the bytes copied host-to-device and device-to-host (``h2d_bytes``,
@@ -189,15 +195,11 @@ def learn_streaming(
             "donate_state is only supported by the in-memory learners "
             "(models.learn / models.learn_masked)"
         )
-    for unported, what, item in (
-        (cfg.outer_chunk > 1, "outer_chunk > 1 (the chunked cadence)", 9),
-        (cfg.watchdog, "watchdog (the dispatch-fence watchdog)", 10),
-    ):
-        if unported:
-            raise NotImplementedError(
-                f"{what} is not ported to the streaming learner yet "
-                f"(ROADMAP.md Queue 1 item {item})"
-            )
+    if cfg.outer_chunk > 1:
+        raise NotImplementedError(
+            "outer_chunk > 1 (the chunked cadence) is not ported to the "
+            "streaming learner yet (ROADMAP.md Queue 1 item 9)"
+        )
     dev = resolve_device(device)
     host = torch.device("cpu")
     b = validate.as_float32(b, host)
@@ -218,19 +220,39 @@ def learn_streaming(
             geom, cfg, "consensus_streaming"),
         device=dev, data_shape=list(b.shape), stream_mode=stream_mode,
     )
+    step_cost = None
+    if run.active or cfg.watchdog:
+        # the streamed math is the consensus outer step, so its analytic
+        # roofline applies (the paged tiers' host copies are not in it);
+        # the watchdog's deadline comes from its bound, and its
+        # self-calibration and the CCSC_WATCHDOG_MIN_S floor cover the
+        # paging the model does not see
+        step_cost = perfmodel.analytic_outer_step_cost(
+            num_blocks=N, ni=ni, k=geom.num_filters,
+            spatial=fg.spatial_shape, num_freq=fg.num_freq,
+            max_it_d=cfg.max_it_d, max_it_z=cfg.max_it_z,
+            reduce_size=geom.reduce_size,
+            state_dtype_bytes=getattr(torch, cfg.storage_dtype).itemsize,
+            d_state_dtype_bytes=getattr(torch, cfg.d_storage_dtype).itemsize,
+            fft_impl=cfg.fft_impl,
+        )
+    wd = watchdog.maybe_start(cfg, cost=step_cost,
+                              algorithm="consensus_streaming", device=dev)
     try:
         return _learn_streaming_impl(
             b_blocks, geom, cfg, generator, stream_mode, checkpoint_dir,
-            checkpoint_every, dev, initial_state, fg, run,
+            checkpoint_every, dev, initial_state, fg, run, step_cost, wd,
         )
     finally:
+        if wd is not None:
+            wd.stop()
         # idempotent backstop for escaping exceptions
         run.close(status="error")
 
 
 def _learn_streaming_impl(
     b_blocks, geom, cfg, generator, stream_mode, checkpoint_dir,
-    checkpoint_every, dev, initial_state, fg, run,
+    checkpoint_every, dev, initial_state, fg, run, step_cost=None, wd=None,
 ):
     host = torch.device("cpu")
     N, ni = b_blocks.shape[0], b_blocks.shape[1]
@@ -346,25 +368,18 @@ def _learn_streaming_impl(
     saved_it = None  # last iteration committed to the checkpoint dir
     diverged = False
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    step_cost = None
-    if run.active:
-        # the streamed math is the consensus outer step, so its analytic
-        # roofline applies (the paged tiers' host copies are not in it)
-        step_cost = perfmodel.analytic_outer_step_cost(
-            num_blocks=N, ni=ni, k=geom.num_filters,
-            spatial=fg.spatial_shape, num_freq=fg.num_freq,
-            max_it_d=cfg.max_it_d, max_it_z=cfg.max_it_z,
-            reduce_size=geom.reduce_size,
-            state_dtype_bytes=getattr(torch, cfg.storage_dtype).itemsize,
-            d_state_dtype_bytes=getattr(torch, cfg.d_storage_dtype).itemsize,
-            fft_impl=cfg.fft_impl,
-        )
-
     with resilience.GracefulShutdown() as gs:
         i = start_it
+        fresh_pieces = True  # the first step builds the kernels
         while i < cfg.max_it:
             c = recov.cfg  # rho as backed off so far
             t0 = time.perf_counter()
+            if wd is not None:
+                # one armed window per step: the step is many small
+                # launches, but a hang in any of them stalls its fence
+                wd.arm(cfg.outer_chunk, f"stream_outer_{i}",
+                       may_compile=fresh_pieces)
+            na = faults.nan_iteration()
             h2d0, d2h0 = mv.h2d, mv.d2h
             dbar_prev = dbar
 
@@ -415,6 +430,10 @@ def _learn_streaming_impl(
                 z_new, du_new = learn_mod.f_z_block(
                     z_old, mv.up(dual_z[nn]), get_bhat(nn), zkern, c, fg
                 )
+                if na == i + 1 and nn == 0:
+                    # chaos injection (utils.faults): NaN block 0's codes
+                    # so the step's metrics go non-finite
+                    z_new = torch.full_like(z_new, float("nan"))
                 ssd, ssq = learn_mod.z_diff_sums(z_new, z_old)
                 num, den = num + ssd, den + ssq
                 z[nn] = hold(z_new)
@@ -426,6 +445,8 @@ def _learn_streaming_impl(
                 del z_old, z_new, du_new
             del zkern
             timer("z_end")
+            if na == i + 1:
+                faults.consume_nan()
 
             # ---- the step's one host read (also its fence) -----------
             o_d, o_z, dd, num_, den_ = torch.stack(
@@ -433,6 +454,11 @@ def _learn_streaming_impl(
             ).tolist()
             zd = math.sqrt(num_) / max(math.sqrt(den_), 1e-30)
             dt = time.perf_counter() - t0
+            # injected hang fires INSIDE the armed fence (utils.faults)
+            faults.hang_tick(i + 1)
+            if wd is not None:
+                wd.disarm()
+            fresh_pieces = False
             if not all(math.isfinite(v) for v in (o_d, o_z, dd, zd)):
                 console(cfg, f"Iter {i + 1}: non-finite metrics (obj_d="
                              f"{o_d}, obj_z={o_z}, d_diff={dd}, z_diff={zd})",
@@ -445,6 +471,7 @@ def _learn_streaming_impl(
                     run.event("recovery", **ev)
                     (d_local, dual_d, z, dual_z, dbar, udbar,
                      i) = _restore(rec_snap)
+                    fresh_pieces = True  # as JAX's rho rebuild
                     continue
                 # the state advanced through the diverged step: stop, and
                 # keep it out of the checkpoint (the newest generation
@@ -477,6 +504,7 @@ def _learn_streaming_impl(
             it_done = i + 1
             if recov.enabled:
                 rec_snap = snapshot(it_done)
+            faults.sigterm_tick(it_done)
             preempting = gs.requested and it_done < cfg.max_it
             if preempting:
                 trace.setdefault("preemptions", []).append(it_done)

@@ -1,9 +1,11 @@
 """Serving: the reconstruction engine (torch port of
 ``ccsc_code_iccv2017_tpu.serve``'s ``CodecEngine`` core on one device or
-a mesh, its plan LRU, its valid-region PSNR, and its telemetry and SLO
-layer, ``serve.slo``). Capture is ROADMAP.md Queue 1 item 10; the
-fleet, federation, replay, tenancy and quality plane are item 11.
+a mesh, its plan LRU, its valid-region PSNR, its telemetry and SLO
+layer, ``serve.slo``, and its workload capture, ``serve.capture``). The
+fleet, federation, replay, tenancy and quality plane are ROADMAP.md
+Queue 1 item 11.
 """
+from .capture import WorkloadRecorder
 from .engine import (
     CodecEngine,
     DeadlineExceeded,
@@ -18,6 +20,7 @@ __all__ = [
     "DeadlineExceeded",
     "PlanCache",
     "ServedResult",
+    "WorkloadRecorder",
     "bank_digest",
     "pick_bucket",
     "valid_region_psnr",

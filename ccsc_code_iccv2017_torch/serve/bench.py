@@ -17,7 +17,11 @@ record: requests/s of each (the engine's over the whole window and over
 its full dispatches alone), the engine's p50, p90 and largest latency
 (no p99: a stream of tens of requests cannot support it), the largest
 valid-region relative difference between the two, slots, bucket, and
-on the card its name and power limit. It writes no ledger.
+on the card its name and power limit. The record also carries the
+perf ledger's ``chip``, ``shape_key`` and ``knobs``: with
+``CCSC_PERF_LEDGER`` set, ``main`` appends it as a ``kind=serve`` row
+(``analysis.ledger.append_serve_record``, a second row for the mesh
+arm); unset, it writes no ledger.
 
 ``--mesh SPEC`` (``BATCH`` or ``BATCHxFREQ``, e.g. ``4`` or ``2x2``;
 default the ``CCSC_SERVE_MESH`` env knob) adds the mesh arm: the same
@@ -52,7 +56,8 @@ from ..data.images import smooth_fill_batch, smooth_noise_images
 from ..models.reconstruct import ReconstructionProblem, build_plan, reconstruct
 from ..utils.device import resolve_device
 from ..utils.io_mat import load_filters_2d
-from ..utils import env, validate
+from ..tune import store as tune_store
+from ..utils import env, perfmodel, validate
 from .engine import CodecEngine, _bucket_name, parse_mesh_shape
 
 BANK = os.path.join(
@@ -179,6 +184,19 @@ def record(engine: CodecEngine, served, engine_s: float, submit_s: float,
         rec["card"] = card_line()
     else:
         rec["device"] = "cpu"
+    # the perf ledger's key of this configuration (analysis.ledger)
+    geom = engine.geom
+    sides = [max(s.recon.shape[-2:]) for s in served]
+    rec["chip"] = perfmodel.detect_chip(dev)
+    rec["shape_key"] = tune_store.solve_shape_key(
+        "solve2d", k=geom.num_filters, support=tuple(geom.spatial_support),
+        spatial=spatial)
+    rec["knobs"] = {
+        "requests": n, "size_min": min(sides), "size_max": max(sides),
+        "k": geom.num_filters, "support": geom.spatial_support[0],
+        "slots": slots, "max_it": engine.cfg.max_it,
+        "max_wait_ms": engine.serve_cfg.max_wait_ms,
+    }
     return rec
 
 
@@ -297,6 +315,12 @@ def main(argv=None) -> Dict:
         out.update(run_mesh_arm(d, prob, cfg, reqs, mesh_shape, bucket, dev,
                                 looped, out["engine_requests_per_sec"],
                                 mesh_devices))
+    # the durable perf ledger: a no-op unless CCSC_PERF_LEDGER is set
+    from ..analysis import ledger
+    from ..utils import obs
+
+    ledger.append_serve_record(out, git_sha=obs.git_sha(),
+                               source="serve.bench")
     print(json.dumps(out))
     return out
 

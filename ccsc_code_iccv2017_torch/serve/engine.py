@@ -53,13 +53,21 @@ many requests:
    serve records; the quality plane's ``quality_*`` records belong to
    ROADMAP.md Queue 1 item 11.
 
+6. **Workload capture** (``ServeConfig.capture_dir`` or
+   ``CCSC_CAPTURE_DIR``; serve.capture): a standalone engine records
+   every admitted request (payloads content-addressed by sha256) and
+   its outcome digest, PSNR and latency, under the solve parameters it
+   serves with, so a capture replays bit for bit. With
+   ``CCSC_PERF_LEDGER`` set, warmup appends the join-to-first-request
+   ``kind=warmup`` ledger record (analysis.ledger).
+
 The host reads one scalar per iteration per bucket (the count of
 active slots; on a mesh, per position) instead of one per request.
 Dispatch is synchronous in one worker thread, which pins the engine's
 device (or hands the shards to the positions' threads) and surfaces
 every exception on its batch's futures; nothing falls back to the CPU.
-Tuning, pipelining, capture, artifacts and staged warmup are later
-ROADMAP.md Queue 1 items (9-11); ``ServeConfig`` refuses them.
+Tuning, pipelining, artifacts and staged warmup are later ROADMAP.md
+Queue 1 items (9, 11); ``ServeConfig`` refuses them.
 """
 from __future__ import annotations
 
@@ -86,6 +94,7 @@ from ..parallel.local_mesh import LocalMesh, MeshBarrierError
 from ..utils import env, obs, perfmodel, profiling, validate
 from ..utils import trace as trace_util
 from ..utils.device import resolve_device
+from . import capture as _capture_mod
 from . import registry
 from . import slo as _slo
 from .quality import valid_region_psnr
@@ -135,6 +144,9 @@ class _Pending:
     bank_id: Optional[str] = None
     deadline: Optional[float] = None  # absolute epoch seconds
     trace_id: Optional[str] = None  # the request's span tree (utils.trace)
+    # workload-capture key (serve.capture): pairs this request's capture
+    # record with its outcome
+    cap_key: Optional[str] = None
 
 
 def _bucket_name(slots: int, spatial: Tuple[int, ...]) -> str:
@@ -333,7 +345,35 @@ class CodecEngine:
         if note:
             self._run.console(note, tier="always")
 
+        self._capture = None
+        self._cap_seq = 0
+        # per-engine key salt: a recorder reopened on the same capture
+        # dir must never reuse a previous engine's keys (read_workload
+        # pairs outcomes by key)
+        self._cap_prefix = f"req-{trace_util.new_trace_id()[:8]}"
         try:
+            # a standalone engine (the port has no fleet replicas yet)
+            # captures its own workload, under the solve params requests
+            # are served with
+            cap_dir = _capture_mod.resolve_capture_dir(serve_cfg.capture_dir)
+            if cap_dir:
+                self._capture = _capture_mod.WorkloadRecorder(
+                    cap_dir, emit=self._emit, meta={
+                        "source": "serve_engine",
+                        "buckets": [{"slots": s, "spatial": list(sp)}
+                                    for s, sp in serve_cfg.buckets],
+                        "geom": {
+                            "spatial_support": list(geom.spatial_support),
+                            "num_filters": geom.num_filters,
+                        },
+                        "solve": {
+                            "max_it": cfg.max_it, "tol": cfg.tol,
+                            "lambda_residual": cfg.lambda_residual,
+                            "lambda_prior": cfg.lambda_prior,
+                        },
+                        "knobs": self._knob_dict,
+                    },
+                )
             self._build(d, blur_psf)
         except BaseException:
             # a failed construction stops the worker it may have
@@ -341,6 +381,8 @@ class CodecEngine:
             with self._close_lock:
                 self._close_started = True
             self._stop_worker()
+            if self._capture is not None:
+                self._capture.close(status_note="init_failed")
             self._run.close(status="error")
             self._close_done.set()
             raise
@@ -429,6 +471,19 @@ class CodecEngine:
             mesh=list(self._mesh_shape) if self._mesh_shape else None,
             knobs=self._knob_dict,
         )
+        # join-to-first-request as a ledger configuration (a no-op
+        # unless CCSC_PERF_LEDGER is set; never raises); lazy engines
+        # skip it
+        if serve_cfg.aot_warmup:
+            from ..analysis import ledger as _ledger
+
+            _ledger.append_warmup_record(
+                chip=perfmodel.detect_chip(self.device),
+                buckets=self._buckets, join_s=total,
+                mesh_shape=self._mesh_shape, knobs=self._knob_dict,
+                staged=False, artifact_store=False,
+                n_compiled=len(self._buckets),
+            )
 
         self._worker = threading.Thread(
             target=self._work_loop, name="ccsc-serve", daemon=True
@@ -642,9 +697,20 @@ class CodecEngine:
                     "(default bank routes as bank_id=None)"
                 )
             p.digest = digest
+            if self._capture is not None:
+                self._cap_seq += 1
+                p.cap_key = f"{self._cap_prefix}-{self._cap_seq:08d}"
             self._pending.setdefault((key, digest), []).append(p)
             self._n_pending += 1
             self._cv.notify()
+        if p.cap_key is not None:
+            # recorded outside the queue lock: hashing and the segment
+            # append must not serialize submitters against dispatch
+            self._capture.record_submit(
+                p.cap_key, p.trace_id, p.b, mask=p.mask,
+                smooth_init=p.smooth_init, x_orig=p.x_orig,
+                bucket=_bucket_name(*key), bank_id=bank_id, tenant=None,
+            )
         return p.future
 
     def reconstruct(
@@ -873,6 +939,11 @@ class CodecEngine:
                 iters=int(iters[i]), psnr=res.psnr, bank_id=p.bank_id,
                 tenant=None,
             )
+            if p.cap_key is not None:
+                self._capture.record_outcome(
+                    p.cap_key, rec_i, res.psnr, res.latency_s * 1e3, name,
+                    iters=int(iters[i]),
+                )
         it_rate = max_it / dt if dt > 0 and max_it else 0.0
         # the full-bucket ceiling at this dispatch's measured iteration
         # rate: the achieved len(batch)/dt sits below it by the unfilled
@@ -1195,6 +1266,12 @@ class CodecEngine:
             return
         try:
             self._stop_worker()
+            cap = getattr(self, "_capture", None)
+            if cap is not None:
+                # seal the capture (meta.json counters and the
+                # capture_summary record) while the run is still open
+                with contextlib.suppress(Exception):
+                    cap.close()
             run = getattr(self, "_run", None)  # None: validation raised
             if run is not None and not run.closed:
                 if run.active:

@@ -1,6 +1,6 @@
 """Mid-run checkpoint/resume for the learner (a copy of
-``ccsc_code_iccv2017_tpu.utils.checkpoint`` without its chaos hooks,
-for torch state). Each committed save and each load is a
+``ccsc_code_iccv2017_tpu.utils.checkpoint`` for torch state, with its
+chaos hook: ``CCSC_FAULT_CKPT_SAVE``, utils.faults). Each committed save and each load is a
 ``checkpoint_save`` / ``checkpoint_load`` record of the current
 telemetry run (utils.obs), as in the JAX package.
 
@@ -27,6 +27,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from . import faults
 
 _STATE = "ccsc_state.npz"
 _STATE_PREV = "ccsc_state.prev.npz"
@@ -92,6 +94,13 @@ def save(
     with open(tmp, "wb") as f:
         np.savez(f, **payload)
     trace_blob = json.dumps(trace).encode()
+    # chaos hook: a crash after the payload is written but before
+    # anything is committed; the directory keeps the previous generation
+    try:
+        faults.ckpt_save_hook()
+    except BaseException:
+        os.unlink(tmp)
+        raise
     sha = _sha256_file(tmp)
     # rotate sidecar + trace first, then the state, then commit: every
     # crash point leaves at least one loadable generation

@@ -26,6 +26,14 @@ package's (``analysis.obs_schema``), so its readers
   lands in ``recompiled_funs``.
 - roofline — ``Run.chunk`` scores each chunk's achieved iteration rate
   against the analytic utils.perfmodel bounds.
+- the performance observatory (analysis.ledger) — with
+  ``CCSC_PERF_LEDGER`` set, a learner run's close appends one
+  normalized ledger record (outer iterations/s, its median roofline
+  fraction, the allocator's peak), also with telemetry off, and a
+  ``ledger_append`` record when it has a stream; the live anomaly watch
+  compares the run's rolling roofline fraction with the ledger's band
+  for its configuration and records a ``perf_anomaly`` once per
+  excursion.
 
 All record fields are host values read at the driver's existing fence;
 no ``Run`` method touches a device tensor.
@@ -421,9 +429,9 @@ class Run:
     adds no read and no launch.
 
     ``anomaly`` and ``_ledger_meta`` are the performance ledger's hooks
-    (``analysis.ledger``, not in the port yet): they stay None, so
-    ``_ledger_record`` is a no-op and no ``ledger_append`` or
-    ``perf_anomaly`` record is written.
+    (``analysis.ledger``): ``start_run`` arms them when
+    ``CCSC_PERF_LEDGER`` says so; each is None-safe, so a plain Run
+    costs nothing.
     """
 
     def __init__(
@@ -441,6 +449,9 @@ class Run:
         self.memwatch = None  # utils.memwatch.MemWatch
         self.modeled_hbm_bytes: Optional[int] = None
         self._ledger_meta: Optional[Dict[str, Any]] = None
+        self._led_iters = 0
+        self._led_dt = 0.0
+        self._led_fracs: List[float] = []
         self._host = _process_index()
         if heartbeat_every_s is None:
             heartbeat_every_s = _env.env_float("CCSC_OBS_HEARTBEAT_S")
@@ -489,6 +500,8 @@ class Run:
         # state is meaningful
         if self.memwatch is not None:
             self.memwatch.sample()
+        self._led_iters += int(n_adopted)
+        self._led_dt += float(dt_s)
         fields: Dict[str, Any] = {
             "start_it": int(start_it),
             "length": int(length),
@@ -500,6 +513,7 @@ class Run:
             f"chunk {start_it + 1}..{start_it + n_adopted}: "
             f"{ips:.3g} it/s"
         )
+        frac = None
         if cost is not None and ips > 0:
             from . import perfmodel
 
@@ -515,7 +529,12 @@ class Run:
                 bound_it_per_sec=round(bound, 4),
             )
             if bound > 0 and math.isfinite(bound):
-                fields["roofline_frac"] = round(ips / bound, 6)
+                # achieved fraction of the binding roof: the number the
+                # perf ledger's anomaly band is built from
+                frac = ips / bound
+                fields["roofline_frac"] = round(frac, 6)
+                if len(self._led_fracs) < 4096:
+                    self._led_fracs.append(frac)
             line += (
                 f", MFU {100 * util['mfu_vs_bf16_peak']:.2f}%, "
                 f"HBM {100 * util['hbm_frac']:.1f}%, "
@@ -525,6 +544,20 @@ class Run:
         self.event("roofline", **fields)
         if _VERBOSE_ADMITS[self.verbose] >= _TIERS["all"]:
             print(line, flush=True)
+        if self.anomaly is not None and frac is not None:
+            anom = self.anomaly.observe(frac)
+            if anom is not None:
+                self.event("perf_anomaly", **anom)
+                self.console(
+                    "perf anomaly: rolling roofline fraction "
+                    f"{anom['rolling_frac']:.3g} fell below the "
+                    f"historical band ({anom['band_lo']:.3g}, "
+                    f"median {anom['median']:.3g} over "
+                    f"{anom['n_history']} run(s)) — thermal "
+                    "throttle, a power cap, or a bad knob pick while "
+                    "the run is still alive",
+                    tier="brief",
+                )
 
     def heartbeat(self, step: int, fence_latency_s: float) -> None:
         """Periodic per-process liveness record (cadence
@@ -550,10 +583,59 @@ class Run:
         if drained:
             self.event("phase", phase=phase, sections=drained)
 
-    def _ledger_record(self, status: str) -> None:
-        """The perf ledger's close-time append: a no-op until
-        analysis.ledger arms ``_ledger_meta``."""
-        return None
+    def _ledger_record(
+        self, status: str, compile_summary: Optional[Dict] = None
+    ) -> Optional[Dict[str, Any]]:
+        """Append this run's normalized perf record to the durable
+        ledger (analysis.ledger) iff CCSC_PERF_LEDGER armed it at
+        start_run and the run measured something. Returns {key, value,
+        unit, path} for the ledger_append record, or None. Never raises:
+        the ledger must not take down the run it records."""
+        meta = self._ledger_meta
+        if (
+            meta is None
+            or status != "ok"
+            or self._led_iters <= 0
+            or self._led_dt <= 0
+            or self.chip is None
+            # a mesh run is ONE record: every rank runs the same step,
+            # so N appends would inflate the history N-fold
+            or self._host != 0
+        ):
+            return None
+        try:
+            from ..analysis import ledger as _ledger
+
+            if not _ledger.enabled():
+                return None
+            fracs = sorted(self._led_fracs)
+            frac = fracs[len(fracs) // 2] if fracs else None
+            rec = _ledger.maybe_append(
+                chip=self.chip,  # normalize_record canonicalizes
+                kind=meta["kind"],
+                workload=meta["workload"],
+                shape_key=meta["shape_key"],
+                knobs=meta["knobs"],
+                value=self._led_iters / self._led_dt,
+                unit="outer_iters/sec",
+                git_sha=git_sha(),
+                roofline_frac=frac,
+                n_compiles=(compile_summary or {}).get("n_compiles"),
+                peak_hbm_bytes=(self.memwatch.peak_bytes
+                                if self.memwatch is not None else None),
+                modeled_hbm_bytes=self.modeled_hbm_bytes,
+                source=f"run:{meta['algorithm']}",
+            )
+            if rec is None:
+                return None
+            return {
+                "key": _ledger.record_key(rec),
+                "value": rec["value"],
+                "unit": rec["unit"],
+                "path": _ledger.default_ledger_path(),
+            }
+        except Exception:  # the ledger never fails the run
+            return None
 
     # -- lifecycle -----------------------------------------------------
     def close(self, status: str = "ok", **fields) -> None:
@@ -574,7 +656,10 @@ class Run:
             summary = None
         if self.memwatch is not None:
             self.memwatch.sample()
-        self._ledger_record(status)
+        # the ledger append happens with or WITHOUT a stream
+        # (CCSC_PERF_LEDGER alone is enough); only the records below
+        # need a writer
+        led = self._ledger_record(status, summary)
         if self.writer is None:
             return
         # written directly (the run is already closed, so event() would
@@ -584,6 +669,9 @@ class Run:
             if wm is not None:
                 self.writer.write({"t": time.time(), "type": "mem_watermark",
                                    "host": self._host, **wm})
+        if led is not None:
+            self.writer.write({"t": time.time(), "type": "ledger_append",
+                               "host": self._host, **led})
         rec = {
             "t": time.time(),
             "type": "summary",
@@ -609,6 +697,109 @@ class _NullWriterRun(Run):
 
     def __init__(self, verbose: str = "brief"):
         super().__init__(None, verbose=verbose)
+
+
+# learner algorithm string -> tune.store workload-token algo: the runs
+# whose close() appends a normalized record to the perf ledger (the
+# serve bench and the engine's warmup append through their own paths)
+_LEARN_ALGOS = {
+    "consensus": "consensus",
+    "masked_admm": "masked",
+    "consensus_streaming": "streaming",
+}
+
+# the perf-relevant LearnConfig knobs a ledger record keys on (the
+# knob-dict component of the ledger key), the JAX package's list
+_LEDGER_KNOB_KEYS = (
+    "outer_chunk", "donate_state", "fft_impl", "fft_pad", "fused_z",
+    "fused_z_precision", "storage_dtype", "d_storage_dtype",
+    "num_blocks", "carry_freq", "use_pallas", "tune",
+)
+
+
+def _ledger_kind(algorithm: str) -> Optional[str]:
+    if algorithm in _LEARN_ALGOS:
+        return "learn"
+    if algorithm.startswith("serve"):
+        return "serve"
+    if algorithm == "bench":
+        return "bench"
+    if algorithm == "reconstruct":
+        return "solve"
+    return None
+
+
+def _arm_observatory(run: Run, algorithm, geom, cfg, extra_meta,
+                     device=None) -> None:
+    """Arm the performance ledger's hooks on a freshly opened run: the
+    close-time ledger append for learner runs and the live anomaly
+    watch when the ledger (CCSC_PERF_LEDGER) holds enough roofline
+    history for this configuration. A telemetry-off run takes part
+    too when the ledger is armed (its allocator peak then comes from
+    a memwatch armed here, on a card). Best-effort: a broken
+    observatory never breaks the run it observes."""
+    try:
+        from ..analysis import ledger as _ledger
+
+        ledger_armed = _ledger.enabled()
+    except Exception:
+        return
+    if not ledger_armed:
+        return
+    if run.memwatch is None and run.chip not in (None, "cpu"):
+        try:
+            import torch
+
+            from . import memwatch as _memwatch
+
+            dev = torch.device("cuda" if device is None else device)
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            mw = _memwatch.MemWatch(devices=[dev])
+            if mw.enabled:
+                run.memwatch = mw
+        except Exception:
+            pass
+    kind = _ledger_kind(algorithm)
+    workload = str(extra_meta.get("workload") or "")
+    algo = _LEARN_ALGOS.get(algorithm)
+    if algo is not None and geom is not None and cfg is not None:
+        shape_key = ""
+        try:
+            from ..tune import store as tune_store
+
+            workload = tune_store.learn_workload(geom, algo)
+            ds = extra_meta.get("data_shape")
+            if ds:
+                shape_key = tune_store.learn_shape_key(
+                    workload, k=geom.num_filters,
+                    support=tuple(geom.spatial_support), n=int(ds[0]),
+                    size=tuple(ds[-geom.ndim_spatial:]),
+                    blocks=int(getattr(cfg, "num_blocks", 1) or 1),
+                )
+        except Exception:
+            pass
+        run._ledger_meta = {
+            "kind": "learn",
+            "workload": workload,
+            "shape_key": shape_key,
+            "knobs": {k: getattr(cfg, k) for k in _LEDGER_KNOB_KEYS
+                      if hasattr(cfg, k)},
+            "algorithm": algorithm,
+        }
+    if kind is None or run.chip is None:
+        return
+    try:
+        # the band strictly within this configuration (the knob digest
+        # is part of the match)
+        meta = run._ledger_meta or {}
+        run.anomaly = _ledger.watch_for(
+            run.chip.split("->")[0], kind, workload or None,
+            shape_key=meta.get("shape_key") or None,
+            knobs=meta.get("knobs"),
+        )
+    except Exception:
+        pass
 
 
 def _device_meta(device) -> Dict[str, Any]:
@@ -660,6 +851,20 @@ def start_run(
     ``device``: the run's device (None: cuda:0 when a card is visible)."""
     if metrics_dir is None:
         run = _NullWriterRun(verbose=verbose)
+        # the durable ledger does not require telemetry: when
+        # CCSC_PERF_LEDGER is armed, a stream-less run detects its chip
+        # and accrues a close-time record
+        try:
+            from ..analysis import ledger as _ledger
+
+            if _ledger.enabled():
+                from . import perfmodel
+
+                run.chip = perfmodel.detect_chip(device)
+                _arm_observatory(run, algorithm, geom, cfg, extra_meta,
+                                 device)
+        except Exception:
+            pass
         with _CURRENT_LOCK:
             _CURRENT.append(run)
         return run
@@ -700,6 +905,7 @@ def start_run(
         mw = _memwatch.MemWatch(devices=[dev])
         if mw.enabled:
             run.memwatch = mw
+    _arm_observatory(run, algorithm, geom, cfg, extra_meta, device)
     run.event("run_meta", **meta)
     if compile_monitor:
         run.compile_monitor = CompileMonitor().install(

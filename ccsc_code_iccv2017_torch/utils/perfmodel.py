@@ -1,8 +1,8 @@
 """Utilization estimation: achieved FLOP/s and memory GB/s vs the card's
 datasheet peaks (torch port of the parts of
 ``ccsc_code_iccv2017_tpu.utils.perfmodel`` the run telemetry reads:
-``detect_chip``, ``analytic_outer_step_cost``, ``inmem_learn_estimate``,
-``bound_iters_per_sec``, ``serving_bound`` and ``utilization``).
+``detect_chip``, ``analytic_outer_step_cost``, ``inmem_learn_estimate``
+(with the auto-degrade ladder's budget), ``bound_iters_per_sec``, ``serving_bound`` and ``utilization``).
 
 ``analytic_outer_step_cost`` is a copy: a closed-form count of the CCSC
 outer step (FFTs, Grams, Cholesky, per-frequency solves, proxes) from
@@ -169,13 +169,20 @@ def analytic_outer_step_cost(
     return {"flops": flops, "bytes": bytes_}
 
 
-def inmem_learn_estimate(b_shape, geom, cfg):
-    """Byte estimate of the in-memory consensus learner's peak working
-    set: ~5 live full-batch complex code spectra inside the z iteration
-    plus the z / dual state (and, without ``cfg.donate_state``, one more
-    copy of the output state). The JAX function also returns a device
-    budget; the port has no caller that needs one (the masked learner
-    checks the card itself, ``torch.cuda.mem_get_info``)."""
+def inmem_learn_estimate(b_shape, geom, cfg, device=None):
+    """Pre-flight byte estimate of the in-memory consensus learner's
+    peak working set, and the device budget to compare it against:
+    ``(est_bytes, budget_bytes)``, as the JAX function returns. The
+    estimate: ~5 live full-batch complex code spectra inside the z
+    iteration plus the z / dual state (and, without
+    ``cfg.donate_state``, one more copy of the output state).
+
+    The budget is ``CCSC_INMEM_HBM_GB`` when set. Unset, it is the
+    learner ``device``'s free bytes (``torch.cuda.mem_get_info``; None:
+    cuda:0 when a card is visible), where JAX keeps its 14 GB default
+    of a 16 GB TPU; on the CPU it is infinite, so the auto-degrade
+    ladder's preflight never fires there and only its runtime rung
+    applies."""
     import torch
 
     from ..models.common import FreqGeom
@@ -198,7 +205,16 @@ def inmem_learn_estimate(b_shape, geom, cfg):
             + 2 * N * k * W * S * db  # d_local + dual_d
             + 2 * k * W * S * 4  # dbar + udbar (f32)
         )
-    return est
+    from . import env as _env
+
+    gb = _env.env_float("CCSC_INMEM_HBM_GB")
+    if gb is not None:
+        return est, gb * 1e9
+    dev = (torch.device("cuda" if torch.cuda.is_available() else "cpu")
+           if device is None else torch.device(device))
+    if dev.type != "cuda":
+        return est, math.inf
+    return est, float(torch.cuda.mem_get_info(dev)[0])
 
 
 def bound_iters_per_sec(

@@ -259,6 +259,48 @@ never exits 0):
    ``learn_3d --synthetic --metrics-dir`` in a fresh process (1 step):
    its stream validates and holds one ``compile`` record, kind
    ``load``, for ``solve_z_rank1`` (built in phase 2), and no ``build``.
+18. Robustness (``utils.watchdog``, ``utils.faults``, the degrade ladder
+   of ``apps._common.dispatch_learn``, the ``supervise`` module,
+   ``serve.capture``, ``analysis.ledger``; run after 17, before the
+   output of 14): (a) phase 17's learner (phase 7's configuration and
+   seed, TEL_STEPS steps) plain, with ``watchdog=True`` twice and plain
+   again (ABBA), ``CCSC_WATCHDOG_ACTION=event``: every run bitwise phase
+   17's plain run, K2a/K2b launched as in it, no stall; the derived
+   per-iteration deadline printed. (b) The same learner with
+   ``CCSC_FAULT_NAN_IT=2`` and ``max_recoveries=1`` for ROB_NAN_STEPS
+   steps: one entry in ``trace['recoveries']``, one ``fault_fired`` and
+   one ``recovery`` record, a retried step's K2 launches, finite results;
+   phase 9's reduced problem under the same fault on the card and the
+   CPU from one init within 1e-4. (c) ``CCSC_FAULT_HANG_IT=1`` sleeping
+   ROB_HANG_S under a watchdog whose deadline is ROB_HANG_MIN_S, event
+   mode: exactly one ``stall`` record and the run bitwise the plain
+   one. (d) ``python -m ...supervise -- ...apps.learn_2d --watchdog``
+   at the north star's width on ROB_SUP_NI images a block (data the
+   phase writes as a .mat stack): a hang at step 2 is aborted with exit
+   87 and resumed from the step-1 checkpoint; a SIGTERM at step 1
+   checkpoints, exits 0 and is resumed; both final filters bitwise the
+   unfaulted ``learn_2d`` run's; the supervisor trace's attempts and
+   the restart gap printed. (e) ``learn_2d --auto-degrade`` on phase
+   7's data (1 step) in a child whose allocator is capped at
+   ROB_OOM_CAP_GIB (``torch.cuda.set_per_process_memory_fraction``): the
+   in-memory learner raises ``torch.OutOfMemoryError``, the forensic
+   dump and its ``mem_oom_dump`` record, one ``degrade`` record
+   (``streaming``, ``dispatch``), the run completes as
+   ``consensus_streaming`` (``CCSC_STREAM_MODE=device``) with filters
+   bitwise a direct ``learn_streaming`` run of that tier; with
+   ``CCSC_INMEM_HBM_GB=1`` the ladder steps down at the preflight and no
+   in-memory run starts. (f) Phase 10's 42 requests through a 4-slot
+   256x256 engine with ``capture_dir``: 42 request records whose payload
+   SHAs are the inputs', ``load_payload`` round-trips, outcome digests
+   the results', every result bitwise phase 10's, K1 launched the
+   dispatches' iterations; the captured payloads replayed under the
+   captured solve params through a fresh engine, every result bitwise
+   phase 10's; requests/s beside phase 10's and the capture's ms a
+   request. (g) With ``CCSC_PERF_LEDGER`` a temporary file during (a)'s
+   second armed run and (f)'s engine: one ``learn`` record keyed
+   ``h100`` with ``roofline_frac`` and ``peak_hbm_bytes``, one
+   ``warmup`` record, ``Ledger`` reads both, ``gate`` passes, the repo's
+   ``perf_ledger.jsonl`` untouched.
 14. Output: a
    ``{"slice": ...}`` line (serving), a ``{"learn": ...}`` line, a
    ``{"serve_engine": ...}`` line (the engine phase and the
@@ -266,13 +308,17 @@ never exits 0):
    ``{"learners": ...}`` line, a ``{"streaming": ...}`` line, a
    ``{"mesh": ...}`` line, a ``{"serve_mesh": ...}`` line, a
    ``{"telemetry": ...}`` line (17's counts and seconds, with and
-   without telemetry and the profiler), a
+   without telemetry and the profiler), a ``{"robustness": ...}`` line
+   (18's counts and seconds, the armed learner's step beside the plain
+   one), a
    ``{"kernels": [...]}`` line (K1, K2a, K2b; K1's launches by path:
    reconstruct, engine, poisson, deblur, learn_3d, learn_2d_masked,
    learn_streaming_2d, learn_streaming_3d, mesh_reconstruct,
    mesh_learn_freq, serve_mesh, learn_2d_256_gate, telemetry_engine,
-   telemetry_reconstruct; K2's: learn, learn_telemetry,
-   mesh_learn_block4, mesh_learn_nccl1), the nvidia-smi line, and last
+   telemetry_reconstruct, capture_engine, capture_replay,
+   degrade_streaming_cli, degrade_streaming_direct; K2's: learn,
+   learn_telemetry, mesh_learn_block4, mesh_learn_nccl1, learn_watchdog,
+   learn_nan_recovery, learn_hang), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when CUDA is absent or the
@@ -3001,6 +3047,7 @@ def _tel_learn(torch, port, seed, phase7, tmp):
     print(f"[17] (a) plain run bitwise phase 7's first {TEL_STEPS} steps: "
           f"{repeatable} (spread {spread:.3e}); the telemetry runs bitwise "
           "the plain run")
+    plain_d = runs["plain"]["d"]
     for r in runs.values():
         del r["d"]
     # a step's mean seconds over both runs of each ABBA pair, and what
@@ -3013,7 +3060,7 @@ def _tel_learn(torch, port, seed, phase7, tmp):
           f"{added_ms:+.2f} ms); the telemetry scalars alone "
           f"{extras_ms:.3f} ms of device time")
     return {"repeatable_vs_phase7": repeatable, "spread_vs_phase7": spread,
-            "runs": runs, "mean_step_s": step_s,
+            "runs": runs, "mean_step_s": step_s, "plain_d": plain_d,
             "metrics_added_ms_per_step": added_ms,
             "obs_extras_ms": extras_ms,
             "slowdown_metrics": runs["metrics"]["wall_s"]
@@ -3254,6 +3301,620 @@ def phase_telemetry(torch, port, seed, phase7, phase10):
     return out
 
 
+# ---------------------------------------------------------------------
+# 18: robustness (the watchdog, chaos faults, the degrade ladder, the
+# supervisor, workload capture, the perf ledger)
+# ---------------------------------------------------------------------
+
+ROB_HANG_MIN_S = 3.0  # (c): the lowered CCSC_WATCHDOG_MIN_S
+ROB_HANG_S = 6.0  # (c): the hang, a few seconds above it
+ROB_HANG_SLACK = 2.0  # (c): a per-iteration budget under MIN_S
+ROB_NAN_STEPS = 3  # (b)
+ROB_SUP_NI = 4  # (d): images a block of the supervised learner
+ROB_SUP_STEPS = 3
+ROB_SUP_MIN_S = 5.0  # (d): the child's CCSC_WATCHDOG_MIN_S
+# (e): the allocator cap, between the north star's peaks in the
+# streaming device tier (~16.2 GiB) and in memory (~26.2 GiB)
+ROB_OOM_CAP_GIB = 22.0
+ROB_PREFLIGHT_GB = 1  # (e): the CCSC_INMEM_HBM_GB of the preflight run
+# the child of (e): learn_2d under a capped allocator, its result and
+# kernel counts as one JSON line
+OOM_CHILD = """
+import json, sys, time
+import torch
+torch.cuda.set_per_process_memory_fraction(float(sys.argv[1]))
+from ccsc_code_iccv2017_torch.apps import learn_2d
+from ccsc_code_iccv2017_torch.ops import fused_z, kernels
+t0 = time.perf_counter()
+res = learn_2d.main(sys.argv[2:])
+tr = res.trace
+print(json.dumps({"oom_child": {
+    "wall_s": time.perf_counter() - t0,
+    "algorithm": tr["algorithm"], "stream_mode": tr.get("stream_mode"),
+    "degrades": tr.get("degrades"), "steps": len(tr["obj_vals_z"]) - 1,
+    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    "k1": kernels.solve_z_rank1.launches,
+    "k2": [fused_z.fused_z_iter.launches_a, fused_z.fused_z_iter.launches_b],
+}}))
+"""
+
+
+class _Env:
+    """Set env knobs (None: unset) for a block; restore them after."""
+
+    def __init__(self, **kv):
+        self.kv = {k: None if v is None else str(v) for k, v in kv.items()}
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.kv}
+        for k, v in self.kv.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _rob_learn(torch, port, seed, steps, **cfg_kw):
+    """Phase 7's learner (its data and seed) for ``steps`` steps with
+    ``cfg_kw``: a dict of d (host), traces, step seconds, K2 launches,
+    wall and the result's trace."""
+    import numpy as np
+
+    b = mesh_check.training_images(seed, LEARN_BLOCKS * LEARN_NI, LEARN_SIDE)
+    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
+    cfg = _learn_cfg(port, num_blocks=LEARN_BLOCKS, max_it=steps,
+                     fused_z=True, **cfg_kw)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fz = port["fused_z"].fused_z_iter
+    fz.launches_a = fz.launches_b = 0
+    t0 = time.perf_counter()
+    res = port["consensus"].learn(b, geom, cfg, generator=gen, device="cuda")
+    d = res.d.cpu().numpy()
+    wall = time.perf_counter() - t0
+    tr = res.trace
+    return {"d": d, "wall_s": wall,
+            "launches": [fz.launches_a, fz.launches_b],
+            "traces": {k: tr[k] for k in ("obj_vals_d", "obj_vals_z",
+                                           "d_diff", "z_diff")},
+            "step_s": np.diff(tr["tim_vals"]).tolist(), "trace": tr}
+
+
+def _bitwise(tag, run, ref_d, ref_traces):
+    import numpy as np
+
+    if not (np.array_equal(run["d"], ref_d) and run["traces"] == ref_traces):
+        raise RuntimeError(
+            f"{tag}: not bitwise phase 17's plain run: max|dd| "
+            f"{float(np.abs(run['d'] - ref_d).max()):.3e}, traces "
+            f"{run['traces']} vs {ref_traces}")
+
+
+def _rob_watchdog(torch, port, seed, tel, ledger_path):
+    """(a) the north star for TEL_STEPS steps: plain, armed, armed,
+    plain (ABBA), the watchdog in event mode; each bitwise phase 17's
+    plain run, no stall, K2 as often as plain. The second armed run also
+    appends its ledger record for (g)."""
+    import numpy as np
+
+    wdmod = port["watchdog"]
+    made = []
+    real = wdmod.maybe_start
+
+    def spy(*a, **kw):
+        wd = real(*a, **kw)
+        made.append(wd)
+        return wd
+
+    want = mesh_check.CFG["max_it_z"] * TEL_STEPS
+    ref_d, ref_tr = tel["plain_d"], tel["runs"]["plain"]["traces"]
+    runs = {}
+    wdmod.maybe_start = spy
+    try:
+        for tag in ("plain", "armed", "armed_2", "plain_2"):
+            armed = tag.startswith("armed")
+            n0 = len(made)
+            with _Env(CCSC_WATCHDOG_ACTION="event",
+                      CCSC_PERF_LEDGER=(ledger_path if tag == "armed_2"
+                                        else None)):
+                run = _rob_learn(torch, port, seed, TEL_STEPS, watchdog=armed)
+            _bitwise(f"(a) {tag}", run, ref_d, ref_tr)
+            if run["launches"] != [want, want]:
+                raise RuntimeError(f"(a) {tag}: K2 launches {run['launches']}")
+            rec = {k: run[k] for k in ("wall_s", "launches", "step_s")}
+            wds = made[n0:]
+            if armed:
+                wd = wds[0] if len(wds) == 1 else None
+                if wd is None or wd.stalls or wd._fences != TEL_STEPS:
+                    raise RuntimeError(f"(a) {tag}: watchdogs {wds}, stalls "
+                                       f"{getattr(wd, 'stalls', None)}")
+                rec.update(per_iter_s=wd.per_iter_s, stalls=wd.stalls,
+                           fences=wd._fences, action=wd.action,
+                           min_s=wd.min_s, compile_s=wd.compile_s,
+                           steady_deadline_s=wd.timeout_for(1))
+            elif wds != [None]:
+                raise RuntimeError(f"(a) {tag}: watchdogs {wds}")
+            runs[tag] = rec
+            print(f"[18] (a) {tag}: {TEL_STEPS} steps, steps "
+                  f"{[round(x, 4) for x in rec['step_s']]} s, K2 "
+                  f"{rec['launches']}" + (
+                      f"; deadline {rec['per_iter_s']:.3f} s an iteration "
+                      f"(slack / the h100 bound), a steady fence "
+                      f"{rec['steady_deadline_s']:.1f} s (MIN_S floor), the "
+                      f"first {max(rec['min_s'], rec['per_iter_s']) + rec['compile_s']:.1f}"
+                      f" s; {rec['stalls']} stalls" if armed else ""))
+    finally:
+        wdmod.maybe_start = real
+    step = {arm: float(np.mean(runs[arm]["step_s"] + runs[f"{arm}_2"][
+        "step_s"])) for arm in ("plain", "armed")}
+    added = 1e3 * (step["armed"] - step["plain"])
+    print(f"[18] (a) a step: {step['plain']:.4f} s plain, {step['armed']:.4f}"
+          f" s armed (ABBA means, {added:+.2f} ms); every run bitwise phase "
+          "17's plain run")
+    return {"runs": runs, "mean_step_s": step, "watchdog_added_ms": added,
+            "launches": sum(sum(r["launches"]) for r in runs.values())}
+
+
+def _rob_nan(torch, port, seed, tmp):
+    """(b) the north star for ROB_NAN_STEPS steps with the NaN fault at
+    step 2 and one recovery; then a reduced size on the card and the
+    CPU from one init."""
+    import math
+
+    import numpy as np
+
+    faults = port["faults"]
+    mdir, sdir = os.path.join(tmp, "b_metrics"), os.path.join(tmp, "b_state")
+    faults.reset()
+    with _Env(CCSC_FAULT_NAN_IT=2, CCSC_FAULT_STATE_DIR=sdir):
+        run = _rob_learn(torch, port, seed, ROB_NAN_STEPS, max_recoveries=1,
+                         metrics_dir=mdir)
+    faults.reset()
+    tr = run["trace"]
+    _, by = _stream(port, mdir)
+    fired = by.get("fault_fired", [])
+    recs = by.get("recovery", [])
+    want = mesh_check.CFG["max_it_z"] * (ROB_NAN_STEPS + 1)
+    vals = [v for k in run["traces"] for v in run["traces"][k]]
+    print(f"[18] (b) NaN at step 2: recoveries {tr.get('recoveries')}, "
+          f"{len(fired)} fault_fired and {len(recs)} recovery records, K2 "
+          f"{run['launches']} (want {want} each: a retried step)")
+    if (len(tr.get("recoveries", [])) != 1
+            or tr["recoveries"][0]["iteration"] != 2
+            or [f["fault"] for f in fired] != ["nan"] or len(recs) != 1
+            or len(tr["obj_vals_z"]) != ROB_NAN_STEPS + 1
+            or run["launches"] != [want, want]
+            or not all(math.isfinite(v) for v in vals)
+            or not np.isfinite(run["d"]).all()):
+        raise RuntimeError(f"(b) NaN recovery: {tr}, records {fired} {recs}")
+    # reduced: phase 9's problem from one CPU init, card and CPU
+    b = mesh_check.training_images(seed + 3, 4, 48)
+    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, 16)
+    cfg = _learn_cfg(port, num_blocks=2, max_it=ROB_NAN_STEPS, fused_z=True,
+                     max_recoveries=1)
+    fg = port["common"].FreqGeom.create(geom, (48, 48))
+    init = port["learn"].init_state(torch.Generator().manual_seed(seed), geom,
+                                    fg, 2, 2)
+    small = {}
+    k2 = port["fused_z"].fused_z_iter
+    a0, b0 = k2.launches_a, k2.launches_b
+    for i, dev in enumerate(("cuda", "cpu")):
+        faults.reset()
+        with _Env(CCSC_FAULT_NAN_IT=2,
+                  CCSC_FAULT_STATE_DIR=os.path.join(tmp, f"b_small_{i}")):
+            small[dev] = port["consensus"].learn(b, geom, cfg, device=dev,
+                                                 initial_state=init)
+    faults.reset()
+    small_launches = [k2.launches_a - a0, k2.launches_b - b0]
+    if small["cuda"].trace["recoveries"] != small["cpu"].trace["recoveries"]:
+        raise RuntimeError("(b) the reduced runs recovered differently")
+    agree = _compare_learns("[18] (b) reduced NaN recovery card vs CPU",
+                            small["cuda"], small["cpu"])
+    return {"recoveries": tr["recoveries"], "fault_fired": len(fired),
+            "recovery_records": len(recs), "launches": run["launches"],
+            "wall_s": run["wall_s"], "reduced_card_vs_cpu": agree,
+            "reduced_k2_launches": small_launches}
+
+
+def _rob_hang(torch, port, seed, tel, tmp):
+    """(c) a hang of ROB_HANG_S at step 1 under a watchdog in event mode
+    whose deadline is ROB_HANG_MIN_S: one stall, the run completes
+    bitwise."""
+    faults = port["faults"]
+    mdir = os.path.join(tmp, "c_metrics")
+    faults.reset()
+    with _Env(CCSC_FAULT_HANG_IT=1, CCSC_FAULT_HANG_S=ROB_HANG_S,
+              CCSC_FAULT_STATE_DIR=os.path.join(tmp, "c_state"),
+              CCSC_WATCHDOG_ACTION="event",
+              CCSC_WATCHDOG_MIN_S=ROB_HANG_MIN_S,
+              CCSC_WATCHDOG_COMPILE_S=0):
+        run = _rob_learn(torch, port, seed, TEL_STEPS, watchdog=True,
+                         watchdog_slack=ROB_HANG_SLACK, metrics_dir=mdir)
+    faults.reset()
+    _, by = _stream(port, mdir)
+    stalls = by.get("stall", [])
+    print(f"[18] (c) hang {ROB_HANG_S:g} s at step 1, MIN_S "
+          f"{ROB_HANG_MIN_S:g} s: stalls {[s['label'] for s in stalls]}, "
+          f"wall {run['wall_s']:.2f} s, K2 {run['launches']}")
+    want = mesh_check.CFG["max_it_z"] * TEL_STEPS
+    if [s["label"] for s in stalls] != ["ccsc_outer_0"] or \
+            run["launches"] != [want, want]:
+        raise RuntimeError(f"(c) stalls {stalls}, launches {run['launches']}")
+    _bitwise("(c) hang", run, tel["plain_d"], tel["runs"]["plain"]["traces"])
+    return {"stalls": len(stalls), "stall": stalls[0], "wall_s": run["wall_s"],
+            "step_s": run["step_s"], "launches": run["launches"]}
+
+
+def _child_env(**kv):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("CCSC_FAULT_", "CCSC_WATCHDOG_"))}
+    env.update(PYTHONPATH=HERE, **{k: str(v) for k, v in kv.items()})
+    return env
+
+
+def _run_child(cmd, env, timeout=600):
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    return proc, wall
+
+
+def _mat_d(path):
+    import scipy.io
+
+    return scipy.io.loadmat(path)["d"]
+
+
+def _rob_supervise(torch, port, seed, tmp):
+    """(d) learn_2d at the north star's width (k=100 11x11, 8 blocks) on
+    ROB_SUP_NI images a block under the supervisor: a hang at step 2
+    (the watchdog aborts with 87, the supervisor resumes from the step-1
+    checkpoint), and a SIGTERM at step 1 (checkpoint, exit 0, resume);
+    both bitwise the unfaulted CLI run."""
+    import numpy as np
+    import scipy.io
+
+    data = os.path.join(tmp, "d_data.mat")
+    scipy.io.savemat(data, {"b": mesh_check.training_images(
+        seed + 5, LEARN_BLOCKS * ROB_SUP_NI, LEARN_SIDE)})
+    argv = ["--data", data, "--mat-layout", "framework", "--contrast", "none",
+            "--filters", str(LEARN_K), "--support", str(LEARN_SUPPORT),
+            "--blocks", str(LEARN_BLOCKS), "--fused-z", "--max-it",
+            str(ROB_SUP_STEPS), "--tol", "0", "--verbose", "none",
+            "--device", "cuda", "--seed", str(seed), "--checkpoint-every",
+            "1"]
+    ref_out = os.path.join(tmp, "d_ref.mat")
+    t0 = time.perf_counter()
+    port["learn_2d"].main(argv + ["--out", ref_out])
+    ref_s = time.perf_counter() - t0
+    ref = _mat_d(ref_out)
+    out = {"unfaulted_in_process_s": ref_s}
+    for tag, fault in (("hang", dict(CCSC_FAULT_HANG_IT=2,
+                                     CCSC_FAULT_HANG_S=600,
+                                     CCSC_WATCHDOG_MIN_S=ROB_SUP_MIN_S)),
+                       ("sigterm", dict(CCSC_FAULT_SIGTERM_IT=1))):
+        ck, m = os.path.join(tmp, f"d_{tag}_ck"), os.path.join(tmp,
+                                                               f"d_{tag}_m")
+        res_out = os.path.join(tmp, f"d_{tag}.mat")
+        cmd = [sys.executable, "-m", f"{PACKAGE}.supervise",
+               "--checkpoint-dir", ck, "--metrics-dir", m, "--max-restarts",
+               "3", "--backoff", "0", "--",
+               sys.executable, "-m", f"{PACKAGE}.apps.learn_2d", *argv,
+               "--watchdog", "--checkpoint-dir", ck, "--metrics-dir", m,
+               "--out", res_out]
+        proc, wall = _run_child(cmd, _child_env(**fault))
+        if proc.returncode != 0:
+            raise RuntimeError(f"(d) {tag}: supervise exited "
+                               f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                               f"{proc.stderr[-3000:]}")
+        with open(os.path.join(m, "supervisor_trace.json")) as f:
+            strace = json.load(f)
+        attempts = [{k: a.get(k) for k in ("attempt", "reason", "rc",
+                                           "start_t", "end_t",
+                                           "checkpoint_at_start",
+                                           "checkpoint_present")}
+                    for a in strace["attempts"]]
+        reasons = [a["reason"] for a in attempts]
+        events, by = _stream(port, m)
+        want = (["stall_abort", "completed"] if tag == "hang"
+                else ["preempted", "completed"])
+        d = _mat_d(res_out)
+        gap = attempts[1]["start_t"] - attempts[0]["end_t"]
+        print(f"[18] (d) supervised {tag}: attempts "
+              f"{[(a['reason'], a['rc'], round(a['end_t'] - a['start_t'], 2)) for a in attempts]}"
+              f", restart gap {gap:.3f} s, supervisor wall {wall:.1f} s; "
+              f"filters bitwise the unfaulted run: {np.array_equal(d, ref)}")
+        if reasons != want or (tag == "hang" and attempts[0]["rc"] != 87):
+            raise RuntimeError(f"(d) {tag}: attempts {attempts}")
+        if tag == "hang" and not by.get("stall"):
+            raise RuntimeError("(d) hang: no stall record in the stream")
+        if tag == "sigterm" and not by.get("preemption"):
+            raise RuntimeError("(d) sigterm: no preemption record")
+        if not np.array_equal(d, ref):
+            raise RuntimeError(f"(d) {tag}: filters differ from the "
+                               f"unfaulted run by "
+                               f"{float(np.abs(d - ref).max()):.3e}")
+        out[tag] = {"attempts": attempts, "supervisor_wall_s": wall,
+                    "restart_gap_s": gap, "outcome": strace["outcome"],
+                    "fault_fired": [e["fault"] for e in by.get(
+                        "fault_fired", [])]}
+    return out
+
+
+def _rob_degrade(torch, port, seed, tmp):
+    """(e) learn_2d --auto-degrade at the north star (8 x 100 images of
+    100^2, 1 step) in a child whose allocator is capped at
+    ROB_OOM_CAP_GIB: a real torch.OutOfMemoryError in the in-memory
+    learner, the forensic dump, one degrade record (streaming,
+    dispatch), and the run completes streamed, bitwise a direct
+    learn_streaming run of the same tier; then CCSC_INMEM_HBM_GB=1 steps
+    down at the preflight."""
+    import numpy as np
+    import scipy.io
+
+    data = os.path.join(tmp, "e_data.mat")
+    scipy.io.savemat(data, {"b": mesh_check.training_images(
+        seed, LEARN_BLOCKS * LEARN_NI, LEARN_SIDE)})
+    total = torch.cuda.get_device_properties(0).total_memory
+    frac = ROB_OOM_CAP_GIB * 2**30 / total
+    argv = ["--data", data, "--mat-layout", "framework", "--contrast", "none",
+            "--filters", str(LEARN_K), "--support", str(LEARN_SUPPORT),
+            "--blocks", str(LEARN_BLOCKS), "--fused-z", "--max-it", "1",
+            "--tol", "0", "--verbose", "none", "--device", "cuda", "--seed",
+            str(seed), "--auto-degrade"]
+    out = {"cap_gib": ROB_OOM_CAP_GIB, "cap_fraction": frac}
+    for tag, extra in (("oom", {}),
+                       ("preflight", {"CCSC_INMEM_HBM_GB": ROB_PREFLIGHT_GB})):
+        m = os.path.join(tmp, f"e_{tag}_m")
+        res_out = os.path.join(tmp, f"e_{tag}.mat")
+        cmd = [sys.executable, "-c", OOM_CHILD, repr(frac), *argv,
+               "--metrics-dir", m, "--out", res_out]
+        proc, wall = _run_child(
+            cmd, _child_env(CCSC_STREAM_MODE="device", **extra))
+        if proc.returncode != 0:
+            raise RuntimeError(f"(e) {tag}: learn_2d exited "
+                               f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                               f"{proc.stderr[-3000:]}")
+        child = next(json.loads(x)["oom_child"] for x in
+                     proc.stdout.splitlines() if x.startswith('{"oom_child"'))
+        events, by = _stream(port, m)
+        degr = by.get("degrade", [])
+        dumps = by.get("mem_oom_dump", [])
+        algos = [e["algorithm"] for e in by.get("run_meta", [])]
+        t_meta = [e["t"] for e in by.get("run_meta", [])]
+        rec = {"wall_s": wall, "child": child, "algorithms": algos,
+               "degrades": degr, "oom_dumps": dumps,
+               "streaming_start_after_first_s": (t_meta[-1] - t_meta[0]
+                                                 if len(t_meta) > 1 else None)}
+        print(f"[18] (e) {tag}: runs {algos}, degrade "
+              f"{[(x['rung'], x['stage']) for x in degr]}, OOM dumps "
+              f"{len(dumps)}, {child['algorithm']} tier "
+              f"{child['stream_mode']}, peak "
+              f"{child['max_memory_allocated'] / 2**30:.2f} GiB, K1 "
+              f"{child['k1']}, K2 {child['k2']}, child wall {wall:.1f} s")
+        if tag == "oom":
+            ok = (algos == ["consensus", "consensus_streaming"]
+                  and [(x["rung"], x["stage"]) for x in degr]
+                  == [("streaming", "dispatch")]
+                  and "out of memory" in degr[0]["error"].lower()
+                  and len(dumps) == 1 and os.path.exists(dumps[0]["path"])
+                  and [s["status"] for s in by.get("summary", [])]
+                  == ["error", "ok"])
+            if ok:
+                with open(dumps[0]["path"]) as f:
+                    dump = json.load(f)
+                rec["oom_dump_error"] = dump["error"][:200]
+                ok = dump["error"].startswith("OutOfMemoryError")
+        else:
+            ok = (algos == ["consensus_streaming"] and not dumps
+                  and [(x["rung"], x["stage"]) for x in degr]
+                  == [("streaming", "preflight")]
+                  and child["max_memory_allocated"]
+                  < out["oom"]["child"]["max_memory_allocated"] + 1)
+        if not ok or child["algorithm"] != "consensus_streaming" or \
+                child["stream_mode"] != "device":
+            raise RuntimeError(f"(e) {tag}: {rec}")
+        rec["d"] = np.asarray(port["io_mat"].load_filters_2d(res_out))
+        out[tag] = rec
+    # the direct streaming run of the same tier on the same data
+    b = port["images"].load_images(data, contrast_normalize="none",
+                                   zero_mean=True, square=True,
+                                   mat_layout="framework")
+    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
+    cfg = port["config"].LearnConfig(
+        num_blocks=LEARN_BLOCKS, max_it=1, tol=0.0, verbose="none",
+        fused_z=True)
+    k1 = port["kernels"].solve_z_rank1
+    k0 = k1.launches
+    t0 = time.perf_counter()
+    direct = port["streaming"].learn_streaming(
+        b, geom, cfg, generator=torch.Generator().manual_seed(seed),
+        stream_mode="device", device="cuda")
+    out["direct_streaming_s"] = time.perf_counter() - t0
+    out["direct_k1_launches"] = k1.launches - k0
+    dd = direct.d.numpy()
+    for tag in ("oom", "preflight"):
+        d = out[tag].pop("d")
+        same = d.shape == dd.shape and np.array_equal(d, dd)
+        print(f"[18] (e) {tag}: filters bitwise the direct learn_streaming "
+              f"run: {same}")
+        if not same:
+            raise RuntimeError(f"(e) {tag}: filters differ by "
+                               f"{float(np.abs(d - dd).max()):.3e}")
+    return out
+
+
+def _rob_capture(torch, port, seed, phase10, tmp, ledger_path):
+    """(f) phase 10's 42 requests through a 4-slot 256^2 engine with
+    capture_dir (and the ledger of (g) armed): the capture's records,
+    payloads and outcome digests, and a replay of the captured payloads
+    under the captured solve params through a fresh engine, every
+    result bitwise phase 10's."""
+    import numpy as np
+
+    bench, kernels, cap = port["serve_bench"], port["kernels"], \
+        port["capture"]
+    d = port["io_mat"].load_filters_2d(BANK)
+    prob = port["reconstruct"].ReconstructionProblem(
+        port["config"].ProblemGeom((11, 11), K))
+    cfg = port["config"].SolveConfig(lambda_residual=5.0, lambda_prior=2.0,
+                                     max_it=100, tol=1e-3)
+    reqs = bench.make_requests(ENGINE_SIDES, seed + 4)
+    cdir = os.path.join(tmp, "f_capture")
+    with _Env(CCSC_PERF_LEDGER=ledger_path):
+        eng = port["serve"].CodecEngine(d, prob, cfg, port["config"].ServeConfig(
+            buckets=((ENGINE_SLOTS, (S, S)),), verbose="none",
+            capture_dir=cdir), device="cuda")
+    with eng:
+        kernels.solve_z_rank1.launches = 0
+        served, engine_s, submit_s = bench.run_engine(eng, reqs)
+        launches = kernels.solve_z_rank1.launches
+    rec = eng._capture
+    log = eng.dispatch_log
+    if launches != sum(e["iters"] for e in log):
+        raise RuntimeError(f"(f) K1 {launches} for {[e['iters'] for e in log]}")
+    for i, (s, r) in enumerate(zip(served, phase10["served"])):
+        if not (np.array_equal(s.recon, r.recon)
+                and int(s.trace.num_iters) == int(r.trace.num_iters)):
+            raise RuntimeError(f"(f) request {i} differs from phase 10's")
+    wl = sorted(cap.read_workload(cdir), key=lambda r: r["key"])
+    meta = cap.read_meta(cdir)
+    if len(wl) != len(reqs) or any(w["outcome"] is None for w in wl):
+        raise RuntimeError(f"(f) {len(wl)} request records")
+    fields = ("b", "mask", "smooth_init", "x_orig")
+    for i, (w, q, s) in enumerate(zip(wl, reqs, served)):
+        for f in fields:
+            a = np.asarray(q[f], np.float32)
+            if w[f] != cap.payload_sha(a) or not np.array_equal(
+                    cap.load_payload(cdir, w[f]), a):
+                raise RuntimeError(f"(f) request {i}: payload {f}")
+        if w["outcome"]["digest"] != cap.payload_sha(s.recon):
+            raise RuntimeError(f"(f) request {i}: outcome digest")
+    solve = meta["solve"]
+    print(f"[18] (f) capture: {len(wl)} request records (payload SHAs = the "
+          f"inputs', load_payload round-trips, outcome digests = the "
+          f"results'), {rec.n_payloads} payloads ({rec.n_dedup_hits} dedup "
+          f"hits, {rec.payload_bytes / 2**20:.1f} MiB), capture overhead "
+          f"{1e3 * rec.overhead_s / len(reqs):.3f} ms a request; K1 "
+          f"{launches}; {len(reqs) / engine_s:.3f} requests/s vs phase 10's "
+          f"{phase10['bench']['engine_requests_per_sec']:.3f}")
+    # replay: the captured payloads, the captured solve params, a fresh
+    # engine without capture
+    rcfg = port["config"].SolveConfig(**solve)
+    with port["serve"].CodecEngine(d, prob, rcfg, port["config"].ServeConfig(
+            buckets=((ENGINE_SLOTS, (S, S)),), verbose="none",
+            capture_dir=""), device="cuda") as reng:
+        kernels.solve_z_rank1.launches = 0
+        t0 = time.perf_counter()
+        futs = [reng.submit(**{f: cap.load_payload(cdir, w[f])
+                               for f in fields}) for w in wl]
+        replayed = [fu.result(timeout=600) for fu in futs]
+        replay_s = time.perf_counter() - t0
+        r_launches = kernels.solve_z_rank1.launches
+    if r_launches != sum(e["iters"] for e in reng.dispatch_log):
+        raise RuntimeError("(f) replay K1 launches")
+    for i, (s, r, w) in enumerate(zip(replayed, phase10["served"], wl)):
+        if not (np.array_equal(s.recon, r.recon)
+                and cap.payload_sha(s.recon) == w["outcome"]["digest"]):
+            raise RuntimeError(f"(f) replayed request {i} differs")
+    print(f"[18] (f) replay of the capture: {len(replayed)} results bitwise "
+          f"phase 10's and their recorded digests; K1 {r_launches}")
+    return {"requests": len(wl), "engine_requests_per_sec":
+            len(reqs) / engine_s, "submit_wall_s": submit_s,
+            "phase10_requests_per_sec":
+            phase10["bench"]["engine_requests_per_sec"],
+            "capture_overhead_ms_per_request":
+            1e3 * rec.overhead_s / len(reqs),
+            "payloads": rec.n_payloads, "dedup_hits": rec.n_dedup_hits,
+            "payload_bytes": rec.payload_bytes, "k1_launches": launches,
+            "replay_k1_launches": r_launches, "replay_s": replay_s,
+            "solve": solve}
+
+
+def _rob_ledger(port, ledger_path, tracked_before):
+    """(g) the ledger (a)'s armed run and (f)'s engine appended to."""
+    led = port["ledger"]
+    L = led.Ledger(ledger_path)
+    recs = L.read()
+    kinds = sorted(r["kind"] for r in recs)
+    learn = next((r for r in recs if r["kind"] == "learn"), {})
+    verdicts = led.gate(L)
+    tracked_after = _tracked_ledger_stat()
+    print(f"[18] (g) ledger {ledger_path}: kinds {kinds}, learn record chip "
+          f"{learn.get('chip')}, {learn.get('value', 0):.3f} it/s, "
+          f"roofline_frac {learn.get('roofline_frac')}, peak "
+          f"{learn.get('peak_hbm_bytes')} bytes; gate "
+          f"{[(v['ok'], v['skipped']) for v in verdicts]}")
+    if (kinds != ["learn", "warmup"] or learn.get("chip") != "h100"
+            or not learn.get("roofline_frac")
+            or not learn.get("peak_hbm_bytes")
+            or not all(v["ok"] for v in verdicts) or len(verdicts) != 2
+            or tracked_after != tracked_before):
+        raise RuntimeError(f"(g) ledger {recs}, verdicts {verdicts}, the "
+                           f"repo's ledger {tracked_before} -> "
+                           f"{tracked_after}")
+    return {"records": [{k: r.get(k) for k in (
+        "chip", "kind", "workload", "shape_key", "value", "unit",
+        "roofline_frac", "peak_hbm_bytes", "source")} for r in recs],
+        "keys": [led.record_key(r) for r in recs], "gate": verdicts}
+
+
+def _tracked_ledger_stat():
+    p = os.path.join(HERE, "perf_ledger.jsonl")
+    try:
+        st = os.stat(p)
+    except OSError:
+        return None
+    return [st.st_size, st.st_mtime_ns]
+
+
+def phase_robustness(torch, port, seed, tel, phase10):
+    """18: the robustness hooks on the card, (a)-(g)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ccsc-robustness-")
+    ledger_path = os.path.join(tmp, "perf_ledger.jsonl")
+    tracked = _tracked_ledger_stat()
+    out, secs = {}, {}
+    try:
+        for key, fn in (
+            ("watchdog", lambda: _rob_watchdog(torch, port, seed, tel,
+                                               ledger_path)),
+            ("nan_recovery", lambda: _rob_nan(torch, port, seed, tmp)),
+            ("hang", lambda: _rob_hang(torch, port, seed, tel, tmp)),
+            ("supervise", lambda: _rob_supervise(torch, port, seed, tmp)),
+            ("degrade", lambda: _rob_degrade(torch, port, seed, tmp)),
+            ("capture", lambda: _rob_capture(torch, port, seed, phase10, tmp,
+                                             ledger_path)),
+            ("ledger", lambda: _rob_ledger(port, ledger_path, tracked)),
+        ):
+            t1 = time.perf_counter()
+            torch.cuda.empty_cache()
+            out[key] = fn()
+            secs[key] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds_by_part"] = secs
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[18] robustness phase {out['seconds']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in secs.items()} })")
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, kernel_ms, plain_ms,
                   bound, build_s, **extra):
     return dict(
@@ -3306,6 +3967,8 @@ def main(argv=None) -> int:
             ("obs", "utils.obs"), ("obs_schema", "analysis.obs_schema"),
             ("trace", "utils.trace"), ("slo", "serve.slo"),
             ("profile_solve", "profile_solve"),
+            ("watchdog", "utils.watchdog"), ("faults", "utils.faults"),
+            ("capture", "serve.capture"), ("ledger", "analysis.ledger"),
         )
     }
 
@@ -3337,7 +4000,10 @@ def main(argv=None) -> int:
     serve_mesh = phase_serve_mesh(torch, port, time_ms, bw, flops,
                                   args.seed)
     telemetry = phase_telemetry(torch, port, args.seed, learn, engine)
+    robust = phase_robustness(torch, port, args.seed, telemetry["learn"],
+                              engine)
     engine.pop("served")
+    telemetry["learn"].pop("plain_d")
     seconds = time.perf_counter() - t_start
     print(f"[14] total {seconds:.1f} s")
 
@@ -3368,7 +4034,14 @@ def main(argv=None) -> int:
                     if isinstance(r, dict)),
                 "telemetry_reconstruct": sum(
                     telemetry["reconstruct"][k]["k1_launches"]
-                    for k in ("plain", "metrics"))}
+                    for k in ("plain", "metrics")),
+                "capture_engine": robust["capture"]["k1_launches"],
+                "capture_replay": robust["capture"]["replay_k1_launches"],
+                "degrade_streaming_cli":
+                    robust["degrade"]["oom"]["child"]["k1"]
+                    + robust["degrade"]["preflight"]["child"]["k1"],
+                "degrade_streaming_direct":
+                    robust["degrade"]["direct_k1_launches"]}
     ns_ranks = mesh["north_star"]["mesh"]["per_rank"]
     k2_paths = {p: {
         "learn": learn["launches"][f"fused_z_{p}"],
@@ -3376,6 +4049,11 @@ def main(argv=None) -> int:
                                telemetry["learn"]["runs"].values()),
         "mesh_learn_block4": sum(r["launches"][i] for r in ns_ranks),
         "mesh_learn_nccl1": mesh["nccl_world_1"]["k2_launches"][i],
+        "learn_watchdog": sum(r["launches"][i] for r in
+                              robust["watchdog"]["runs"].values()),
+        "learn_nan_recovery": robust["nan_recovery"]["launches"][i]
+        + robust["nan_recovery"]["reduced_k2_launches"][i],
+        "learn_hang": robust["hang"]["launches"][i],
     } for i, p in enumerate(("pass_a", "pass_b"))}
     k2_rank = next(c for c in k2["cases"] if c.get("mesh"))
     k2_rank_shape = {k: k2_rank[k] for k in ("N", "K", "Sy", "Sx", "dtype")}
@@ -3427,6 +4105,7 @@ def main(argv=None) -> int:
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"serve_mesh": serve_mesh}))
     print(json.dumps({"telemetry": telemetry}))
+    print(json.dumps({"robustness": robust}))
     # the kernels line last but two: the end of the output carries it
     print(json.dumps(kernels_line))
     print(smi)

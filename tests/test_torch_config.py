@@ -162,11 +162,17 @@ def test_learn_invalid_values_refused_like_jax(kw):
         (dict(donate_state=True), "Queue 1 item 9"),
         (dict(fft_impl="matmul"), "Queue 1 item 9"),
         (dict(tune="auto"), "Queue 1 item 9"),
-        (dict(watchdog=True), "Queue 1 item 10"),
+        # the watchdog runs since the robustness slice: it constructs as
+        # JAX's does
+        (dict(watchdog=True), None),
     ],
 )
 def test_learn_unported_fields_raise_naming_roadmap(kw, item):
-    jcfg.LearnConfig(**kw)  # valid in the JAX package
+    j = jcfg.LearnConfig(**kw)  # valid in the JAX package
+    if item is None:
+        assert dataclasses.asdict(tcfg.LearnConfig(**kw)) == \
+            dataclasses.asdict(j)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         tcfg.LearnConfig(**kw)
 
@@ -290,6 +296,17 @@ def test_port_imports_without_jax_at_runtime():
         "for app in (learn_3d, learn_4d, learn_hyperspectral):\n"
         "    app.build_parser().parse_args(\n"
         "        ['--synthetic', '--streaming', '--stream-mode', 'paged'])\n"
+        "from ccsc_code_iccv2017_torch import supervise\n"
+        "from ccsc_code_iccv2017_torch.utils import faults, watchdog\n"
+        "from ccsc_code_iccv2017_torch.analysis import ledger\n"
+        "from ccsc_code_iccv2017_torch.serve import capture\n"
+        "from ccsc_code_iccv2017_torch.tune import store\n"
+        "assert watchdog.EXIT_STALL == 87 and faults.nan_iteration() is None\n"
+        "assert ledger.knob_digest({}) and capture.payload_sha(\n"
+        "    __import__('numpy').zeros(2))\n"
+        "supervise.build_parser().parse_args(['--', 'true'])\n"
+        "learn_2d.build_parser().parse_args(\n"
+        "    ['--data', 'x', '--watchdog', '--auto-degrade'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccsc_code_iccv2017_tpu')]\n"
         "assert not bad, bad\n"

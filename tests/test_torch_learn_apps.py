@@ -171,19 +171,32 @@ def test_filter_files_cross_between_the_packages(tmp_path, layout):
      "requires --streaming"),
     ("learn_3d", ["--tune", "auto"], "item 9"),
     ("learn_3d", ["--outer-chunk", "2"], "item 9"),
-    ("learn_3d", ["--auto-degrade"], "item 10"),
-    ("learn_3d", ["--watchdog"], "item 10"),
+    # the robustness slice's flags run (item None): the ladder and the
+    # watchdog armed, the result unchanged
+    ("learn_3d", ["--auto-degrade"], None),
+    ("learn_3d", ["--watchdog"], None),
     ("learn_4d", ["--mesh", "2", "--streaming"],
      "does not combine with --mesh"),
     ("learn_4d", ["--outer-chunk", "3"], "item 9"),
-    ("learn_hyperspectral", ["--streaming", "--auto-degrade"], "item 10"),
+    ("learn_hyperspectral", ["--streaming", "--auto-degrade"], None),
     ("learn_hyperspectral", ["--streaming-blocks", "2", "--tune", "auto"],
      "item 9"),
     ("learn_hyperspectral", ["--tune", "sweep"], "item 9"),
-    ("learn_hyperspectral", ["--auto-degrade"], "item 10"),
+    ("learn_hyperspectral", ["--auto-degrade"], None),
 ])
-def test_refused_flags_name_their_item(name, flags, item):
+def test_refused_flags_name_their_item(name, flags, item, tmp_path):
     _, tapp = _apps(name)
+    if item is None:
+        argv, _ = APP_ARGV[name]
+        plain, armed = (tapp.main(
+            argv + [f for f in flags if f != drop] + [
+                "--device", "cpu", "--verbose", "none",
+                "--out", str(tmp_path / f"{i}.mat")])
+            for i, drop in enumerate((flags[-1], None)))
+        assert "degrades" not in armed.trace
+        assert armed.trace["algorithm"] == plain.trace["algorithm"]
+        assert torch.equal(armed.d, plain.d)
+        return
     with pytest.raises(SystemExit, match=item):
         tapp.main(["--synthetic", *flags, "--device", "cpu"])
 

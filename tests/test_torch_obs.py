@@ -362,17 +362,27 @@ def test_chip_rows_and_the_float32_bound():
         jperf.serving_bound(300.0, 60.0, 4)
 
 
-def test_inmem_estimate_equals_jax():
+def test_inmem_estimate_equals_jax(monkeypatch):
     from ccsc_code_iccv2017_tpu.config import LearnConfig as JCfg
     from ccsc_code_iccv2017_tpu.config import ProblemGeom as JGeom
     from ccsc_code_iccv2017_torch.config import LearnConfig, ProblemGeom
 
     kw = dict(num_blocks=2, storage_dtype="bfloat16")
     shape = (8, 20, 20)
-    # the JAX function returns (bytes, budget); the port the bytes alone
+    # both return (bytes, budget); with CCSC_INMEM_HBM_GB set the budgets
+    # agree too
+    monkeypatch.setenv("CCSC_INMEM_HBM_GB", "2.5")
     assert perfmodel.inmem_learn_estimate(
-        shape, ProblemGeom((5, 5), 6), LearnConfig(**kw)) == \
-        jperf.inmem_learn_estimate(shape, JGeom((5, 5), 6), JCfg(**kw))[0]
+        shape, ProblemGeom((5, 5), 6), LearnConfig(**kw), device="cpu") == \
+        jperf.inmem_learn_estimate(shape, JGeom((5, 5), 6), JCfg(**kw))
+    # unset: the port's budget is the device's free bytes, infinite on
+    # the CPU (no preflight there), where JAX keeps its 14 GB default
+    monkeypatch.delenv("CCSC_INMEM_HBM_GB")
+    est, budget = perfmodel.inmem_learn_estimate(
+        shape, ProblemGeom((5, 5), 6), LearnConfig(**kw), device="cpu")
+    assert budget == float("inf")
+    assert est == jperf.inmem_learn_estimate(
+        shape, JGeom((5, 5), 6), JCfg(**kw))[0]
 
 
 # ------------------------------------------------------------------

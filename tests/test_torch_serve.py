@@ -495,7 +495,8 @@ def test_valid_region_psnr_matches_jax():
         (dict(tune="auto"), 9),
         (dict(tune_store="tuned.json"), 9),
         (dict(pipeline_depth=2), 9),
-        (dict(capture_dir="c"), 10),
+        # capture runs since the robustness slice (serve.capture)
+        (dict(capture_dir="c"), None),
         (dict(compile_cache="cc"), 11),
         (dict(artifact_store="a"), 11),
         (dict(replica_id=0), 11),
@@ -505,9 +506,22 @@ def test_valid_region_psnr_matches_jax():
     ],
     ids=lambda v: next(iter(v)) if isinstance(v, dict) else str(v),
 )
-def test_deferred_serve_fields_raise_naming_roadmap(kw, item):
+def test_deferred_serve_fields_raise_naming_roadmap(kw, item, tmp_path):
     buckets = ((2, (24, 24)),)
     jcfg.ServeConfig(buckets=buckets, **kw)  # valid in the JAX package
+    if item is None:
+        # constructs, and a standalone engine records its requests there
+        cap = str(tmp_path / kw["capture_dir"])
+        d = _bank()
+        with _engine(d, _cfg_kw(max_it=2), buckets,
+                     **dict(kw, capture_dir=cap)) as eng:
+            x, m = _req(24)
+            eng.submit(x * m, mask=m).result(timeout=60)
+        from ccsc_code_iccv2017_torch.serve import capture
+
+        assert [w["bucket"] for w in capture.read_workload(cap)] == [
+            "2@24x24"]
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue 1 item {item}"):
         ServeConfig(buckets=buckets, **kw)

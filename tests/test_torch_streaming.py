@@ -321,12 +321,18 @@ def test_refusals_name_their_reason_or_item():
             b, geom, dataclasses.replace(base, compat_coding="block1"),
             device="cpu")
     # the config refuses these first; the streaming learner holds its
-    # own line too (its chunk cadence and the watchdog are separate items)
+    # own line too (its chunk cadence is a separate item); the watchdog
+    # runs since the robustness slice
     for field, value, match in (
         ("donate_state", True, "donate_state"),
         ("outer_chunk", 2, "item 9"),
-        ("watchdog", True, "item 10"),
+        ("watchdog", True, None),
     ):
+        if match is None:
+            cfg = dataclasses.replace(base, **{field: value})
+            res = streaming.learn_streaming(b + 1.0, geom, cfg, device="cpu")
+            assert res.trace["algorithm"] == "consensus_streaming"
+            continue
         with pytest.raises((ValueError, NotImplementedError), match=match):
             dataclasses.replace(base, **{field: value})
         cfg = dataclasses.replace(base)
