@@ -1,12 +1,13 @@
 """Typed configuration of the PyTorch/CUDA port.
 
 A jax-free copy of ``ccsc_code_iccv2017_tpu.config``'s ``ProblemGeom``,
-``GEOM_2D``, ``LearnConfig``, ``SolveConfig`` and ``ServeConfig``: every
+``GEOM_2D``, ``LearnConfig``, ``SolveConfig``, ``ServeConfig``,
+``TenantSpec`` and ``FleetConfig``: every
 field, name and default is identical (tests/test_torch_config.py holds
 the two side by side), so a configuration reads the same in both
 packages. The port implements the reconstruction solves, the
-consensus, masked and streaming learners, the serving engine and their
-run telemetry (``metrics_dir``, the SLO targets, ``verbose='all'``
+consensus, masked and streaming learners, the serving engine, the
+serving fleet in one process and their run telemetry (``metrics_dir``, the SLO targets, ``verbose='all'``
 figures); the fields it does not implement yet refuse a non-default
 value with ``NotImplementedError`` naming the ROADMAP.md item that ports
 them, instead of being silently ignored.
@@ -284,9 +285,11 @@ class SolveConfig:
 _SERVE_DEFERRED = (
     ("tune", ("off",), 9), ("tune_store", (None,), 9),
     ("pipeline_depth", (None, 1), 9),
-    ("compile_cache", (None,), 11), ("artifact_store", (None, ""), 11),
-    ("replica_id", (None,), 11), ("staged_warmup", (None, False), 11),
-    ("warm_order", (None,), 11), ("warm_rank_capture", (None, ""), 11),
+    ("compile_cache", (None,), "11, second half"),
+    ("artifact_store", (None, ""), "11, second half"),
+    ("staged_warmup", (None, False), "11, second half"),
+    ("warm_order", (None,), "11, second half"),
+    ("warm_rank_capture", (None, ""), "11, second half"),
 )
 
 
@@ -481,3 +484,407 @@ class ServeConfig:
                     f"ServeConfig.{name}={getattr(self, name)!r}",
                     f"ROADMAP.md Queue 1 item {item}",
                 )
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantSpec:
+    """One serving tenant's declared contract (serve.tenancy): which
+    bank its requests route to by default, its latency SLO targets,
+    its admission quota, and its weighted-fair share.
+
+    - ``tenant``: the tenant name requests carry (``submit(...,
+      tenant=...)``).
+    - ``bank_id``: default bank this tenant's requests route to when
+      the request names none (serve.registry ids). None = the fleet's
+      pinned default bank.
+    - ``slo_p50_ms`` / ``slo_p99_ms``: declared per-tenant
+      submit->result latency targets, checked by the tenant's own
+      streaming histogram (serve.slo.TenantSlos) — breaches emit
+      ``slo_breach`` events carrying the tenant name. None = no
+      target declared for that quantile (NO env fallback here: a
+      fleet-wide CCSC_SLO_* knob must not silently become every
+      tenant's contract).
+    - ``quota``: max requests this tenant may hold QUEUED at once;
+      admission past it is an explicit ``Overloaded`` refusal
+      (``tenant_reject``) while other tenants keep being admitted.
+      None = derived from the fleet ceiling x weight share x
+      ``CCSC_TENANT_QUOTA_FRAC``.
+    - ``weight``: weighted-fair dequeue share (a weight-2 tenant is
+      served twice as often as a weight-1 tenant when both have work
+      queued).
+    """
+
+    tenant: str
+    bank_id: Optional[str] = None
+    slo_p50_ms: Optional[float] = None
+    slo_p99_ms: Optional[float] = None
+    quota: Optional[int] = None
+    weight: float = 1.0
+    # Declared served-quality floor (dB): the tenant's median
+    # valid-region PSNR must stay at or above this; judged by the
+    # quality monitor (serve.quality.QualityMonitor) with the SLO
+    # breach discipline — `quality_breach` events, re-fire dedup.
+    # None = no floor declared (same no-env-fallback stance as the
+    # latency targets: a fleet-wide knob must not become every
+    # tenant's quality contract). Only requests carrying ground
+    # truth (x_orig) count toward the floor.
+    min_psnr_db: Optional[float] = None
+    # Default end-to-end deadline (ms) stamped on this tenant's
+    # requests at fleet admission when the submit names none. The
+    # resolution ladder is explicit submit(deadline_ms=) > this >
+    # CCSC_REQ_DEADLINE_MS > no deadline — the env knob here IS a
+    # fallback (unlike the SLO targets) because a deadline is a
+    # safety bound, not a contract: a fleet-wide budget tightening
+    # every tenant is the conservative direction.
+    deadline_ms: Optional[float] = None
+
+    def __post_init__(self):
+        if not self.tenant or not isinstance(self.tenant, str):
+            raise ValueError(
+                f"tenant must be a non-empty string, got "
+                f"{self.tenant!r}"
+            )
+        for fname in (
+            "slo_p50_ms", "slo_p99_ms", "min_psnr_db", "deadline_ms"
+        ):
+            v = getattr(self, fname)
+            if v is not None and v <= 0:
+                raise ValueError(
+                    f"{fname} must be > 0 when set, got {v}"
+                )
+        if self.quota is not None and self.quota < 1:
+            raise ValueError(
+                f"quota must be >= 1 when set, got {self.quota}"
+            )
+        if not self.weight > 0:
+            raise ValueError(
+                f"weight must be > 0, got {self.weight}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Configuration of the fault-tolerant serving fleet
+    (serve.ServeFleet) — N replicated :class:`~serve.CodecEngine`\\ s
+    behind one front queue, with health-driven requeue and admission
+    control.
+
+    The replicas share nothing but the queue (the MPAX fleet of
+    solver instances over pinned problem structure, PAPERS.md
+    arXiv:2412.09734):
+    each owns a private engine built from the same pinned
+    (bank, problem, SolveConfig, ServeConfig), so a request served by
+    any replica is bit-identical to a single-engine serve of the same
+    request. Admission is bounded by a queue-depth ceiling — explicit
+    (``max_queue_depth``) or derived from the measured
+    ``utils.perfmodel.serving_bound`` x live-replica count x
+    ``max_queue_s`` — and overload walks a three-rung ladder
+    (shed micro-batch waiting -> reject with retry-after -> degrade
+    the solve budget) so saturation produces predictable latency
+    instead of OOM.
+    """
+
+    # number of engine replicas
+    replicas: int = 2
+    # explicit admission ceiling on queued (not yet assigned) requests;
+    # None = derive from perfmodel.serving_bound: once a dispatch has
+    # measured an iteration rate, ceiling = bound requests/sec x live
+    # replicas x max_queue_s (floored at min_queue_depth). Before any
+    # measurement a static floor of
+    # max(min_queue_depth, 2 x total slots x replicas) applies.
+    max_queue_depth: Optional[int] = None
+    # target worst-case queueing delay used by the derived ceiling
+    max_queue_s: float = 2.0
+    # floor of the derived ceiling (admission must never starve a
+    # healthy fleet)
+    min_queue_depth: int = 8
+    # per-request delivery attempts before the future gets an error
+    # (the exactly-once-OR-ERROR half of the delivery contract): a
+    # request is requeued when its replica dies or stalls, at most
+    # max_attempts - 1 times
+    max_attempts: int = 3
+    # per-replica restart budget (crash or stall casualties; the
+    # scripts/supervise.py discipline, in-process)
+    max_restarts: int = 3
+    # base restart delay; restart k of a replica sleeps
+    # restart_backoff_s * 2^(k-1), capped at 30 s
+    restart_backoff_s: float = 0.25
+    # health monitor cadence (overload-ladder evaluation + ceiling
+    # refresh); per-replica stall detection runs on the watchdog's own
+    # thread at watchdog cadence
+    health_interval_s: float = 0.1
+    # fleet_heartbeat cadence per replica (obs stream; the liveness
+    # signal scripts/obs_report.py and watchdog.check_replicas read)
+    heartbeat_s: float = 5.0
+    # slack multiplier on the per-replica dispatch deadline (same role
+    # as LearnConfig.watchdog_slack; the floor is CCSC_WATCHDOG_MIN_S)
+    stall_slack: float = 20.0
+    # overload ladder thresholds, as fractions of the queue ceiling:
+    # rung 1 (shed max_wait_ms micro-batch waiting) enters at shed_at
+    # and exits below shed_exit; rung 2 (reject) enters at 1.0 and
+    # exits below reject_exit
+    shed_at: float = 0.5
+    shed_exit: float = 0.25
+    reject_exit: float = 0.75
+    # rung 3 (degrade): sustained rejection for this many seconds
+    # recycles replicas onto a degraded solve budget
+    # (max_it x degrade_max_it_factor) — bounded latency under
+    # saturation at reduced solve quality. 0 disables rung 3.
+    degrade_after_s: float = 30.0
+    degrade_max_it_factor: float = 0.5
+    # delivery bookkeeping is BOUNDED (a serving process lives for
+    # days; per-request state must not grow to OOM under the very
+    # admission control that exists to prevent it): the newest
+    # key_window served/failed idempotency keys are remembered for
+    # at-most-once suppression and resubmit refusal — a straggler
+    # delayed by more than key_window requests, or a resubmit of a
+    # key that old, is outside the protection window
+    key_window: int = 100_000
+    # latency percentiles (stats / summary) are computed over the
+    # newest latency_window deliveries
+    latency_window: int = 10_000
+    # fleet telemetry dir (utils.obs): the fleet stream lands here and
+    # each replica engine's stream in a replica-NN/ subdir
+    metrics_dir: Optional[str] = None
+    verbose: str = "brief"
+    # Fleet-wide latency SLO targets (ms) on submit->result — the
+    # full queue-wait + ownership + solve + delivery path, which is
+    # what a client experiences (a replica's engine-local histogram
+    # cannot see fleet queueing or requeue retries). Checked by the
+    # monitor thread at CCSC_SLO_CHECK_S cadence; breaches emit
+    # `slo_breach` events with replica_id=None (fleet scope). None =
+    # the CCSC_SLO_* env knobs.
+    slo_p50_ms: Optional[float] = None
+    slo_p99_ms: Optional[float] = None
+    # Live metrics surface (serve.metricsd): port for the stdlib
+    # Prometheus-text HTTP endpoint (0 = an ephemeral port, reported
+    # in the fleet_metricsd event). None = CCSC_METRICSD_PORT env
+    # knob; unset = no endpoint.
+    metricsd_port: Optional[int] = None
+    # Atomic snapshot file of the same exposition for scrape-less
+    # environments. None = CCSC_METRICSD_SNAPSHOT env, else (when the
+    # endpoint is on and a metrics_dir exists) metrics_dir/
+    # metrics.prom.
+    metricsd_snapshot: Optional[str] = None
+    # Workload capture (serve.capture): when set — or via
+    # CCSC_CAPTURE_DIR — every ADMITTED request is durably recorded
+    # under this directory (relative arrival time, idempotency key,
+    # trace id, payloads content-addressed by sha256 with cross-
+    # request dedup) and paired with its outcome digest + PSNR +
+    # latency at delivery, so the stream can be re-served
+    # bit-checkably by serve.replay. None = the CCSC_CAPTURE_DIR env
+    # knob (unset = capture off); "" = explicitly OFF even when the
+    # env knob is armed (replay fleets must never re-capture the
+    # stream they are replaying).
+    capture_dir: Optional[str] = None
+    # Fraction of admitted requests captured, deterministic per
+    # idempotency key (a request and its outcome always land on the
+    # same side). None = CCSC_CAPTURE_SAMPLE (default 1.0).
+    capture_sample: Optional[float] = None
+    # Heterogeneous replica shapes: one entry per replica — a mesh
+    # shape tuple (the replica's engine shards its bucket programs
+    # over that many devices, ServeConfig.mesh_shape semantics) or
+    # None (a single-device replica). None (default) = every replica
+    # inherits ServeConfig.mesh_shape. The fleet assigns disjoint
+    # device slices when the pool is large enough, scales the derived
+    # admission ceiling by each replica's device count
+    # (utils.perfmodel.fleet_serving_bound), and counts mesh devices
+    # in capacity_hint (federation claim sizing).
+    replica_meshes: Optional[
+        Tuple[Optional[Tuple[int, ...]], ...]
+    ] = None
+    # Declared tenants (serve.tenancy): per-tenant bank routing,
+    # latency SLO targets, admission quotas, and weighted-fair
+    # dequeue shares. None (default) = the untenanted fleet — one
+    # queue, the fleet-wide SLO, the historical behavior exactly.
+    # With tenants declared, submit(..., tenant=...) must name one of
+    # them (or None for untenanted traffic).
+    tenants: Optional[Tuple[TenantSpec, ...]] = None
+    # Golden-probe store (serve.quality.ProbeSet): a directory of
+    # deterministic probe requests + content-addressed reference
+    # outcomes (capture payload-store layout). None = the
+    # CCSC_PROBE_DIR env knob; "" = explicitly off (the capture_dir
+    # convention). Auto-generated on first use when the directory
+    # has no probes yet.
+    probe_dir: Optional[str] = None
+    # Probe cadence in seconds: the fleet serves every probe through
+    # idle capacity at this interval and scores it bit-exact + in dB
+    # against the stored reference for the live bank digest;
+    # regressions emit quality_probe_breach + a demotion advisory.
+    # None = CCSC_PROBE_INTERVAL_S (unset/0 = probing off).
+    probe_interval_s: Optional[float] = None
+    # Request lifecycle ------------------------------------------
+    # Fleet-wide default end-to-end deadline (ms) for requests whose
+    # submit and tenant name none. None = the CCSC_REQ_DEADLINE_MS
+    # env knob (unset = no deadline).
+    deadline_ms: Optional[float] = None
+    # Hedged attempts against gray replicas: an attempt that has been
+    # in flight longer than hedge_after_ms is re-enqueued on a
+    # DIFFERENT replica; first result wins through the at-most-once
+    # fencing, the loser is suppressed-and-counted. None =
+    # CCSC_HEDGE_AFTER_MS, else adaptive: the hedge_quantile of the
+    # fleet's recent delivery-latency histogram (so "anomalously
+    # slow" tracks the workload instead of a magic number).
+    hedge_after_ms: Optional[float] = None
+    # Latency quantile the adaptive hedge_after derives from. None =
+    # CCSC_HEDGE_QUANTILE (default 0.95).
+    hedge_quantile: Optional[float] = None
+    # Cap on hedges as a fraction of admitted requests — hedging must
+    # never amplify an overload into a retry storm. None =
+    # CCSC_HEDGE_MAX_FRAC (default 0 = hedging OFF; setting this > 0
+    # is how hedging is enabled).
+    hedge_max_frac: Optional[float] = None
+
+    def __post_init__(self):
+        if (
+            self.probe_interval_s is not None
+            and self.probe_interval_s < 0
+        ):
+            raise ValueError(
+                f"probe_interval_s must be >= 0, got "
+                f"{self.probe_interval_s}"
+            )
+        for fname in (
+            "slo_p50_ms", "slo_p99_ms", "deadline_ms",
+            "hedge_after_ms",
+        ):
+            v = getattr(self, fname)
+            if v is not None and v <= 0:
+                raise ValueError(
+                    f"{fname} must be > 0 when set, got {v}"
+                )
+        if self.hedge_quantile is not None and not (
+            0.0 < self.hedge_quantile < 1.0
+        ):
+            raise ValueError(
+                f"hedge_quantile must be in (0, 1), got "
+                f"{self.hedge_quantile}"
+            )
+        if self.hedge_max_frac is not None and not (
+            0.0 <= self.hedge_max_frac <= 1.0
+        ):
+            raise ValueError(
+                f"hedge_max_frac must be in [0, 1], got "
+                f"{self.hedge_max_frac}"
+            )
+        if self.metricsd_port is not None and self.metricsd_port < 0:
+            raise ValueError(
+                f"metricsd_port must be >= 0, got {self.metricsd_port}"
+            )
+        if self.capture_sample is not None and not (
+            0.0 <= self.capture_sample <= 1.0
+        ):
+            raise ValueError(
+                f"capture_sample must be in [0, 1], got "
+                f"{self.capture_sample}"
+            )
+        if self.replicas < 1:
+            raise ValueError(
+                f"replicas must be >= 1, got {self.replicas}"
+            )
+        if self.max_queue_depth is not None and self.max_queue_depth < 1:
+            raise ValueError(
+                f"max_queue_depth must be >= 1, got "
+                f"{self.max_queue_depth}"
+            )
+        if self.max_queue_s <= 0:
+            raise ValueError(
+                f"max_queue_s must be > 0, got {self.max_queue_s}"
+            )
+        if self.min_queue_depth < 1:
+            raise ValueError(
+                f"min_queue_depth must be >= 1, got "
+                f"{self.min_queue_depth}"
+            )
+        if self.max_attempts < 1:
+            raise ValueError(
+                f"max_attempts must be >= 1, got {self.max_attempts}"
+            )
+        if self.max_restarts < 0:
+            raise ValueError(
+                f"max_restarts must be >= 0, got {self.max_restarts}"
+            )
+        if self.key_window < 1:
+            raise ValueError(
+                f"key_window must be >= 1, got {self.key_window}"
+            )
+        if self.latency_window < 1:
+            raise ValueError(
+                f"latency_window must be >= 1, got "
+                f"{self.latency_window}"
+            )
+        if self.stall_slack <= 0:
+            raise ValueError(
+                f"stall_slack must be > 0, got {self.stall_slack}"
+            )
+        if not (0.0 < self.shed_exit <= self.shed_at <= 1.0):
+            raise ValueError(
+                "need 0 < shed_exit <= shed_at <= 1, got "
+                f"shed_exit={self.shed_exit}, shed_at={self.shed_at}"
+            )
+        if not (0.0 < self.reject_exit <= 1.0):
+            raise ValueError(
+                f"reject_exit must be in (0, 1], got {self.reject_exit}"
+            )
+        if self.degrade_after_s < 0:
+            raise ValueError(
+                f"degrade_after_s must be >= 0, got "
+                f"{self.degrade_after_s}"
+            )
+        if not (0.0 < self.degrade_max_it_factor <= 1.0):
+            raise ValueError(
+                f"degrade_max_it_factor must be in (0, 1], got "
+                f"{self.degrade_max_it_factor}"
+            )
+        if self.replica_meshes is not None:
+            if len(self.replica_meshes) != self.replicas:
+                raise ValueError(
+                    f"replica_meshes has {len(self.replica_meshes)} "
+                    f"entries for {self.replicas} replica(s) — one "
+                    "mesh shape (or None) per replica"
+                )
+            norm_meshes = []
+            for i, m in enumerate(self.replica_meshes):
+                if m is None:
+                    norm_meshes.append(None)
+                    continue
+                try:
+                    if isinstance(m, str):
+                        # "12" would iterate characters into (1, 2)
+                        raise TypeError(m)
+                    mesh = tuple(int(a) for a in m)
+                except (TypeError, ValueError):
+                    raise ValueError(
+                        f"replica_meshes[{i}] = {m!r} is not a tuple "
+                        "of axis sizes (use e.g. (2,) or (4, 2), not "
+                        "a bare int or a spec string)"
+                    )
+                if not 1 <= len(mesh) <= 2 or any(a < 1 for a in mesh):
+                    raise ValueError(
+                        f"replica_meshes[{i}] must be (batch,) or "
+                        f"(batch, freq) with positive axes, got {m!r}"
+                    )
+                norm_meshes.append(mesh)
+            object.__setattr__(
+                self, "replica_meshes", tuple(norm_meshes)
+            )
+        if self.tenants is not None:
+            norm_tenants = []
+            for i, spec in enumerate(self.tenants):
+                if not isinstance(spec, TenantSpec):
+                    raise ValueError(
+                        f"tenants[{i}] = {spec!r} is not a TenantSpec"
+                    )
+                norm_tenants.append(spec)
+            names = [s.tenant for s in norm_tenants]
+            if len(names) != len(set(names)):
+                dupes = sorted(
+                    n for n in set(names) if names.count(n) > 1
+                )
+                raise ValueError(
+                    f"duplicate tenant name(s) {dupes} — one "
+                    "TenantSpec per tenant"
+                )
+            object.__setattr__(
+                self, "tenants", tuple(norm_tenants)
+            )

@@ -5,8 +5,8 @@ records and readers, so either package reads the other's capture).
 :class:`WorkloadRecorder` records the WORKLOAD itself — what bytes
 arrived, when, and what the engine answered — so yesterday's traffic
 can be re-served against tomorrow's engine and its answers checked.
-Hooked into a standalone ``CodecEngine`` (the fleet's admission
-boundary is ROADMAP.md Queue 1 item 11), it appends one record per
+Hooked into a standalone ``CodecEngine`` or the ``ServeFleet``'s
+admission boundary, it appends one record per
 admitted request to an
 append-only JSONL segment with the ledger's torn-tail durability
 stance, content-addresses every payload array by sha256 into a

@@ -49,9 +49,13 @@ many requests:
    one-shot profiler capture of the next dispatch
    (``slo_profile_dir``), recorded as ``slo_profile`` even when that
    dispatch raises. ``stats()`` reads its percentiles from the O(1)
-   latency histograms. Only the dispatching thread writes spans and
-   serve records; the quality plane's ``quality_*`` records belong to
-   ROADMAP.md Queue 1 item 11.
+   latency histograms. The quality plane (serve.quality) folds each
+   request's valid-region PSNR into per-(bank, tenant, bucket) dB
+   histograms and each dispatch's solve diagnostics
+   (``SolveConfig.track_diagnostics``, read back with the dispatch's
+   one host read) per bucket, flushed as ``quality_histogram`` /
+   ``quality_solve_diag`` on the SLO cadence. Only the dispatching
+   thread writes spans and serve records.
 
 6. **Workload capture** (``ServeConfig.capture_dir`` or
    ``CCSC_CAPTURE_DIR``; serve.capture): a standalone engine records
@@ -66,8 +70,11 @@ active slots; on a mesh, per position) instead of one per request.
 Dispatch is synchronous in one worker thread, which pins the engine's
 device (or hands the shards to the positions' threads) and surfaces
 every exception on its batch's futures; nothing falls back to the CPU.
+The fleet layer (serve.fleet) drives replica engines through the
+fleet-internal ``submit`` arguments, ``replica_id`` and the members
+``bucket_warm``, ``cache_dir``, ``last_it_rate`` and ``_knob_dict``.
 Tuning, pipelining, artifacts and staged warmup are later ROADMAP.md
-Queue 1 items (9, 11); ``ServeConfig`` refuses them.
+Queue 1 items (9, 11 second half); ``ServeConfig`` refuses them.
 """
 from __future__ import annotations
 
@@ -82,7 +89,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import ServeConfig, SolveConfig, _not_ported
+from ..config import ServeConfig, SolveConfig
 from ..models.reconstruct import (
     ReconTrace,
     SolveExtras,
@@ -95,9 +102,28 @@ from ..utils import env, obs, perfmodel, profiling, validate
 from ..utils import trace as trace_util
 from ..utils.device import resolve_device
 from . import capture as _capture_mod
+from . import quality as _quality_mod
 from . import registry
 from . import slo as _slo
 from .quality import valid_region_psnr
+
+
+class BucketCold(RuntimeError):
+    """Admission refusal for a bucket whose program is still building
+    under staged warmup (``ServeConfig.staged_warmup``, ROADMAP.md
+    Queue 1 item 11, second half): the engine is live for its warm
+    buckets, only this one is not ready. Carries ``retry_after_s`` like
+    the fleet's ``Overloaded``. Without staged warmup every bucket is
+    warm once the engine is constructed, so the port raises it
+    nowhere yet; the fleet imports it."""
+
+    def __init__(self, bucket: str, retry_after_s: float):
+        super().__init__(
+            f"bucket {bucket} is still warming (staged warmup) — "
+            f"retry in {retry_after_s:.2f}s"
+        )
+        self.bucket = bucket
+        self.retry_after_s = float(retry_after_s)
 
 
 class DeadlineExceeded(RuntimeError):
@@ -142,8 +168,13 @@ class _Pending:
     t_submit: float
     digest: str = ""  # the bank digest bound at admission
     bank_id: Optional[str] = None
+    tenant: Optional[str] = None
     deadline: Optional[float] = None  # absolute epoch seconds
     trace_id: Optional[str] = None  # the request's span tree (utils.trace)
+    # the fleet's ownership span the engine's spans nest under; a
+    # standalone request owns its root span (own_root)
+    parent_span: Optional[str] = None
+    own_root: bool = True
     # workload-capture key (serve.capture): pairs this request's capture
     # record with its outcome
     cap_key: Optional[str] = None
@@ -321,7 +352,17 @@ class CodecEngine:
                                  or env.env_str("CCSC_SLO_XPROF_DIR"))
         self._profile_armed: Optional[str] = None
         self._profiled = False
+        # quality plane (serve.quality): per-(bank, tenant, bucket) dB
+        # histograms and per-bucket solve diagnostics on the SLO
+        # cadence; floors and drift live at the fleet scope
+        self._quality = _quality_mod.QualityMonitor(
+            check_s=serve_cfg.slo_check_s)
         self._replica_id = serve_cfg.replica_id
+        # the persistent compile cache is item 11's second half: a
+        # restarted replica rebuilds plans, never kernels (the library
+        # is loaded once a process)
+        self.cache_dir: Optional[str] = None
+        self._last_it_rate = 0.0  # newest dispatch's measured it/s
         self._knob_dict = {
             k: getattr(cfg, k) for k in ("fft_impl", "fft_pad",
                                          "storage_dtype", "use_pallas",
@@ -352,9 +393,10 @@ class CodecEngine:
         # pairs outcomes by key)
         self._cap_prefix = f"req-{trace_util.new_trace_id()[:8]}"
         try:
-            # a standalone engine (the port has no fleet replicas yet)
-            # captures its own workload, under the solve params requests
-            # are served with
+            # a standalone engine captures its own workload, under the
+            # solve params requests are served with (fleet replicas are
+            # built with capture_dir=None: the fleet captures at
+            # admission)
             cap_dir = _capture_mod.resolve_capture_dir(serve_cfg.capture_dir)
             if cap_dir:
                 self._capture = _capture_mod.WorkloadRecorder(
@@ -648,27 +690,36 @@ class CodecEngine:
         cheap per-request checks run here. ``bank_id`` routes to a
         published bank (None = the default bank); the request binds that
         bank's digest now, so a later hot-swap never retargets it.
+        ``tenant`` rides through to telemetry, quality and capture.
         ``deadline_ms`` bounds the request end to end; an expired
         request is refused with :class:`DeadlineExceeded` before it
-        costs a solve slot. ``tenant`` and the fleet-internal
-        ``_validated``/``_trace``/``_digest``/``_deadline`` belong to
-        the fleet layer and raise when set."""
-        for name, v, default in (
-            ("tenant", tenant, None), ("_validated", _validated, False),
-            ("_trace", _trace, None), ("_digest", _digest, None),
-            ("_deadline", _deadline, None),
-        ):
-            if v != default:
-                raise _not_ported(f"submit({name}=...) (the fleet layer)",
-                                  "ROADMAP.md Queue 1 item 11")
-        validate.check_serve_request(
-            b, self.geom, mask=mask, smooth_init=smooth_init, x_orig=x_orig,
-        )
-        deadline = None
-        if deadline_ms is not None:
+        costs a solve slot.
+
+        Fleet-internal, as in the JAX package: ``_validated`` skips the
+        request checks the fleet already ran at admission; ``_trace``
+        is the fleet's span context ``(trace_id, parent_span_id)``, so
+        the engine's spans nest under the fleet's ownership span;
+        ``_digest`` is the admission-time digest binding (the fleet
+        owns the routing table); ``_deadline`` is the absolute
+        wall-clock deadline stamped at the original admission."""
+        if not _validated:
+            validate.check_serve_request(
+                b, self.geom, mask=mask, smooth_init=smooth_init,
+                x_orig=x_orig,
+            )
+        deadline = _deadline
+        if deadline is None and deadline_ms is not None:
             deadline = time.time() + float(deadline_ms) / 1e3
-            if time.time() >= deadline:
-                raise DeadlineExceeded("engine", deadline)
+        if deadline is not None and time.time() >= deadline:
+            self._emit("deadline_exceeded", where="engine",
+                       deadline=round(deadline, 3))
+            raise DeadlineExceeded("engine", deadline)
+        if _trace is None:
+            trace_id = (trace_util.new_trace_id() if self._run.active
+                        else None)
+            parent_span, own_root = None, True
+        else:
+            (trace_id, parent_span), own_root = _trace, False
         spatial = tuple(int(s) for s in b.shape[self.geom.ndim_reduce:])
         key = self.bucket_for(spatial)
 
@@ -680,22 +731,31 @@ class CodecEngine:
         p = _Pending(
             b=host(b), mask=host(mask), smooth_init=host(smooth_init),
             x_orig=host(x_orig), spatial=spatial, future=Future(),
-            t_submit=time.perf_counter(), bank_id=bank_id,
-            deadline=deadline,
-            trace_id=trace_util.new_trace_id() if self._run.active else None,
+            t_submit=time.perf_counter(), bank_id=bank_id, tenant=tenant,
+            deadline=deadline, trace_id=trace_id, parent_span=parent_span,
+            own_root=own_root,
         )
         with self._cv:
             if self._closed or self._close_started:
                 raise RuntimeError("engine is closed")
             # the digest binds under the queue lock: publish_bank flips
             # routes and retires digests under the same lock
-            digest = self._routes.get(bank_id)
-            if digest is None:
-                raise validate.CCSCInputError(
-                    f"unknown bank id {bank_id!r} — published: "
-                    f"{sorted(k for k in self._routes if k)} "
-                    "(default bank routes as bank_id=None)"
-                )
+            if _digest is not None:
+                digest = _digest
+                if digest not in self._banks:
+                    raise validate.CCSCInputError(
+                        f"bank digest {digest!r} is not published on "
+                        "this engine — publish the bank (add_bank) "
+                        "before routing requests to it"
+                    )
+            else:
+                digest = self._routes.get(bank_id)
+                if digest is None:
+                    raise validate.CCSCInputError(
+                        f"unknown bank id {bank_id!r} — published: "
+                        f"{sorted(k for k in self._routes if k)} "
+                        "(default bank routes as bank_id=None)"
+                    )
             p.digest = digest
             if self._capture is not None:
                 self._cap_seq += 1
@@ -709,19 +769,20 @@ class CodecEngine:
             self._capture.record_submit(
                 p.cap_key, p.trace_id, p.b, mask=p.mask,
                 smooth_init=p.smooth_init, x_orig=p.x_orig,
-                bucket=_bucket_name(*key), bank_id=bank_id, tenant=None,
+                bucket=_bucket_name(*key), bank_id=bank_id, tenant=tenant,
             )
         return p.future
 
     def reconstruct(
         self, b, mask=None, smooth_init=None, x_orig=None,
         bank_id: Optional[str] = None,
+        tenant: Optional[str] = None,
         timeout: Optional[float] = None,
     ) -> ServedResult:
         """Synchronous submit-and-wait."""
         return self.submit(
             b, mask=mask, smooth_init=smooth_init, x_orig=x_orig,
-            bank_id=bank_id,
+            bank_id=bank_id, tenant=tenant,
         ).result(timeout=timeout)
 
     def serve_many(self, requests, timeout=None) -> List[ServedResult]:
@@ -869,6 +930,15 @@ class CodecEngine:
                                                    "diff"))
         recon, z, ex = out["recon"], out["z"], out["extras"]
         t_done = time.perf_counter()
+        # the solve diagnostics came back with the dispatch's one host
+        # read; filler slots are no diagnostics
+        nb = len(batch)
+        self._quality.observe_solve(
+            name, iters[:nb], cfg.max_it,
+            obj_fid=None if ex is None else ex[0][:nb],
+            obj_l1=None if ex is None else ex[1][:nb],
+            nonfinite=None if ex is None else ex[2][:nb],
+        )
         self._release_digest()
 
         max_it = int(iters[: len(batch)].max())
@@ -912,14 +982,20 @@ class CodecEngine:
                 self._slo.observe("queue", res.wait_s * 1e3)
                 self._slo.observe("solve", dt * 1e3)
                 self._slo.observe("total", res.latency_s * 1e3)
+            self._quality.observe(res.psnr, bank_id=p.bank_id,
+                                  tenant=p.tenant, bucket=name)
             if p.trace_id is not None:
                 # retrospective spans: start and end written together,
-                # so no failure can orphan a span_start
-                root = trace_util.emit_span(
-                    self._emit_span, trace_id=p.trace_id,
-                    span=trace_util.ROOT_SPAN,
-                    t_start=wall_off + p.t_submit, t_end=wall_off + t_done,
-                )
+                # so no failure can orphan a span_start; under a fleet
+                # they nest under its ownership span
+                root = p.parent_span
+                if p.own_root:
+                    root = trace_util.emit_span(
+                        self._emit_span, trace_id=p.trace_id,
+                        span=trace_util.ROOT_SPAN,
+                        t_start=wall_off + p.t_submit,
+                        t_end=wall_off + t_done,
+                    )
                 trace_util.emit_span(
                     self._emit_span, trace_id=p.trace_id,
                     span="engine_queue", parent_span=root,
@@ -937,7 +1013,7 @@ class CodecEngine:
                 spatial=list(p.spatial), wait_ms=round(res.wait_s * 1e3, 3),
                 latency_ms=round(res.latency_s * 1e3, 3),
                 iters=int(iters[i]), psnr=res.psnr, bank_id=p.bank_id,
-                tenant=None,
+                tenant=p.tenant,
             )
             if p.cap_key is not None:
                 self._capture.record_outcome(
@@ -945,6 +1021,10 @@ class CodecEngine:
                     iters=int(iters[i]),
                 )
         it_rate = max_it / dt if dt > 0 and max_it else 0.0
+        if it_rate > 0:
+            # the fleet's derived admission ceiling reads the newest
+            # measured rate
+            self._last_it_rate = it_rate
         # the full-bucket ceiling at this dispatch's measured iteration
         # rate: the achieved len(batch)/dt sits below it by the unfilled
         # slots
@@ -969,6 +1049,15 @@ class CodecEngine:
         if breaches and self._slo_profile_dir and not self._profiled:
             self._profiled = True
             self._profile_armed = self._slo_profile_dir
+        # the quality plane's cadence-gated flush (the engine declares
+        # no floors: breaches are the fleet's)
+        q_breaches, q_snaps, q_diags = self._quality.tick()
+        for br in q_breaches:
+            self._emit("quality_breach", **br)
+        for sn in q_snaps:
+            self._emit("quality_histogram", **sn)
+        for dg in q_diags:
+            self._emit("quality_solve_diag", **dg)
 
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, object]:
@@ -992,6 +1081,57 @@ class CodecEngine:
             "p50_latency_s": to_s(ms[0.50]),
             "p99_latency_s": to_s(ms[0.99]),
         }
+
+    def metrics(self) -> Dict[str, object]:
+        """Live counters, gauges and histograms in the shape
+        ``serve.metricsd.render_prometheus`` renders: the scrape source
+        of a standalone engine's metrics endpoint, with the latency and
+        the quality plane's dB histograms."""
+        with self._cv:
+            depth = self._n_pending
+            banks = len(self._routes)
+        st = self.stats()
+        with self._lock:
+            lat = self._slo.raw_snapshots()
+        return {
+            "counters": {
+                "requests_total": st["n_requests"],
+                "dispatches_total": st["n_dispatches"],
+            },
+            "gauges": {
+                "queue_depth": depth,
+                "mean_occupancy": round(st["mean_occupancy"], 4),
+                "banks": banks,
+                "plan_cache_bytes": self._plan_cache.total_bytes,
+            },
+            "histograms": [
+                ("latency_ms", {"phase": sn["phase"]}, sn) for sn in lat
+            ] + [
+                ("psnr_db", {"bank_id": sn["bank_id"],
+                             "tenant": sn["tenant"],
+                             "bucket": sn["bucket"]}, sn)
+                for sn in self._quality.raw_snapshots()
+            ],
+        }
+
+    def bucket_warm(self, key) -> bool:
+        """Is ``key``'s (slots, spatial) bucket serveable? Without the
+        staged warmup every configured bucket is, once the engine is
+        constructed."""
+        slots, spatial = key
+        return (int(slots), tuple(int(v) for v in spatial)) in self._buckets
+
+    def warmup_eta_s(self) -> float:
+        """Retry-after hint for a cold bucket: none is ever cold before
+        the staged warmup."""
+        return 0.0
+
+    @property
+    def last_it_rate(self) -> float:
+        """Measured iteration rate of the newest dispatch (it/s; 0.0
+        before any): the ``perfmodel.serving_bound`` input of the
+        fleet's derived admission ceiling."""
+        return self._last_it_rate
 
     @property
     def buckets(self) -> List[Tuple[int, Tuple[int, ...]]]:
@@ -1153,11 +1293,9 @@ class CodecEngine:
         """Hot-swap: make ``d`` servable, then route ``bank_id`` (None =
         the default bank) to its digest. Queued and in-flight requests
         finish on the digest they bound; later admissions serve the new
-        one. Superseded digests nothing references are retired. Returns
-        ``(old_digest, new_digest)``."""
-        if tenant is not None:
-            raise _not_ported("publish_bank(tenant=...) (tenancy)",
-                              "ROADMAP.md Queue 1 item 11")
+        one; the cutover is a ``bank_swap`` record with both digests
+        (and the publishing ``tenant``). Superseded digests nothing
+        references are retired. Returns ``(old_digest, new_digest)``."""
         digest = self.add_bank(d)
         with self._cv:
             if self._close_started:
@@ -1166,6 +1304,8 @@ class CodecEngine:
             self._routes[bank_id] = digest
             stale = [dg for dg in self._banks
                      if dg not in self._routes.values()]
+        self._emit("bank_swap", bank_id=bank_id, old_digest=old,
+                   new_digest=digest, tenant=tenant)
         for dg in stale:
             self.retire_bank(dg)
         return old, digest
@@ -1277,6 +1417,11 @@ class CodecEngine:
                 if run.active:
                     for sn in self._slo.final()[1]:
                         self._emit("slo_histogram", **sn)
+                    _qb, q_snaps, q_diags = self._quality.final()
+                    for sn in q_snaps:
+                        self._emit("quality_histogram", **sn)
+                    for dg in q_diags:
+                        self._emit("quality_solve_diag", **dg)
                 st = self.stats()
                 run.close(
                     status="ok", n_requests=st["n_requests"],

@@ -54,7 +54,7 @@ whole fleet with the matching exit code.
 
 Federated serving (``--federate DIR``): exports ``CCSC_DQUEUE_DIR`` to
 every child, as the JAX supervisor does; the federated serving children
-that read it are ROADMAP.md Queue 1 item 11.
+that read it are ROADMAP.md Queue 1 item 11, second half.
 
 The supervisor also exports ``CCSC_FAULT_STATE_DIR`` to the child (set
 to the metrics dir) so injected chaos faults (utils.faults) stay

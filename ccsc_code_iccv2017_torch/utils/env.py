@@ -129,6 +129,83 @@ REGISTRY: Dict[str, Knob] = {
              "request-segment rotation threshold in MB",
              "serve.capture"),
         # -- performance ledger (analysis.ledger) ---------------------
+        # -- the serving fleet (serve.registry, serve.tenancy,
+        # serve.fleet, serve.metricsd, serve.quality)
+        Knob("CCSC_BANK_REGISTRY", "path", None,
+             "durable bank-registry directory (manifest.jsonl + "
+             "content-addressed banks/): --bank-registry / "
+             "BankRegistry(path) fall back to it; unset = no registry",
+             "serve.registry, apps.serve"),
+        Knob("CCSC_BANK_PLAN_CACHE_MB", "float", 256.0,
+             "byte budget (MB) of the per-bank plan LRU (PlanCache): "
+             "past it, least-recently-used plans are evicted and "
+             "rebuilt on their next request", "serve.registry"),
+        Knob("CCSC_BANK_SWAP_STAGGER_S", "float", 0.0,
+             "delay between per-replica plan publishes during a "
+             "fleet-wide bank hot-swap rollout (0 = back-to-back)",
+             "serve.fleet"),
+        Knob("CCSC_TENANT_QUOTA_FRAC", "float", 0.5,
+             "default per-tenant admission quota as a fraction of "
+             "(queue ceiling x the tenant's weight share) when "
+             "TenantSpec.quota is not declared", "serve.tenancy"),
+        Knob("CCSC_FED_RETRY_JITTER", "float", 0.25,
+             "random jitter fraction applied to "
+             "Overloaded.retry_after_s (0 disables)",
+             "serve.fleet, apps.serve"),
+        Knob("CCSC_REQ_DEADLINE_MS", "float", None,
+             "default end-to-end request deadline in ms stamped at "
+             "fleet admission (fallback of submit(deadline_ms=) and "
+             "TenantSpec.deadline_ms; unset = no deadline)",
+             "serve.fleet"),
+        Knob("CCSC_HEDGE_AFTER_MS", "float", None,
+             "fixed wait in ms before an in-flight attempt is hedged "
+             "onto a different replica (fallback of "
+             "FleetConfig.hedge_after_ms; unset = the latency "
+             "histogram's CCSC_HEDGE_QUANTILE)", "serve.fleet"),
+        Knob("CCSC_HEDGE_QUANTILE", "float", 0.95,
+             "latency-histogram quantile the adaptive hedge_after is "
+             "derived from", "serve.fleet"),
+        Knob("CCSC_HEDGE_MAX_FRAC", "float", 0.0,
+             "cap on hedged attempts as a fraction of admitted "
+             "requests (0 = hedging off, the default)", "serve.fleet"),
+        Knob("CCSC_GRAY_FACTOR", "float", 3.0,
+             "sustained per-replica p50 latency multiple over the "
+             "fleet median that marks a replica gray", "serve.fleet"),
+        Knob("CCSC_METRICSD_PORT", "int", None,
+             "port of the Prometheus-text metrics endpoint (0 = "
+             "ephemeral; fallback of FleetConfig.metricsd_port; unset "
+             "= no endpoint)", "serve.metricsd"),
+        Knob("CCSC_METRICSD_SNAPSHOT", "path", None,
+             "atomic Prometheus-text snapshot file (fallback of "
+             "FleetConfig.metricsd_snapshot)", "serve.metricsd"),
+        Knob("CCSC_METRICSD_INTERVAL_S", "float", 5.0,
+             "snapshot-file rewrite cadence in seconds",
+             "serve.metricsd"),
+        Knob("CCSC_QUALITY_CHECK_S", "float", 5.0,
+             "quality floor check + quality_histogram / "
+             "quality_solve_diag snapshot cadence in seconds",
+             "serve.quality"),
+        Knob("CCSC_QUALITY_DRIFT_WINDOW", "int", 5,
+             "rolling served-request window of the per-bank quality "
+             "drift watch", "serve.quality"),
+        Knob("CCSC_QUALITY_GATE_DB", "float", 1.0,
+             "absolute dB floor of the quality regression band",
+             "serve.quality, serve.quality_gate"),
+        Knob("CCSC_QUALITY_GATE", "flag", False,
+             "arm the publish-time quality gate (fallback of the "
+             "quality_check kwarg)", "serve.fleet"),
+        Knob("CCSC_PROBE_DIR", "path", None,
+             "golden-probe store directory (fallback of "
+             "FleetConfig.probe_dir; unset = no probe store)",
+             "serve.quality, serve.fleet"),
+        Knob("CCSC_PROBE_INTERVAL_S", "float", None,
+             "golden-probe cadence in seconds (fallback of "
+             "FleetConfig.probe_interval_s; unset/0 = probing off)",
+             "serve.quality, serve.fleet"),
+        Knob("CCSC_PROBE_DB_TOL", "float", 0.5,
+             "dB tolerance of a non-bit-exact probe against its stored "
+             "reference before it counts as regressed",
+             "serve.quality"),
         Knob("CCSC_PERF_LEDGER", "path", None,
              "durable perf-ledger JSONL path; setting it arms the "
              "automatic run/bench/serve appends and the live roofline "

@@ -2,7 +2,8 @@
 datasheet peaks (torch port of the parts of
 ``ccsc_code_iccv2017_tpu.utils.perfmodel`` the run telemetry reads:
 ``detect_chip``, ``analytic_outer_step_cost``, ``inmem_learn_estimate``
-(with the auto-degrade ladder's budget), ``bound_iters_per_sec``, ``serving_bound`` and ``utilization``).
+(with the auto-degrade ladder's budget), ``bound_iters_per_sec``,
+``serving_bound``, ``fleet_serving_bound`` and ``utilization``).
 
 ``analytic_outer_step_cost`` is a copy: a closed-form count of the CCSC
 outer step (FFTs, Grams, Cholesky, per-frequency solves, proxes) from
@@ -251,6 +252,50 @@ def serving_bound(
         "slots": slots,
         "occupancy": occupancy,
         "iters_per_request": iters_per_request,
+    }
+
+
+def fleet_serving_bound(
+    replicas,
+    iters_per_request: float,
+    slots: int,
+    occupancy: float = 1.0,
+) -> Dict[str, float]:
+    """Aggregate requests/sec bound of a HETEROGENEOUS serving fleet
+    (serve.ServeFleet with mesh and single-device replicas mixed).
+
+    ``replicas``: one ``(iters_per_sec, devices)`` pair per live
+    replica — its newest measured batched-solve iteration rate
+    (0.0 before any dispatch) and the device count of its bucket
+    programs (1 for a single-device engine, ``prod(mesh_shape)`` for
+    a mesh replica). Each replica contributes its own
+    :func:`serving_bound`; a replica with no measurement yet is
+    credited at the best measured PER-DEVICE rate times its own
+    device count — the device-count scaling that keeps a mixed
+    fleet's derived admission ceiling honest (a mesh replica on eight
+    cards is ~8 single-device replicas of capacity, and crediting it
+    as 1 would reject exactly the load it exists to carry). A copy of
+    the JAX package's.
+
+    ``{"requests_per_sec": 0.0, "measured": 0}`` until any replica
+    has measured — the caller keeps its static floor then."""
+    entries = [
+        (max(0.0, float(r)), max(1, int(d))) for r, d in replicas
+    ]
+    measured = [(r, d) for r, d in entries if r > 0]
+    if not measured:
+        return {"requests_per_sec": 0.0, "measured": 0}
+    per_dev = max(r / d for r, d in measured)
+    total = 0.0
+    for r, d in entries:
+        rate = r if r > 0 else per_dev * d
+        total += serving_bound(
+            rate, iters_per_request, slots, occupancy
+        )["requests_per_sec"]
+    return {
+        "requests_per_sec": total,
+        "measured": len(measured),
+        "per_device_iters_per_sec": per_dev,
     }
 
 

@@ -1,7 +1,6 @@
 """Request-level tracing: span events in the obs stream, reassembled
 into per-request timelines (a copy of ``ccsc_code_iccv2017_tpu.utils.trace``;
-the port's serving engine writes the standalone engine's spans, the
-fleet's are ROADMAP.md Queue 1 item 11).
+the port's serving engine and fleet write the spans).
 
 The serving stack's telemetry so far is flat: ``serve_request`` /
 ``fleet_request`` / ``fleet_requeue`` records share no causal linkage,

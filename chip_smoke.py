@@ -301,6 +301,56 @@ never exits 0):
    ``h100`` with ``roofline_frac`` and ``peak_hbm_bytes``, one
    ``warmup`` record, ``Ledger`` reads both, ``gate`` passes, the repo's
    ``perf_ledger.jsonl`` untouched.
+19. The serving fleet (``serve.ServeFleet``, ``serve.registry``,
+   ``serve.tenancy``, ``serve.quality``, ``serve.metricsd``,
+   ``apps.serve``; run after 18, before the output of 14), its
+   replicas sharing cuda:0, every replica engine the fleets build
+   (restarts included) recorded so K1's count, set to 0 just before
+   each part, is held to their dispatch iterations plus one warm
+   iteration for each engine built inside the part. (a) Two replicas
+   serve phase 10's 42 requests, each under an idempotency key: every
+   result bitwise phase 10's; requests/s, latency p50/p90/max (submit
+   to result), each replica's served count. (c) The ceiling the
+   monitor derives from ``fleet_serving_bound`` over the replicas'
+   measured iteration rates. (d) ``publish_bank`` of a second k=100
+   11x11 bank (a seeded perturbation of the first, renormalized into
+   the unit ball) between two submits of 12 requests: the first 12
+   bitwise phase 10's, the next 12 bitwise a fresh engine on the new
+   bank, one fleet ``bank_swap`` record with both digests. (g) The
+   fleet's ``MetricsD`` on 127.0.0.1:<ephemeral>, scraped over HTTP:
+   its counters equal ``stats()``. (b) A fresh fleet with
+   ``CCSC_FAULT_ENGINE_KILL_REQ`` on replica 0 and
+   ``CCSC_FAULT_ENGINE_HANG_REQ`` (FLEET_HANG_S) on replica 1, the
+   watchdog's floor and first-fence allowance FLEET_MIN_S: the
+   42 keys delivered once each, bitwise phase 10's; ``fleet_replica_
+   dead`` (crash, stall), ``fleet_requeue``, ``fleet_replica_restart``
+   / ``_ready`` and ``fleet_duplicate_suppressed`` read back from the
+   stream; the restart's wall time. (c) ``max_queue_depth``
+   FLEET_QUEUE_DEPTH: the burst refused with ``Overloaded`` and a
+   positive ``retry_after_s``, the admitted requests bitwise phase
+   10's, the ladder's ``fleet_overload`` transitions through ``reject``
+   back to ``normal``. (e) Tenants steady (weight 2) and burst (weight
+   1, quota FLEET_BURST_QUOTA), the burst submitted first: only the
+   burst is refused, every result bitwise phase 10's, both tenants' SLO
+   percentiles in ``stats()``. (f) On that fleet the quality plane: its
+   ``quality_*`` records, and the golden probes (``probe_dir``, a sweep
+   every FLEET_PROBE_S s while idle) sealed, then judged exact. (j)
+   Bank rot on the same fleet with a temporary perf ledger: a bank id
+   published with the first bank and its served dB (FLEET_ROT_REQS
+   requests of ``quality.synth_probe`` content) seeded as ledger
+   history, then a degraded bank (every atom one blur) published on it:
+   a ``quality_probe_breach``, a probe advisory naming the good digest,
+   a ``quality_drift``; swapped back, the requests bitwise their
+   pre-rot results. (i) A gray replica: replica 0 FLEET_SLOW_S slower a
+   request (far under the watchdog's floor), hedging after
+   FLEET_HEDGE_MS: hedges fire, the healthy replica wins some
+   (``hedge_win``), every won hedge's original and every losing clone a
+   ``hedge_lost``, no stall, the keys delivered once, bitwise phase
+   10's. (h) ``python -m ...apps.serve --replicas 2`` in a child on
+   phase 4's images (a .mat stack): exit 0 and every PSNR above the
+   smooth fill's (the app's own masks, seed 0). Then K1 at a replica
+   dispatch's shape (N=4, K=100, F=266*134), held and timed as in
+   phase 3.
 14. Output: a
    ``{"slice": ...}`` line (serving), a ``{"learn": ...}`` line, a
    ``{"serve_engine": ...}`` line (the engine phase and the
@@ -310,13 +360,13 @@ never exits 0):
    ``{"telemetry": ...}`` line (17's counts and seconds, with and
    without telemetry and the profiler), a ``{"robustness": ...}`` line
    (18's counts and seconds, the armed learner's step beside the plain
-   one), a
+   one), a ``{"serve_fleet": ...}`` line (19's records), a
    ``{"kernels": [...]}`` line (K1, K2a, K2b; K1's launches by path:
    reconstruct, engine, poisson, deblur, learn_3d, learn_2d_masked,
    learn_streaming_2d, learn_streaming_3d, mesh_reconstruct,
    mesh_learn_freq, serve_mesh, learn_2d_256_gate, telemetry_engine,
    telemetry_reconstruct, capture_engine, capture_replay,
-   degrade_streaming_cli, degrade_streaming_direct; K2's: learn,
+   degrade_streaming_cli, degrade_streaming_direct, fleet; K2's: learn,
    learn_telemetry, mesh_learn_block4, mesh_learn_nccl1, learn_watchdog,
    learn_nan_recovery, learn_hang), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
@@ -3915,6 +3965,778 @@ def phase_robustness(torch, port, seed, tel, phase10):
     return out
 
 
+# the serving fleet (19): phase 10's stream through a 2-replica
+# ServeFleet whose replicas share cuda:0, under faults, overload, a hot
+# swap and tenants, with its quality plane, endpoint and CLI
+FLEET_REPLICAS = 2
+FLEET_KILL_REQ = 6  # (b): replica 0 dies taking its 6th request
+FLEET_HANG_REQ = 1  # (b): replica 1 hangs on its first request
+FLEET_HANG_S = 10.0
+# (b): the watchdog's floor and first-fence allowance. A replica's first
+# fence, the hung one, gets MIN_S a request + COMPILE_S: 5 s for a batch
+# of 4, whatever the host's pace (later fences calibrate on the measured
+# one, which two replicas on one card under one GIL make vary by 2x)
+FLEET_MIN_S = 1.0
+FLEET_QUEUE_DEPTH = 8  # (c): the explicit admission ceiling
+FLEET_SWAP_AT = 12  # (d): requests admitted before and after the swap
+FLEET_BANK_NOISE = 0.05  # (d): the second bank's perturbation scale
+FLEET_BURST_QUOTA = 4  # (e): the bursting tenant's quota
+FLEET_PROBE_S = 1.0  # (f): the golden-probe sweep interval
+FLEET_GRAY_REQS = 8  # (i): the gray replica's stream
+# (i): replica 0's extra seconds a request, and the age past which an
+# attempt is hedged: above a healthy attempt (a 4-request dispatch,
+# 0.35-0.7 s with two replicas on the card), well below the gray
+# replica's shortest (one request: FLEET_SLOW_S before its dispatch).
+# Hedge clones queue behind the stream, which the healthy replica has
+# drained by then, so a clone lands ~1 s before its original
+FLEET_SLOW_S = 3.0
+FLEET_HEDGE_MS = 1000.0
+FLEET_ROT_REQS = 6  # (j): requests a phase of the rot episode
+
+
+class _FleetEngines:
+    """Every replica engine the fleets build while active (restarts
+    included), so K1's launches can be held to the dispatch iterations
+    of all of them: each engine built inside a counting window also ran
+    one warm dispatch of one iteration per bucket."""
+
+    def __init__(self):
+        import importlib
+
+        self.mod = importlib.import_module(f"{PACKAGE}.serve.fleet")
+        self.engines = []
+
+    def __enter__(self):
+        self.orig = orig = self.mod.CodecEngine
+
+        def build(*a, **kw):
+            eng = orig(*a, **kw)
+            self.engines.append(eng)
+            return eng
+
+        self.mod.CodecEngine = build
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.CodecEngine = self.orig
+
+    def mark(self):
+        return ({id(e): len(e.dispatch_log) for e in self.engines},
+                len(self.engines))
+
+    def expected_k1(self, mark, n_buckets=1):
+        """The K1 launches since ``mark``: each engine's dispatch
+        iterations after it, plus the warm dispatch of each engine built
+        after it."""
+        seen, n_built = mark
+        its = sum(sum(e.dispatch_iters[seen.get(id(e), 0):])
+                  for e in self.engines)
+        return its + n_buckets * (len(self.engines) - n_built)
+
+
+def _fleet(port, d, cfg, tmp, tag, **fkw):
+    kw = dict(replicas=FLEET_REPLICAS, min_queue_depth=64, verbose="none",
+              metrics_dir=os.path.join(tmp, tag))
+    kw.update(fkw)
+    prob = port["reconstruct"].ReconstructionProblem(
+        port["config"].ProblemGeom((11, 11), K))
+    return port["serve"].ServeFleet(
+        d, prob, cfg, port["config"].ServeConfig(
+            buckets=((ENGINE_SLOTS, (S, S)),), verbose="none"),
+        port["config"].FleetConfig(**kw), device="cuda")
+
+
+def _fleet_stream(fleet, reqs, prefix, idx=None, timeout=600, **kw):
+    """Submit ``reqs`` at once under keys ``prefix<i>`` and wait for all:
+    (results by index, the window's seconds, each request's submit to
+    result seconds). ``Overloaded`` refusals are returned by index as the
+    exception."""
+    import threading
+
+    ov = __import__(f"{PACKAGE}.serve", fromlist=["Overloaded"]).Overloaded
+    idx = list(range(len(reqs))) if idx is None else idx
+    t_sub, t_done, futs, refused = {}, {}, {}, {}
+    lock = threading.Lock()
+
+    def stamp(i):
+        def cb(_f):
+            with lock:
+                t_done[i] = time.perf_counter()
+        return cb
+
+    t0 = time.perf_counter()
+    for i in idx:
+        t_sub[i] = time.perf_counter()
+        try:
+            futs[i] = fleet.submit(key=f"{prefix}{i}", **reqs[i], **kw)
+        except ov as e:
+            refused[i] = e
+            continue
+        futs[i].add_done_callback(stamp(i))
+    res = {i: f.result(timeout=timeout) for i, f in futs.items()}
+    window = time.perf_counter() - t0
+    lat = {i: t_done[i] - t_sub[i] for i in res}
+    res.update(refused)
+    return res, window, lat
+
+
+def _fleet_bitwise(tag, res, ref):
+    """Every served result of ``res`` (index -> result) bitwise ``ref``'s
+    result of the same index."""
+    import numpy as np
+
+    for i, r in res.items():
+        if isinstance(r, Exception):
+            continue
+        if not (np.array_equal(r.recon, ref[i].recon)
+                and int(r.trace.num_iters) == int(ref[i].trace.num_iters)):
+            raise RuntimeError(f"[19] {tag}: request {i} is not bitwise "
+                               "the single engine's")
+
+
+def _pcts(vals):
+    import numpy as np
+
+    v = np.sort(np.asarray(list(vals), np.float64)) * 1e3
+    return {"p50_ms": float(np.percentile(v, 50)),
+            "p90_ms": float(np.percentile(v, 90)), "max_ms": float(v[-1])}
+
+
+def _events(port, path, type_=None):
+    recs = port["obs"].read_events(path, recursive=True)
+    return [e for e in recs if type_ is None or e.get("type") == type_]
+
+
+def _wait_for(pred, timeout, what):
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise RuntimeError(f"[19] timed out waiting for {what}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _scrape(url):
+    import urllib.request
+
+    body = urllib.request.urlopen(url, timeout=10).read().decode()
+    out = {}
+    for line in body.splitlines():
+        if line.startswith("ccsc_") and "{" not in line:
+            name, _, val = line.partition(" ")
+            out[name[len("ccsc_"):]] = float(val)
+    return out
+
+
+def _fleet_stream_part(torch, port, seed, phase10, tmp, log, d, cfg, reqs):
+    """(a) the stream through fleet A (derived ceiling, endpoint on),
+    then (d) its hot swap and (g) its endpoint, on the same fleet."""
+    import numpy as np
+
+    kernels, ref = port["kernels"], phase10["served"]
+    t0 = time.perf_counter()
+    fleet = _fleet(port, d, cfg, tmp, "a", metricsd_port=0)
+    build_s = time.perf_counter() - t0
+    out = {"build_s": build_s}
+    try:
+        mark = log.mark()
+        kernels.solve_z_rank1.launches = 0
+        res, window, lat = _fleet_stream(fleet, reqs, "a")
+        launches = kernels.solve_z_rank1.launches
+        expected = log.expected_k1(mark)
+        st = fleet.stats()
+        served = [r["served"] for r in st["replicas"]]
+        _fleet_bitwise("(a)", res, ref)
+        if launches != expected:
+            raise RuntimeError(f"[19] (a) K1 {launches} != the replicas' "
+                               f"dispatch iterations {expected}")
+        if st["n_requests"] != len(reqs) or sum(served) != len(reqs):
+            raise RuntimeError(f"[19] (a) served {served}: {st}")
+        p = _pcts(lat.values())
+        out["stream"] = dict(
+            requests=len(reqs), window_s=window,
+            requests_per_sec=len(reqs) / window, k1_launches=launches,
+            served_by_replica=served,
+            dispatch_iters_by_engine=[e.dispatch_iters for e in log.engines],
+            phase10_requests_per_sec=phase10["bench"][
+                "engine_requests_per_sec"], **p)
+        print(f"[19] (a) 2-replica fleet built in {build_s:.2f} s; "
+              f"{len(reqs)} requests in {window * 1e3:.1f} ms = "
+              f"{len(reqs) / window:.3f} requests/s (phase 10's engine "
+              f"{out['stream']['phase10_requests_per_sec']:.3f}), latency "
+              f"p50 {p['p50_ms']:.1f} ms, p90 {p['p90_ms']:.1f} ms, max "
+              f"{p['max_ms']:.1f} ms; served by replica {served}; every "
+              f"result bitwise phase 10's; K1 {launches} = the replicas' "
+              "dispatch iterations")
+        # (c) the derived ceiling: fleet_serving_bound over the replicas'
+        # measured iteration rates, from the monitor's first derivation
+        _wait_for(lambda: _events(port, os.path.join(tmp, "a"),
+                                  "fleet_ceiling"), 30, "fleet_ceiling")
+        ceil = _events(port, os.path.join(tmp, "a"), "fleet_ceiling")[-1]
+        rates = [(e.last_it_rate, e.devices) for e in log.engines]
+        bound = port["perfmodel"].fleet_serving_bound(
+            rates, cfg.max_it, ENGINE_SLOTS)
+        if ceil["source"] != "serving_bound":
+            raise RuntimeError(f"[19] (c) ceiling record {ceil}")
+        out["derived_ceiling"] = dict(
+            ceiling=ceil["ceiling"],
+            bound_requests_per_sec=ceil["bound_requests_per_sec"],
+            live_replicas=ceil["live_replicas"],
+            last_it_rates=[r for r, _ in rates],
+            bound_now_requests_per_sec=bound["requests_per_sec"])
+        print(f"[19] (c) derived ceiling {ceil['ceiling']} from "
+              f"fleet_serving_bound {ceil['bound_requests_per_sec']:.3f} "
+              f"requests/s over {ceil['live_replicas']} live replicas "
+              f"(max_queue_s 2; now {bound['requests_per_sec']:.3f} at it/s "
+              f"{[round(r, 1) for r, _ in rates]})")
+
+        # (d) hot swap mid-stream to a second bank: a seeded perturbation
+        # of the first, renormalized into the unit ball
+        rng = np.random.default_rng(seed + 19)
+        d2 = d + FLEET_BANK_NOISE * float(np.abs(d).max()) * \
+            rng.standard_normal(d.shape).astype(np.float32)
+        norms = np.sqrt((d2.reshape(K, -1) ** 2).sum(1))
+        d2 = (d2 / np.maximum(norms, 1.0)[:, None, None]).astype(np.float32)
+        digest = port["serve"].bank_digest
+        old_dg, new_dg = digest(d), digest(d2)
+        sub = reqs[:FLEET_SWAP_AT]
+        mark = log.mark()
+        kernels.solve_z_rank1.launches = 0
+        t1 = time.perf_counter()
+        pre = {i: fleet.submit(key=f"d-pre{i}", **q)
+               for i, q in enumerate(sub)}
+        swap = fleet.publish_bank(None, d2)
+        swap_s = time.perf_counter() - t1
+        post = {i: fleet.submit(key=f"d-post{i}", **q)
+                for i, q in enumerate(sub)}
+        pre = {i: f.result(timeout=600) for i, f in pre.items()}
+        post = {i: f.result(timeout=600) for i, f in post.items()}
+        d_launches = kernels.solve_z_rank1.launches
+        if d_launches != log.expected_k1(mark):
+            raise RuntimeError(f"[19] (d) K1 {d_launches}")
+        if swap != (old_dg, new_dg):
+            raise RuntimeError(f"[19] (d) publish_bank returned {swap}")
+        _fleet_bitwise("(d) before the swap", pre, ref)
+        prob = port["reconstruct"].ReconstructionProblem(
+            port["config"].ProblemGeom((11, 11), K))
+        with port["serve"].CodecEngine(d2, prob, cfg, port[
+                "config"].ServeConfig(buckets=((ENGINE_SLOTS, (S, S)),),
+                                      verbose="none"),
+                device="cuda") as eng2:
+            want = {i: f.result(timeout=600) for i, f in
+                    {i: eng2.submit(**q) for i, q in enumerate(sub)}.items()}
+        _fleet_bitwise("(d) after the swap (the new bank's engine)", post,
+                       want)
+        if any(np.array_equal(post[i].recon, pre[i].recon) for i in post):
+            raise RuntimeError("[19] (d) a post-swap result equals the "
+                               "old bank's")
+        swaps = [e for e in _events(port, os.path.join(tmp, "a"),
+                                    "bank_swap")
+                 if e["replica_id"] is None]
+        if [(e["old_digest"], e["new_digest"]) for e in swaps] != [swap]:
+            raise RuntimeError(f"[19] (d) bank_swap records {swaps}")
+        out["hot_swap"] = dict(old_digest=old_dg, new_digest=new_dg,
+                               publish_s=swap_s, requests=2 * len(sub),
+                               k1_launches=d_launches,
+                               replicas=swaps[0]["replicas"])
+        print(f"[19] (d) publish_bank mid-stream {old_dg[:12]} -> "
+              f"{new_dg[:12]} in {swap_s:.3f} s across "
+              f"{swaps[0]['replicas']} replicas: {len(sub)} requests "
+              f"admitted before it bitwise phase 10's (old digest), "
+              f"{len(sub)} after bitwise a fresh engine on the new bank; "
+              f"one bank_swap record with both digests; K1 {d_launches}")
+
+        # (g) the endpoint: MetricsD on 127.0.0.1:<ephemeral>, scraped
+        st = fleet.stats()
+        url = f"http://127.0.0.1:{fleet._metricsd.port}/metrics"
+        got = _scrape(url)
+        pairs = {"requests_total": st["n_requests"],
+                 "rejected_total": st["n_rejected"],
+                 "requeued_total": st["n_requeued"],
+                 "duplicates_suppressed_total":
+                     st["n_duplicates_suppressed"],
+                 "failed_total": st["n_failed"],
+                 "queue_depth": st["queue_depth"],
+                 "queue_ceiling": st["queue_ceiling"],
+                 "live_replicas": FLEET_REPLICAS}
+        bad = {k: (got.get(k), v) for k, v in pairs.items()
+               if got.get(k) != v}
+        if bad:
+            raise RuntimeError(f"[19] (g) scrape vs stats(): {bad}")
+        out["metricsd"] = dict(port=fleet._metricsd.port, scraped={
+            k: got[k] for k in pairs})
+        print(f"[19] (g) MetricsD on 127.0.0.1:{fleet._metricsd.port}: "
+              f"the scrape's counters equal stats() ({ {k: int(v) for k, v in pairs.items()} })")
+        out["k1_launches"] = launches + d_launches
+    finally:
+        fleet.close(drain_timeout_s=120)
+    return out
+
+
+def _fleet_chaos(torch, port, phase10, tmp, log, d, cfg, reqs):
+    """(b) kill on replica 0 and hang on replica 1, mid-stream."""
+    kernels, faults = port["kernels"], port["faults"]
+    mdir = os.path.join(tmp, "b")
+    env = dict(CCSC_FAULT_ENGINE_KILL_REQ=FLEET_KILL_REQ,
+               CCSC_FAULT_ENGINE_KILL_REPLICA=0,
+               CCSC_FAULT_ENGINE_HANG_REQ=FLEET_HANG_REQ,
+               CCSC_FAULT_ENGINE_HANG_REPLICA=1,
+               CCSC_FAULT_ENGINE_HANG_S=FLEET_HANG_S,
+               CCSC_FAULT_STATE_DIR=os.path.join(tmp, "b_faults"),
+               CCSC_WATCHDOG_MIN_S=FLEET_MIN_S,
+               CCSC_WATCHDOG_COMPILE_S=FLEET_MIN_S)
+    with _Env(**env):
+        faults.reset()
+        fleet = _fleet(port, d, cfg, tmp, "b", restart_backoff_s=0.25)
+        try:
+            mark = log.mark()
+            kernels.solve_z_rank1.launches = 0
+            res, window, lat = _fleet_stream(fleet, reqs, "b")
+            # the hung straggler wakes FLEET_HANG_S after its take and
+            # delivers late: wait for its suppression and for both
+            # casualties to serve again before the fleet closes
+            _wait_for(lambda: _events(port, mdir,
+                                      "fleet_duplicate_suppressed"),
+                      FLEET_HANG_S + 60, "the straggler's suppression")
+            _wait_for(lambda: all(
+                r is not None and r["state"] == "live"
+                for r in fleet.stats()["replicas"]), 60, "both replicas")
+            launches_b = kernels.solve_z_rank1.launches
+            expected = log.expected_k1(mark)
+            st = fleet.stats()
+        finally:
+            fleet.close(drain_timeout_s=120)
+            faults.reset()
+    _fleet_bitwise("(b)", res, phase10["served"])
+    if launches_b != expected:
+        raise RuntimeError(f"[19] (b) K1 {launches_b} != {expected}")
+    ev = _events(port, mdir)
+    by = {}
+    for e in ev:
+        by.setdefault(e.get("type"), []).append(e)
+    served = [e["key"] for e in by.get("fleet_request", [])]
+    if sorted(served) != sorted(f"b{i}" for i in range(len(reqs))):
+        raise RuntimeError(f"[19] (b) delivered keys {sorted(served)}")
+    dead = {e["replica_id"]: e["reason"]
+            for e in by.get("fleet_replica_dead", [])}
+    if dead != {0: "crash", 1: "stall"}:
+        raise RuntimeError(f"[19] (b) fleet_replica_dead {dead}")
+    for t in ("fleet_requeue", "fleet_replica_restart",
+              "fleet_replica_ready", "fleet_duplicate_suppressed"):
+        if not by.get(t):
+            raise RuntimeError(f"[19] (b) no {t} record")
+    restart = {}
+    for rid in (0, 1):
+        t_dead = min(e["t"] for e in by["fleet_replica_dead"]
+                     if e["replica_id"] == rid)
+        t_rs = min(e["t"] for e in by["fleet_replica_restart"]
+                   if e["replica_id"] == rid)
+        t_ready = min(e["t"] for e in by["fleet_replica_ready"]
+                      if e["replica_id"] == rid)
+        restart[rid] = dict(build_s=t_ready - t_rs,
+                            dead_to_ready_s=t_ready - t_dead)
+    requeued = sum(1 for e in by["fleet_request"] if e["attempts"] > 1)
+    out = dict(requests=len(reqs), window_s=window,
+               requests_per_sec=len(reqs) / window, k1_launches=launches_b,
+               requeues=len(by["fleet_requeue"]), requeued_delivered=requeued,
+               duplicates_suppressed=len(by["fleet_duplicate_suppressed"]),
+               restarts=restart, n_failed=st["n_failed"],
+               **_pcts(lat.values()))
+    print(f"[19] (b) chaos: replica 0 killed at its request "
+          f"{FLEET_KILL_REQ}, replica 1 hung {FLEET_HANG_S:.0f} s at its "
+          f"request {FLEET_HANG_REQ}: {len(reqs)} of {len(reqs)} keys "
+          f"delivered once, bitwise phase 10's ({requeued} after a requeue, "
+          f"{out['requeues']} fleet_requeue, {out['duplicates_suppressed']} "
+          f"fleet_duplicate_suppressed); restart (restart -> ready) "
+          f"{ {r: round(v['build_s'], 3) for r, v in restart.items()} } s, "
+          f"dead -> ready "
+          f"{ {r: round(v['dead_to_ready_s'], 3) for r, v in restart.items()} }"
+          f" s; {len(reqs) / window:.3f} requests/s over the window; K1 "
+          f"{launches_b} = every engine's dispatch iterations + the "
+          "restarts' warm dispatches")
+    return out
+
+
+def _fleet_overload(torch, port, phase10, tmp, log, d, cfg, reqs):
+    """(c) an explicit ceiling refuses the burst with Overloaded."""
+    kernels = port["kernels"]
+    mdir = os.path.join(tmp, "c")
+    fleet = _fleet(port, d, cfg, tmp, "c", max_queue_depth=FLEET_QUEUE_DEPTH)
+    try:
+        mark = log.mark()
+        kernels.solve_z_rank1.launches = 0
+        res, window, lat = _fleet_stream(fleet, reqs, "c")
+        _wait_for(lambda: fleet.overload_rung == "normal", 30,
+                  "the ladder's return to normal")
+        launches = kernels.solve_z_rank1.launches
+        expected = log.expected_k1(mark)
+        st = fleet.stats()
+    finally:
+        fleet.close(drain_timeout_s=120)
+    refused = {i: e for i, e in res.items() if isinstance(e, Exception)}
+    hints = [e.retry_after_s for e in refused.values()]
+    _fleet_bitwise("(c)", res, phase10["served"])
+    if launches != expected:
+        raise RuntimeError(f"[19] (c) K1 {launches} != {expected}")
+    trans = [(e["rung_from"], e["rung_to"])
+             for e in _events(port, mdir, "fleet_overload")]
+    rejects = _events(port, mdir, "fleet_admission_reject")
+    if not (refused and all(h > 0 for h in hints)
+            and st["n_rejected"] == len(refused) == len(rejects)
+            and all(e["queue_depth"] <= FLEET_QUEUE_DEPTH for e in rejects)):
+        raise RuntimeError(f"[19] (c) refusals {len(refused)}, hints "
+                           f"{hints}, stats {st['n_rejected']}, records "
+                           f"{len(rejects)}")
+    if not trans or "reject" not in {t for _, t in trans} \
+            or trans[-1][1] != "normal":
+        raise RuntimeError(f"[19] (c) ladder transitions {trans}")
+    out = dict(max_queue_depth=FLEET_QUEUE_DEPTH, admitted=len(res) -
+               len(refused), refused=len(refused),
+               retry_after_s=dict(min=min(hints), max=max(hints)),
+               rungs=trans, k1_launches=launches)
+    print(f"[19] (c) max_queue_depth {FLEET_QUEUE_DEPTH}: {out['refused']} "
+          f"of {len(reqs)} refused with Overloaded (retry_after_s "
+          f"{min(hints):.3f}..{max(hints):.3f}), {out['admitted']} admitted "
+          f"and bitwise phase 10's; rung transitions {trans}; K1 {launches}")
+    return out
+
+
+def _fleet_tenants(torch, port, seed, phase10, tmp, log, d, cfg, reqs):
+    """(e) two tenants with weights and a quota, then (f) the quality
+    plane and the golden probes on the same fleet."""
+    import numpy as np
+
+    kernels, tcls = port["kernels"], port["config"].TenantSpec
+    mdir = os.path.join(tmp, "e")
+    pdir = os.path.join(tmp, "probes")
+    tenants = (tcls(tenant="steady", weight=2.0, slo_p99_ms=60_000.0,
+                    quota=64),
+               tcls(tenant="burst", weight=1.0, quota=FLEET_BURST_QUOTA))
+    lpath = os.path.join(tmp, "quality_ledger.jsonl")
+    with _Env(CCSC_PERF_LEDGER=lpath, CCSC_QUALITY_DRIFT_WINDOW=3):
+        fleet = _fleet(port, d, cfg, tmp, "e", tenants=tenants,
+                       probe_dir=pdir, probe_interval_s=FLEET_PROBE_S)
+    try:
+        mark = log.mark()
+        kernels.solve_z_rank1.launches = 0
+        steady = [i for i in range(len(reqs)) if i % 2 == 0]
+        burst = [i for i in range(len(reqs)) if i % 2 == 1]
+        # the burst all at once, then the steady tenant's stream while
+        # the burst is still queued; then both are waited for
+        ov = port["serve"].Overloaded
+        res_b, futs = {}, {}
+        t1 = time.perf_counter()
+        for i in burst:
+            try:
+                futs[i] = fleet.submit(key=f"burst{i}", tenant="burst",
+                                       **reqs[i])
+            except ov as e:
+                res_b[i] = e
+        res_s, window, lat = _fleet_stream(fleet, reqs, "steady",
+                                           idx=steady, tenant="steady")
+        res_b.update({i: f.result(timeout=600) for i, f in futs.items()})
+        window = time.perf_counter() - t1
+        # (f) the probe thread sweeps while the queue is idle: the first
+        # sweep seals the probe's reference, the next judges it
+        _wait_for(lambda: len(_events(port, mdir, "quality_probe")) >= 2,
+                  60, "two probe sweeps")
+        st = fleet.stats()
+        launches = kernels.solve_z_rank1.launches
+        expected = log.expected_k1(mark)
+        with _Env(CCSC_PERF_LEDGER=lpath):
+            rot = _fleet_rot(port, fleet, seed, d, cfg, lpath)
+        rot["k1_launches"] = kernels.solve_z_rank1.launches - launches
+        rot_expected = log.expected_k1(mark) - expected
+    finally:
+        fleet.close(drain_timeout_s=120)
+    if rot["k1_launches"] != rot_expected:
+        raise RuntimeError(f"[19] (j) K1 {rot['k1_launches']} != "
+                           f"{rot_expected}")
+    if launches != expected:
+        raise RuntimeError(f"[19] (e) K1 {launches} != {expected}")
+    refused = [i for i, r in res_b.items() if isinstance(r, Exception)]
+    _fleet_bitwise("(e) burst", res_b, phase10["served"])
+    _fleet_bitwise("(e) steady", res_s, phase10["served"])
+    ts = st["tenants"]
+    if not (refused and ts["burst"]["rejected"] == len(refused)
+            and ts["steady"]["rejected"] == 0
+            and ts["steady"]["delivered"] == len(steady)
+            and ts["burst"]["delivered"] == len(burst) - len(refused)
+            and all(ts[t]["p50_latency_s"] is not None
+                    and ts[t]["p99_latency_s"] is not None
+                    for t in ("steady", "burst"))):
+        raise RuntimeError(f"[19] (e) tenants {ts}, refused {refused}")
+    rej = _events(port, mdir, "tenant_reject")
+    if {e["tenant"] for e in rej} != {"burst"} or len(rej) != len(refused):
+        raise RuntimeError(f"[19] (e) tenant_reject records {rej}")
+    out = {"tenants": ts, "burst_refused": len(refused),
+           "k1_launches": launches,
+           "requests_per_sec": (len(reqs) - len(refused)) / window,
+           "steady_latency": _pcts(lat.values())}
+    print(f"[19] (e) tenants steady (weight 2, quota 64) and burst (weight 1,"
+          f" quota {FLEET_BURST_QUOTA}): burst refused {len(refused)} of "
+          f"{len(burst)}, steady refused 0 of {len(steady)}; per-tenant SLO "
+          f"histograms p50/p99 "
+          f"{ {t: (round(1e3 * v['p50_latency_s'], 1), round(1e3 * v['p99_latency_s'], 1)) for t, v in ts.items()} }"
+          f" ms; every result bitwise phase 10's; K1 {launches}")
+    # (f) the quality records, fleet and replica scope
+    ev = _events(port, mdir)
+    kinds = {}
+    for e in ev:
+        if e.get("type", "").startswith("quality_"):
+            kinds[e["type"]] = kinds.get(e["type"], 0) + 1
+    probes = [e for e in ev if e["type"] == "quality_probe"
+              and e["t"] < rot["t_rot"] and e["bank_id"] is None]
+    stat = [p["status"] for p in probes]
+    hist = [e for e in ev if e["type"] == "quality_histogram"
+            and e["replica_id"] is None and e.get("tenant") == "steady"]
+    if not (stat[0] == "reference" and "exact" in stat[1:]
+            and set(stat) <= {"reference", "exact"}
+            and kinds.get("quality_solve_diag") and hist):
+        raise RuntimeError(f"[19] (f) probes {stat}, quality records {kinds}")
+    ps = port["quality"].ProbeSet(pdir)
+    if len(ps) != 1 or ps.reference(ps.probes()[0]["name"],
+                                    probes[0]["digest"]) is None:
+        raise RuntimeError("[19] (f) the probe store holds no sealed "
+                           "reference")
+    out["quality"] = dict(records=kinds, probe_statuses=stat,
+                          probe_db=probes[0]["db"],
+                          steady_median_db=hist[-1].get("p50_ms"))
+    breach = [e for e in ev if e["type"] == "quality_probe_breach"
+              and e["digest"] == rot["rot_digest"]]
+    drift = [e for e in ev if e["type"] == "quality_drift"
+             and e["digest"] == rot["rot_digest"]]
+    if not (breach and drift):
+        raise RuntimeError(f"[19] (j) probe breaches {breach}, drift {drift}")
+    out["rot"] = dict(rot, probe_breaches=len(breach), drifts=len(drift))
+    print(f"[19] (f) quality records {kinds}; probe sweeps {stat} (sealed "
+          f"at {probes[0]['db']:.2f} dB, then judged exact); the steady "
+          f"tenant's served median {hist[-1].get('p50_ms')} dB (histogram "
+          "upper edge)")
+    return out
+
+
+def _fleet_gray(torch, port, phase10, tmp, log, d, cfg, reqs):
+    """(i) a gray replica: replica 0 slow on every request (far under
+    the watchdog floor), hedged attempts route around it."""
+    kernels, faults = port["kernels"], port["faults"]
+    mdir = os.path.join(tmp, "i")
+    sub = reqs[:FLEET_GRAY_REQS]
+    with _Env(CCSC_FAULT_ENGINE_SLOW_REQ=1, CCSC_FAULT_ENGINE_SLOW_S=
+              FLEET_SLOW_S, CCSC_FAULT_ENGINE_SLOW_REPLICA=0,
+              CCSC_FAULT_STATE_DIR=os.path.join(tmp, "i_faults")):
+        faults.reset()
+        fleet = _fleet(port, d, cfg, tmp, "i", hedge_after_ms=FLEET_HEDGE_MS,
+                       hedge_max_frac=0.5, health_interval_s=0.01)
+        try:
+            mark = log.mark()
+            kernels.solve_z_rank1.launches = 0
+            res, window, lat = _fleet_stream(fleet, sub, "i")
+            snap = fleet.control_snapshot()
+        finally:
+            # close joins the workers: the slow losers settle first
+            fleet.close(drain_timeout_s=120)
+            faults.reset()
+        launches = kernels.solve_z_rank1.launches
+    if launches != log.expected_k1(mark):
+        raise RuntimeError(f"[19] (i) K1 {launches}")
+    _fleet_bitwise("(i)", res, phase10["served"])
+    ev = _events(port, mdir)
+    keys = [e["key"] for e in ev if e["type"] == "fleet_request"]
+    spawns = {e["key"] for e in ev if e["type"] == "hedge_spawn"}
+    wins = {e["key"] for e in ev if e["type"] == "hedge_win"}
+    losses = {e["key"] for e in ev if e["type"] == "hedge_lost"}
+    dead = [e for e in ev if e["type"] in ("stall", "fleet_replica_dead")]
+    # every won hedge's original is suppressed as hedge_lost when it
+    # lands (close joins the slow worker); a clone that lost is one too
+    if not (sorted(keys) == sorted(f"i{i}" for i in range(len(sub)))
+            and spawns and len(spawns) <= 0.5 * len(sub) and wins
+            and wins <= losses <= spawns and not dead):
+        raise RuntimeError(f"[19] (i) keys {sorted(keys)}, hedges "
+                           f"{spawns}, wins {wins}, lost {losses}, "
+                           f"stalls/deaths {dead}")
+    p = _pcts(lat.values())
+    out = dict(requests=len(sub), slow_s=FLEET_SLOW_S,
+               hedge_after_ms=FLEET_HEDGE_MS, hedges=len(spawns),
+               hedge_wins=len(wins), hedge_lost=len(losses),
+               gray_replicas=snap["gray_replicas"],
+               requests_per_sec=len(sub) / window, k1_launches=launches,
+               **p)
+    print(f"[19] (i) gray replica 0 (+{FLEET_SLOW_S} s a request): "
+          f"{len(spawns)} hedges after {FLEET_HEDGE_MS:.0f} ms, {len(wins)} "
+          f"won by replica 1, {len(losses)} losers suppressed; {len(sub)} keys "
+          f"delivered once, bitwise phase 10's; no stall; latency p50 "
+          f"{p['p50_ms']:.1f} ms, max {p['max_ms']:.1f} ms; K1 {launches}")
+    return out
+
+
+def _fleet_rot(port, fleet, seed, d, cfg, lpath):
+    """(j) bank rot on a fleet with probes and an armed ledger: a bank
+    id published with the good bank, its served dB seeded as the
+    ledger's quality history; then a degraded bank (every atom one
+    blur) published on it. The probes flag the rot digest, the drift
+    watch its served dB; the advisory names the good digest; swapping
+    it back serves the pre-rot bits again."""
+    import numpy as np
+
+    quality, ledger = port["quality"], port["ledger"]
+    geom = port["config"].ProblemGeom((11, 11), K)
+    xs = [quality.synth_probe(d, (S, S), seed=300 + i)
+          for i in range(FLEET_ROT_REQS)]
+
+    def serve(tag):
+        futs = [fleet.submit(x, x_orig=x, bank_id="bank-live",
+                             key=f"rot-{tag}{i}") for i, x in enumerate(xs)]
+        return [f.result(timeout=600) for f in futs]
+
+    def probed(bank_id, digest):
+        return any(e.get("bank_id") == bank_id and e.get("digest") == digest
+                   for e in _events(port, fleet.fleet_cfg.metrics_dir,
+                                    "quality_probe"))
+
+    _, good = fleet.publish_bank("bank-live", d)
+    pre = serve("pre")
+    led = ledger.Ledger(lpath)
+    for r in pre:
+        rec = ledger.normalize_record(
+            kind="quality", value=round(float(r.psnr), 4), unit="db",
+            knobs={"bank": "bank-live"}, source="chip_smoke",
+            **quality._quality_key_fields(geom, fleet.buckets, "cuda"))
+        led.append(rec)
+    # a probe sweep on the good digest links bank-live's standing
+    # reference before the rot lands
+    _wait_for(lambda: probed("bank-live", good), 60, "bank-live's probe")
+    rng = np.random.default_rng(seed + 99)
+    blur = np.ones((K, 11, 11), np.float32) + 0.01 * rng.standard_normal(
+        (K, 11, 11)).astype(np.float32)
+    rot = blur / np.linalg.norm(blur.reshape(K, -1), axis=1)[:, None, None]
+    t_rot = time.time()
+    _, rot_dg = fleet.publish_bank("bank-live", rot.astype(np.float32))
+    detect_s = _wait_for(lambda: any(
+        a["from_digest"] == rot_dg and a["reason"] == "probe"
+        for a in fleet.quality_advice()), 60, "the rot's probe advisory")
+    mid = serve("mid")
+    _wait_for(lambda: any(
+        e["digest"] == rot_dg for e in _events(
+            port, fleet.fleet_cfg.metrics_dir, "quality_drift")), 30,
+        "the drift watch's fire")
+    advice = [a for a in fleet.quality_advice()
+              if a["from_digest"] == rot_dg and a["reason"] == "probe"][0]
+    _, back = fleet.publish_bank("bank-live", d)
+    post = serve("post")
+    for i, (a, b) in enumerate(zip(post, pre)):
+        if not np.array_equal(a.recon, b.recon):
+            raise RuntimeError(f"[19] (j) post-demotion request {i} is not "
+                               "bitwise its pre-rot result")
+    if advice["to_digest"] != good or back != good:
+        raise RuntimeError(f"[19] (j) advisory {advice}, swap-back {back}")
+    out = dict(good_digest=good, rot_digest=rot_dg, detect_s=detect_s,
+               probe_interval_s=FLEET_PROBE_S, t_rot=t_rot,
+               pre_db=[r.psnr for r in pre], rot_db=[r.psnr for r in mid])
+    print(f"[19] (j) bank rot on bank-live ({good[:12]} -> {rot_dg[:12]}): "
+          f"probe advisory after {detect_s:.2f} s (sweeps every "
+          f"{FLEET_PROBE_S} s) naming {good[:12]}; served dB "
+          f"{np.median(out['pre_db']):.2f} -> {np.median(out['rot_db']):.2f}"
+          f" (median), quality_drift fired; swapped back, {len(post)} "
+          "requests bitwise the pre-rot results")
+    return out
+
+
+def _fleet_app(port, seed, tmp):
+    """(h) ``apps.serve --replicas 2`` as a child on phase 4's images."""
+    import re
+
+    import numpy as np
+    import scipy.io
+
+    b, _ = _images(port, seed)
+    stack = os.path.join(tmp, "fleet_app_images.mat")
+    scipy.io.savemat(stack, {"b": b})
+    cmd = [sys.executable, "-m", f"{PACKAGE}.apps.serve", "--replicas", "2",
+           "--data", stack, "--filters", BANK, "--bucket",
+           f"{S}:{ENGINE_SLOTS}", "--metrics-dir",
+           os.path.join(tmp, "h_metrics")]
+    proc, wall = _run_child(cmd, _child_env(), timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"[19] (h) exit {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    got = [float(m.group(1)) for m in
+           re.finditer(r"^  img\d+: .*PSNR ([0-9.]+) dB", proc.stdout, re.M)]
+    # the app's baseline: its own masks (--seed 0) and smooth fill
+    rng = np.random.default_rng(0)
+    base = []
+    for x in b:
+        m = (rng.random(x.shape) < 0.5).astype(np.float32)
+        sm = port["native"].smooth_fill_batch(x[None], m[None])[0]
+        base.append(port["serve"].valid_region_psnr(sm, x, (R, R)))
+    if len(got) != len(b) or not all(g > f for g, f in zip(got, base)) \
+            or "over 2 replica(s)" not in proc.stdout:
+        raise RuntimeError(f"[19] (h) PSNR {got} vs smooth fill {base}: "
+                           f"{proc.stdout[-2000:]}")
+    print(f"[19] (h) apps.serve --replicas 2 in a child: exit 0 in "
+          f"{wall:.1f} s, PSNR {[round(v, 2) for v in got]} dB above the "
+          f"smooth fill's {[round(v, 2) for v in base]}")
+    return dict(wall_s=wall, psnr_db=got, smooth_fill_psnr_db=base,
+                summary=[ln for ln in proc.stdout.splitlines()
+                         if "replica(s)" in ln])
+
+
+def phase_fleet(torch, port, time_ms, bw, flops, seed, phase10):
+    """19: the serving fleet on one card, (a)-(h)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    card = port["serve_bench"].card_line()
+    print(f"[19] card: {card}")
+    bench = port["serve_bench"]
+    d = port["io_mat"].load_filters_2d(BANK)
+    cfg = port["config"].SolveConfig(lambda_residual=5.0, lambda_prior=2.0,
+                                     max_it=100, tol=1e-3)
+    reqs = bench.make_requests(ENGINE_SIDES, seed + 4)
+    tmp = tempfile.mkdtemp(prefix="ccsc-fleet-")
+    out, secs = {"card": card}, {}
+    try:
+        with _FleetEngines() as log:
+            for key, fn in (
+                ("stream", lambda: _fleet_stream_part(
+                    torch, port, seed, phase10, tmp, log, d, cfg, reqs)),
+                ("chaos", lambda: _fleet_chaos(
+                    torch, port, phase10, tmp, log, d, cfg, reqs)),
+                ("overload", lambda: _fleet_overload(
+                    torch, port, phase10, tmp, log, d, cfg, reqs)),
+                ("tenants", lambda: _fleet_tenants(
+                    torch, port, seed, phase10, tmp, log, d, cfg, reqs)),
+                ("gray", lambda: _fleet_gray(
+                    torch, port, phase10, tmp, log, d, cfg, reqs)),
+            ):
+                t1 = time.perf_counter()
+                torch.cuda.empty_cache()
+                out[key] = fn()
+                secs[key] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["app"] = _fleet_app(port, seed, tmp)
+        secs["app"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # K1 at a replica dispatch's shape: the bucket's 4 slots of the
+    # 266x134 spectrum
+    gen = torch.Generator(device=torch.device("cuda", 0)).manual_seed(seed)
+    args = _random_k1_args(torch, gen, ENGINE_SLOTS, K, F, False)
+    out["k1_cases"] = [_k1_case(torch, port["kernels"], time_ms, bw, flops,
+                                _card(torch), args, {"fleet": "replica"})]
+    del args
+    torch.cuda.empty_cache()
+    out["k1_launches"] = sum(out[k]["k1_launches"] for k in
+                             ("stream", "chaos", "overload", "tenants",
+                              "gray")) + out["tenants"]["rot"]["k1_launches"]
+    out["seconds_by_part"] = secs
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[19] fleet phase {out['seconds']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in secs.items()} })")
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, kernel_ms, plain_ms,
                   bound, build_s, **extra):
     return dict(
@@ -3969,6 +4791,7 @@ def main(argv=None) -> int:
             ("profile_solve", "profile_solve"),
             ("watchdog", "utils.watchdog"), ("faults", "utils.faults"),
             ("capture", "serve.capture"), ("ledger", "analysis.ledger"),
+            ("perfmodel", "utils.perfmodel"), ("quality", "serve.quality"),
         )
     }
 
@@ -4002,6 +4825,7 @@ def main(argv=None) -> int:
     telemetry = phase_telemetry(torch, port, args.seed, learn, engine)
     robust = phase_robustness(torch, port, args.seed, telemetry["learn"],
                               engine)
+    fleet = phase_fleet(torch, port, time_ms, bw, flops, args.seed, engine)
     engine.pop("served")
     telemetry["learn"].pop("plain_d")
     seconds = time.perf_counter() - t_start
@@ -4011,7 +4835,7 @@ def main(argv=None) -> int:
     all_cases = cases + list(app_cases.values()) + [
         learners["3d"]["k1_case"], streamed["2d"]["k1_case"],
         streamed["3d"]["k1_case"]] + mesh["reconstruct"]["k1_cases"] + \
-        serve_mesh["k1_cases"]
+        serve_mesh["k1_cases"] + fleet["k1_cases"]
     k1_paths = {"reconstruct": served["launches"],
                 "engine": engine["launches"],
                 "poisson": apps["poisson"]["k1_launches"],
@@ -4041,7 +4865,8 @@ def main(argv=None) -> int:
                     robust["degrade"]["oom"]["child"]["k1"]
                     + robust["degrade"]["preflight"]["child"]["k1"],
                 "degrade_streaming_direct":
-                    robust["degrade"]["direct_k1_launches"]}
+                    robust["degrade"]["direct_k1_launches"],
+                "fleet": fleet["k1_launches"]}
     ns_ranks = mesh["north_star"]["mesh"]["per_rank"]
     k2_paths = {p: {
         "learn": learn["launches"][f"fused_z_{p}"],
@@ -4106,6 +4931,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serve_mesh": serve_mesh}))
     print(json.dumps({"telemetry": telemetry}))
     print(json.dumps({"robustness": robust}))
+    print(json.dumps({"serve_fleet": fleet}))
     # the kernels line last but two: the end of the output carries it
     print(json.dumps(kernels_line))
     print(smi)

@@ -1,7 +1,8 @@
 """The port's configuration, device helper and import boundary.
 
 ``ccsc_code_iccv2017_torch.config`` is a jax-free copy of the JAX
-package's ``ProblemGeom``/``GEOM_2D``/``LearnConfig``/``SolveConfig``:
+package's ``ProblemGeom``/``GEOM_2D``/``LearnConfig``/``SolveConfig``/
+``ServeConfig``/``TenantSpec``/``FleetConfig``:
 field names, defaults and validation must stay identical. The port's package and
 ``chip_smoke.py`` must never import jax or the JAX package.
 """
@@ -27,7 +28,8 @@ def _fields(cls):
 
 
 @pytest.mark.parametrize(
-    "name", ["ProblemGeom", "LearnConfig", "SolveConfig", "ServeConfig"]
+    "name", ["ProblemGeom", "LearnConfig", "SolveConfig", "ServeConfig",
+             "TenantSpec", "FleetConfig"]
 )
 def test_fields_and_defaults_match_jax(name):
     assert _fields(getattr(tcfg, name)) == _fields(getattr(jcfg, name))
@@ -122,7 +124,7 @@ def test_serve_buckets_normalized_like_jax():
      dict(artifact_store=""), dict(staged_warmup=False),
      dict(warm_rank_capture=""), dict(tune="off"), dict(metrics_dir="m"),
      dict(slo_p50_ms=10.0), dict(slo_p99_ms=10.0), dict(slo_check_s=1.0),
-     dict(slo_profile_dir="p")],
+     dict(slo_profile_dir="p"), dict(replica_id=0), dict(replica_id=3)],
 )
 def test_serve_values_meaning_the_port_construct(kw):
     """Values that ask for what the port does (single device, depth 1,
@@ -222,6 +224,69 @@ def test_cuda_request_raises_without_card():
         tdevice.resolve_device()
 
 
+@pytest.mark.parametrize(
+    "kw",
+    [dict(tenant=""), dict(tenant="t", weight=0.0), dict(tenant="t", weight=-1),
+     dict(tenant="t", quota=0), dict(tenant="t", slo_p50_ms=0.0),
+     dict(tenant="t", slo_p99_ms=-1.0), dict(tenant="t", min_psnr_db=0.0),
+     dict(tenant="t", deadline_ms=-2.0)],
+)
+def test_tenant_spec_invalid_values_refused_like_jax(kw):
+    with pytest.raises(ValueError) as j:
+        jcfg.TenantSpec(**kw)
+    with pytest.raises(ValueError) as t:
+        tcfg.TenantSpec(**kw)
+    assert str(t.value) == str(j.value)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(replicas=0), dict(max_queue_depth=0), dict(max_queue_s=0.0),
+     dict(min_queue_depth=0), dict(max_attempts=0), dict(max_restarts=-1),
+     dict(key_window=0), dict(latency_window=0), dict(stall_slack=0.0),
+     dict(shed_at=0.2, shed_exit=0.3), dict(shed_at=1.5),
+     dict(reject_exit=0.0), dict(degrade_after_s=-1.0),
+     dict(degrade_max_it_factor=0.0), dict(degrade_max_it_factor=1.5),
+     dict(probe_interval_s=-1.0), dict(slo_p50_ms=0.0),
+     dict(deadline_ms=-1.0), dict(hedge_after_ms=0.0),
+     dict(hedge_quantile=1.0), dict(hedge_max_frac=1.5),
+     dict(metricsd_port=-1), dict(capture_sample=2.0),
+     dict(replica_meshes=((2,),)), dict(replicas=2, replica_meshes=("12", None)),
+     dict(replicas=1, replica_meshes=((1, 1, 1),)),
+     dict(replicas=1, replica_meshes=((0,),)),
+     dict(tenants=("t",)),
+     dict(tenants=(jcfg.TenantSpec("a"), jcfg.TenantSpec("a")))],
+)
+def test_fleet_invalid_values_refused_like_jax(kw):
+    with pytest.raises(ValueError) as j:
+        jcfg.FleetConfig(**kw)
+    if "tenants" in kw and not isinstance(kw["tenants"][0], str):
+        kw = dict(kw, tenants=tuple(tcfg.TenantSpec(**dataclasses.asdict(s))
+                                    for s in kw["tenants"]))
+    with pytest.raises(ValueError) as t:
+        tcfg.FleetConfig(**kw)
+    assert str(t.value) == str(j.value)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(), dict(replicas=3, replica_meshes=[None, [2], (2, 2)]),
+     dict(tenants=[dict(tenant="a", weight=2.0), dict(tenant="b", quota=4)]),
+     dict(max_queue_depth=16, hedge_after_ms=50.0, hedge_quantile=0.9,
+          hedge_max_frac=0.1, deadline_ms=100.0, probe_dir="",
+          probe_interval_s=0.0, capture_sample=0.5, metricsd_port=0)],
+)
+def test_fleet_config_normalized_like_jax(kw):
+    jkw, tkw = dict(kw), dict(kw)
+    if "tenants" in kw:
+        jkw["tenants"] = [jcfg.TenantSpec(**r) for r in kw["tenants"]]
+        tkw["tenants"] = [tcfg.TenantSpec(**r) for r in kw["tenants"]]
+    j, t = jcfg.FleetConfig(**jkw), tcfg.FleetConfig(**tkw)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.replica_meshes == j.replica_meshes
+    assert type(t.tenants) is type(j.tenants)
+
+
 def _port_sources():
     for root, _, files in os.walk(PORT):
         for f in files:
@@ -305,6 +370,14 @@ def test_port_imports_without_jax_at_runtime():
         "assert ledger.knob_digest({}) and capture.payload_sha(\n"
         "    __import__('numpy').zeros(2))\n"
         "supervise.build_parser().parse_args(['--', 'true'])\n"
+        "from ccsc_code_iccv2017_torch.serve import (\n"
+        "    fleet, metricsd, quality, quality_gate, registry, tenancy)\n"
+        "from ccsc_code_iccv2017_torch.apps import serve as serve_app\n"
+        "serve_app.build_parser().parse_args(\n"
+        "    ['--data', 'x', '--filters', 'y', '--replicas', '2'])\n"
+        "assert fleet.RUNGS[0] == 'normal' and tenancy.parse_tenant_spec(\n"
+        "    'a:quota=2').quota == 2\n"
+        "env.env_float('CCSC_HEDGE_QUANTILE')\n"
         "learn_2d.build_parser().parse_args(\n"
         "    ['--data', 'x', '--watchdog', '--auto-degrade'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -339,12 +339,20 @@ def test_expired_deadlines_are_refused():
     ids=lambda kw: next(iter(kw)),
 )
 def test_fleet_only_submit_fields_raise(kw):
+    """The fleet-internal submit fields are served since the fleet
+    slice: each is accepted and serves the plain submit's bits; only a
+    value the fleet contract refuses raises (a digest this engine never
+    published)."""
     d = _bank()
-    with _engine(d, _cfg_kw(), ((2, (24, 24)),)) as eng:
+    with _engine(d, _cfg_kw(), ((2, (24, 24)),), max_wait_ms=0.0) as eng:
         x, m = _req(24)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 11"):
-            eng.submit(x * m, mask=m, **kw)
+        ref = eng.submit(x * m, mask=m).result(timeout=60)
+        if "_digest" in kw:
+            with pytest.raises(CCSCInputError, match="not published"):
+                eng.submit(x * m, mask=m, **kw)
+            kw = {"_digest": eng.bank_digest()}
+        res = eng.submit(x * m, mask=m, **kw).result(timeout=60)
+    np.testing.assert_array_equal(res.recon, ref.recon)
 
 
 def test_close_idempotent_reentrant_and_closed_property():
@@ -479,6 +487,8 @@ def test_plan_cache_lru_budget_pin_and_drop():
     assert cache.stats() == {
         "n_plans": 1, "plan_bytes": nb, "max_bytes": 2 * nb, "hits": 1,
         "misses": 1, "evictions": 3,
+        # the JAX stats' measured watermark: no card, not measured
+        "measured_peak_hbm_bytes": None,
     }
 
 
@@ -499,7 +509,8 @@ def test_valid_region_psnr_matches_jax():
         (dict(capture_dir="c"), None),
         (dict(compile_cache="cc"), 11),
         (dict(artifact_store="a"), 11),
-        (dict(replica_id=0), 11),
+        # served since the fleet slice: every record carries it
+        (dict(replica_id=0), "served"),
         (dict(staged_warmup=True), 11),
         (dict(warm_order=("2@24x24",)), 11),
         (dict(warm_rank_capture="c"), 11),
@@ -509,6 +520,19 @@ def test_valid_region_psnr_matches_jax():
 def test_deferred_serve_fields_raise_naming_roadmap(kw, item, tmp_path):
     buckets = ((2, (24, 24)),)
     jcfg.ServeConfig(buckets=buckets, **kw)  # valid in the JAX package
+    if item == "served":
+        d = _bank()
+        mdir = str(tmp_path / "m")
+        with _engine(d, _cfg_kw(max_it=2), buckets, metrics_dir=mdir,
+                     **kw) as eng:
+            x, m = _req(24)
+            eng.submit(x * m, mask=m).result(timeout=60)
+        from ccsc_code_iccv2017_torch.utils import obs
+
+        recs = [r for r in obs.read_events(mdir)
+                if r.get("type", "").startswith("serve_")]
+        assert recs and all(r["replica_id"] == 0 for r in recs)
+        return
     if item is None:
         # constructs, and a standalone engine records its requests there
         cap = str(tmp_path / kw["capture_dir"])

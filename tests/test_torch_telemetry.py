@@ -360,9 +360,9 @@ def test_engine_record_types_match_the_jax_engine(tmp_path):
          [teng.submit(x * k, mask=k) for x, k in reqs]]
     finally:
         teng.close()
+    # the quality plane's records included since the fleet slice
     jtypes = {e["type"] for e in jobs.read_events(jm)
-              if not e["type"].startswith("quality_")
-              and e["type"] != "compile"}
+              if e["type"] != "compile"}
     ttypes = {e["type"] for e in obs.read_events(tm)}
     assert ttypes == jtypes
     for path in (jm, tm):
