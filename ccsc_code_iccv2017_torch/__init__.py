@@ -7,8 +7,9 @@ imports nothing of it. It runs, on one device, the 2D reconstruction
 solve (``models.reconstruct``) with the W == 1 rank-1 z-solve in a CUDA
 kernel written by hand (``ops.kernels``, ``csrc/solve_z_rank1.cu``), the
 2D consensus learner (``parallel.consensus``) with its fused z-iteration
-in CUDA (``ops.fused_z``), and the serving engine (``serve``).
+in CUDA (``ops.fused_z``), the serving engine and fleet (``serve``) and
+the fleet's capacity controller, configured by :class:`ControllerConfig`.
 """
-from .config import GEOM_2D, ProblemGeom, SolveConfig
+from .config import GEOM_2D, ControllerConfig, ProblemGeom, SolveConfig
 
-__all__ = ["GEOM_2D", "ProblemGeom", "SolveConfig"]
+__all__ = ["GEOM_2D", "ControllerConfig", "ProblemGeom", "SolveConfig"]

@@ -19,14 +19,23 @@ backs off for the fleet's (jittered) retry-after hint with exponential
 escalation on consecutive same-class refusals (ResubmitBackoff) and
 resubmits.
 
-The capacity controller (--min-replicas/--max-replicas), federation
-(--federate, --host-id), the persistent compile cache, the artifact
-store and staged warmup are ROADMAP.md Queue 1 item 11, second half:
-their flags parse with the JAX CLI's names and refuse.
+--min-replicas/--max-replicas put the fleet under the SLO-feedback
+capacity controller (serve.CapacityController), which grows and shrinks
+it inside the bounds. --federate [DIR] runs this process as one host of
+a cross-process serving pool instead (serve.FederatedHost): it drains
+the durable queue at DIR (default: the CCSC_DQUEUE_DIR env knob, which
+``python -m ccsc_code_iccv2017_torch.supervise --federate DIR`` exports)
+until a frontend seals it, under the --host-id identity.
+
+The persistent compile cache, the artifact store and staged warmup are
+ROADMAP.md Queue 1 item 11, second half (step 5): their flags parse
+with the JAX CLI's names and refuse.
 
 Usage:
     python -m ccsc_code_iccv2017_torch.apps.serve --filters f.mat \
         --data DIR [--bucket 64 --bucket 128:8] [--replicas 2]
+    python -m ccsc_code_iccv2017_torch.apps.serve --filters f.mat \
+        --federate QUEUE_DIR [--host-id H] [--bucket 256]
     ls imgs/*.png | python -m ccsc_code_iccv2017_torch.apps.serve \
         --filters f.mat --stdin
 """
@@ -144,14 +153,16 @@ def build_parser() -> argparse.ArgumentParser:
     src.add_argument(
         "--federate", nargs="?", const="", default=None,
         metavar="DIR",
-        help="join a cross-host serving pool at this shared queue "
-        "directory (not ported yet: ROADMAP.md Queue 1 item 11, "
-        "second half)",
+        help="run as a federated host: drain the shared durable "
+        "queue at DIR (serve.FederatedHost) until a frontend seals "
+        "it, instead of serving --data/--stdin. With no DIR, the "
+        "CCSC_DQUEUE_DIR env knob (supervise --federate exports it)",
     )
     p.add_argument(
         "--host-id", default=None,
-        help="federated host identity (not ported yet: ROADMAP.md "
-        "Queue 1 item 11, second half)",
+        help="federated host identity: the name of this host's lease "
+        "dir and heartbeat record in the queue (default: "
+        "<hostname>-<pid>)",
     )
     p.add_argument(
         "--bucket", action="append", default=None, metavar="SIDE[:SLOTS]",
@@ -181,7 +192,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--compile-cache", default=None,
         help="persistent compile cache dir (not ported yet: ROADMAP.md "
-        "Queue 1 item 11, second half)",
+        "Queue 1 item 11, second half, step 5)",
     )
     p.add_argument(
         "--replicas", type=int, default=1,
@@ -193,13 +204,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--min-replicas", type=int, default=None,
-        help="capacity-controller replica floor (not ported yet: "
-        "ROADMAP.md Queue 1 item 11, second half)",
+        help="capacity-controller replica floor: with "
+        "--max-replicas, serve through a fleet that "
+        "serve.CapacityController grows and shrinks inside the "
+        "bounds on queue pressure and SLO breaches",
     )
     p.add_argument(
         "--max-replicas", type=int, default=None,
-        help="capacity-controller replica ceiling (not ported yet: "
-        "ROADMAP.md Queue 1 item 11, second half)",
+        help="capacity-controller replica ceiling (see "
+        "--min-replicas; both or neither)",
     )
     p.add_argument(
         "--max-queue-depth", type=int, default=None,
@@ -215,12 +228,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--artifact-store", default=None,
         help="shared compiled-artifact store dir (not ported yet: "
-        "ROADMAP.md Queue 1 item 11, second half)",
+        "ROADMAP.md Queue 1 item 11, second half, step 5)",
     )
     p.add_argument(
         "--staged-warmup", action="store_true",
         help="staged bucket warmup (not ported yet: ROADMAP.md Queue 1 "
-        "item 11, second half)",
+        "item 11, second half, step 5)",
     )
     p.add_argument(
         "--slo-p50-ms", type=float, default=None,
@@ -295,9 +308,64 @@ def _parse_buckets(specs, default_slots=4):
     return tuple(out)
 
 
+def _fleet_cfg(args, replicas, metrics_dir, tenants):
+    """The fleet's configuration from the CLI's flags."""
+    from ..config import FleetConfig
+
+    return FleetConfig(
+        replicas=replicas,
+        max_queue_depth=args.max_queue_depth,
+        metrics_dir=metrics_dir,
+        slo_p50_ms=args.slo_p50_ms,
+        slo_p99_ms=args.slo_p99_ms,
+        metricsd_port=args.metricsd_port,
+        metricsd_snapshot=args.metricsd_snapshot,
+        capture_dir=args.capture_dir,
+        tenants=tenants,
+        probe_dir=args.probe_dir,
+        probe_interval_s=args.probe_interval_s,
+    )
+
+
+def _serve_federated(args, queue_dir, d, prob, cfg, scfg, tenants):
+    """``--federate``: this process is one host of the pool — its fleet
+    drains the durable queue until a frontend seals it and every item
+    is resolved somewhere in the pool. Returns the requests it
+    served."""
+    from ..ops.kernels import solve_z_rank1
+    from ..serve.federation import FederatedHost
+
+    host = FederatedHost(
+        queue_dir, d, prob, cfg, scfg,
+        # the fleet's stream nests under the host's metrics dir
+        _fleet_cfg(args, args.replicas, None, tenants),
+        host=args.host_id,
+        metrics_dir=args.metrics_dir,
+        device=args.device,
+    )
+    print(
+        f"federated host {host.host} (epoch {host.epoch}) "
+        f"joined {queue_dir} — draining until sealed",
+        flush=True,
+    )
+    try:
+        while not host.serve_until_sealed(timeout=5.0):
+            pass
+    except KeyboardInterrupt:
+        print("interrupted — leaving the pool cleanly")
+    finally:
+        host.close()
+    print(
+        f"host {host.host} served {host.served} request(s), "
+        f"left the pool (K1 launches {solve_z_rank1.launches})",
+        flush=True,
+    )
+    return host.served
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from ..config import FleetConfig, ProblemGeom, ServeConfig, SolveConfig
+    from ..config import ProblemGeom, ServeConfig, SolveConfig
     from ..data.images import load_image_list
     from ..data.native import smooth_fill_batch
     from ..models.reconstruct import ReconstructionProblem
@@ -308,24 +376,24 @@ def main(argv=None):
         Overloaded,
         ServeFleet,
     )
+    from ..utils import env as _env
     from ..utils.io_mat import load_filters_2d
 
     from ._common import refuse_unported
 
     refuse_unported(args)
-    for flag, val in (("--federate", args.federate),
-                      ("--host-id", args.host_id),
-                      ("--min-replicas", args.min_replicas),
-                      ("--max-replicas", args.max_replicas)):
-        if val is not None:
-            raise NotImplementedError(
-                f"{flag}: federation and the capacity controller are "
-                "not ported yet (ROADMAP.md Queue 1 item 11, second "
-                "half)"
+    federate_dir = args.federate
+    if federate_dir == "":
+        federate_dir = _env.env_str("CCSC_DQUEUE_DIR")
+        if not federate_dir:
+            raise SystemExit(
+                "--federate with no DIR needs CCSC_DQUEUE_DIR set "
+                "(python -m ccsc_code_iccv2017_torch.supervise "
+                "--federate exports it)"
             )
-    if not (args.data or args.stdin):
+    if federate_dir is None and not (args.data or args.stdin):
         raise SystemExit(
-            "one of --data or --stdin is required"
+            "one of --data, --stdin or --federate is required"
         )
 
     # bank source: an explicit filter file, or the durable registry
@@ -416,32 +484,62 @@ def main(argv=None):
     )
     if args.replicas < 1:
         raise SystemExit("--replicas must be >= 1")
+    if (args.min_replicas is None) != (args.max_replicas is None):
+        raise SystemExit(
+            "--min-replicas and --max-replicas must be given together"
+        )
+    ctrl_bounds = None
+    if args.min_replicas is not None:
+        if (
+            args.min_replicas < 1
+            or args.max_replicas < args.min_replicas
+        ):
+            raise SystemExit(
+                "need 1 <= --min-replicas <= --max-replicas, got "
+                f"{args.min_replicas}..{args.max_replicas}"
+            )
+        ctrl_bounds = (args.min_replicas, args.max_replicas)
+    if federate_dir is not None:
+        if ctrl_bounds is not None:
+            raise SystemExit(
+                "--min-replicas/--max-replicas are not supported in "
+                "--federate mode (the controller manages a local "
+                "fleet; host-level elasticity is "
+                "serve.FederatedHostPool)"
+            )
+        if args.publish_bank:
+            raise SystemExit(
+                "--publish-bank is not supported in --federate mode "
+                "yet (the queue protocol carries no bank ids)"
+            )
+        return _serve_federated(
+            args, federate_dir, d, ReconstructionProblem(geom), cfg,
+            scfg, tenants,
+        )
     fleet_mode = (
         args.replicas > 1
         or args.max_queue_depth is not None
         # declared tenants need the fleet's admission layer (quotas,
         # weighted-fair lanes, per-tenant SLOs live there)
         or tenants is not None
+        # the capacity controller is a fleet actuator
+        or ctrl_bounds is not None
     )
+    # controller-managed fleets start at the floor (the controller
+    # grows from there on pressure); an explicit --replicas inside
+    # the bounds is honored as the starting point
     n_replicas = args.replicas
+    if ctrl_bounds is not None:
+        n_replicas = min(
+            max(n_replicas, ctrl_bounds[0]), ctrl_bounds[1]
+        )
     metricsd = None  # standalone-engine endpoint (the fleet owns its own)
+    ctrl = None
     t0 = time.perf_counter()
     if fleet_mode:
         engine = ServeFleet(
             d, ReconstructionProblem(geom), cfg, scfg,
-            FleetConfig(
-                replicas=n_replicas,
-                max_queue_depth=args.max_queue_depth,
-                metrics_dir=args.metrics_dir,
-                slo_p50_ms=args.slo_p50_ms,
-                slo_p99_ms=args.slo_p99_ms,
-                metricsd_port=args.metricsd_port,
-                metricsd_snapshot=args.metricsd_snapshot,
-                capture_dir=args.capture_dir,
-                tenants=tenants,
-                probe_dir=args.probe_dir,
-                probe_interval_s=args.probe_interval_s,
-            ),
+            _fleet_cfg(args, n_replicas, args.metrics_dir, tenants),
             device=args.device,
         )
         print(
@@ -450,6 +548,24 @@ def main(argv=None):
             f"device(s), {len(scfg.buckets)} "
             f"bucket(s), queue ceiling {engine.queue_ceiling})"
         )
+        if ctrl_bounds is not None:
+            from .. import ControllerConfig
+            from ..serve.controller import CapacityController
+            from ..utils.memwatch import MemWatch
+
+            ctrl = CapacityController(
+                engine,
+                ControllerConfig(
+                    min_replicas=ctrl_bounds[0],
+                    max_replicas=ctrl_bounds[1],
+                ),
+                memwatch=MemWatch(),
+            ).start()
+            print(
+                "capacity controller active "
+                f"({ctrl_bounds[0]}..{ctrl_bounds[1]} replicas, "
+                f"tick {ctrl.interval_s}s)"
+            )
     else:
         engine = CodecEngine(d, ReconstructionProblem(geom), cfg, scfg,
                              device=args.device)
@@ -658,7 +774,10 @@ def main(argv=None):
     finally:
         # the engine must always close (flushes queued dispatches,
         # writes the telemetry summary) — even when a mid-stream
-        # failure aborts the submit loop
+        # failure aborts the submit loop. The controller stops first:
+        # it is advisory, and must not resize a closing fleet
+        if ctrl is not None:
+            ctrl.close()
         if metricsd is not None:
             metricsd.stop()
         engine.close()

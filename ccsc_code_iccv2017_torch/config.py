@@ -2,12 +2,13 @@
 
 A jax-free copy of ``ccsc_code_iccv2017_tpu.config``'s ``ProblemGeom``,
 ``GEOM_2D``, ``LearnConfig``, ``SolveConfig``, ``ServeConfig``,
-``TenantSpec`` and ``FleetConfig``: every
+``TenantSpec``, ``FleetConfig`` and ``ControllerConfig``: every
 field, name and default is identical (tests/test_torch_config.py holds
 the two side by side), so a configuration reads the same in both
 packages. The port implements the reconstruction solves, the
 consensus, masked and streaming learners, the serving engine, the
-serving fleet in one process and their run telemetry (``metrics_dir``, the SLO targets, ``verbose='all'``
+serving fleet, its federation across processes and its capacity
+controller, and their run telemetry (``metrics_dir``, the SLO targets, ``verbose='all'``
 figures); the fields it does not implement yet refuse a non-default
 value with ``NotImplementedError`` naming the ROADMAP.md item that ports
 them, instead of being silently ignored.
@@ -888,3 +889,141 @@ class FleetConfig:
             object.__setattr__(
                 self, "tenants", tuple(norm_tenants)
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class ControllerConfig:
+    """Configuration of the SLO-feedback capacity controller
+    (serve.CapacityController) — the strictly-advisory control plane
+    over a :class:`~serve.ServeFleet`. Every field, default and refusal
+    is the JAX package's (tests/test_torch_config.py holds them side by
+    side); ``hbm_limit_mb`` is read against ``torch.cuda.memory_stats``'
+    peak (utils.memwatch).
+
+    The controller reads one consistent sensor snapshot per tick
+    (queue depth vs the derived admission ceiling, SLO p99 vs target,
+    warmup ETAs, measured HBM watermark) and drives the fleet's
+    actuators (``set_replica_count`` grow/shrink, the brownout rung,
+    federated host spin-up/down) inside the ``[min_replicas,
+    max_replicas]`` bounds. Every ``None`` field resolves from the
+    matching ``CCSC_CTRL_*`` env knob at controller start, so a config
+    object only pins what a caller cares about.
+
+    Robustness contract: hysteresis bands (``high_frac``/``low_frac``,
+    ``brownout_frac``/``brownout_exit_frac``) plus ``sustain`` streaks
+    prevent flapping; stale sensors (older than ``stale_s``) hold
+    state and never scale *down*; actuators run under
+    timeout/retry/backoff with a stuck-actuator circuit breaker; and
+    the controller dying leaves the fleet serving exactly as last
+    configured (all capacity state lives in the fleet, none in the
+    controller).
+    """
+
+    # replica-count bounds the controller may move within
+    min_replicas: int = 1
+    max_replicas: int = 2
+    # control-loop tick interval; None = CCSC_CTRL_INTERVAL_S
+    interval_s: Optional[float] = None
+    # queue-depth/ceiling fraction above which scale-up pressure
+    # registers; None = CCSC_CTRL_HIGH_FRAC
+    high_frac: Optional[float] = None
+    # fraction below which scale-down is considered (only with SLO
+    # green and the ladder at rung 0); None = CCSC_CTRL_LOW_FRAC
+    low_frac: Optional[float] = None
+    # consecutive ticks a signal must persist before the controller
+    # acts (flap guard); None = CCSC_CTRL_SUSTAIN
+    sustain: Optional[int] = None
+    # per-actuator cooldown after a successful invocation;
+    # None = CCSC_CTRL_COOLDOWN_S
+    cooldown_s: Optional[float] = None
+    # sensor snapshot age beyond which telemetry is stale (fail safe:
+    # hold, never scale down); None = CCSC_CTRL_STALE_S
+    stale_s: Optional[float] = None
+    # actuator invocation timeout / retries / backoff base;
+    # None = CCSC_CTRL_ACT_TIMEOUT_S / _ACT_RETRIES / _ACT_BACKOFF_S
+    act_timeout_s: Optional[float] = None
+    act_retries: Optional[int] = None
+    act_backoff_s: Optional[float] = None
+    # consecutive exhausted invocations that open the circuit breaker,
+    # and how long it stays open; None = CCSC_CTRL_BREAKER_AFTER /
+    # CCSC_CTRL_BREAKER_RESET_S
+    breaker_after: Optional[int] = None
+    breaker_reset_s: Optional[float] = None
+    # brownout hysteresis band (engage at brownout_frac, release below
+    # brownout_exit_frac); None = CCSC_CTRL_BROWNOUT_FRAC /
+    # CCSC_CTRL_BROWNOUT_EXIT_FRAC
+    brownout_frac: Optional[float] = None
+    brownout_exit_frac: Optional[float] = None
+    # measured HBM watermark (MB) above which scale-up is vetoed;
+    # None = CCSC_CTRL_HBM_LIMIT_MB (0 = no veto)
+    hbm_limit_mb: Optional[float] = None
+    # federated host-count bounds (None = host pool not controller-
+    # managed; requires a host_pool actuator at construction)
+    min_hosts: Optional[int] = None
+    max_hosts: Optional[int] = None
+
+    def __post_init__(self):
+        if self.min_replicas < 1:
+            raise ValueError(
+                f"min_replicas must be >= 1, got {self.min_replicas}"
+            )
+        if self.max_replicas < self.min_replicas:
+            raise ValueError(
+                f"need min_replicas <= max_replicas, got "
+                f"{self.min_replicas} > {self.max_replicas}"
+            )
+        for fname in (
+            "interval_s", "cooldown_s", "stale_s", "act_timeout_s",
+            "act_backoff_s", "breaker_reset_s",
+        ):
+            v = getattr(self, fname)
+            if v is not None and v <= 0:
+                raise ValueError(
+                    f"{fname} must be > 0 when set, got {v}"
+                )
+        for fname in ("sustain", "breaker_after"):
+            v = getattr(self, fname)
+            if v is not None and v < 1:
+                raise ValueError(
+                    f"{fname} must be >= 1 when set, got {v}"
+                )
+        if self.act_retries is not None and self.act_retries < 0:
+            raise ValueError(
+                f"act_retries must be >= 0 when set, got "
+                f"{self.act_retries}"
+            )
+        if self.hbm_limit_mb is not None and self.hbm_limit_mb < 0:
+            raise ValueError(
+                f"hbm_limit_mb must be >= 0 when set, got "
+                f"{self.hbm_limit_mb}"
+            )
+        for lo_name, hi_name in (
+            ("low_frac", "high_frac"),
+            ("brownout_exit_frac", "brownout_frac"),
+        ):
+            lo, hi = getattr(self, lo_name), getattr(self, hi_name)
+            for fname, v in ((lo_name, lo), (hi_name, hi)):
+                if v is not None and not 0.0 < v <= 1.5:
+                    raise ValueError(
+                        f"{fname} must be in (0, 1.5] when set, "
+                        f"got {v}"
+                    )
+            if lo is not None and hi is not None and lo >= hi:
+                raise ValueError(
+                    f"need {lo_name} < {hi_name} (a hysteresis "
+                    f"band), got {lo} >= {hi}"
+                )
+        if (self.min_hosts is None) != (self.max_hosts is None):
+            raise ValueError(
+                "min_hosts and max_hosts must be set together"
+            )
+        if self.min_hosts is not None:
+            if self.min_hosts < 0:
+                raise ValueError(
+                    f"min_hosts must be >= 0, got {self.min_hosts}"
+                )
+            if self.max_hosts < self.min_hosts:
+                raise ValueError(
+                    f"need min_hosts <= max_hosts, got "
+                    f"{self.min_hosts} > {self.max_hosts}"
+                )

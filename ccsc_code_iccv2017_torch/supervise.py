@@ -52,9 +52,13 @@ which ``child-NN`` subdirs are derived). The run completes when every
 child completes; a poison child (or an exhausted budget) stops the
 whole fleet with the matching exit code.
 
-Federated serving (``--federate DIR``): exports ``CCSC_DQUEUE_DIR`` to
-every child, as the JAX supervisor does; the federated serving children
-that read it are ROADMAP.md Queue 1 item 11, second half.
+Federated serving (``--federate DIR``): exports ``CCSC_DQUEUE_DIR`` so
+each child started with ``python -m ccsc_code_iccv2017_torch.apps.serve
+--federate`` drains the shared file-lease work queue at DIR
+(serve.federation) — one supervised child per host, each joining the
+pool under a fresh lease epoch on every (re)start and leaving cleanly on
+completion. A child killed outright (even SIGKILL) leaves only expired
+leases, which the surviving hosts reap.
 
 The supervisor also exports ``CCSC_FAULT_STATE_DIR`` to the child (set
 to the metrics dir) so injected chaos faults (utils.faults) stay
@@ -129,8 +133,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--federate", default=None, metavar="DIR",
         help="cross-host federation: export CCSC_DQUEUE_DIR=DIR to "
-        "every child (the federated serving children that read it "
-        "are not ported yet)",
+        "every child so a serving child started with "
+        "`python -m ccsc_code_iccv2017_torch.apps.serve --federate` "
+        "joins the shared file-lease work queue at DIR (one pool "
+        "host per supervised child)",
     )
     p.add_argument(
         "--max-restarts", type=int, default=5,

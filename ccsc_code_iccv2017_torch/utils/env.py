@@ -231,6 +231,85 @@ REGISTRY: Dict[str, Knob] = {
         Knob("CCSC_ANOMALY_WINDOW", "int", 3,
              "rolling chunk window of the live anomaly watch",
              "analysis.ledger, utils.obs"),
+        # -- cross-host federation (serve.dqueue, serve.federation) ---
+        Knob("CCSC_DQUEUE_DIR", "path", None,
+             "shared federated work-queue directory: hosts drain it, "
+             "frontends submit into it; the fallback of apps.serve "
+             "--federate with no DIR (supervise --federate exports it)",
+             "serve.federation, apps.serve, supervise"),
+        Knob("CCSC_DQUEUE_TTL_S", "float", 30.0,
+             "lease TTL in seconds: a claimed item whose owning host's "
+             "heartbeat is older than this (+ the skew allowance) is "
+             "requeued by the reaper", "serve.dqueue"),
+        Knob("CCSC_DQUEUE_SKEW_S", "float", 5.0,
+             "clock-skew allowance added to every lease-expiry judgment",
+             "serve.dqueue"),
+        Knob("CCSC_DQUEUE_ATTEMPTS", "int", 3,
+             "cross-host ownership budget per queue item before the "
+             "reaper writes an explicit error result", "serve.dqueue"),
+        Knob("CCSC_FED_HEARTBEAT_S", "float", 1.0,
+             "federated host heartbeat + reaper cadence in seconds (well "
+             "under CCSC_DQUEUE_TTL_S)", "serve.federation"),
+        Knob("CCSC_FED_POLL_S", "float", 0.05,
+             "claim/result poll cadence of federated hosts and frontends "
+             "when the queue is idle", "serve.federation"),
+        # -- traffic replay (serve.replay) ----------------------------
+        Knob("CCSC_REPLAY_PSNR_TOL", "float", 0.1,
+             "PSNR tolerance in dB for cross-bucket replay verification "
+             "(same-bucket replays are held to bit-identity instead)",
+             "serve.replay"),
+        Knob("CCSC_REPLAY_SPEED", "float", 1.0,
+             "default replay speed factor over the recorded arrival "
+             "clock (2.0 = twice as fast; 0 = max-speed saturation)",
+             "serve.replay"),
+        Knob("CCSC_REPLAY_DEADLINE_SLACK", "float", None,
+             "per-request replay deadline as a multiple of the recorded "
+             "latency (max(recorded latency, 1 s) x slack; unset = no "
+             "deadlines)", "serve.replay"),
+        # -- capacity controller (serve.controller) -------------------
+        Knob("CCSC_CTRL_INTERVAL_S", "float", 0.5,
+             "control-loop tick interval in seconds (fallback of "
+             "ControllerConfig.interval_s)", "serve.controller"),
+        Knob("CCSC_CTRL_HIGH_FRAC", "float", 0.8,
+             "queue-depth/ceiling fraction above which scale-up pressure "
+             "registers", "serve.controller"),
+        Knob("CCSC_CTRL_LOW_FRAC", "float", 0.2,
+             "queue-depth/ceiling fraction below which scale-down is "
+             "considered (SLO green, ladder at rung 0)",
+             "serve.controller"),
+        Knob("CCSC_CTRL_SUSTAIN", "int", 3,
+             "consecutive ticks a pressure signal must persist before "
+             "the controller acts (flap guard)", "serve.controller"),
+        Knob("CCSC_CTRL_COOLDOWN_S", "float", 10.0,
+             "per-actuator cooldown after a successful invocation",
+             "serve.controller"),
+        Knob("CCSC_CTRL_STALE_S", "float", 5.0,
+             "sensor snapshot age beyond which telemetry is stale (hold "
+             "state, never scale down)", "serve.controller"),
+        Knob("CCSC_CTRL_ACT_TIMEOUT_S", "float", 30.0,
+             "single actuator invocation timeout", "serve.controller"),
+        Knob("CCSC_CTRL_ACT_RETRIES", "int", 2,
+             "actuator retries after the first failed/timed-out "
+             "invocation", "serve.controller"),
+        Knob("CCSC_CTRL_ACT_BACKOFF_S", "float", 0.5,
+             "actuator retry backoff base (doubles per retry)",
+             "serve.controller"),
+        Knob("CCSC_CTRL_BREAKER_AFTER", "int", 3,
+             "consecutive exhausted actuator invocations that open the "
+             "circuit breaker", "serve.controller"),
+        Knob("CCSC_CTRL_BREAKER_RESET_S", "float", 60.0,
+             "circuit-breaker open duration before a half-open retry",
+             "serve.controller"),
+        Knob("CCSC_CTRL_BROWNOUT_FRAC", "float", 0.9,
+             "queue-depth/ceiling fraction that engages the brownout "
+             "rung before any shed", "serve.controller"),
+        Knob("CCSC_CTRL_BROWNOUT_EXIT_FRAC", "float", 0.5,
+             "queue-depth/ceiling fraction below which brownout releases",
+             "serve.controller"),
+        Knob("CCSC_CTRL_HBM_LIMIT_MB", "float", 0.0,
+             "measured device-memory watermark (MB, torch.cuda."
+             "memory_stats) above which scale-up is vetoed (0 = no veto)",
+             "serve.controller"),
         # -- chaos / fault injection (utils.faults) -------------------
         Knob("CCSC_FAULT_NAN_IT", "int", None,
              "poison the code iterate inside the step of this 1-based "

@@ -351,6 +351,50 @@ never exits 0):
    smooth fill's (the app's own masks, seed 0). Then K1 at a replica
    dispatch's shape (N=4, K=100, F=266*134), held and timed as in
    phase 3.
+20. The cross-process fleet (``serve.dqueue``, ``serve.federation``,
+   ``serve.replay``, ``serve.controller``, ``analysis.perf_gate``,
+   ``supervise --federate``, ``apps.serve --federate``; run after 19),
+   on phase 10's bank, bucket and 42 requests, every result held by its
+   sha256 to phase 10's. (a) Two federated host processes share cuda:0,
+   each a 1-replica fleet: hostA under ``python -m ...supervise
+   --federate Q -- python -m ...apps.serve --federate``, hostB a direct
+   ``FederatedHost`` child; lease TTL FED_TTL_S + skew FED_SKEW_S. A
+   ``FederatedFrontend`` here submits the 42 requests: every key
+   delivered once (one ``dqueue_complete`` across the hosts' streams),
+   bitwise phase 10's; requests/s, latency p50/p90/max (submit to
+   result) and served-by-host beside phase 10's engine. (b) The same
+   stream again; hostB SIGKILLed once it holds FED_KILL_LEASES leases;
+   the frontend seals: hostA reaps them after TTL + skew, 42 of 42
+   delivered once, bitwise, none lost, and supervise exits 0; the
+   seconds from the kill to the reap and to the last requeued result;
+   each handed-off request's merged trace (``utils.trace.assemble`` over
+   the frontend's and both hosts' streams) complete, with hostB's
+   ownership ('requeued', written by the reaper) and hostA's ('ok').
+   Each host's K1 count — hostA's printed by ``apps.serve`` at its exit,
+   hostB's reported to a file as it serves — equals its engine's warm
+   and dispatch iterations in its stream. (c) A capturing 2-replica
+   fleet records phase 10's stream; a fresh 2-replica fleet replays it
+   at max speed and another in closed loop: 42 of 42 bit-identical
+   each, zero lost; the two ``kind=replay`` ledger records and ``python
+   -m ...analysis.perf_gate --kind replay`` on that ledger (exit 0: a
+   young history passes).
+   (d) A ``generate_diurnal`` capture of 256x256 requests over
+   AUTO_DURATION_S s, peak AUTO_PEAK_X and trough AUTO_TROUGH_X of phase
+   10's requests/s, replayed open loop against a 1-replica fleet
+   (explicit ceiling AUTO_QUEUE_DEPTH) under ``CapacityController(
+   ControllerConfig(min_replicas=1, max_replicas=2, ...))`` with a
+   quicker tick and no brownout: ``ctrl_scale`` up near the peak and
+   down at the trough, zero lost, the grown replica's restart -> ready
+   seconds, and no nvcc build in the phase (a ``CompileMonitor`` and
+   the fleet's ``compile`` records). Then ``CCSC_FAULT_CTRL_SENSOR_
+   BLACKOUT`` at 2 idle replicas: ``ctrl_holdoff`` and no scale-down
+   while blind, a scale-down once the sensors return; then
+   ``CCSC_FAULT_CTRL_ACT_HANG`` under real queue pressure: failed
+   ``ctrl_scale`` records, then ``breaker_open:scale_up`` holdoffs,
+   while the fleet serves every admitted request bitwise phase 10's.
+   K1's count in (c) and (d) is held to the replicas' dispatch
+   iterations as in 19. (e) K1 at a replica dispatch's shape (N=4),
+   held and timed as in phase 3.
 14. Output: a
    ``{"slice": ...}`` line (serving), a ``{"learn": ...}`` line, a
    ``{"serve_engine": ...}`` line (the engine phase and the
@@ -361,12 +405,14 @@ never exits 0):
    without telemetry and the profiler), a ``{"robustness": ...}`` line
    (18's counts and seconds, the armed learner's step beside the plain
    one), a ``{"serve_fleet": ...}`` line (19's records), a
+   ``{"serve_federation": ...}`` line (20's records), a
    ``{"kernels": [...]}`` line (K1, K2a, K2b; K1's launches by path:
    reconstruct, engine, poisson, deblur, learn_3d, learn_2d_masked,
    learn_streaming_2d, learn_streaming_3d, mesh_reconstruct,
    mesh_learn_freq, serve_mesh, learn_2d_256_gate, telemetry_engine,
    telemetry_reconstruct, capture_engine, capture_replay,
-   degrade_streaming_cli, degrade_streaming_direct, fleet; K2's: learn,
+   degrade_streaming_cli, degrade_streaming_direct, fleet, federation,
+   host_kill, replay, autoscale; K2's: learn,
    learn_telemetry, mesh_learn_block4, mesh_learn_nccl1, learn_watchdog,
    learn_nan_recovery, learn_hang), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
@@ -4111,7 +4157,7 @@ def _wait_for(pred, timeout, what):
     t0 = time.perf_counter()
     while not pred():
         if time.perf_counter() - t0 > timeout:
-            raise RuntimeError(f"[19] timed out waiting for {what}")
+            raise RuntimeError(f"timed out waiting for {what}")
         time.sleep(0.05)
     return time.perf_counter() - t0
 
@@ -4737,6 +4783,635 @@ def phase_fleet(torch, port, time_ms, bw, flops, seed, phase10):
     return out
 
 
+# -- phase 20: the cross-process fleet ----------------------------------
+FED_TTL_S = 3.0  # (a)/(b): the hosts' lease TTL and clock-skew allowance
+FED_SKEW_S = 1.0
+FED_HEARTBEAT_S = 0.5  # the hosts' heartbeat + reaper cadence
+FED_POLL_S = 0.02  # claim and result polling
+FED_KILL_LEASES = 2  # (b): SIGKILL the victim once it holds this many
+AUTO_DURATION_S = 16.0  # (d): the diurnal curve's length
+AUTO_PEAK_X, AUTO_TROUGH_X = 1.5, 0.25  # of phase 10's requests/s
+AUTO_QUEUE_DEPTH = 16  # (d): the explicit ceiling the controller reads
+AUTO_BLACKOUT_S = 30.0  # (d): longer than the blind ticks
+AUTO_HANG_S = 3600.0  # (d): the wedged actuator's sleep (a daemon thread)
+
+# one federated host child: joins the queue, drains until sealed, and
+# reports its K1 count to a file as it goes (a SIGKILL leaves the last)
+FED_CHILD = """
+import json, os, sys
+from ccsc_code_iccv2017_torch.config import (
+    FleetConfig, ProblemGeom, ServeConfig, SolveConfig)
+from ccsc_code_iccv2017_torch.models.reconstruct import ReconstructionProblem
+from ccsc_code_iccv2017_torch.ops import kernels
+from ccsc_code_iccv2017_torch.serve.federation import FederatedHost
+from ccsc_code_iccv2017_torch.utils.io_mat import load_filters_2d
+
+qdir, bank, mdir, host_id, report, side, slots = sys.argv[1:8]
+d = load_filters_2d(bank)
+host = FederatedHost(
+    qdir, d, ReconstructionProblem(ProblemGeom(d.shape[1:], d.shape[0])),
+    SolveConfig(lambda_residual=5.0, lambda_prior=2.0, max_it=100,
+                tol=1e-3),
+    ServeConfig(buckets=((int(slots), (int(side), int(side))),),
+                verbose="none"),
+    FleetConfig(replicas=1, min_queue_depth=64, verbose="none"),
+    host=host_id, metrics_dir=mdir, verbose="none", device="cuda")
+
+
+def dump():
+    with open(report + ".tmp", "w") as f:
+        json.dump({"k1": kernels.solve_z_rank1.launches,
+                   "served": host.served}, f)
+    os.replace(report + ".tmp", report)
+
+
+dump()
+while not host.serve_until_sealed(timeout=0.1):
+    dump()
+host.close()
+dump()
+"""
+
+
+def _digest(port, recon):
+    import numpy as np
+
+    return port["capture"].payload_sha(np.ascontiguousarray(recon))
+
+
+def _stream_k1(port, mdir, t_max=None):
+    """K1 launches a host's engines made, read from its stream: one warm
+    iteration per ``serve_warmup`` plus each ``serve_dispatch``'s
+    iterations (the max over its batch: one launch each)."""
+    ev = [e for e in _events(port, mdir)
+          if t_max is None or e["t"] <= t_max]
+    return (sum(1 for e in ev if e["type"] == "serve_warmup")
+            + sum(int(e["max_iters"]) for e in ev
+                  if e["type"] == "serve_dispatch"))
+
+
+def _read_json(path):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def _fed_submit(fe, reqs, prefix):
+    """Submit ``reqs`` under ``prefix<i>`` through the frontend; returns
+    (futures, submit time by index, result time by index)."""
+    import threading
+
+    t_sub, t_done, futs = {}, {}, {}
+    lock = threading.Lock()
+
+    def stamp(i):
+        def cb(_f):
+            with lock:
+                t_done[i] = time.perf_counter()
+        return cb
+
+    for i, q in enumerate(reqs):
+        t_sub[i] = time.perf_counter()
+        futs[i] = fe.submit(q["b"], mask=q["mask"],
+                            smooth_init=q["smooth_init"],
+                            x_orig=q["x_orig"], key=f"{prefix}{i}")
+        futs[i].add_done_callback(stamp(i))
+    return futs, t_sub, t_done
+
+
+def _fed_check(port, tag, res, ref_digests):
+    """Every result bitwise phase 10's (sha256 of the reconstruction)."""
+    bad = [i for i, r in res.items()
+           if r.digest != ref_digests[i] or _digest(port, r.recon)
+           != ref_digests[i]]
+    if bad or len(res) != len(ref_digests):
+        raise RuntimeError(f"[20] {tag}: {len(res)} results, requests "
+                           f"{bad} not bitwise phase 10's")
+
+
+def _fed_once(port, tag, mdirs, prefix, n):
+    """Each key ``prefix<i>`` delivered exactly once across the pool:
+    one ``dqueue_complete`` in all the hosts' streams."""
+    from collections import Counter
+
+    done = Counter(e["key"] for m in mdirs
+                   for e in _events(port, m, "dqueue_complete"))
+    want = {f"{prefix}{i}" for i in range(n)}
+    got = {k: c for k, c in done.items() if k in want}
+    if set(got) != want or any(c != 1 for c in got.values()):
+        raise RuntimeError(f"[20] {tag}: deliveries {dict(got)}")
+
+
+def _fed_pool(port, phase10, tmp, reqs, ref_digests):
+    """(a) two federated host processes on cuda:0 serve phase 10's
+    stream from a frontend in this process; (b) the same stream again,
+    one host SIGKILLed while it holds leases."""
+    import re
+    import signal
+    import subprocess
+
+    qdir = os.path.join(tmp, "q")
+    mdir = {h: os.path.join(tmp, f"m-{h}") for h in ("hostA", "hostB")}
+    mfe = os.path.join(tmp, "m-frontend")
+    report_b = os.path.join(tmp, "hostB-k1.json")
+    env = _child_env(CCSC_DQUEUE_TTL_S=FED_TTL_S, CCSC_DQUEUE_SKEW_S=FED_SKEW_S,
+                     CCSC_FED_HEARTBEAT_S=FED_HEARTBEAT_S,
+                     CCSC_FED_POLL_S=FED_POLL_S)
+    bucket = f"{S}:{ENGINE_SLOTS}"
+    cmd_a = [sys.executable, "-m", f"{PACKAGE}.supervise", "--federate", qdir,
+             "--metrics-dir", mdir["hostA"], "--backoff", "0",
+             "--max-restarts", "0", "--", sys.executable, "-m",
+             f"{PACKAGE}.apps.serve", "--federate", "--filters", BANK,
+             "--bucket", bucket, "--host-id", "hostA", "--metrics-dir",
+             mdir["hostA"]]
+    cmd_b = [sys.executable, "-c", FED_CHILD, qdir, BANK, mdir["hostB"],
+             "hostB", report_b, str(S), str(ENGINE_SLOTS)]
+    logs = {h: open(os.path.join(tmp, f"{h}.log"), "w") for h in mdir}
+    t0 = time.perf_counter()
+    procs = {
+        "hostA": subprocess.Popen(cmd_a, cwd=HERE, env=env,
+                                  stdout=logs["hostA"],
+                                  stderr=subprocess.STDOUT),
+        "hostB": subprocess.Popen(cmd_b, cwd=HERE, env=env,
+                                  stdout=logs["hostB"],
+                                  stderr=subprocess.STDOUT),
+    }
+    fe = None
+    out = {}
+    try:
+        def joined():
+            for h, p in procs.items():
+                if p.poll() is not None:
+                    raise RuntimeError(f"[20] {h} exited {p.returncode} "
+                                       "before joining")
+            return all(os.path.exists(os.path.join(qdir, "hosts",
+                                                   f"{h}.json"))
+                       for h in procs)
+
+        join_s = _wait_for(joined, 300, "both hosts to join")
+        fe = port["serve"].FederatedFrontend(
+            qdir, client="smoke", metrics_dir=mfe, verbose="none",
+            poll_s=FED_POLL_S)
+        # (a) the stream
+        t1 = time.perf_counter()
+        futs, t_sub, t_done = _fed_submit(fe, reqs, "a")
+        res = {i: f.result(timeout=600) for i, f in futs.items()}
+        window = time.perf_counter() - t1
+        t_a_end = time.time()
+        _fed_check(port, "(a)", res, ref_digests)
+        _fed_once(port, "(a)", mdir.values(), "a", len(reqs))
+        lat = {i: t_done[i] - t_sub[i] for i in res}
+        by_host = {h: sum(1 for r in res.values() if r.host == h)
+                   for h in procs}
+        time.sleep(0.5)  # hostB's report: every (a) launch is in it
+        k1_b_a = (_read_json(report_b) or {}).get("k1")
+        k1_b_a_stream = _stream_k1(port, mdir["hostB"], t_a_end)
+        if k1_b_a != k1_b_a_stream:
+            raise RuntimeError(f"[20] (a) hostB K1 {k1_b_a} != its "
+                               f"engine's iterations {k1_b_a_stream}")
+        p = _pcts(lat.values())
+        rps = len(reqs) / window
+        out["federation"] = dict(
+            requests=len(reqs), window_s=window, requests_per_sec=rps,
+            served_by_host=by_host, join_s=join_s,
+            phase10_requests_per_sec=phase10["bench"][
+                "engine_requests_per_sec"], **p)
+        print(f"[20] (a) two host processes joined in {join_s:.1f} s "
+              f"(hostA under supervise --federate, apps.serve --federate; "
+              f"hostB a direct FederatedHost); {len(reqs)} requests in "
+              f"{window * 1e3:.1f} ms = {rps:.3f} requests/s (phase 10's "
+              f"engine {out['federation']['phase10_requests_per_sec']:.3f})"
+              f", latency p50 {p['p50_ms']:.1f} ms, p90 {p['p90_ms']:.1f} "
+              f"ms, max {p['max_ms']:.1f} ms; served by host {by_host}; "
+              "every key delivered once, bitwise phase 10's")
+
+        # (b) the same stream; SIGKILL hostB once it holds leases
+        t_b0 = time.time()
+        futs, t_sub, t_done = _fed_submit(fe, reqs, "kill")
+        lease_b = os.path.join(qdir, "leases", "hostB")
+
+        def leases():
+            try:
+                return [n for n in os.listdir(lease_b)
+                        if n.endswith(".json") and not n.startswith(".")]
+            except OSError:
+                return []
+
+        _wait_for(lambda: len(leases()) >= FED_KILL_LEASES, 120,
+                  "hostB to hold its leases")
+        held = len(leases())
+        k1_b_kill = (_read_json(report_b) or {}).get("k1", k1_b_a)
+        os.kill(procs["hostB"].pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        t_kill_wall = time.time()
+        procs["hostB"].wait(timeout=60)
+        fe.seal()
+        res_b = {i: f.result(timeout=600) for i, f in futs.items()}
+        rc_a = procs["hostA"].wait(timeout=300)
+        if rc_a != 0:
+            raise RuntimeError(f"[20] (b) supervise of hostA exited {rc_a}")
+        _fed_check(port, "(b)", res_b, ref_digests)
+        # every stream write is flushed, so the victim's completes
+        # before the kill are in its stream too
+        _fed_once(port, "(b)", mdir.values(), "kill", len(reqs))
+        handed = sorted(i for i, r in res_b.items() if r.attempts > 1)
+        if len(handed) < FED_KILL_LEASES or any(
+                res_b[i].host != "hostA" for i in handed):
+            raise RuntimeError(f"[20] (b) requeued {handed} of {held} held")
+        recovery_s = max(t_done[i] for i in handed) - t_kill
+        events = []
+        for m in (mfe, mdir["hostA"], mdir["hostB"]):
+            events += port["obs"].read_events(m, recursive=True)
+        cross = [e for e in events if e["type"] == "dqueue_requeue"
+                 and e.get("from_host") == "hostB"
+                 and e.get("by_host") == "hostA"]
+        if len(cross) < len(handed):
+            raise RuntimeError(f"[20] (b) {len(cross)} reaped of "
+                               f"{len(handed)} handed off")
+        reap_s = min(e["t"] for e in cross) - t_kill_wall
+        traces = port["trace"].assemble(events)
+        for i in handed:
+            tr = traces[res_b[i].trace_id]
+            hosts = {e.get("host") for e in events
+                     if e["type"] == "span_end"
+                     and e.get("trace_id") == res_b[i].trace_id
+                     and e.get("span") == "attempt"}
+            st = {s.status for s in tr.by_name("attempt")}
+            if not tr.complete or st != {"requeued", "ok"} or \
+                    hosts != {"hostA", "hostB"}:
+                raise RuntimeError(f"[20] (b) request {i}: trace "
+                                   f"complete={tr.complete}, attempts {st}, "
+                                   f"hosts {hosts}")
+        # hostA's K1 count, printed by apps.serve at its exit
+        log_a = os.path.join(mdir["hostA"], "supervise-attempt-1.log")
+        with open(log_a) as f:
+            m = re.search(r"K1 launches (\d+)", f.read())
+        k1_a = int(m.group(1)) if m else None
+        k1_a_stream = _stream_k1(port, mdir["hostA"])
+        if k1_a != k1_a_stream:
+            raise RuntimeError(f"[20] hostA K1 {k1_a} != its engine's "
+                               f"iterations {k1_a_stream}")
+        k1_a_a = _stream_k1(port, mdir["hostA"], t_a_end)
+        out["federation"]["k1_launches"] = k1_a_a + k1_b_a
+        out["federation"]["k1_by_host"] = {"hostA": k1_a_a,
+                                           "hostB": k1_b_a}
+        lat_b = {i: t_done[i] - t_sub[i] for i in res_b}
+        out["host_kill"] = dict(
+            requests=len(reqs), leases_held_at_kill=held,
+            requeued_delivered=len(handed), reaped=len(cross),
+            kill_to_reap_s=reap_s, kill_to_last_requeued_s=recovery_s,
+            ttl_s=FED_TTL_S, skew_s=FED_SKEW_S, supervise_exit=rc_a,
+            served_by_host={h: sum(1 for r in res_b.values()
+                                   if r.host == h) for h in procs},
+            k1_launches=(k1_a - k1_a_a) + (k1_b_kill - k1_b_a),
+            k1_by_host={"hostA": k1_a - k1_a_a,
+                        "hostB_before_death": k1_b_kill - k1_b_a},
+            **_pcts(lat_b.values()))
+        print(f"[20] (b) hostB SIGKILLed holding {held} leases: hostA "
+              f"reaped them {reap_s:.2f} s later (ttl {FED_TTL_S} + skew "
+              f"{FED_SKEW_S} s), the last requeued result "
+              f"{recovery_s:.2f} s after the kill; {len(reqs)} of "
+              f"{len(reqs)} delivered once, bitwise phase 10's, none lost "
+              f"({len(handed)} after a handoff, each trace complete with "
+              f"both hosts' ownerships); supervise exit {rc_a}; K1 hostA "
+              f"{k1_a} = its engine's iterations")
+    finally:
+        if fe is not None:
+            fe.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        for f in logs.values():
+            f.close()
+        if out.get("host_kill") is None:
+            for h in procs:
+                print(f"[20] {h} log tail:\n"
+                      + open(os.path.join(tmp, f"{h}.log")).read()[-3000:])
+    out["processes_s"] = time.perf_counter() - t0
+    return out
+
+
+def _fed_replay(port, phase10, tmp, log, d, cfg, reqs, ledger_path):
+    """(c) phase 10's stream captured by a capturing 2-replica fleet,
+    replayed through fresh 2-replica fleets at max speed and in closed
+    loop; the replay ledger record and the perf gate."""
+    import subprocess
+
+    kernels = port["kernels"]
+    replay_mod = __import__(f"{PACKAGE}.serve.replay",
+                            fromlist=["ReplayDriver"])
+    cap_dir = os.path.join(tmp, "c-capture")
+    fleet = _fleet(port, d, cfg, tmp, "c-capture", capture_dir=cap_dir)
+    try:
+        mark = log.mark()
+        kernels.solve_z_rank1.launches = 0
+        res, window, _lat = _fleet_stream(fleet, reqs, "c")
+        launches = kernels.solve_z_rank1.launches
+        if launches != log.expected_k1(mark):
+            raise RuntimeError(f"[20] (c) capture K1 {launches}")
+    finally:
+        fleet.close(drain_timeout_s=120)
+    _fleet_bitwise("(c) capture", res, phase10["served"])
+    recs = port["capture"].read_workload(cap_dir)
+    if len(recs) != len(reqs) or not all(r.get("outcome") for r in recs):
+        raise RuntimeError(f"[20] (c) capture holds {len(recs)} records")
+    out = {"capture_s": window, "capture_k1_launches": launches}
+    with _Env(CCSC_PERF_LEDGER=ledger_path):
+        for mode, speed in (("open", 0.0), ("closed", 1.0)):
+            fresh = _fleet(port, d, cfg, tmp, f"c-{mode}", capture_dir="")
+            try:
+                mark = log.mark()
+                kernels.solve_z_rank1.launches = 0
+                rep = replay_mod.ReplayDriver(
+                    cap_dir, metrics_dir=os.path.join(tmp, f"c-r-{mode}"),
+                    verbose="none").replay(fresh, speed=speed, mode=mode)
+                n_k1 = kernels.solve_z_rank1.launches
+                want = log.expected_k1(mark)
+            finally:
+                fresh.close(drain_timeout_s=120)
+            if not (rep["ok"] and rep["n_exact"] == len(reqs)
+                    and rep["n_lost"] == 0) or n_k1 != want:
+                raise RuntimeError(f"[20] (c) {mode}: {rep}, K1 {n_k1} "
+                                   f"!= {want}")
+            out[mode] = dict(rep, k1_launches=n_k1)
+            print(f"[20] (c) replay {mode}"
+                  f"{'/max-speed' if speed <= 0 else ''}: "
+                  f"{rep['n_exact']} of {len(reqs)} bit-identical, "
+                  f"{rep['n_lost']} lost, {rep['requests_per_sec']:.3f} "
+                  f"requests/s, p50 {rep['replayed_p50_ms']:.1f} ms, p99 "
+                  f"{rep['replayed_p99_ms']:.1f} ms (recorded "
+                  f"{rep['recorded_p50_ms']:.1f} / "
+                  f"{rep['recorded_p99_ms']:.1f}); K1 {n_k1}")
+    led = [r for r in port["ledger"].Ledger(ledger_path).read()
+           if r["kind"] == "replay"]
+    if len(led) != 2:
+        raise RuntimeError(f"[20] (c) ledger replay records {led}")
+    gate = subprocess.run(
+        [sys.executable, "-m", f"{PACKAGE}.analysis.perf_gate", "--ledger",
+         ledger_path, "--kind", "replay"], cwd=HERE, env=_child_env(),
+        capture_output=True, text=True, timeout=120)
+    print(f"[20] (c) ledger: {len(led)} kind=replay records "
+          f"({[round(r['value'], 3) for r in led]} requests/s); "
+          f"python -m {PACKAGE}.analysis.perf_gate --kind replay exit "
+          f"{gate.returncode}:")
+    for line in gate.stdout.strip().splitlines():
+        print(f"[20] (c)   {line}")
+    if gate.returncode != 0:
+        raise RuntimeError(f"[20] (c) perf_gate exit {gate.returncode}: "
+                           f"{gate.stderr[-2000:]}")
+    out["ledger"] = dict(records=len(led), values=[r["value"] for r in led],
+                         keys=[port["ledger"].record_key(r) for r in led],
+                         perf_gate_exit=gate.returncode,
+                         perf_gate_stdout=gate.stdout.strip().splitlines())
+    out["k1_launches"] = (out["capture_k1_launches"]
+                          + out["open"]["k1_launches"]
+                          + out["closed"]["k1_launches"])
+    return out
+
+
+def _fed_autoscale(port, seed, phase10, tmp, log, d, cfg, reqs):
+    """(d) a diurnal capture replayed open loop against a 1-replica
+    fleet under the capacity controller; then a sensor blackout and a
+    wedged actuator."""
+    import dataclasses as dc
+
+    kernels, faults, obs = port["kernels"], port["faults"], port["obs"]
+    serve = port["serve"]
+    ctrl_cfg = port["config"].ControllerConfig
+    r1 = phase10["bench"]["engine_requests_per_sec"]
+    peak, trough = AUTO_PEAK_X * r1, AUTO_TROUGH_X * r1
+    amp = (peak - trough) / (peak + trough)
+    n = int(round((peak + trough) / 2 * AUTO_DURATION_S))
+    t0 = time.perf_counter()
+    cap = serve.generate_diurnal(
+        os.path.join(tmp, "d-diurnal"), n_requests=n,
+        duration_s=AUTO_DURATION_S, spatial=(S, S), amp=amp, seed=seed + 20)
+    gen_s = time.perf_counter() - t0
+    mdir = os.path.join(tmp, "d")
+    mon = obs.CompileMonitor().install()
+    fleet = _fleet(port, d, cfg, tmp, "d", replicas=1,
+                   max_queue_depth=AUTO_QUEUE_DEPTH, restart_backoff_s=0.05)
+    out = {"requests": n, "amp": amp, "duration_s": AUTO_DURATION_S,
+           "peak_requests_per_sec": peak, "trough_requests_per_sec": trough,
+           "generate_s": gen_s}
+    try:
+        mark = log.mark()
+        kernels.solve_z_rank1.launches = 0
+        # a 0.25 s tick, a 1 s streak and a 3 s cooldown: the workers
+        # hold up to 2 x 4 requests outside the queue the controller
+        # reads, so a shorter streak flaps at the peak
+        ctrl = serve.CapacityController(fleet, ctrl_cfg(
+            min_replicas=1, max_replicas=2, interval_s=0.25, high_frac=0.4,
+            low_frac=0.1, sustain=4, cooldown_s=3.0, stale_s=10.0,
+            act_timeout_s=120.0, act_retries=0, brownout_frac=1.5,
+            brownout_exit_frac=0.01),
+            memwatch=__import__(f"{PACKAGE}.utils.memwatch",
+                                fromlist=["MemWatch"]).MemWatch()).start()
+        t_rep = time.time()
+        try:
+            rep = serve.ReplayDriver(
+                cap, metrics_dir=os.path.join(tmp, "d-replay"),
+                verbose="none").replay(fleet, speed=1.0, mode="open",
+                                       timeout_s=600)
+            _wait_for(lambda: fleet.replica_target == 1, 60,
+                      "the scale-down at the trough")
+        finally:
+            ctrl.close()
+        ev = _events(port, mdir)
+        ups = [e for e in ev if e["type"] == "ctrl_scale"
+               and e["direction"] == "up" and e["ok"]]
+        downs = [e for e in ev if e["type"] == "ctrl_scale"
+                 and e["direction"] == "down" and e["ok"]]
+        # up while the curve is high (its middle 60%), and the last move
+        # a scale-down: the fleet ends the trough at its floor
+        t_up = ups[0]["t"] - t_rep if ups else None
+        if rep["n_lost"] or rep["n_replayed"] != n or not ups or not downs \
+                or not 0.2 * AUTO_DURATION_S <= t_up <= 0.8 * AUTO_DURATION_S \
+                or downs[-1]["t"] < ups[-1]["t"]:
+            raise RuntimeError(f"[20] (d) replay {rep}, ups {ups}, downs "
+                               f"{downs}")
+        grow = min(e["t"] for e in ev if e["type"] == "fleet_scale"
+                   and e["to_n"] == 2)
+        ready = min(e["t"] for e in ev if e["type"] == "fleet_replica_ready"
+                    and e["replica_id"] == 1 and e["t"] >= grow)
+        builds = [e for e in mon.events if e["kind"] == "build"] + [
+            e for e in ev if e["type"] == "compile" and e["kind"] == "build"]
+        if builds:
+            raise RuntimeError(f"[20] (d) nvcc builds during the phase: "
+                               f"{builds}")
+        out.update(
+            replay={k: rep[k] for k in (
+                "n_replayed", "n_lost", "n_unverified",
+                "replay_overload_backoffs", "replayed_p50_ms",
+                "replayed_p99_ms", "elapsed_s", "requests_per_sec")},
+            scale_up_t_s=[e["t"] - t_rep for e in ups],
+            scale_down_t_s=[e["t"] - t_rep for e in downs],
+            peak_t_s=AUTO_DURATION_S / 2,
+            grown_restart_to_ready_s=ready - grow,
+            nvcc_builds=len(builds),
+            library_loads=sum(1 for e in mon.events if e["kind"] == "load"),
+            holdoffs=sorted({e["reason"] for e in ev
+                             if e["type"] == "ctrl_holdoff"}))
+        print(f"[20] (d) diurnal replay: {n} requests of {S}x{S} over "
+              f"{AUTO_DURATION_S:.0f} s (peak {peak:.2f}, trough "
+              f"{trough:.2f} requests/s = {AUTO_PEAK_X} / {AUTO_TROUGH_X} x "
+              f"phase 10's {r1:.3f}), {rep['n_lost']} lost, "
+              f"{rep['replay_overload_backoffs']} overload backoffs; "
+              f"ctrl_scale up at "
+              f"{[round(t, 2) for t in out['scale_up_t_s']]} s, down at "
+              f"{[round(t, 2) for t in out['scale_down_t_s']]} s (the "
+              f"peak at {AUTO_DURATION_S / 2:.1f} s); the grown replica "
+              f"restart -> ready {ready - grow:.3f} s; nvcc builds "
+              f"{len(builds)}")
+
+        # the sensor blackout, with scale-down pressure live
+        ch = ctrl_cfg(min_replicas=1, max_replicas=2, interval_s=0.05,
+                      high_frac=0.5, low_frac=0.2, sustain=1,
+                      cooldown_s=0.05, stale_s=10.0, act_timeout_s=60.0,
+                      act_retries=0, act_backoff_s=0.01, breaker_after=2,
+                      breaker_reset_s=60.0, brownout_frac=1.5,
+                      brownout_exit_frac=0.01)
+        fleet.set_replica_count(2, reason="phase20_setup")
+        n_ev = len(_events(port, mdir))
+        ctrl2 = serve.CapacityController(fleet, ch)
+        with _Env(CCSC_FAULT_CTRL_SENSOR_BLACKOUT=1,
+                  CCSC_FAULT_CTRL_BLACKOUT_S=AUTO_BLACKOUT_S):
+            faults.reset()
+            for _ in range(4):
+                ctrl2.step()  # idle fleet: would shrink if it could see
+                time.sleep(0.06)
+            blind_held = fleet.replica_target == 2
+        faults.reset()
+        ctrl2.step()  # the sensors are back: the shrink happens now
+        reconciled = fleet.replica_target == 1
+        ctrl2.close()
+        ev = _events(port, mdir)[n_ev:]
+        blind = [e["reason"] for e in ev if e["type"] == "ctrl_holdoff"]
+        blind_downs = [e for e in ev if e["type"] == "ctrl_scale"
+                       and e["direction"] == "down" and e["ok"]]
+        if not (blind_held and reconciled and "sensor_stale" in blind
+                and len(blind_downs) == 1):
+            raise RuntimeError(f"[20] (d) blackout: held {blind_held}, "
+                               f"reconciled {reconciled}, holdoffs "
+                               f"{blind}, downs {blind_downs}")
+        out["blackout"] = dict(holdoffs=blind, held_at=2, reconciled_to=1)
+        print(f"[20] (d) sensor blackout: ctrl_holdoff {sorted(set(blind))}"
+              " and no scale-down while blind (2 replicas held); once the "
+              "sensors returned, a scale-down 2 -> 1")
+
+        # the wedged actuator under real scale-up pressure
+        n_ev = len(_events(port, mdir))
+        futs = {}
+        with _Env(CCSC_FAULT_CTRL_ACT_HANG=2,
+                  CCSC_FAULT_CTRL_ACT_HANG_S=AUTO_HANG_S):
+            faults.reset()
+            ctrl3 = serve.CapacityController(
+                fleet, dc.replace(ch, act_timeout_s=0.5))
+            depths, j = [], 0
+            for _tick in range(8):
+                # hold the queue above the scale-up fraction before each
+                # tick (the ladder may refuse a moment: retry), cycling
+                # through phase 10's requests under fresh keys
+                t_end = time.perf_counter() + 30
+                while fleet.stats()["queue_depth"] < \
+                        AUTO_QUEUE_DEPTH * 5 // 8 and \
+                        time.perf_counter() < t_end:
+                    try:
+                        futs[j] = fleet.submit(key=f"hang{j}",
+                                               **reqs[j % len(reqs)])
+                        j += 1
+                    except serve.Overloaded:
+                        time.sleep(0.02)
+                depths.append(fleet.stats()["queue_depth"])
+                ctrl3.step()
+                if any(e["type"] == "ctrl_holdoff" and e["reason"] ==
+                       "breaker_open:scale_up"
+                       for e in _events(port, mdir)[n_ev:]):
+                    break
+            served = {i: f.result(timeout=600) for i, f in futs.items()}
+            ctrl3.close()
+        faults.reset()
+        _fleet_bitwise("(d) wedged actuator", served, {
+            i: phase10["served"][i % len(reqs)] for i in served})
+        ev = _events(port, mdir)[n_ev:]
+        holds = {e["reason"] for e in ev if e["type"] == "ctrl_holdoff"}
+        failed = [e for e in ev if e["type"] == "ctrl_scale" and not e["ok"]]
+        if "breaker_open:scale_up" not in holds or len(failed) < 2 or \
+                fleet.replica_target != 1:
+            raise RuntimeError(f"[20] (d) wedged actuator: holdoffs {holds}"
+                               f", failed scales {failed}, target "
+                               f"{fleet.replica_target}")
+        out["act_hang"] = dict(failed_scales=len(failed),
+                               holdoffs=sorted(holds), served=len(served),
+                               queue_depth_at_ticks=depths)
+        print(f"[20] (d) wedged actuator: {len(failed)} failed ctrl_scale, "
+              f"then {sorted(holds)}; the fleet held 1 replica and served "
+              f"all {len(served)} queued requests, bitwise phase 10's")
+        launches = kernels.solve_z_rank1.launches
+        if launches != log.expected_k1(mark):
+            raise RuntimeError(f"[20] (d) K1 {launches} != "
+                               f"{log.expected_k1(mark)}")
+        out["k1_launches"] = launches
+        st = fleet.stats()
+        if st["n_failed"]:
+            raise RuntimeError(f"[20] (d) {st['n_failed']} failed")
+    finally:
+        fleet.close(drain_timeout_s=120)
+        mon.uninstall()
+    return out
+
+
+def phase_federation(torch, port, time_ms, bw, flops, seed, phase10):
+    """20: the cross-process fleet on one card, (a)-(e)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    card = port["serve_bench"].card_line()
+    print(f"[20] card: {card}")
+    d = port["io_mat"].load_filters_2d(BANK)
+    cfg = port["config"].SolveConfig(lambda_residual=5.0, lambda_prior=2.0,
+                                     max_it=100, tol=1e-3)
+    reqs = port["serve_bench"].make_requests(ENGINE_SIDES, seed + 4)
+    ref_digests = {i: _digest(port, r.recon)
+                   for i, r in enumerate(phase10["served"])}
+    tmp = tempfile.mkdtemp(prefix="ccsc-fed-")
+    out, secs = {"card": card}, {}
+    try:
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out.update(_fed_pool(port, phase10, tmp, reqs, ref_digests))
+        secs["federation_host_kill"] = time.perf_counter() - t1
+        with _FleetEngines() as log:
+            t1 = time.perf_counter()
+            out["replay"] = _fed_replay(
+                port, phase10, tmp, log, d, cfg, reqs,
+                os.path.join(tmp, "ledger.jsonl"))
+            secs["replay"] = time.perf_counter() - t1
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            out["autoscale"] = _fed_autoscale(port, seed, phase10, tmp,
+                                              log, d, cfg, reqs)
+            secs["autoscale"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # (e) K1 at a replica dispatch's shape, as phase 19 holds it
+    gen = torch.Generator(device=torch.device("cuda", 0)).manual_seed(seed)
+    args = _random_k1_args(torch, gen, ENGINE_SLOTS, K, F, False)
+    out["k1_cases"] = [_k1_case(torch, port["kernels"], time_ms, bw, flops,
+                                _card(torch), args, {"federation": "replica"})]
+    del args
+    torch.cuda.empty_cache()
+    out["seconds_by_part"] = secs
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[20] cross-process fleet phase {out['seconds']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in secs.items()} })")
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, kernel_ms, plain_ms,
                   bound, build_s, **extra):
     return dict(
@@ -4826,6 +5501,8 @@ def main(argv=None) -> int:
     robust = phase_robustness(torch, port, args.seed, telemetry["learn"],
                               engine)
     fleet = phase_fleet(torch, port, time_ms, bw, flops, args.seed, engine)
+    federation = phase_federation(torch, port, time_ms, bw, flops,
+                                  args.seed, engine)
     engine.pop("served")
     telemetry["learn"].pop("plain_d")
     seconds = time.perf_counter() - t_start
@@ -4835,7 +5512,7 @@ def main(argv=None) -> int:
     all_cases = cases + list(app_cases.values()) + [
         learners["3d"]["k1_case"], streamed["2d"]["k1_case"],
         streamed["3d"]["k1_case"]] + mesh["reconstruct"]["k1_cases"] + \
-        serve_mesh["k1_cases"] + fleet["k1_cases"]
+        serve_mesh["k1_cases"] + fleet["k1_cases"] + federation["k1_cases"]
     k1_paths = {"reconstruct": served["launches"],
                 "engine": engine["launches"],
                 "poisson": apps["poisson"]["k1_launches"],
@@ -4866,7 +5543,11 @@ def main(argv=None) -> int:
                     + robust["degrade"]["preflight"]["child"]["k1"],
                 "degrade_streaming_direct":
                     robust["degrade"]["direct_k1_launches"],
-                "fleet": fleet["k1_launches"]}
+                "fleet": fleet["k1_launches"],
+                "federation": federation["federation"]["k1_launches"],
+                "host_kill": federation["host_kill"]["k1_launches"],
+                "replay": federation["replay"]["k1_launches"],
+                "autoscale": federation["autoscale"]["k1_launches"]}
     ns_ranks = mesh["north_star"]["mesh"]["per_rank"]
     k2_paths = {p: {
         "learn": learn["launches"][f"fused_z_{p}"],
@@ -4932,6 +5613,7 @@ def main(argv=None) -> int:
     print(json.dumps({"telemetry": telemetry}))
     print(json.dumps({"robustness": robust}))
     print(json.dumps({"serve_fleet": fleet}))
+    print(json.dumps({"serve_federation": federation}))
     # the kernels line last but two: the end of the output carries it
     print(json.dumps(kernels_line))
     print(smi)

@@ -2,7 +2,7 @@
 
 ``ccsc_code_iccv2017_torch.config`` is a jax-free copy of the JAX
 package's ``ProblemGeom``/``GEOM_2D``/``LearnConfig``/``SolveConfig``/
-``ServeConfig``/``TenantSpec``/``FleetConfig``:
+``ServeConfig``/``TenantSpec``/``FleetConfig``/``ControllerConfig``:
 field names, defaults and validation must stay identical. The port's package and
 ``chip_smoke.py`` must never import jax or the JAX package.
 """
@@ -29,7 +29,7 @@ def _fields(cls):
 
 @pytest.mark.parametrize(
     "name", ["ProblemGeom", "LearnConfig", "SolveConfig", "ServeConfig",
-             "TenantSpec", "FleetConfig"]
+             "TenantSpec", "FleetConfig", "ControllerConfig"]
 )
 def test_fields_and_defaults_match_jax(name):
     assert _fields(getattr(tcfg, name)) == _fields(getattr(jcfg, name))
@@ -287,6 +287,37 @@ def test_fleet_config_normalized_like_jax(kw):
     assert type(t.tenants) is type(j.tenants)
 
 
+@pytest.mark.parametrize(
+    "kw",
+    [dict(min_replicas=0), dict(min_replicas=3, max_replicas=2),
+     dict(interval_s=0.0), dict(cooldown_s=-1.0), dict(stale_s=0.0),
+     dict(act_timeout_s=0.0), dict(act_backoff_s=-0.5),
+     dict(breaker_reset_s=0.0), dict(sustain=0), dict(breaker_after=0),
+     dict(act_retries=-1), dict(hbm_limit_mb=-1.0), dict(high_frac=0.0),
+     dict(low_frac=1.6), dict(low_frac=0.5, high_frac=0.5),
+     dict(brownout_exit_frac=0.9, brownout_frac=0.8),
+     dict(min_hosts=1), dict(max_hosts=2), dict(min_hosts=-1, max_hosts=1),
+     dict(min_hosts=3, max_hosts=2)],
+)
+def test_controller_invalid_values_refused_like_jax(kw):
+    with pytest.raises(ValueError) as j:
+        jcfg.ControllerConfig(**kw)
+    with pytest.raises(ValueError) as t:
+        tcfg.ControllerConfig(**kw)
+    assert str(t.value) == str(j.value)
+
+
+def test_controller_config_exported_like_jax():
+    import ccsc_code_iccv2017_tpu as jroot
+    import ccsc_code_iccv2017_torch as troot
+
+    assert troot.ControllerConfig is tcfg.ControllerConfig
+    kw = dict(min_replicas=2, max_replicas=4, sustain=1, min_hosts=0,
+              max_hosts=2, high_frac=0.7, low_frac=0.1)
+    assert dataclasses.asdict(troot.ControllerConfig(**kw)) == \
+        dataclasses.asdict(jroot.ControllerConfig(**kw))
+
+
 def _port_sources():
     for root, _, files in os.walk(PORT):
         for f in files:
@@ -380,6 +411,17 @@ def test_port_imports_without_jax_at_runtime():
         "env.env_float('CCSC_HEDGE_QUANTILE')\n"
         "learn_2d.build_parser().parse_args(\n"
         "    ['--data', 'x', '--watchdog', '--auto-degrade'])\n"
+        "from ccsc_code_iccv2017_torch.serve import (\n"
+        "    controller, dqueue, federation, replay)\n"
+        "from ccsc_code_iccv2017_torch.analysis import perf_gate\n"
+        "from ccsc_code_iccv2017_torch import ControllerConfig\n"
+        "assert dqueue.safe_key('k') and federation.FederatedHost\n"
+        "controller.CapacityController(None, ControllerConfig())\n"
+        "replay.build_parser().parse_args(['--generate-diurnal', 'x'])\n"
+        "assert perf_gate.main(['--seed-from']) == 2\n"
+        "serve_app.build_parser().parse_args(\n"
+        "    ['--filters', 'y', '--federate', '--host-id', 'h'])\n"
+        "env.env_float('CCSC_DQUEUE_TTL_S')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccsc_code_iccv2017_tpu')]\n"
         "assert not bad, bad\n"

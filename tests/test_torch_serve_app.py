@@ -3,8 +3,11 @@ against the JAX package's ``apps/serve.py`` ``main()`` on the same
 images and bank, on the CPU: the engine path and the fleet path
 (``--replicas 2``) write the same reconstructions (16-bit PNGs within
 REC_TOL = 1e-4 plus one quantization step) and serve the same number
-of requests; the federation and capacity-controller flags are refused,
-naming ROADMAP.md Queue 1 item 11's second half.
+of requests; ``--federate`` drains a durable queue as one federated
+host, ``--min/--max-replicas`` serve under the capacity controller and
+refuse the JAX CLI's bad pairs with its messages, and the compile
+cache, artifact store and staged warmup are refused, naming ROADMAP.md
+Queue 1 item 11's second half.
 
 The bank is k=4 5x5 and the images 20x20 in a 24x24 two-slot bucket,
 max_it 5, written as a MATLAB-layout ``.mat`` stack
@@ -74,20 +77,108 @@ def test_serve_main_matches_jax_main(fixtures, tmp_path, capsys, extra):
         assert "engine ready" in ttext and "dispatch(es)" in ttext
 
 
+def _bank_argv(root, *extra):
+    return ["--filters", str(root / "bank.mat"), "--bucket", "24:2",
+            "--max-it", "5", *extra, "--device", "cpu"]
+
+
+def _submit_sealed(qdir, root, n=3):
+    """A port frontend enqueues the fixture's first ``n`` images with
+    the CLI's own request protocol and seals the queue."""
+    from ccsc_code_iccv2017_torch.serve.federation import FederatedFrontend
+
+    imgs = np.transpose(scipy.io.loadmat(str(root / "imgs.mat"))["b"],
+                        (2, 0, 1)).astype(np.float32)
+    r = np.random.default_rng(1)
+    fe = FederatedFrontend(str(qdir), client="fe", verbose="none")
+    futs = []
+    for i in range(n):
+        m = (r.random(imgs[i].shape) < 0.5).astype(np.float32)
+        futs.append(fe.submit(imgs[i] * m, mask=m, x_orig=imgs[i],
+                              key=f"img{i}"))
+    fe.seal()
+    return fe, futs
+
+
+@pytest.mark.parametrize("how", ["dir", "env"])
+def test_federate_drains_a_sealed_queue(fixtures, tmp_path, capsys,
+                                        monkeypatch, how):
+    """``--federate DIR`` (or bare ``--federate`` with CCSC_DQUEUE_DIR)
+    runs the CLI as one federated host: it drains the sealed queue,
+    every frontend future resolves from its durable result, and the
+    process returns the count it served."""
+    qdir = tmp_path / "q"
+    fe, futs = _submit_sealed(qdir, fixtures)
+    try:
+        if how == "env":
+            monkeypatch.setenv("CCSC_DQUEUE_DIR", str(qdir))
+            argv = _bank_argv(fixtures, "--federate")
+        else:
+            argv = _bank_argv(fixtures, "--federate", str(qdir))
+        assert tapp.main(argv) == 3
+        res = [f.result(timeout=60) for f in futs]
+    finally:
+        fe.close()
+    out = capsys.readouterr().out
+    assert "draining until sealed" in out and "served 3 request(s)" in out
+    assert all(r.attempts == 1 and np.isfinite(r.recon).all()
+               for r in res)
+    assert len({r.host for r in res}) == 1
+
+
+def test_federate_without_dir_needs_the_env(fixtures, monkeypatch):
+    monkeypatch.delenv("CCSC_DQUEUE_DIR", raising=False)
+    with pytest.raises(SystemExit, match="CCSC_DQUEUE_DIR"):
+        tapp.main(_bank_argv(fixtures, "--federate"))
+
+
+def test_host_id_names_the_lease_dir(fixtures, tmp_path, capsys):
+    qdir = tmp_path / "q"
+    fe, futs = _submit_sealed(qdir, fixtures, n=2)
+    try:
+        assert tapp.main(_bank_argv(fixtures, "--federate", str(qdir),
+                                    "--host-id", "edge-7")) == 2
+        assert {f.result(timeout=60).host for f in futs} == {"edge-7"}
+    finally:
+        fe.close()
+    assert os.path.isdir(qdir / "leases" / "edge-7")
+    with open(qdir / "hosts" / "edge-7.json") as f:
+        import json
+
+        assert json.load(f)["status"] == "left"
+    assert "federated host edge-7 (epoch 1)" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("flags", [
-    ("--federate", "/q"), ("--federate",), ("--host-id", "h1"),
-    ("--min-replicas", "1", "--max-replicas", "2"),
-    ("--max-replicas", "2"),
-], ids=lambda f: f[0].lstrip("-"))
-def test_federation_and_autoscale_flags_are_refused(fixtures, tmp_path,
+    ("--max-replicas", "2"), ("--min-replicas", "1"),
+    ("--min-replicas", "0", "--max-replicas", "2"),
+    ("--min-replicas", "3", "--max-replicas", "2"),
+    ("--federate", "Q", "--min-replicas", "1", "--max-replicas", "2"),
+    ("--federate", "Q", "--publish-bank", "b", "--bank-registry", "R"),
+], ids=["max_only", "min_only", "min_zero", "min_above_max",
+        "with_federate", "publish_with_federate"])
+def test_controller_and_federate_refusals_match_jax(fixtures, tmp_path,
                                                     flags):
-    # --federate replaces the local data source (as in the JAX CLI)
+    flags = tuple(str(tmp_path / f) if f in ("Q", "R") else f
+                  for f in flags)
     argv = (["--filters", str(fixtures / "bank.mat"), *flags]
-            if flags[0] == "--federate"
+            if "--federate" in flags
             else _argv(fixtures, tmp_path / "o", *flags))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 11, second half"):
+    with pytest.raises(SystemExit) as j:
+        japp.main(argv)
+    with pytest.raises(SystemExit) as t:
         tapp.main([*argv, "--device", "cpu"])
+    assert str(t.value) == str(j.value)
+
+
+def test_min_max_replicas_serve_under_the_controller(fixtures, tmp_path,
+                                                     capsys):
+    n = tapp.main(_argv(fixtures, tmp_path / "o", "--min-replicas", "1",
+                        "--max-replicas", "2", "--device", "cpu"))
+    out = capsys.readouterr().out
+    assert n == 3
+    assert "capacity controller active (1..2 replicas" in out
+    assert "fleet ready" in out
 
 
 @pytest.mark.parametrize("flags", [
