@@ -27,9 +27,11 @@ the durable queue at DIR (default: the CCSC_DQUEUE_DIR env knob, which
 ``python -m ccsc_code_iccv2017_torch.supervise --federate DIR`` exports)
 until a frontend seals it, under the --host-id identity.
 
-The persistent compile cache, the artifact store and staged warmup are
-ROADMAP.md Queue 1 item 11, second half (step 5): their flags parse
-with the JAX CLI's names and refuse.
+--compile-cache DIR keeps the kernel libraries built in DIR, so a
+restarted server loads them instead of running nvcc; --artifact-store
+DIR shares them between hosts (serve.artifacts: a joining host fetches
+the library another built); --staged-warmup serves the hottest bucket
+while the others warm (serve.engine).
 
 Usage:
     python -m ccsc_code_iccv2017_torch.apps.serve --filters f.mat \
@@ -191,8 +193,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--compile-cache", default=None,
-        help="persistent compile cache dir (not ported yet: ROADMAP.md "
-        "Queue 1 item 11, second half, step 5)",
+        help="directory the kernel libraries are built into and kept "
+        "in (CCSC_COMPILE_CACHE env equivalent): a warm restart loads "
+        "them instead of running nvcc",
     )
     p.add_argument(
         "--replicas", type=int, default=1,
@@ -227,13 +230,18 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--artifact-store", default=None,
-        help="shared compiled-artifact store dir (not ported yet: "
-        "ROADMAP.md Queue 1 item 11, second half, step 5)",
+        help="shared library store dir (serve.artifacts; "
+        "CCSC_ARTIFACT_STORE env equivalent): warmup fetches the kernel "
+        "library another host built, keyed by source, flags, compiler "
+        "and chip, instead of building it, and publishes what it had to "
+        "build",
     )
     p.add_argument(
         "--staged-warmup", action="store_true",
-        help="staged bucket warmup (not ported yet: ROADMAP.md Queue 1 "
-        "item 11, second half, step 5)",
+        help="staged warmup (CCSC_SERVE_STAGED env equivalent): serve "
+        "the hottest bucket as soon as it is warm while the others warm "
+        "in the background; requests for a still-cold bucket are "
+        "refused with a BucketCold retry-after",
     )
     p.add_argument(
         "--slo-p50-ms", type=float, default=None,

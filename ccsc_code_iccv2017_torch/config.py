@@ -286,11 +286,6 @@ class SolveConfig:
 _SERVE_DEFERRED = (
     ("tune", ("off",), 9), ("tune_store", (None,), 9),
     ("pipeline_depth", (None, 1), 9),
-    ("compile_cache", (None,), "11, second half"),
-    ("artifact_store", (None, ""), "11, second half"),
-    ("staged_warmup", (None, False), "11, second half"),
-    ("warm_order", (None,), "11, second half"),
-    ("warm_rank_capture", (None, ""), "11, second half"),
 )
 
 
@@ -310,11 +305,17 @@ class ServeConfig:
     which builds the kernels and the cuFFT plans), ``mesh_shape``,
     ``mesh_devices``, ``metrics_dir`` (the engine's telemetry stream),
     the SLO fields (``slo_p50_ms``, ``slo_p99_ms``, ``slo_check_s``,
-    ``slo_profile_dir``: serve.slo) and ``capture_dir`` (workload
+    ``slo_profile_dir``: serve.slo), ``capture_dir`` (workload
     capture of a standalone engine: serve.capture; None falls back to
-    ``CCSC_CAPTURE_DIR``, "" is off); every other field refuses a value
-    other than its default with ``NotImplementedError`` naming the
-    ROADMAP.md item that ports it.
+    ``CCSC_CAPTURE_DIR``, "" is off), ``replica_id`` (the fleet's), and
+    the warmup fields: ``compile_cache`` (the directory the kernel
+    libraries are built into and kept in), ``artifact_store`` (a library
+    store shared between hosts: serve.artifacts), ``staged_warmup``,
+    ``warm_order`` and ``warm_rank_capture`` (serve.engine, hot to cold;
+    each None falls back to its ``CCSC_*`` knob, and "" of a path is
+    off); ``tune``, ``tune_store`` and ``pipeline_depth`` refuse a value
+    other than their default with ``NotImplementedError`` naming the
+    ROADMAP.md item that ports them.
 
     ``mesh_shape`` ``(batch,)`` or ``(batch, freq)`` serves every bucket
     from a mesh of devices driven by the engine's one process (None:

@@ -6,11 +6,19 @@ The library runs local contrast normalization as two separable Gaussian
 passes with reflected edges, the smooth-fill warm start and per-image
 zero-mean in double precision over a std::thread pool across images.
 The port compiles the source as it stands in the repository with
-``g++`` into ``ccsc_code_iccv2017_torch/build/`` (gitignored; the file
-name carries the source's hash, so an edited source rebuilds) on first
-use; it never writes into ``native/``. Where the compiler or the library
-is unavailable each function falls back to its numpy version, as the
-JAX package's binding does (:func:`available` says which runs).
+``g++`` on first use into the process's build directory
+(:func:`build_dir`: the compile cache set by :func:`set_build_dir`, else
+``ccsc_code_iccv2017_torch/build/``, gitignored); it never writes into
+``native/``. The file name carries a digest of the library's
+fingerprint (:func:`library_fingerprint`: the source's sha256, the
+flags, g++'s version and the host CPU's identity, since ``-march=native``
+makes the binary one CPU's), so a library built otherwise or for
+another CPU is never loaded. :func:`build` and :func:`load` take a
+library store (``serve.artifacts``): a library missing from the build
+directory is fetched from it before g++ runs, and one built is
+published. Where the compiler or the library is unavailable each
+function falls back to its numpy version, as the JAX package's binding
+does (:func:`available` says which runs); :func:`load` itself raises.
 """
 from __future__ import annotations
 
@@ -18,16 +26,22 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
+import threading
 import time
 from typing import Optional
 
 import numpy as np
 
+from ..utils import obs
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(os.path.dirname(_PKG_DIR), "native", "ccsc_data.cpp")
+# the default build directory (see set_build_dir)
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
+LIBRARY = "ccsc_data"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
              "-shared", "-pthread")
 
@@ -42,25 +56,113 @@ _SIGNATURES = {
 }
 
 
-def lib_path() -> str:
-    """Where the library of the current source is built."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libccsc_data_{digest}.so")
+_BUILD_DIR: Optional[str] = None
 
 
-def build() -> dict:
-    """Compile ``native/ccsc_data.cpp`` into the build directory unless
-    the library of this exact source exists. Returns the library path,
-    whether it compiled, the build seconds and the compiler's output;
-    raises when the compiler is missing or fails."""
-    path = lib_path()
-    if os.path.exists(path):
-        return {"path": path, "compiled": False, "seconds": 0.0, "log": ""}
+def set_build_dir(path: Optional[str]) -> None:
+    """Build and keep the library in ``path`` (None: back to
+    ``BUILD_DIR``); see ``ops.kernels.set_build_dir``."""
+    global _BUILD_DIR
+    _BUILD_DIR = path
+
+
+def build_dir() -> str:
+    """The directory this process builds the library into."""
+    return _BUILD_DIR or BUILD_DIR
+
+
+def _cxx() -> str:
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no C++ compiler (g++ or c++) on PATH")
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    return cxx
+
+
+@functools.cache
+def _compiler(cxx: str) -> str:
+    """The first line of ``<cxx> --version``."""
+    proc = subprocess.run([cxx, "--version"], capture_output=True,
+                          text=True, timeout=60)
+    lines = [ln.strip() for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"{cxx} --version failed ({proc.returncode})")
+    return lines[0]
+
+
+@functools.cache
+def cpu_identity(cxx: Optional[str] = None) -> str:
+    """``<machine>-<12 hex>``: what ``-march=native`` means on this
+    host, as the compiler resolves it (``-march=native -Q
+    --help=target``), else the model and flags lines of
+    ``/proc/cpuinfo``. Two hosts whose libraries could differ read
+    differently."""
+    text = ""
+    try:
+        proc = subprocess.run(
+            [cxx or _cxx(), "-march=native", "-Q", "--help=target"],
+            capture_output=True, text=True, timeout=60)
+        if proc.returncode == 0:
+            text = proc.stdout
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        pass
+    if not text:
+        try:
+            with open("/proc/cpuinfo") as f:
+                keep = [ln for ln in f
+                        if ln.startswith(("model name", "flags"))]
+            text = "".join(dict.fromkeys(keep))
+        except OSError:
+            text = platform.processor()
+    return (f"{platform.machine()}-"
+            f"{hashlib.sha256(text.encode()).hexdigest()[:12]}")
+
+
+def library_fingerprint() -> dict:
+    """Everything the build depends on: the source's sha256,
+    ``CXX_FLAGS``, the compiler's version and the host CPU's identity
+    (:func:`cpu_identity`), which stands as the store's chip."""
+    cxx = _cxx()
+    with open(SOURCE, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    return {"library": LIBRARY, "source_sha256": sha,
+            "flags": list(CXX_FLAGS), "compiler": _compiler(cxx),
+            "chip": cpu_identity(cxx)}
+
+
+def lib_path(fp: Optional[dict] = None) -> str:
+    """Where the library of this source, flags, compiler and CPU is
+    built."""
+    from ..ops.kernels import library_file
+
+    fp = library_fingerprint() if fp is None else fp
+    return library_file(fp, build_dir(), LIBRARY)
+
+
+def build(store=None) -> dict:
+    """Make the library present in the build directory
+    (:func:`build_dir`): already there (``source`` ``cache-hit``),
+    fetched from ``store`` (``fetched``), else compiled by g++
+    (``compiled``) and published into ``store``.
+    Returns the library path, its source, whether it compiled, the
+    build seconds, the compiler's output, and the store's key, fetch
+    status and seconds and publish status (None without a store);
+    raises when the compiler is missing or fails."""
+    from ..ops import kernels as _kernels
+
+    fp = library_fingerprint()
+    path = lib_path(fp)
+    out = {"path": path, "source": "cache-hit", "compiled": False,
+           "seconds": 0.0, "compile_s": None, "log": "", "key": None,
+           "fetch_status": None, "fetch_s": None, "publish_status": None,
+           "fingerprint": fp}
+    if not os.path.exists(path) and store is not None:
+        out.update(_kernels.fetch_library(store, fp, path))
+        if out["fetch_status"] == "hit":
+            out["source"] = "fetched"
+    if os.path.exists(path):
+        return out
+    cxx = _cxx()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
@@ -70,8 +172,39 @@ def build() -> dict:
         raise RuntimeError(f"{cxx} failed ({proc.returncode}) building "
                            f"{SOURCE}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, path)
-    return {"path": path, "compiled": True, "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
+    obs.report_compile("build", LIBRARY, seconds)
+    out.update(source="compiled", compiled=True, seconds=seconds,
+               compile_s=seconds, log=proc.stdout + proc.stderr)
+    if store is not None:
+        out["publish_status"] = _kernels.publish_library(store, fp, path)
+    return out
+
+
+_LOAD_LOCK = threading.Lock()
+_STATE: dict = {}
+
+
+def load(store=None):
+    """(the loaded library, :func:`build`'s dict) — resolved through
+    ``store`` and loaded on the first call of the process; later calls
+    return the loaded library as a ``cache-hit``. Raises when the
+    library cannot be built, fetched or loaded."""
+    with _LOAD_LOCK:
+        if "lib" in _STATE:
+            return _STATE["lib"], {"path": _STATE["info"]["path"],
+                                   "source": "cache-hit", "fetch_status":
+                                   None, "fetch_s": None, "compile_s": None,
+                                   "publish_status": None, "key": None}
+        info = build(store=store)
+        t0 = time.perf_counter()
+        lib = ctypes.CDLL(info["path"])
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        obs.report_compile("load", LIBRARY, time.perf_counter() - t0)
+        _STATE.update(lib=lib, info=info)
+        return lib, info
 
 
 @functools.cache
@@ -80,16 +213,10 @@ def _loaded():
     first use, or (None, None) — the numpy fallback — when it cannot be
     built or loaded; tried once a process."""
     try:
-        info = build()
-        lib = ctypes.CDLL(info["path"])
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        return load()
     except (OSError, RuntimeError, AttributeError,
             subprocess.SubprocessError):
         return None, None
-    return lib, info
 
 
 def _load() -> Optional[ctypes.CDLL]:

@@ -26,14 +26,21 @@ where they do not stay in L2 from one image to the next.
 point takes them and refuses a plan it was not built for.
 
 Build: every source ``csrc/<name>.cu`` is compiled by ``nvcc -gencode
-arch=compute_90a,code=sm_90a -O3 -shared`` into
-``ccsc_code_iccv2017_torch/build/`` at first use (the file name carries
-the source's hash, so an edited source rebuilds), loaded with ctypes.
-``build_all()`` starts one nvcc per source at once. The wrappers launch
-on ``torch.cuda.current_stream()`` and never synchronise. Each nvcc
-build and each load of a built library is reported to the open
-telemetry runs (``utils.obs.report_compile``: a ``compile`` record of
-kind ``build`` or ``load``).
+arch=compute_90a,code=sm_90a -O3 -shared`` at first use into the
+process's build directory (:func:`build_dir`: the compile cache set by
+:func:`set_build_dir`, else ``ccsc_code_iccv2017_torch/build/``) and
+loaded with ctypes. The file name carries a digest of the library's
+fingerprint (:func:`library_fingerprint`: the source's sha256, the
+flags, nvcc's version, the arch and the chip), so a library built from
+another source, with other flags, by another toolkit or for another
+card is never loaded. ``build_all()`` resolves each library from the
+build directory, else from a library store (``serve.artifacts``), else
+by nvcc, one process per source, all started together, and publishes
+what it built. The wrappers launch on ``torch.cuda.current_stream()``
+and never synchronise. Each nvcc build, each fetch from a store and
+each load of a built library is reported to the open telemetry runs
+(``utils.obs.report_compile``: a ``compile`` record of kind ``build``,
+``fetch`` or ``load``).
 
 ``solve_z_rank1`` takes the plain version ``solve_z_rank1_reference``
 only for tensors on the CPU; for CUDA tensors it launches K1 or raises.
@@ -47,6 +54,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -61,9 +69,11 @@ from ..utils import obs
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCE = os.path.join(CSRC_DIR, "solve_z_rank1.cu")
+# the default build directory (see set_build_dir)
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
+ARCH = "sm_90a"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-gencode", f"arch=compute_90a,code={ARCH}", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # K1's launch geometry (csrc/solve_z_rank1.cu): blocks of K1_TF
@@ -99,74 +109,202 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> str:
+@functools.cache
+def _toolkit(nvcc: str) -> str:
+    """nvcc's version line ("Cuda compilation tools, release 12.6,
+    V12.6.77"; the first line of ``nvcc --version`` names the driver
+    and no version), else its last line. Raises when nvcc cannot say."""
+    proc = subprocess.run([nvcc, "--version"], capture_output=True,
+                          text=True, timeout=120)
+    lines = [ln.strip() for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"{nvcc} --version failed ({proc.returncode}): "
+                           f"{proc.stdout}{proc.stderr}")
+    return next((ln for ln in lines if "release" in ln), lines[-1])
+
+
+_BUILD_DIR: Optional[str] = None
+
+
+def set_build_dir(path: Optional[str]) -> None:
+    """Build and keep the process's libraries in ``path`` (None: back
+    to ``BUILD_DIR``). The serving engine's compile cache
+    (``serve.engine.enable_compile_cache``) sets it once a process."""
+    global _BUILD_DIR
+    _BUILD_DIR = path
+
+
+def build_dir() -> str:
+    """The directory this process builds its libraries into."""
+    return _BUILD_DIR or BUILD_DIR
+
+
+def library_fingerprint(name: str) -> Dict[str, object]:
+    """Everything the build of ``csrc/<name>.cu`` depends on: the
+    source's sha256, ``NVCC_FLAGS``, nvcc's version line, the arch and
+    the chip (``utils.perfmodel.detect_chip``)."""
+    from ..utils import perfmodel
+
     with open(sources()[name], "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+        sha = hashlib.sha256(f.read()).hexdigest()
+    return {"library": name, "source_sha256": sha,
+            "flags": list(NVCC_FLAGS), "compiler": _toolkit(_nvcc()),
+            "arch": ARCH, "chip": perfmodel.detect_chip()}
 
 
-def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
-    """Compile the named kernels (default: every source under csrc/)
-    into the build directory, one nvcc process per source, all started
-    together; a library that exists for the exact source is not rebuilt.
-    Returns, per name, the library path, whether it compiled, the build
-    seconds and the compiler's report (``-Xptxas -v``: registers,
-    shared memory, spills). Raises if any build fails."""
+def fingerprint_digest(fp: Dict[str, object]) -> str:
+    """``<library>-<sha256 of the fingerprint, 20 hex>``: the library's
+    identity in a store record; its first 12 hex name the built file."""
+    blob = json.dumps(fp, sort_keys=True)
+    return f"{fp['library']}-{hashlib.sha256(blob.encode()).hexdigest()[:20]}"
+
+
+def library_file(fp: Dict[str, object], bdir: str, stem: str) -> str:
+    """Where the library of fingerprint ``fp`` is built in ``bdir``:
+    ``lib<stem>_<12 hex>.so``."""
+    return os.path.join(bdir, f"lib{stem}_{fingerprint_digest(fp)[-20:-8]}.so")
+
+
+def _lib_path(name: str, fp=None) -> str:
+    fp = library_fingerprint(name) if fp is None else fp
+    return library_file(fp, build_dir(), name)
+
+
+def fetch_library(store, fp, lib_path: str) -> dict:
+    """Fetch the library of fingerprint ``fp`` (this module's or
+    ``data.native``'s) from ``store`` (a ``serve.artifacts.
+    ArtifactStore``) into ``lib_path``: the store's status (``hit`` or
+    why it refused), its key and the seconds. The payload's sha, chip,
+    fingerprint and compiler version are checked by the store; a
+    refusal leaves ``lib_path`` as it was."""
+    from ..serve.artifacts import library_key
+
+    key = library_key(fingerprint_digest(fp), fp["chip"])
+    t0 = time.perf_counter()
+    blob, status = store.fetch(key, fingerprint=fingerprint_digest(fp),
+                               chip=fp["chip"], toolkit=fp["compiler"])
+    if blob is not None:
+        os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+        tmp = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        with open(tmp, "wb") as f:
+            f.write(blob)
+        os.replace(tmp, lib_path)
+    seconds = time.perf_counter() - t0
+    if blob is not None:
+        obs.report_compile("fetch", fp["library"], seconds)
+    return {"key": key, "fetch_status": status, "fetch_s": seconds}
+
+
+def publish_library(store, fp, lib_path: str) -> str:
+    """Publish the built ``lib_path`` into ``store``; the store's
+    status (won, lost, exists or repair)."""
+    from ..serve.artifacts import library_key
+
+    with open(lib_path, "rb") as f:
+        payload = f.read()
+    _rec, status = store.publish(
+        library_key(fingerprint_digest(fp), fp["chip"]), payload,
+        fingerprint=fingerprint_digest(fp), chip=fp["chip"],
+        toolkit=fp["compiler"], library=fp["library"])
+    return status
+
+
+def build_all(names: Optional[Sequence[str]] = None, store=None,
+              publish: bool = True) -> Dict[str, dict]:
+    """Make the named kernels' libraries (default: every source under
+    csrc/) present in the process's build directory (:func:`build_dir`),
+    each in this order: already there
+    (``source`` ``cache-hit``); fetched from ``store`` (a
+    ``serve.artifacts.ArtifactStore``; ``fetched``); else built by nvcc,
+    one process per source, all started together (``compiled``), and
+    published into ``store`` when ``publish``. Returns, per name, the
+    library path, its ``source``, ``compiled``, the build seconds
+    (``seconds``, ``compile_s``), the compiler's report (``-Xptxas -v``:
+    registers, shared memory, spills), the store ``key``,
+    ``fetch_status``, ``fetch_s`` and ``publish_status`` (None where
+    there was no store). Raises if any build fails."""
     srcs = sources()
     names = list(srcs) if names is None else list(names)
     out, running = {}, {}
     for name in names:
-        lib_path = _lib_path(name)
+        fp = library_fingerprint(name)
+        lib_path = _lib_path(name, fp)
+        entry = {"path": lib_path, "source": "cache-hit", "compiled": False,
+                 "seconds": 0.0, "compile_s": None, "log": "", "key": None,
+                 "fetch_status": None, "fetch_s": None,
+                 "publish_status": None, "fingerprint": fp}
+        if not os.path.exists(lib_path) and store is not None:
+            entry.update(fetch_library(store, fp, lib_path))
+            if entry["fetch_status"] == "hit":
+                entry["source"] = "fetched"
         if os.path.exists(lib_path):
-            out[name] = {"path": lib_path, "compiled": False,
-                         "seconds": 0.0, "log": ""}
+            out[name] = entry
             continue
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(os.path.dirname(lib_path), exist_ok=True)
         tmp = f"{lib_path}.{os.getpid()}.tmp"
         proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", tmp, srcs[name]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        running[name] = (proc, tmp, lib_path, time.perf_counter())
+        running[name] = (proc, tmp, entry, time.perf_counter())
     failed = []
-    for name, (proc, tmp, lib_path, t0) in running.items():
+    for name, (proc, tmp, entry, t0) in running.items():
         log, _ = proc.communicate(timeout=600)
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}) building "
                           f"{srcs[name]}:\n{log}")
             continue
-        os.replace(tmp, lib_path)
-        out[name] = {"path": lib_path, "compiled": True,
-                     "seconds": seconds, "log": log}
+        os.replace(tmp, entry["path"])
+        entry.update(source="compiled", compiled=True, seconds=seconds,
+                     compile_s=seconds, log=log)
         obs.report_compile("build", name, seconds)
+        if store is not None and publish:
+            entry["publish_status"] = publish_library(
+                store, entry["fingerprint"], entry["path"])
+        out[name] = entry
     if failed:
         raise RuntimeError("\n".join(failed))
     return out
 
 
-def build(name: str = "solve_z_rank1") -> dict:
-    """Compile one kernel (``csrc/<name>.cu``); see :func:`build_all`."""
-    return build_all([name])[name]
+def build(name: str = "solve_z_rank1", store=None,
+          publish: bool = True) -> dict:
+    """Make one kernel's library (``csrc/<name>.cu``) present; see
+    :func:`build_all`."""
+    return build_all([name], store=store, publish=publish)[name]
 
 
 _LOAD_LOCK = threading.Lock()
 _LIBRARIES: Dict[str, ctypes.CDLL] = {}
 
 
-def bound_library(name: str, bind) -> ctypes.CDLL:
-    """The shared library of ``csrc/<name>.cu``, built and loaded on
-    first use and passed once through ``bind`` (which declares its entry
-    points' types). One lock covers the build and the load, so threads
-    that reach a kernel together build it once."""
+def load_library(name: str, bind, store=None, publish: bool = True) -> dict:
+    """The shared library of ``csrc/<name>.cu``, resolved (build
+    directory, ``store``, nvcc: :func:`build`) and loaded on first use
+    and passed once through ``bind`` (which declares its entry points'
+    types). One lock covers the fetch, the build and the load, so
+    threads that reach a kernel together fetch or build it once.
+    Returns :func:`build`'s dict with the library as ``lib``; a library
+    this process had loaded already is a ``cache-hit`` with no
+    fetch."""
     with _LOAD_LOCK:
         lib = _LIBRARIES.get(name)
-        if lib is None:
-            path = build(name)["path"]
-            t0 = time.perf_counter()
-            lib = _LIBRARIES[name] = bind(ctypes.CDLL(path))
-            obs.report_compile("load", name, time.perf_counter() - t0)
-        return lib
+        if lib is not None:
+            return {"lib": lib, "source": "cache-hit", "compile_s": None,
+                    "key": None, "fetch_status": None, "fetch_s": None,
+                    "publish_status": None}
+        info = build(name, store=store, publish=publish)
+        t0 = time.perf_counter()
+        lib = _LIBRARIES[name] = bind(ctypes.CDLL(info["path"]))
+        obs.report_compile("load", name, time.perf_counter() - t0)
+        return dict(info, lib=lib)
+
+
+def bound_library(name: str, bind) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (see
+    :func:`load_library`; no store)."""
+    return load_library(name, bind)["lib"]
 
 
 def _bind_k1(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -182,6 +320,13 @@ def _bind_k1(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _library() -> ctypes.CDLL:
     return bound_library("solve_z_rank1", _bind_k1)
+
+
+def load_k1(store=None, publish: bool = True) -> dict:
+    """K1's library, through ``store`` on its first load in this
+    process (see :func:`load_library`): the serving engine's warmup
+    calls it."""
+    return load_library("solve_z_rank1", _bind_k1, store, publish)
 
 
 @functools.cache

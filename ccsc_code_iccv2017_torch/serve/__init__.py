@@ -12,10 +12,19 @@ file-lease queue :class:`DurableQueue` (serve.dqueue), federation
 (:class:`FederatedFrontend`, :class:`FederatedHost`,
 :class:`FederatedHostPool`, serve.federation), the SLO-feedback
 :class:`CapacityController` (serve.controller) and deterministic traffic
-replay (:class:`ReplayDriver`, :func:`generate_diurnal`, serve.replay).
-The artifact store, the compile cache and staged warmup are ROADMAP.md
-Queue 1 item 11, step 5.
+replay (:class:`ReplayDriver`, :func:`generate_diurnal`, serve.replay);
+and the warmup: the library store (:class:`ArtifactStore`,
+:func:`library_key`, :func:`rank_buckets`, serve.artifacts), the
+compile cache (:func:`enable_compile_cache`) and staged warmup
+(serve.engine).
 """
+from .artifacts import (
+    ArtifactStore,
+    bucket_label,
+    library_key,
+    rank_buckets,
+    resolve_artifact_dir,
+)
 from .capture import WorkloadRecorder
 from .controller import ActuatorStuck, BreakerOpen, CapacityController
 from .dqueue import DurableQueue
@@ -24,6 +33,7 @@ from .engine import (
     CodecEngine,
     DeadlineExceeded,
     ServedResult,
+    enable_compile_cache,
     pick_bucket,
 )
 from .federation import (
@@ -47,6 +57,7 @@ from .tenancy import (
 
 __all__ = [
     "ActuatorStuck",
+    "ArtifactStore",
     "BankRegistry",
     "BreakerOpen",
     "BucketCold",
@@ -72,8 +83,13 @@ __all__ = [
     "WeightedFairScheduler",
     "WorkloadRecorder",
     "bank_digest",
+    "bucket_label",
+    "enable_compile_cache",
     "generate_diurnal",
+    "library_key",
     "parse_tenant_spec",
     "pick_bucket",
+    "rank_buckets",
+    "resolve_artifact_dir",
     "valid_region_psnr",
 ]

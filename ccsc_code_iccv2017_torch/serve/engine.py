@@ -63,7 +63,33 @@ many requests:
    its outcome digest, PSNR and latency, under the solve parameters it
    serves with, so a capture replays bit for bit. With
    ``CCSC_PERF_LEDGER`` set, warmup appends the join-to-first-request
-   ``kind=warmup`` ledger record (analysis.ledger).
+   ``kind=warmup`` ledger record (analysis.ledger), once per startup
+   (replica 0 or a standalone engine).
+
+7. **The compile cache, the library store and staged warmup** (the
+   JAX engine's design, with libraries in place of programs: an engine
+   of the port compiles no program, and its one slow build that can be
+   reused is K1's library). ``ServeConfig.compile_cache`` (else
+   ``CCSC_COMPILE_CACHE``; :func:`enable_compile_cache`, latched once a
+   process) is the directory the kernel libraries are built into and
+   kept in, so a restarted process loads them instead of running nvcc.
+   ``ServeConfig.artifact_store`` (else ``CCSC_ARTIFACT_STORE``;
+   serve.artifacts) is a store shared between hosts: a library missing
+   from the compile cache is fetched from it, and one this process had
+   to build is published to it (``CCSC_ARTIFACT_PUBLISH``). Warmup runs
+   one stage per bucket, hot to cold (``serve.artifacts.rank_buckets``:
+   ``warm_order``, else the request frequency of ``warm_rank_capture``
+   / ``CCSC_WARM_RANK_CAPTURE``, else volume order): the plan build,
+   then, on the card, the library (fetched, compiled or a cache-hit),
+   then one warm dispatch. The hottest bucket warms in the
+   constructor; with ``staged_warmup`` (else ``CCSC_SERVE_STAGED``) the
+   rest warm in a ``ccsc-serve-warmup`` thread while the engine serves,
+   and a submit to a bucket still cold is refused with
+   :class:`BucketCold`. A library loads once a process, so only the
+   first stage of a process can report ``fetched`` or ``compiled`` and
+   ``n_fetched`` / ``n_compiled`` count libraries. On the CPU the
+   engine loads no library: a stage's source is ``compiled`` and a set
+   store is left untouched.
 
 The host reads one scalar per iteration per bucket (the count of
 active slots; on a mesh, per position) instead of one per request.
@@ -73,14 +99,15 @@ every exception on its batch's futures; nothing falls back to the CPU.
 The fleet layer (serve.fleet) drives replica engines through the
 fleet-internal ``submit`` arguments, ``replica_id`` and the members
 ``bucket_warm``, ``cache_dir``, ``last_it_rate`` and ``_knob_dict``.
-Tuning, pipelining, artifacts and staged warmup are later ROADMAP.md
-Queue 1 items (9, 11 second half); ``ServeConfig`` refuses them.
+Tuning and pipelining are ROADMAP.md Queue 1 item 9; ``ServeConfig``
+refuses them.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
+import os
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -97,10 +124,13 @@ from ..models.reconstruct import (
     build_plan,
     place_plan,
 )
+from ..data import native
+from ..ops import kernels
 from ..parallel.local_mesh import LocalMesh, MeshBarrierError
 from ..utils import env, obs, perfmodel, profiling, validate
 from ..utils import trace as trace_util
 from ..utils.device import resolve_device
+from . import artifacts as _artifacts
 from . import capture as _capture_mod
 from . import quality as _quality_mod
 from . import registry
@@ -108,14 +138,58 @@ from . import slo as _slo
 from .quality import valid_region_psnr
 
 
+# the directory the process's libraries are built into, latched by the
+# first enable_compile_cache: the build directory is a process
+# singleton, so a later call with another path must say so out loud
+_compile_cache_path: Optional[str] = None
+_COMPILE_CACHE_LOCK = threading.Lock()
+
+
+def enable_compile_cache(path: Optional[str]) -> Optional[str]:
+    """Build and keep the process's kernel libraries (``ops.kernels``)
+    and native library (``data.native``) in ``path`` (None resolves
+    through ``CCSC_COMPILE_CACHE``), so a library a previous process
+    built there is LOADED, not rebuilt — the warm-restart half of the
+    serving cold-start story. Returns the directory in force, or None.
+
+    The directory is per process and latched: the first enabled path
+    stays in force for the process's life. A second call with the SAME
+    path is a no-op; one with a DIFFERENT path keeps the first and
+    warns on the obs console with both paths (tier ``always``) — never
+    a silent no-op."""
+    global _compile_cache_path
+    path = path or env.env_str("CCSC_COMPILE_CACHE") or None
+    if not path:
+        return None
+    with _COMPILE_CACHE_LOCK:
+        if _compile_cache_path is not None:
+            if os.path.abspath(path) != os.path.abspath(
+                    _compile_cache_path):
+                obs.console(
+                    "serve: compile cache already latched to "
+                    f"{_compile_cache_path!r} for this process — ignoring "
+                    f"the new path {path!r} (the build directory is "
+                    "per-process; libraries keep landing in the first "
+                    "directory)",
+                    tier="always",
+                )
+            return _compile_cache_path
+        os.makedirs(path, exist_ok=True)
+        kernels.set_build_dir(path)
+        native.set_build_dir(path)
+        _compile_cache_path = path
+        return path
+
+
 class BucketCold(RuntimeError):
-    """Admission refusal for a bucket whose program is still building
-    under staged warmup (``ServeConfig.staged_warmup``, ROADMAP.md
-    Queue 1 item 11, second half): the engine is live for its warm
-    buckets, only this one is not ready. Carries ``retry_after_s`` like
-    the fleet's ``Overloaded``. Without staged warmup every bucket is
-    warm once the engine is constructed, so the port raises it
-    nowhere yet; the fleet imports it."""
+    """Admission refusal for a bucket still warming under STAGED warmup
+    (``ServeConfig.staged_warmup``): the engine is live and serving its
+    warm buckets — only this bucket isn't ready yet. Carries
+    ``retry_after_s`` like the fleet's ``Overloaded`` (the client backs
+    off and resubmits; the federation layer defers the item instead of
+    failing it). Deliberately NOT an Overloaded subclass: the engine
+    must not import the fleet, and the two refusals mean different
+    things."""
 
     def __init__(self, bucket: str, retry_after_s: float):
         super().__init__(
@@ -287,8 +361,10 @@ class CodecEngine:
     """Pin (bank, problem, config) once; serve many requests.
 
     Construction does the expensive work once: full bank/config/bucket
-    validation, per-bucket plans, and (``aot_warmup``) one warm dispatch
-    per bucket. The per-request path is: cheap shape/finite checks,
+    validation, per-bucket plans, K1's library (on the card: from the
+    compile cache, the library store or nvcc) and (``aot_warmup``) one
+    warm dispatch per bucket, hot to cold (staged: the rest after the
+    constructor returns). The per-request path is: cheap shape/finite checks,
     queue, one batched dispatch, slice. ``submit`` may be called from
     any thread; one worker thread owns dispatch order and the device.
     ``device`` (default ``"cuda"``) raises when CUDA is absent; on a
@@ -358,10 +434,9 @@ class CodecEngine:
         self._quality = _quality_mod.QualityMonitor(
             check_s=serve_cfg.slo_check_s)
         self._replica_id = serve_cfg.replica_id
-        # the persistent compile cache is item 11's second half: a
-        # restarted replica rebuilds plans, never kernels (the library
-        # is loaded once a process)
-        self.cache_dir: Optional[str] = None
+        # the build directory of the kernel libraries: a restarted
+        # process loads what an earlier one built there
+        self.cache_dir = enable_compile_cache(serve_cfg.compile_cache)
         self._last_it_rate = 0.0  # newest dispatch's measured it/s
         self._knob_dict = {
             k: getattr(cfg, k) for k in ("fft_impl", "fft_pad",
@@ -378,7 +453,7 @@ class CodecEngine:
             device=self.device,
             buckets=[{"slots": s, "spatial": list(sp)}
                      for s, sp in serve_cfg.buckets],
-            compile_cache=None, serve_devices=self.devices,
+            compile_cache=self.cache_dir, serve_devices=self.devices,
             serve_mesh=list(self._mesh_shape) if self._mesh_shape else None,
             problem={"pad": prob.pad, "dirac": prob.dirac,
                      "data_term": prob.data_term},
@@ -423,6 +498,7 @@ class CodecEngine:
             with self._close_lock:
                 self._close_started = True
             self._stop_worker()
+            self._close_store()
             if self._capture is not None:
                 self._capture.close(status_note="init_failed")
             self._run.close(status="error")
@@ -474,63 +550,218 @@ class CodecEngine:
                 )
                 for pos in range(self._mesh.size)
             ]
-        where = (self.device if self._mesh is None else
-                 f"mesh {self._mesh_shape} on "
-                 f"{[str(v) for v in self._mesh.devices]}")
-        t_warm0 = time.perf_counter()
-        for stage, bkey in enumerate(self._buckets):
-            t0 = time.perf_counter()
-            plan = self._install_plan(default_digest, bkey, d,
-                                      announce=False)
-            if serve_cfg.aot_warmup:
-                self._warm_dispatch(bkey, plan)
-            dt = time.perf_counter() - t0
-            name = _bucket_name(*bkey)
-            # "compiled": the warm dispatch built the kernels and the
-            # cuFFT plans; "lazy": the first request pays them
-            source = "compiled" if serve_cfg.aot_warmup else "lazy"
-            self._emit(
-                "serve_warmup", bucket=name, aot=bool(serve_cfg.aot_warmup),
-                source=source, warmup_s=round(dt, 4), fetch_s=None,
-                compile_s=None, devices=self.devices, digest=default_digest,
-                mesh=list(self._mesh_shape) if self._mesh_shape else None,
-                knobs=self._knob_dict,
-            )
-            self._emit(
-                "warmup_stage", bucket=name, stage=stage,
-                n_stages=len(self._buckets), source=source,
-                ready_s=round(time.perf_counter() - t_warm0, 4),
-            )
-            self._run.console(f"serve: bucket {name} warm in {dt:.3f} s on "
-                              f"{where}", tier="brief")
-        total = time.perf_counter() - t_warm0
-        self._emit(
-            "serve_ready", n_buckets=len(self._buckets),
-            warmup_s=round(total, 4), first_ready_s=round(total, 4),
-            staged=False, n_fetched=0,
-            n_compiled=len(self._buckets) if serve_cfg.aot_warmup else 0,
-            persistent_cache_hits=None, devices=self.devices,
-            mesh=list(self._mesh_shape) if self._mesh_shape else None,
-            knobs=self._knob_dict,
-        )
-        # join-to-first-request as a ledger configuration (a no-op
-        # unless CCSC_PERF_LEDGER is set; never raises); lazy engines
-        # skip it
-        if serve_cfg.aot_warmup:
-            from ..analysis import ledger as _ledger
-
-            _ledger.append_warmup_record(
-                chip=perfmodel.detect_chip(self.device),
-                buckets=self._buckets, join_s=total,
-                mesh_shape=self._mesh_shape, knobs=self._knob_dict,
-                staged=False, artifact_store=False,
-                n_compiled=len(self._buckets),
-            )
-
+        # one dispatch at a time on a mesh: the warm thread's warm
+        # dispatches and the worker's share the positions' threads and
+        # barriers
+        self._mesh_lock = threading.Lock()
         self._worker = threading.Thread(
             target=self._work_loop, name="ccsc-serve", daemon=True
         )
         self._worker.start()
+
+        # ---- staged warmup + the library store -----------------------
+        # Each stage makes one bucket serveable: its plan, then (on the
+        # card) K1's library — from the compile cache, FETCHED from the
+        # shared store, or built and published back so the next joining
+        # host fetches it — then one warm dispatch. Staged mode warms
+        # hot to cold and returns from the constructor after the FIRST
+        # bucket is serveable; the rest warm in a background thread
+        # while submits to still-cold buckets get a BucketCold
+        # retry-after refusal.
+        self._chip = perfmodel.detect_chip(self.device)
+        staged = serve_cfg.staged_warmup
+        if staged is None:
+            staged = env.env_flag("CCSC_SERVE_STAGED")
+        # lazy engines (aot_warmup off) have nothing to stage: every
+        # bucket is "warm" at once and pays its warmup on first use
+        self._staged = bool(staged) and bool(serve_cfg.aot_warmup)
+        # on the CPU no library loads, so a set store stays untouched
+        self._uses_libraries = any(v.type == "cuda"
+                                   for v in self.position_devices)
+        store_dir = _artifacts.resolve_artifact_dir(serve_cfg.artifact_store)
+        self._artifacts = (
+            _artifacts.ArtifactStore(store_dir, emit=self._emit)
+            if store_dir and serve_cfg.aot_warmup and self._uses_libraries
+            else None
+        )
+        self._artifact_publish = env.env_flag("CCSC_ARTIFACT_PUBLISH")
+        rank_dir = serve_cfg.warm_rank_capture
+        if rank_dir == "":
+            rank_dir = None
+        else:
+            rank_dir = (rank_dir or env.env_str("CCSC_WARM_RANK_CAPTURE")
+                        or None)
+        self._warm_order = _artifacts.rank_buckets(
+            self._buckets, declared=serve_cfg.warm_order,
+            capture_dir=rank_dir,
+        )
+        self._warm: set = set()
+        self._stage_s: List[float] = []
+        self._warm_t0 = time.perf_counter()
+        self._first_ready_s: Optional[float] = None
+        self._n_fetched = 0
+        self._n_compiled = 0
+        self._warm_error: Optional[BaseException] = None
+        self._warm_stop = threading.Event()
+        self._warm_thread: Optional[threading.Thread] = None
+        self._cold_retry_floor = env.env_float("CCSC_BUCKET_COLD_RETRY_S")
+        self._cold_emit_t: Dict[Tuple, float] = {}
+
+        n_stages = len(self._warm_order)
+        # the hottest bucket warms SYNCHRONOUSLY: a constructed engine
+        # can always serve something
+        self._warm_bucket(self._warm_order[0], 1, n_stages)
+        if self._staged and n_stages > 1:
+            self._warm_thread = threading.Thread(
+                target=self._warm_loop, name="ccsc-serve-warmup",
+                daemon=True,
+            )
+            self._warm_thread.start()
+        else:
+            for i, key in enumerate(self._warm_order[1:], start=2):
+                self._warm_bucket(key, i, n_stages)
+            self._finish_warmup()
+
+    def _warm_loop(self):
+        """Background half of staged warmup: warm the cold buckets hot
+        to cold while the engine is already serving. A failed stage
+        poisons only the REMAINING cold buckets (their submits fail fast
+        instead of retrying forever); everything already warm keeps
+        serving."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        n_stages = len(self._warm_order)
+        for i, key in enumerate(self._warm_order[1:], start=2):
+            if self._warm_stop.is_set():
+                return
+            try:
+                self._warm_bucket(key, i, n_stages)
+            except BaseException as e:
+                self._warm_error = e
+                self._emit(
+                    "serve_error",
+                    error=("staged warmup failed at bucket "
+                           f"{_bucket_name(*key)}: {e}")[:300],
+                )
+                self._run.console(
+                    "serve: staged warmup FAILED at bucket "
+                    f"{_bucket_name(*key)} — cold buckets will refuse "
+                    f"requests: {e}",
+                    tier="always",
+                )
+                return
+        self._finish_warmup()
+
+    def _warm_bucket(self, key, stage: int, n_stages: int) -> None:
+        """Make ONE bucket serveable: build its plan, make sure K1's
+        library is loaded (on the card: fetched from the store, built
+        and published, or a cache-hit), run one warm dispatch, and mark
+        the bucket warm. Emits ``artifact_fetch`` (when the store was
+        asked), ``serve_warmup`` and ``warmup_stage`` with the stage's
+        source: fetched | compiled | cache-hit | lazy."""
+        serve_cfg = self.serve_cfg
+        name = _bucket_name(*key)
+        t0 = time.perf_counter()
+        plan = self._install_plan(self._default_digest, key,
+                                  self._banks[self._default_digest],
+                                  announce=False)
+        source, fetch_s, compile_s = "lazy", None, None
+        if serve_cfg.aot_warmup:
+            # on the CPU a stage is the plan and one warm dispatch: no
+            # library loads
+            source = "compiled"
+            if self._uses_libraries:
+                source, fetch_s, compile_s = self._warm_library(name)
+            self._warm_dispatch(key, plan)
+        dt = time.perf_counter() - t0
+        with self._cv:
+            self._warm.add(key)
+            ready_s = time.perf_counter() - self._warm_t0
+            if self._first_ready_s is None:
+                self._first_ready_s = ready_s
+            self._stage_s.append(dt)
+            if source == "fetched":
+                self._n_fetched += 1
+            elif source == "compiled":
+                self._n_compiled += 1
+            self._cv.notify_all()
+        self._emit(
+            "serve_warmup", bucket=name, aot=bool(serve_cfg.aot_warmup),
+            source=source, warmup_s=round(dt, 4), fetch_s=fetch_s,
+            compile_s=compile_s, devices=self.devices,
+            digest=self._default_digest,
+            mesh=list(self._mesh_shape) if self._mesh_shape else None,
+            knobs=self._knob_dict,
+        )
+        self._emit(
+            "warmup_stage", bucket=name, stage=stage, n_stages=n_stages,
+            source=source, ready_s=round(ready_s, 4),
+        )
+        where = (self.device if self._mesh is None else
+                 f"mesh {self._mesh_shape} on "
+                 f"{[str(v) for v in self._mesh.devices]}")
+        self._run.console(f"serve: bucket {name} warm in {dt:.3f} s on "
+                          f"{where} (stage {stage}/{n_stages}, {source})",
+                          tier="brief")
+
+    def _warm_library(self, bucket: str):
+        """K1's library for a stage on the card: ``(source, fetch_s,
+        compile_s)``. The first load of the process resolves it through
+        the compile cache, the store and nvcc (ops.kernels.load_k1);
+        every later stage is a cache-hit."""
+        info = kernels.load_k1(store=self._artifacts,
+                               publish=self._artifact_publish)
+        fetch_s = (None if info["fetch_s"] is None
+                   else round(info["fetch_s"], 4))
+        if info["fetch_status"] is not None:
+            self._emit(
+                "artifact_fetch", key=info["key"],
+                status=info["fetch_status"], bucket=bucket,
+                fetch_s=fetch_s, store=self._artifacts.path,
+                library="solve_z_rank1",
+            )
+        compile_s = (None if info["compile_s"] is None
+                     else round(info["compile_s"], 4))
+        return info["source"], fetch_s, compile_s
+
+    def _finish_warmup(self) -> None:
+        """Close out warmup (both modes): the ``serve_ready`` record and
+        console line, and the join-to-first-request perf-ledger record,
+        appended once per startup (replica 0 or a standalone engine;
+        lazy engines skip it)."""
+        total = time.perf_counter() - self._warm_t0
+        first = (self._first_ready_s if self._first_ready_s is not None
+                 else total)
+        self._emit(
+            "serve_ready", n_buckets=len(self._buckets),
+            warmup_s=round(total, 4), first_ready_s=round(first, 4),
+            staged=self._staged, n_fetched=self._n_fetched,
+            n_compiled=self._n_compiled, persistent_cache_hits=None,
+            devices=self.devices,
+            mesh=list(self._mesh_shape) if self._mesh_shape else None,
+            knobs=self._knob_dict,
+        )
+        self._run.console(
+            f"serve: {len(self._buckets)} bucket(s) ready in {total:.2f}s "
+            f"(first serveable {first:.2f}s, {self._n_fetched} fetched, "
+            f"{self._n_compiled} compiled)"
+            + (f" (compile cache {self.cache_dir})" if self.cache_dir
+               else "")
+            + (f" (artifact store {self._artifacts.path})"
+               if self._artifacts is not None else ""),
+            tier="brief",
+        )
+        if self.serve_cfg.replica_id in (None, 0) and \
+                self.serve_cfg.aot_warmup:
+            from ..analysis import ledger as _ledger
+
+            _ledger.append_warmup_record(
+                chip=self._chip, buckets=self._buckets, join_s=first,
+                mesh_shape=self._mesh_shape, knobs=self._knob_dict,
+                staged=self._staged,
+                artifact_store=self._artifacts is not None,
+                n_compiled=self._n_compiled,
+            )
 
     def _warm_dispatch(self, bkey, plan) -> None:
         """One iteration on an all-filler canvas at the bucket's shape:
@@ -547,7 +778,8 @@ class CodecEngine:
         engine's device, or scattered over the mesh's positions
         (``plan`` is then the list of their plans)."""
         if self._mesh is not None:
-            return self._solve_mesh(plan, bb, mm, ss, xx, cfg)
+            with self._mesh_lock:
+                return self._solve_mesh(plan, bb, mm, ss, xx, cfg)
         out = self._slotwise(self.device, plan, bb, mm, ss, xx, cfg)
         host = self._readback(out, cfg, xx is not None)
         host["position_iters"] = [int(host["iters"].max())]
@@ -693,7 +925,8 @@ class CodecEngine:
         ``tenant`` rides through to telemetry, quality and capture.
         ``deadline_ms`` bounds the request end to end; an expired
         request is refused with :class:`DeadlineExceeded` before it
-        costs a solve slot.
+        costs a solve slot, and one for a bucket still warming under
+        staged warmup with :class:`BucketCold` (its retry-after).
 
         Fleet-internal, as in the JAX package: ``_validated`` skips the
         request checks the fleet already ran at admission; ``_trace``
@@ -735,34 +968,60 @@ class CodecEngine:
             deadline=deadline, trace_id=trace_id, parent_span=parent_span,
             own_root=own_root,
         )
+        cold_retry: Optional[float] = None
         with self._cv:
             if self._closed or self._close_started:
                 raise RuntimeError("engine is closed")
-            # the digest binds under the queue lock: publish_bank flips
-            # routes and retires digests under the same lock
-            if _digest is not None:
-                digest = _digest
-                if digest not in self._banks:
-                    raise validate.CCSCInputError(
-                        f"bank digest {digest!r} is not published on "
-                        "this engine — publish the bank (add_bank) "
-                        "before routing requests to it"
+            if key not in self._warm:
+                # staged warmup: THIS bucket is still warming — refuse
+                # only it (retry-after), never block the whole engine. A
+                # failed warmup poisons the remaining cold buckets
+                # instead: their requests fail fast, not retry forever
+                if self._warm_error is not None:
+                    raise RuntimeError(
+                        f"bucket {_bucket_name(*key)} will never warm — "
+                        f"staged warmup failed: {self._warm_error}"
                     )
+                stages = self._stage_s
+                cold_retry = max(
+                    float(self._cold_retry_floor),
+                    (sum(stages) / len(stages)) if stages else 0.0,
+                )
             else:
-                digest = self._routes.get(bank_id)
-                if digest is None:
-                    raise validate.CCSCInputError(
-                        f"unknown bank id {bank_id!r} — published: "
-                        f"{sorted(k for k in self._routes if k)} "
-                        "(default bank routes as bank_id=None)"
-                    )
-            p.digest = digest
-            if self._capture is not None:
-                self._cap_seq += 1
-                p.cap_key = f"{self._cap_prefix}-{self._cap_seq:08d}"
-            self._pending.setdefault((key, digest), []).append(p)
-            self._n_pending += 1
-            self._cv.notify()
+                # the digest binds under the queue lock: publish_bank
+                # flips routes and retires digests under the same lock
+                if _digest is not None:
+                    digest = _digest
+                    if digest not in self._banks:
+                        raise validate.CCSCInputError(
+                            f"bank digest {digest!r} is not published on "
+                            "this engine — publish the bank (add_bank) "
+                            "before routing requests to it"
+                        )
+                else:
+                    digest = self._routes.get(bank_id)
+                    if digest is None:
+                        raise validate.CCSCInputError(
+                            f"unknown bank id {bank_id!r} — published: "
+                            f"{sorted(k for k in self._routes if k)} "
+                            "(default bank routes as bank_id=None)"
+                        )
+                p.digest = digest
+                if self._capture is not None:
+                    self._cap_seq += 1
+                    p.cap_key = f"{self._cap_prefix}-{self._cap_seq:08d}"
+                self._pending.setdefault((key, digest), []).append(p)
+                self._n_pending += 1
+                self._cv.notify()
+        if cold_retry is not None:
+            # emitted OUTSIDE the queue lock, at most once a second per
+            # bucket: a tight client retry loop must not flood the stream
+            now = time.monotonic()
+            if now - self._cold_emit_t.get(key, 0.0) >= 1.0:
+                self._cold_emit_t[key] = now
+                self._emit("bucket_cold", bucket=_bucket_name(*key),
+                           retry_after_s=round(cold_retry, 3))
+            raise BucketCold(_bucket_name(*key), cold_retry)
         if p.cap_key is not None:
             # recorded outside the queue lock: hashing and the segment
             # append must not serialize submitters against dispatch
@@ -1115,16 +1374,22 @@ class CodecEngine:
         }
 
     def bucket_warm(self, key) -> bool:
-        """Is ``key``'s (slots, spatial) bucket serveable? Without the
-        staged warmup every configured bucket is, once the engine is
-        constructed."""
+        """Is ``key``'s (slots, spatial) bucket warm and serveable? The
+        fleet's admission boundary asks this before queueing work for a
+        replica set that is still staging."""
         slots, spatial = key
-        return (int(slots), tuple(int(v) for v in spatial)) in self._buckets
+        key = (int(slots), tuple(int(v) for v in spatial))
+        with self._cv:
+            return key in self._warm
 
     def warmup_eta_s(self) -> float:
-        """Retry-after hint for a cold bucket: none is ever cold before
-        the staged warmup."""
-        return 0.0
+        """Retry-after hint for a cold bucket: the mean measured
+        per-stage warmup time so far, floored by
+        CCSC_BUCKET_COLD_RETRY_S."""
+        with self._cv:
+            stages = list(self._stage_s)
+        eta = (sum(stages) / len(stages)) if stages else 0.0
+        return max(float(self._cold_retry_floor), eta)
 
     @property
     def last_it_rate(self) -> float:
@@ -1392,6 +1657,11 @@ class CodecEngine:
         for pool in getattr(self, "_pools", ()):
             pool.shutdown(wait=True)
 
+    def _close_store(self) -> None:
+        store = getattr(self, "_artifacts", None)
+        if store is not None:
+            store.close()
+
     def close(self):
         """Flush every pending request, stop the worker, and close the
         telemetry run: one closing ``slo_histogram`` per phase, then the
@@ -1405,7 +1675,21 @@ class CodecEngine:
             self._close_done.wait()
             return
         try:
+            # stop staged warmup first: the warm thread checks the stop
+            # event between stages, so a close during a long cold build
+            # waits at most one stage out
+            ws = getattr(self, "_warm_stop", None)
+            if ws is not None:
+                ws.set()
+            wt = getattr(self, "_warm_thread", None)
+            while wt is not None and wt.is_alive():
+                wt.join(timeout=60)
+                if wt.is_alive():
+                    self._run.console("serve: close() waiting on an "
+                                      "in-flight warmup stage",
+                                      tier="always")
             self._stop_worker()
+            self._close_store()
             cap = getattr(self, "_capture", None)
             if cap is not None:
                 # seal the capture (meta.json counters and the

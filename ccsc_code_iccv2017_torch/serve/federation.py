@@ -472,7 +472,11 @@ class FederatedHost:
     delivery durably back through the queue. The beat thread renews
     the host's heartbeat, runs the reaper, and emits
     ``fed_heartbeat``. ``device`` (default ``"cuda"``) is passed to
-    the host's fleet; it raises when CUDA is absent.
+    the host's fleet; it raises when CUDA is absent. ``serve_cfg``
+    reaches every replica engine of the host's fleet, so a host process
+    started with ``serve_cfg.artifact_store`` fetches K1's library from
+    the shared store instead of running nvcc (and ``compile_cache`` /
+    ``staged_warmup`` apply as on a bare engine).
     """
 
     def __init__(

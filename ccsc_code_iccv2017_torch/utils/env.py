@@ -212,10 +212,46 @@ REGISTRY: Dict[str, Knob] = {
              "anomaly watch (unset = ledger off)",
              "analysis.ledger, utils.obs, serve.bench, serve.engine"),
         Knob("CCSC_COMPILE_CACHE", "path", None,
-             "cache directory: the default ledger location "
+             "cache directory: the directory the kernel libraries (nvcc) "
+             "and the native library (g++) are built into and kept in, "
+             "so a restarted process loads them instead of building "
+             "(fallback of ServeConfig.compile_cache; latched once a "
+             "process), and the default ledger location "
              "($CCSC_COMPILE_CACHE/ccsc_perf_ledger.jsonl) when "
              "CCSC_PERF_LEDGER is unset",
-             "analysis.ledger"),
+             "serve.engine, analysis.ledger"),
+        # -- the library store and staged warmup (serve.artifacts,
+        # serve.engine) -------------------------------------------------
+        Knob("CCSC_ARTIFACT_STORE", "path", None,
+             "shared library store directory (manifest.jsonl + the built "
+             "kernel libraries under libraries/, keyed by a fingerprint "
+             "of source, flags, compiler and chip): warmup fetches a "
+             "library instead of building it and publishes what it "
+             "built (fallback of ServeConfig.artifact_store; unset = no "
+             "store)",
+             "serve.artifacts, serve.engine, apps.serve"),
+        Knob("CCSC_ARTIFACT_PUBLISH", "flag", True,
+             "publish a library this process had to build into the "
+             "store so the next joining host fetches it (0 = "
+             "fetch-only consumer)",
+             "serve.engine"),
+        Knob("CCSC_SERVE_STAGED", "flag", False,
+             "staged warmup: serve the hottest bucket as soon as it is "
+             "warm while cold buckets warm in a background thread "
+             "(submits to cold buckets get a BucketCold retry-after "
+             "refusal; fallback of ServeConfig.staged_warmup)",
+             "serve.engine, apps.serve"),
+        Knob("CCSC_WARM_RANK_CAPTURE", "path", None,
+             "workload-capture directory used to rank buckets hot to "
+             "cold by recorded request frequency for staged warmup "
+             "(fallback of ServeConfig.warm_rank_capture; unset = "
+             "configured volume order)",
+             "serve.engine"),
+        Knob("CCSC_BUCKET_COLD_RETRY_S", "float", 0.5,
+             "floor of the BucketCold retry-after hint in seconds while "
+             "a bucket is still warming (the measured per-stage warmup "
+             "time raises it)",
+             "serve.engine, serve.fleet"),
         Knob("CCSC_PERF_GATE_MAD", "float", 3.0,
              "regression band half-width in MAD-sigmas below the per-key "
              "history median",

@@ -47,7 +47,7 @@ prove:
   floor, so the stall detector must NOT fire) on EVERY request:
   slow-but-alive, the pathology hedged attempts exist for. Sustained,
   not fire-once; the marker records only the first slowed request.
-- control-plane faults (the fleet controller, not ported yet):
+- control-plane faults (the fleet controller, serve.controller):
   ``CCSC_FAULT_CTRL_SENSOR_BLACKOUT=k`` blanks the controller's
   sensor read from its k-th tick for ``CCSC_FAULT_CTRL_BLACKOUT_S``
   seconds (fail-safe holdoff provable), ``CCSC_FAULT_CTRL_ACT_HANG=n``

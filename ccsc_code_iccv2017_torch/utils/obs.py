@@ -328,9 +328,10 @@ _HUB = _MonitorHub()
 
 
 def report_compile(kind: str, fun_name: str, duration_s: float) -> None:
-    """Called by ops.kernels: a kernel library was built with nvcc
-    (``kind="build"``) or a built library was loaded (``"load"``),
-    taking ``duration_s``. Reaches every open run's monitor."""
+    """Called by ops.kernels and data.native: a library was built
+    (``kind="build"``), fetched from a library store (``"fetch"``) or
+    loaded (``"load"``), taking ``duration_s``. Reaches every open
+    run's monitor."""
     _HUB.publish({"kind": kind, "fun_name": fun_name,
                   "duration_s": float(duration_s), "t": time.time()})
 
@@ -364,8 +365,8 @@ class CompileMonitor:
             self._installed = False
 
     def summary(self) -> Dict[str, Any]:
-        """The closing summary under JAX's keys: ``n_compiles`` (builds
-        plus loads), ``n_builds``, ``compile_time_s`` (their seconds),
+        """The closing summary under JAX's keys: ``n_compiles`` (builds,
+        fetches and loads), ``n_builds``, ``compile_time_s`` (their seconds),
         ``compiles_by_fun`` (loads per library) and ``recompiled_funs``
         (libraries loaded more than once). The port traces nothing, so
         ``trace_time_s`` is 0."""

@@ -280,7 +280,9 @@ never exits 0):
    87 and resumed from the step-1 checkpoint; a SIGTERM at step 1
    checkpoints, exits 0 and is resumed; both final filters bitwise the
    unfaulted ``learn_2d`` run's; the supervisor trace's attempts and
-   the restart gap printed. (e) ``learn_2d --auto-degrade`` on phase
+   the restart gap printed; the two supervised runs are processes that
+   run at once, beside the unfaulted run and then (e) here. (e)
+   ``learn_2d --auto-degrade`` on phase
    7's data (1 step) in a child whose allocator is capped at
    ROB_OOM_CAP_GIB (``torch.cuda.set_per_process_memory_fraction``): the
    in-memory learner raises ``torch.OutOfMemoryError``, the forensic
@@ -289,7 +291,8 @@ never exits 0):
    ``consensus_streaming`` (``CCSC_STREAM_MODE=device``) with filters
    bitwise a direct ``learn_streaming`` run of that tier; with
    ``CCSC_INMEM_HBM_GB=1`` the ladder steps down at the preflight and no
-   in-memory run starts. (f) Phase 10's 42 requests through a 4-slot
+   in-memory run starts; the two children run at once, beside the
+   direct run. (f) Phase 10's 42 requests through a 4-slot
    256x256 engine with ``capture_dir``: 42 request records whose payload
    SHAs are the inputs', ``load_payload`` round-trips, outcome digests
    the results', every result bitwise phase 10's, K1 launched the
@@ -395,6 +398,31 @@ never exits 0):
    K1's count in (c) and (d) is held to the replicas' dispatch
    iterations as in 19. (e) K1 at a replica dispatch's shape (N=4),
    held and timed as in phase 3.
+21. The library store, the compile cache and staged warmup
+   (``serve.artifacts``, ``serve.engine``, ``serve.warmup_smoke``; run
+   after 20), with the serving engine of phase 10 (its bank, its 4-slot
+   256x256 bucket, its solve settings). (a) ``serve.warmup_smoke.run``
+   on the card: a cold and a warm child process against one fresh store,
+   each with an empty compile cache. The cold child builds
+   ``solve_z_rank1.cu`` with nvcc (alone) and publishes it; the warm one
+   fetches it (status ``hit``, zero ``compile`` records of kind
+   ``build``); each serves phase 10's first WARM_REQUESTS requests, every
+   result held by its sha256 to phase 10's; in the warm child K1,
+   launched from the fetched library, is held to its plain version and
+   timed as in phase 3. Each child's join-to-first-request, build and
+   fetch seconds. Then the stored payload is truncated on disk and a
+   third child reads ``corrupt``, rebuilds, re-publishes (``repair``),
+   and the store fetches clean. (b) A staged engine here: buckets
+   256x256 (declared hot) and 512x512: the hot bucket is warm when the
+   constructor returns, a 512x512 submit while that bucket is cold is
+   refused with ``BucketCold`` (retry_after_s > 0), phase 10's first
+   requests serve bitwise phase 10's, then the 512x512 bucket warms and
+   serves (finite, PSNR above its smooth fill); ``warmup_stage`` reads
+   stages [1, 2] and ``first_ready_s <= warmup_s``; K1's count equals the
+   two warm dispatches plus the dispatch iterations. (c) Manifest records
+   for another chip and another toolkit are refused (``chip_mismatch``,
+   ``version_skew``) and nothing is written where the library would
+   load from.
 14. Output: a
    ``{"slice": ...}`` line (serving), a ``{"learn": ...}`` line, a
    ``{"serve_engine": ...}`` line (the engine phase and the
@@ -406,13 +434,15 @@ never exits 0):
    (18's counts and seconds, the armed learner's step beside the plain
    one), a ``{"serve_fleet": ...}`` line (19's records), a
    ``{"serve_federation": ...}`` line (20's records), a
+   ``{"warmup": ...}`` line (21's records), a
    ``{"kernels": [...]}`` line (K1, K2a, K2b; K1's launches by path:
    reconstruct, engine, poisson, deblur, learn_3d, learn_2d_masked,
    learn_streaming_2d, learn_streaming_3d, mesh_reconstruct,
    mesh_learn_freq, serve_mesh, learn_2d_256_gate, telemetry_engine,
    telemetry_reconstruct, capture_engine, capture_replay,
    degrade_streaming_cli, degrade_streaming_direct, fleet, federation,
-   host_kill, replay, autoscale; K2's: learn,
+   host_kill, replay, autoscale, warmup_children, staged_engine; K2's:
+   learn,
    learn_telemetry, mesh_learn_block4, mesh_learn_nccl1, learn_watchdog,
    learn_nan_recovery, learn_hang), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
@@ -3407,7 +3437,7 @@ ROB_HANG_S = 6.0  # (c): the hang, a few seconds above it
 ROB_HANG_SLACK = 2.0  # (c): a per-iteration budget under MIN_S
 ROB_NAN_STEPS = 3  # (b)
 ROB_SUP_NI = 4  # (d): images a block of the supervised learner
-ROB_SUP_STEPS = 3
+ROB_SUP_STEPS = 2
 ROB_SUP_MIN_S = 5.0  # (d): the child's CCSC_WATCHDOG_MIN_S
 # (e): the allocator cap, between the north star's peaks in the
 # streaming device tier (~16.2 GiB) and in memory (~26.2 GiB)
@@ -3667,18 +3697,86 @@ def _run_child(cmd, env, timeout=600):
     return proc, wall
 
 
+def _run_children(jobs, timeout=600):
+    """Run every ``(cmd, env)`` job at once (each its own process, its
+    output in files, not pipes): ``[(proc, wall)]`` in job order, each
+    proc's stdout and stderr read back, each wall to its own exit. On
+    a timeout every child is killed."""
+    import subprocess
+    import tempfile
+
+    t0 = time.perf_counter()
+    kids = []
+    try:
+        for cmd, env in jobs:
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile(
+                "w+")
+            kids.append((subprocess.Popen(cmd, cwd=HERE, env=env, stdout=out,
+                                          stderr=err, text=True), out, err))
+        ends = {}
+        while len(ends) < len(kids):
+            if time.perf_counter() - t0 > timeout:
+                raise subprocess.TimeoutExpired([k[0].args for k in kids],
+                                                timeout)
+            for i, (p, _o, _e) in enumerate(kids):
+                if i not in ends and p.poll() is not None:
+                    ends[i] = time.perf_counter() - t0
+            time.sleep(0.05)
+        res = []
+        for i, (p, out, err) in enumerate(kids):
+            out.seek(0)
+            err.seek(0)
+            res.append((subprocess.CompletedProcess(
+                p.args, p.returncode, out.read(), err.read()), ends[i]))
+        return res
+    finally:
+        for p, out, err in kids:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+            err.close()
+
+
+def _children_in_background(jobs):
+    """Start :func:`_run_children` on ``jobs`` in a thread; the returned
+    function waits for them and returns its list."""
+    import threading
+
+    done = {}
+
+    def run():
+        try:
+            done["res"] = _run_children(jobs)
+        except BaseException as e:  # surfaced by the waiter
+            done["error"] = e
+
+    runner = threading.Thread(target=run, daemon=True)
+    runner.start()
+
+    def wait():
+        runner.join()
+        if "error" in done:
+            raise done["error"]
+        return done["res"]
+
+    return wait
+
+
 def _mat_d(path):
     import scipy.io
 
     return scipy.io.loadmat(path)["d"]
 
 
-def _rob_supervise(torch, port, seed, tmp):
+def _rob_supervise(torch, port, seed, tmp, meanwhile=None):
     """(d) learn_2d at the north star's width (k=100 11x11, 8 blocks) on
     ROB_SUP_NI images a block under the supervisor: a hang at step 2
     (the watchdog aborts with 87, the supervisor resumes from the step-1
     checkpoint), and a SIGTERM at step 1 (checkpoint, exit 0, resume);
-    both bitwise the unfaulted CLI run."""
+    both bitwise the unfaulted CLI run. The two supervised processes run
+    at once, and ``meanwhile()`` (another part) runs here after the
+    unfaulted run while they do."""
     import numpy as np
     import scipy.io
 
@@ -3691,26 +3789,32 @@ def _rob_supervise(torch, port, seed, tmp):
             str(ROB_SUP_STEPS), "--tol", "0", "--verbose", "none",
             "--device", "cuda", "--seed", str(seed), "--checkpoint-every",
             "1"]
-    ref_out = os.path.join(tmp, "d_ref.mat")
-    t0 = time.perf_counter()
-    port["learn_2d"].main(argv + ["--out", ref_out])
-    ref_s = time.perf_counter() - t0
-    ref = _mat_d(ref_out)
-    out = {"unfaulted_in_process_s": ref_s}
-    for tag, fault in (("hang", dict(CCSC_FAULT_HANG_IT=2,
-                                     CCSC_FAULT_HANG_S=600,
-                                     CCSC_WATCHDOG_MIN_S=ROB_SUP_MIN_S)),
-                       ("sigterm", dict(CCSC_FAULT_SIGTERM_IT=1))):
+    cases = (("hang", dict(CCSC_FAULT_HANG_IT=2, CCSC_FAULT_HANG_S=600,
+                           CCSC_WATCHDOG_MIN_S=ROB_SUP_MIN_S)),
+             ("sigterm", dict(CCSC_FAULT_SIGTERM_IT=1)))
+    jobs = []
+    for tag, fault in cases:
         ck, m = os.path.join(tmp, f"d_{tag}_ck"), os.path.join(tmp,
                                                                f"d_{tag}_m")
-        res_out = os.path.join(tmp, f"d_{tag}.mat")
         cmd = [sys.executable, "-m", f"{PACKAGE}.supervise",
                "--checkpoint-dir", ck, "--metrics-dir", m, "--max-restarts",
                "3", "--backoff", "0", "--",
                sys.executable, "-m", f"{PACKAGE}.apps.learn_2d", *argv,
                "--watchdog", "--checkpoint-dir", ck, "--metrics-dir", m,
-               "--out", res_out]
-        proc, wall = _run_child(cmd, _child_env(**fault))
+               "--out", os.path.join(tmp, f"d_{tag}.mat")]
+        jobs.append((cmd, _child_env(**fault)))
+    wait = _children_in_background(jobs)
+    ref_out = os.path.join(tmp, "d_ref.mat")
+    t0 = time.perf_counter()
+    port["learn_2d"].main(argv + ["--out", ref_out])
+    ref_s = time.perf_counter() - t0
+    ref = _mat_d(ref_out)
+    if meanwhile is not None:
+        meanwhile()
+    out = {"unfaulted_in_process_s": ref_s}
+    for (tag, _f), (proc, wall) in zip(cases, wait()):
+        m = os.path.join(tmp, f"d_{tag}_m")
+        res_out = os.path.join(tmp, f"d_{tag}.mat")
         if proc.returncode != 0:
             raise RuntimeError(f"(d) {tag}: supervise exited "
                                f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
@@ -3756,7 +3860,8 @@ def _rob_degrade(torch, port, seed, tmp):
     learner, the forensic dump, one degrade record (streaming,
     dispatch), and the run completes streamed, bitwise a direct
     learn_streaming run of the same tier; then CCSC_INMEM_HBM_GB=1 steps
-    down at the preflight."""
+    down at the preflight. Both children run at once, and the direct run
+    here while they do."""
     import numpy as np
     import scipy.io
 
@@ -3771,14 +3876,37 @@ def _rob_degrade(torch, port, seed, tmp):
             "--tol", "0", "--verbose", "none", "--device", "cuda", "--seed",
             str(seed), "--auto-degrade"]
     out = {"cap_gib": ROB_OOM_CAP_GIB, "cap_fraction": frac}
-    for tag, extra in (("oom", {}),
-                       ("preflight", {"CCSC_INMEM_HBM_GB": ROB_PREFLIGHT_GB})):
+    runs = (("oom", {}), ("preflight", {"CCSC_INMEM_HBM_GB": ROB_PREFLIGHT_GB}))
+    # both children at once, and the direct run here while they run: the
+    # capped child's OOM is its own allocator's (22 GiB of 80), the other
+    # child's peak and the direct run's ~16 GiB each
+    wait = _children_in_background([
+        ([sys.executable, "-c", OOM_CHILD, repr(frac), *argv, "--metrics-dir",
+          os.path.join(tmp, f"e_{tag}_m"), "--out",
+          os.path.join(tmp, f"e_{tag}.mat")],
+         _child_env(CCSC_STREAM_MODE="device", **extra))
+        for tag, extra in runs])
+    # the direct streaming run of the same tier on the same data
+    b = port["images"].load_images(data, contrast_normalize="none",
+                                   zero_mean=True, square=True,
+                                   mat_layout="framework")
+    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
+    cfg = port["config"].LearnConfig(
+        num_blocks=LEARN_BLOCKS, max_it=1, tol=0.0, verbose="none",
+        fused_z=True)
+    k1 = port["kernels"].solve_z_rank1
+    k0 = k1.launches
+    t0 = time.perf_counter()
+    direct = port["streaming"].learn_streaming(
+        b, geom, cfg, generator=torch.Generator().manual_seed(seed),
+        stream_mode="device", device="cuda")
+    out["direct_streaming_s"] = time.perf_counter() - t0
+    out["direct_k1_launches"] = k1.launches - k0
+    dd = direct.d.numpy()
+    del direct
+    for (tag, _x), (proc, wall) in zip(runs, wait()):
         m = os.path.join(tmp, f"e_{tag}_m")
         res_out = os.path.join(tmp, f"e_{tag}.mat")
-        cmd = [sys.executable, "-c", OOM_CHILD, repr(frac), *argv,
-               "--metrics-dir", m, "--out", res_out]
-        proc, wall = _run_child(
-            cmd, _child_env(CCSC_STREAM_MODE="device", **extra))
         if proc.returncode != 0:
             raise RuntimeError(f"(e) {tag}: learn_2d exited "
                                f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
@@ -3824,23 +3952,6 @@ def _rob_degrade(torch, port, seed, tmp):
             raise RuntimeError(f"(e) {tag}: {rec}")
         rec["d"] = np.asarray(port["io_mat"].load_filters_2d(res_out))
         out[tag] = rec
-    # the direct streaming run of the same tier on the same data
-    b = port["images"].load_images(data, contrast_normalize="none",
-                                   zero_mean=True, square=True,
-                                   mat_layout="framework")
-    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
-    cfg = port["config"].LearnConfig(
-        num_blocks=LEARN_BLOCKS, max_it=1, tol=0.0, verbose="none",
-        fused_z=True)
-    k1 = port["kernels"].solve_z_rank1
-    k0 = k1.launches
-    t0 = time.perf_counter()
-    direct = port["streaming"].learn_streaming(
-        b, geom, cfg, generator=torch.Generator().manual_seed(seed),
-        stream_mode="device", device="cuda")
-    out["direct_streaming_s"] = time.perf_counter() - t0
-    out["direct_k1_launches"] = k1.launches - k0
-    dd = direct.d.numpy()
     for tag in ("oom", "preflight"):
         d = out[tag].pop("d")
         same = d.shape == dd.shape and np.array_equal(d, dd)
@@ -3992,8 +4103,11 @@ def phase_robustness(torch, port, seed, tel, phase10):
                                                ledger_path)),
             ("nan_recovery", lambda: _rob_nan(torch, port, seed, tmp)),
             ("hang", lambda: _rob_hang(torch, port, seed, tel, tmp)),
-            ("supervise", lambda: _rob_supervise(torch, port, seed, tmp)),
-            ("degrade", lambda: _rob_degrade(torch, port, seed, tmp)),
+            # (e) runs while (d)'s supervised processes run: the seconds
+            # of "supervise" are both parts'
+            ("supervise", lambda: _rob_supervise(
+                torch, port, seed, tmp, meanwhile=lambda: out.update(
+                    degrade=_rob_degrade(torch, port, seed, tmp)))),
             ("capture", lambda: _rob_capture(torch, port, seed, phase10, tmp,
                                              ledger_path)),
             ("ledger", lambda: _rob_ledger(port, ledger_path, tracked)),
@@ -5412,6 +5526,222 @@ def phase_federation(torch, port, time_ms, bw, flops, seed, phase10):
     return out
 
 
+# -- phase 21: the library store, the compile cache and staged warmup ---
+WARM_REQUESTS = 4  # phase 10's first requests, served by each child
+STAGED_COLD_SIDE = 2 * S  # (b): the staged engine's cold bucket
+
+
+def _warm_children(torch, port, seed, tmp, reqs, ref_digests, bw, flops):
+    """(a): the cold, warm and repair children against one store."""
+    import importlib
+
+    smoke = importlib.import_module(f"{PACKAGE}.serve.warmup_smoke")
+    out = smoke.run(
+        device="cuda", bank=BANK, buckets=[f"{S}:{ENGINE_SLOTS}"],
+        requests=reqs[:WARM_REQUESTS],
+        cfg=dict(lambda_residual=5.0, lambda_prior=2.0, max_it=100,
+                 tol=1e-3), k1_check=True, repair=True, root=tmp,
+        timeout=300)
+    for name, ok, detail in out["checks"]:
+        print(f"[21] (a) [{'PASS' if ok else 'FAIL'}] {name}"
+              + (f": {detail}" if detail else ""))
+    kids = {t: out[t] for t in ("cold", "warm", "repair")}
+    for tag, rep in kids.items():
+        print(f"[21] (a) {tag} child: join-to-first-request "
+              f"{rep['startup_s']:.3f} s (process {rep['wall_s']:.3f} s), "
+              f"first bucket ready {rep['first_ready_s']} s, build "
+              f"{rep['build_s']:.3f} s, fetch {rep['fetch_s']:.4f} s, "
+              f"fetch {rep['fetch_status']}, publish {rep['publish_status']}"
+              f", K1 launches {rep['k1_launches']}")
+        bad = [i for i, dg in enumerate(rep["digests"])
+               if dg != ref_digests[i]]
+        if bad or len(rep["digests"]) != WARM_REQUESTS:
+            raise RuntimeError(f"[21] (a) {tag}: requests {bad} not "
+                               "bitwise phase 10's")
+        if rep["k1_launches"] != sum(rep["dispatch_iters"]):
+            raise RuntimeError(f"[21] (a) {tag}: K1 launched "
+                               f"{rep['k1_launches']} times for "
+                               f"{rep['dispatch_iters']}")
+    if not out["ok"]:
+        raise RuntimeError("[21] (a) the warmup smoke failed: "
+                           f"{[c for c in out['checks'] if not c[1]]}")
+    chk = kids["warm"].pop("k1_check")
+    bytes_ms = 1e3 * chk["bytes"] / bw
+    ops_ms = 1e3 * chk["ops"] / flops
+    case = dict({"warmup": "fetched_library"}, **chk,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    print(f"[21] (a) K1 from the fetched library N={chk['n']} K={chk['k']} "
+          f"F={chk['f']}: rel err {chk['max_rel_err']:.2e}, bitwise repeat "
+          f"{chk['bitwise_repeatable']}, kernel {chk['kernel_ms']:.4f} ms, "
+          f"plain {chk['plain_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms")
+    for rep in kids.values():
+        rep.pop("digests")
+    return dict(kids, checks=out["checks"], k1_case=case,
+                k1_launches=sum(r["k1_launches"] for r in kids.values()))
+
+
+def _staged_engine(torch, port, seed, tmp, reqs, ref_digests):
+    """(b): hot 256x256 first, a BucketCold 512x512, then both serve."""
+    import numpy as np
+
+    kernels, serve = port["kernels"], port["serve"]
+    cfg = port["config"].SolveConfig(lambda_residual=5.0, lambda_prior=2.0,
+                                     max_it=100, tol=1e-3)
+    d = port["io_mat"].load_filters_2d(BANK)
+    prob = port["reconstruct"].ReconstructionProblem(
+        port["config"].ProblemGeom((11, 11), K))
+    hot = (ENGINE_SLOTS, (S, S))
+    cold = (ENGINE_SLOTS, (STAGED_COLD_SIDE, STAGED_COLD_SIDE))
+    mdir = os.path.join(tmp, "m-staged")
+    big = port["serve_bench"].make_requests([STAGED_COLD_SIDE], seed + 21)[0]
+    kernels.solve_z_rank1.launches = 0
+    t0 = time.perf_counter()
+    eng = serve.CodecEngine(d, prob, cfg, port["config"].ServeConfig(
+        buckets=(hot, cold), staged_warmup=True,
+        warm_order=(f"{ENGINE_SLOTS}@{S}x{S}",), metrics_dir=mdir,
+        verbose="none"), device="cuda")
+    try:
+        ctor_s = time.perf_counter() - t0
+        hot_warm, cold_warm = eng.bucket_warm(hot), eng.bucket_warm(cold)
+        refused = None
+        if not cold_warm:
+            try:
+                eng.submit(**big)
+            except serve.BucketCold as e:
+                refused = {"bucket": e.bucket,
+                           "retry_after_s": e.retry_after_s,
+                           "at_s": time.perf_counter() - t0}
+            else:
+                raise RuntimeError("[21] (b) a submit to the cold bucket "
+                                   "was not refused")
+        futs = [eng.submit(**q) for q in reqs[:WARM_REQUESTS]]
+        served = [f.result(timeout=300) for f in futs]
+        hot_done_s = time.perf_counter() - t0
+        cold_wait_s = _wait_for(lambda: eng.bucket_warm(cold), 300,
+                                "the cold bucket to warm")
+        res_big = eng.submit(**big).result(timeout=300)
+        iters = eng.dispatch_iters
+    finally:
+        eng.close()
+    launches = kernels.solve_z_rank1.launches
+    ev = _events(port, mdir)
+    stages = [(e["stage"], e["bucket"], e["source"]) for e in ev
+              if e["type"] == "warmup_stage"]
+    (ready,) = [e for e in ev if e["type"] == "serve_ready"]
+    warm_dispatches = sum(1 for e in ev if e["type"] == "serve_warmup")
+    digests = [_digest(port, r.recon) for r in served]
+    fill = port["serve"].valid_region_psnr(big["smooth_init"],
+                                           big["x_orig"], (R, R))
+    out = {"constructor_s": ctor_s, "hot_warm_at_return": hot_warm,
+           "cold_warm_at_return": cold_warm, "refused": refused,
+           "hot_served_s": hot_done_s, "cold_warm_wait_s": cold_wait_s,
+           "stages": stages, "first_ready_s": ready["first_ready_s"],
+           "warmup_s": ready["warmup_s"], "staged": ready["staged"],
+           "n_fetched": ready["n_fetched"],
+           "n_compiled": ready["n_compiled"],
+           "dispatch_iters": iters, "k1_launches": launches,
+           "cold_request": {"iters": int(res_big.trace.num_iters),
+                            "psnr_db": res_big.psnr,
+                            "smooth_fill_psnr_db": fill}}
+    print(f"[21] (b) staged engine: constructor {ctor_s:.3f} s (hot warm "
+          f"{hot_warm}, cold warm {cold_warm}), refused {refused}, "
+          f"{WARM_REQUESTS} hot requests served at {hot_done_s:.3f} s, cold "
+          f"bucket warm {cold_wait_s:.3f} s later; stages {stages}; "
+          f"first_ready_s {ready['first_ready_s']} <= warmup_s "
+          f"{ready['warmup_s']}; 512x512 request PSNR {res_big.psnr:.2f} dB "
+          f"(smooth fill {fill:.2f} dB); K1 launches {launches}")
+    if not hot_warm or [st[0] for st in stages] != [1, 2] or \
+            stages[0][1] != f"{ENGINE_SLOTS}@{S}x{S}":
+        raise RuntimeError(f"[21] (b) stages {stages}, hot warm {hot_warm}")
+    if refused is not None and not refused["retry_after_s"] > 0:
+        raise RuntimeError(f"[21] (b) refusal {refused}")
+    if not (ready["staged"] and ready["first_ready_s"] <= ready["warmup_s"]):
+        raise RuntimeError(f"[21] (b) serve_ready {ready}")
+    if digests != ref_digests[:WARM_REQUESTS]:
+        raise RuntimeError("[21] (b) the hot requests are not bitwise "
+                           "phase 10's")
+    if not (np.isfinite(res_big.recon).all()
+            and res_big.recon.shape == (STAGED_COLD_SIDE,) * 2
+            and res_big.psnr > fill):
+        raise RuntimeError(f"[21] (b) the cold request: {out}")
+    if launches != warm_dispatches + sum(iters):
+        raise RuntimeError(f"[21] (b) K1 launched {launches} times for "
+                           f"{warm_dispatches} warm dispatches and "
+                           f"{iters}")
+    return out
+
+
+def _store_refusals(port, store_dir, tmp):
+    """(c): newer manifest records for another chip and another toolkit
+    shadow the good one and are refused; nothing lands in the build
+    directory a library would load from."""
+    import importlib
+
+    kernels = port["kernels"]
+    art = importlib.import_module(f"{PACKAGE}.serve.artifacts")
+    fp = kernels.library_fingerprint("solve_z_rank1")
+    out = {}
+    for field, value, want in (("chip", "other-card", "chip_mismatch"),
+                               ("toolkit", "Cuda compilation tools, "
+                                "release 0.0, V0.0", "version_skew")):
+        st = art.ArtifactStore(store_dir)
+        (key,) = st.keys()
+        rec = dict(st.resolve(key))
+        st.close()
+        good = dict(rec)
+        rec.update({field: value, "seq": rec["seq"] + 1})
+        with open(os.path.join(store_dir, "manifest.jsonl"), "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        where = os.path.join(tmp, f"refused-{field}", "lib.so")
+        got = kernels.fetch_library(art.ArtifactStore(store_dir), fp, where)
+        out[field] = got["fetch_status"]
+        print(f"[21] (c) a record for another {field} ({value!r}): "
+              f"{got['fetch_status']}, library written: "
+              f"{os.path.exists(where)}")
+        if got["fetch_status"] != want or os.path.exists(where):
+            raise RuntimeError(f"[21] (c) {field}: {got}")
+        # the good record again on top, for the next case
+        good["seq"] = rec["seq"] + 1
+        with open(os.path.join(store_dir, "manifest.jsonl"), "a") as f:
+            f.write(json.dumps(good) + "\n")
+    return out
+
+
+def phase_warmup(torch, port, time_ms, bw, flops, seed, phase10):
+    """21: the library store, the compile cache and staged warmup."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    reqs = port["serve_bench"].make_requests(ENGINE_SIDES, seed + 4)
+    ref_digests = [_digest(port, r.recon) for r in phase10["served"]]
+    tmp = tempfile.mkdtemp(prefix="ccsc-warmup-")
+    out, secs = {}, {}
+    try:
+        t1 = time.perf_counter()
+        out["children"] = _warm_children(torch, port, seed, tmp, reqs,
+                                         ref_digests, bw, flops)
+        secs["children"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["staged"] = _staged_engine(torch, port, seed, tmp, reqs,
+                                       ref_digests)
+        secs["staged"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        out["refusals"] = _store_refusals(port, os.path.join(tmp, "store"),
+                                          tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["k1_launches"] = {"warmup_children":
+                          out["children"]["k1_launches"],
+                          "staged_engine": out["staged"]["k1_launches"]}
+    out["seconds_by_part"] = secs
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[21] warmup phase {out['seconds']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in secs.items()} })")
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, kernel_ms, plain_ms,
                   bound, build_s, **extra):
     return dict(
@@ -5471,48 +5801,76 @@ def main(argv=None) -> int:
     }
 
     t_start = time.perf_counter()
+    marks = [t_start]
+    phase_s = {}
+
+    def lap(phase):
+        """The seconds since the previous lap, as this phase's."""
+        marks.append(time.perf_counter())
+        phase_s[phase] = round(marks[-1] - marks[-2], 1)
+
     smi, name = phase_environment(torch, port["device"].device_report,
                                   port["serve_bench"].card_line)
     bw, flops = _datasheet(name)
+    lap("1")
     build = phase_build(port["kernels"], port["native"])
+    lap("2")
     time_ms = port["device"].device_time_ms
     cases = phase_kernel_vs_plain(
         torch, port["kernels"], time_ms, bw, flops, args.seed,
         _load_kernels(args.against) if args.against else None)
+    lap("3")
     app_cases = phase_k1_app_shapes(torch, port, time_ms, bw, flops,
                                     args.seed)
     served = phase_serve(torch, port, args.seed)
     agree = phase_card_vs_cpu(torch, port, served.pop("data"))
+    lap("3b-5")
     k2 = phase_k2_vs_plain(torch, port, bw, flops, args.seed)
+    lap("6")
     learn = phase_learn(torch, port, args.seed)
     fused_vs_comp = phase_fused_vs_composition(torch, port, args.seed)
     learn_agree = phase_learn_card_vs_cpu(torch, port, args.seed)
+    lap("7-9")
     engine = phase_engine(torch, port, args.seed)
+    lap("10")
     apps = phase_apps(torch, port, time_ms, bw, args.seed)
+    lap("11")
     learners = phase_learners(torch, port, time_ms, bw, flops, args.seed)
+    lap("12")
     streamed = phase_streaming(
         torch, port, time_ms, bw, flops, args.seed,
         learners["3d"]["max_memory_allocated_bytes"],
         build["native_ccsc_data"])
+    lap("13")
     mesh = phase_mesh(torch, port, time_ms, bw, flops, args.seed)
+    lap("15")
     serve_mesh = phase_serve_mesh(torch, port, time_ms, bw, flops,
                                   args.seed)
+    lap("16")
     telemetry = phase_telemetry(torch, port, args.seed, learn, engine)
+    lap("17")
     robust = phase_robustness(torch, port, args.seed, telemetry["learn"],
                               engine)
+    lap("18")
     fleet = phase_fleet(torch, port, time_ms, bw, flops, args.seed, engine)
+    lap("19")
     federation = phase_federation(torch, port, time_ms, bw, flops,
                                   args.seed, engine)
+    lap("20")
+    warmup = phase_warmup(torch, port, time_ms, bw, flops, args.seed,
+                          engine)
+    lap("21")
     engine.pop("served")
     telemetry["learn"].pop("plain_d")
     seconds = time.perf_counter() - t_start
-    print(f"[14] total {seconds:.1f} s")
+    print(f"[14] total {seconds:.1f} s; by phase {phase_s}")
 
     main_case = next(c for c in cases if c["n"] == 1 and not c["raised_row"])
     all_cases = cases + list(app_cases.values()) + [
         learners["3d"]["k1_case"], streamed["2d"]["k1_case"],
         streamed["3d"]["k1_case"]] + mesh["reconstruct"]["k1_cases"] + \
-        serve_mesh["k1_cases"] + fleet["k1_cases"] + federation["k1_cases"]
+        serve_mesh["k1_cases"] + fleet["k1_cases"] + \
+        federation["k1_cases"] + [warmup["children"]["k1_case"]]
     k1_paths = {"reconstruct": served["launches"],
                 "engine": engine["launches"],
                 "poisson": apps["poisson"]["k1_launches"],
@@ -5547,7 +5905,8 @@ def main(argv=None) -> int:
                 "federation": federation["federation"]["k1_launches"],
                 "host_kill": federation["host_kill"]["k1_launches"],
                 "replay": federation["replay"]["k1_launches"],
-                "autoscale": federation["autoscale"]["k1_launches"]}
+                "autoscale": federation["autoscale"]["k1_launches"],
+                **warmup["k1_launches"]}
     ns_ranks = mesh["north_star"]["mesh"]["per_rank"]
     k2_paths = {p: {
         "learn": learn["launches"][f"fused_z_{p}"],
@@ -5614,6 +5973,9 @@ def main(argv=None) -> int:
     print(json.dumps({"robustness": robust}))
     print(json.dumps({"serve_fleet": fleet}))
     print(json.dumps({"serve_federation": federation}))
+    print(json.dumps({"warmup": warmup}))
+    print(json.dumps({"phase_seconds": dict(phase_s, total=round(seconds,
+                                                                  1))}))
     # the kernels line last but two: the end of the output carries it
     print(json.dumps(kernels_line))
     print(smi)

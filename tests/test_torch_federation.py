@@ -15,9 +15,14 @@ package's federation, on the CPU:
   host process is ``chip_smoke.py`` phase 20 (b));
 - the frontend contract, the concurrent same-key single item, the
   failed request with a complete trace, the durable cancel marker, the
-  cross-host deadline and hedge-duplicate suppression.
+  cross-host deadline and hedge-duplicate suppression;
+- two host PROCESSES started with one shared library store (and a
+  compile cache each) serve the stream bitwise the plain fleet; on the
+  CPU their engines load no library, so the store stays untouched.
 """
 import os
+import subprocess
+import sys
 import threading
 import time
 
@@ -179,6 +184,84 @@ def test_federated_serve_bit_identical_to_plain_fleet(tmp_path):
     traces = trace_util.assemble(evs)
     for r in res:
         assert traces[r.trace_id].complete
+
+
+# one federated host process: the test's bank, problem and solve, a
+# shared library store and its own compile cache, drained until sealed
+_HOST_CHILD = """
+import sys
+import numpy as np
+from ccsc_code_iccv2017_torch.config import (
+    FleetConfig, ProblemGeom, ServeConfig, SolveConfig)
+from ccsc_code_iccv2017_torch.models.reconstruct import ReconstructionProblem
+from ccsc_code_iccv2017_torch.serve.federation import FederatedHost
+
+qdir, bank, store, cache, mdir, host_id, side = sys.argv[1:8]
+d = np.load(bank)
+host = FederatedHost(
+    qdir, d, ReconstructionProblem(ProblemGeom(d.shape[1:], d.shape[0])),
+    SolveConfig(lambda_residual=5.0, lambda_prior=0.3, max_it=3, tol=0.0,
+                verbose="none", track_psnr=True, track_objective=True),
+    ServeConfig(buckets=((2, (int(side), int(side))),), max_wait_ms=2.0,
+                verbose="none", artifact_store=store, compile_cache=cache),
+    FleetConfig(replicas=1, min_queue_depth=64, verbose="none"),
+    host=host_id, metrics_dir=mdir, heartbeat_s=0.2, ttl_s=5.0, skew_s=0.2,
+    verbose="none", device="cpu")
+while not host.serve_until_sealed(timeout=0.2):
+    pass
+host.close()
+"""
+
+
+def test_two_host_processes_share_one_store(tmp_path):
+    """Two ``FederatedHost`` processes, each started with the same
+    ``serve_cfg.artifact_store`` and its own ``compile_cache``, drain
+    one queue: every result is bitwise the plain fleet's, each host's
+    replica engine ran with its compile cache, and the CPU engines
+    left the shared store untouched (no library loads on the CPU)."""
+    tmp = str(tmp_path)
+    d = _bank()
+    bank = os.path.join(tmp, "bank.npy")
+    np.save(bank, d)
+    store = os.path.join(tmp, "store")
+    reqs = _requests(6)
+    ref = _plain_fleet_results(d, reqs)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    for k in ("CCSC_COMPILE_CACHE", "CCSC_ARTIFACT_STORE"):
+        env.pop(k, None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _HOST_CHILD, os.path.join(tmp, "q"), bank,
+         store, os.path.join(tmp, f"cc-{h}"), os.path.join(tmp, f"m-{h}"),
+         h, str(SIDE)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for h in ("hostA", "hostB")]
+    fe = _frontend(tmp)
+    try:
+        futs = [fe.submit(b, mask=m, x_orig=x) for b, m, x in reqs]
+        res = [f.result(timeout=180) for f in futs]
+        fe.seal()
+        for p in procs:
+            out, _ = p.communicate(timeout=120)
+            assert p.returncode == 0, out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        fe.close()
+    for got, want in zip(res, ref):
+        assert np.array_equal(got.recon, want.recon)
+        assert got.host in ("hostA", "hostB")
+    for h in ("hostA", "hostB"):
+        evs = obs.read_events(os.path.join(tmp, f"m-{h}"), recursive=True)
+        metas = [e for e in evs if e["type"] == "run_meta"
+                 and e.get("algorithm") == "serve"]
+        assert metas and all(e["compile_cache"] == os.path.join(
+            tmp, f"cc-{h}") for e in metas)
+        assert {e["source"] for e in evs
+                if e["type"] == "serve_warmup"} == {"compiled"}
+        assert not [e for e in evs if e["type"].startswith("artifact_")]
+    assert not os.path.exists(store)
 
 
 def test_host_death_lease_expiry_zero_lost_bit_parity(tmp_path,

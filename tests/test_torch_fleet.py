@@ -112,10 +112,11 @@ def _reqs(n, side=12, seed=1):
     return out
 
 
-def _fleet(d, cfg, tmp_path=None, *, buckets=((2, (12, 12)),), **kw):
+def _fleet(d, cfg, tmp_path=None, *, buckets=((2, (12, 12)),),
+           serve_kw=None, **kw):
     scfg = ServeConfig(
         buckets=buckets, max_wait_ms=kw.pop("max_wait_ms", 2.0),
-        verbose="none",
+        verbose="none", **(serve_kw or {}),
     )
     fkw = dict(
         min_queue_depth=64, restart_backoff_s=0.05,
@@ -1049,6 +1050,40 @@ def test_set_replica_count_grow_shrink(tmp_path):
         if e["type"] == "fleet_replica_ready"
     ]
     assert max(g for g in gens if g is not None) >= 1  # resurrection
+
+
+def test_restarted_replica_with_compile_cache_reports_warm(tmp_path,
+                                                           monkeypatch):
+    """A replica killed at its first request restarts in a process whose
+    libraries live in the compile cache: its ``fleet_replica_ready``
+    reads ``warm=True`` (without a cache it read False), and the
+    requeued request is served."""
+    from ccsc_code_iccv2017_torch.data import native
+    from ccsc_code_iccv2017_torch.ops import kernels
+    from ccsc_code_iccv2017_torch.serve import engine as tengine
+
+    monkeypatch.setattr(tengine, "_compile_cache_path", None)
+    monkeypatch.setattr(kernels, "_BUILD_DIR", None)
+    monkeypatch.setattr(native, "_BUILD_DIR", None)
+    monkeypatch.setenv("CCSC_FAULT_ENGINE_KILL_REQ", "1")
+    monkeypatch.setenv("CCSC_FAULT_ENGINE_KILL_REPLICA", "0")
+    faults.reset()
+    cache = str(tmp_path / "cc")
+    mdir = str(tmp_path / "m")
+    d = _bank()
+    fleet = _fleet(d, _cfg(), mdir, replicas=1,
+                   serve_kw=dict(compile_cache=cache))
+    try:
+        (x, m), = _reqs(1, seed=7)
+        res = fleet.submit(x * m, mask=m, key="k0").result(timeout=120)
+        assert np.isfinite(res.recon).all()
+    finally:
+        fleet.close()
+    ready = [e for e in obs.read_events(mdir, recursive=True)
+             if e["type"] == "fleet_replica_ready"]
+    assert ready and all(e["warm"] is True for e in ready), ready
+    assert max(e["generation"] for e in ready) >= 1
+    assert kernels.build_dir() == cache
 
 
 def test_ceiling_recomputed_on_replica_death(tmp_path, monkeypatch):

@@ -184,7 +184,7 @@ def test_library_builds_and_binds_once_under_eight_threads(monkeypatch):
     load: no nvcc here)."""
     calls = {"build": 0, "load": 0, "bind": 0}
 
-    def build(name):
+    def build(name, store=None, publish=True):
         calls["build"] += 1
         time.sleep(0.05)  # a slow build: the others must wait for it
         return {"path": f"/lib{name}.so"}

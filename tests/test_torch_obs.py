@@ -282,7 +282,11 @@ def test_kernel_builds_and_loads_are_compile_records(tmp_path, monkeypatch):
     record, each load a ``load`` record, and a library loaded twice in
     one process is flagged in the closing summary."""
     nvcc = tmp_path / "nvcc"
-    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+    nvcc.write_text('#!/bin/sh\n'
+                    'if [ "$1" = "--version" ]; then\n'
+                    '  echo "Cuda compilation tools, release 0.0, V0.0"\n'
+                    '  exit 0\nfi\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n'
                     'touch "$2"\n')
     nvcc.chmod(0o755)
     monkeypatch.setattr(kernels, "_nvcc", lambda: str(nvcc))

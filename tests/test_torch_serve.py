@@ -13,6 +13,7 @@ held on its valid region to 0.05 relative, as the JAX test does
 (boundary coupling through the pad).
 """
 import importlib
+import os
 import threading
 import time
 
@@ -74,12 +75,27 @@ def _engine(d, cfg_kw, buckets, **kw):
                              device="cpu")
 
 
-def _jax_engine(d, cfg_kw, buckets):
+_PATH_FIELDS = ("compile_cache", "artifact_store", "warm_rank_capture")
+
+
+def _unlatched_compile_cache(monkeypatch):
+    """Undo, at the test's end, the process-wide latch a compile cache
+    sets (the engine's latch and the libraries' build directories)."""
+    from ccsc_code_iccv2017_torch.data import native
+    from ccsc_code_iccv2017_torch.serve import engine as tengine
+
+    monkeypatch.setattr(tengine, "_compile_cache_path", None)
+    monkeypatch.setattr(kernels, "_BUILD_DIR", None)
+    monkeypatch.setattr(native, "_BUILD_DIR", None)
+
+
+def _jax_engine(d, cfg_kw, buckets, **kw):
     geom = jcfg.ProblemGeom(d.shape[1:], d.shape[0])
     return JEngine(
         jnp.asarray(d), jr.ReconstructionProblem(geom),
         jcfg.SolveConfig(**cfg_kw),
-        jcfg.ServeConfig(buckets=buckets, max_wait_ms=10.0, verbose="none"),
+        jcfg.ServeConfig(buckets=buckets, max_wait_ms=10.0, verbose="none",
+                         **kw),
     )
 
 
@@ -507,20 +523,26 @@ def test_valid_region_psnr_matches_jax():
         (dict(pipeline_depth=2), 9),
         # capture runs since the robustness slice (serve.capture)
         (dict(capture_dir="c"), None),
-        (dict(compile_cache="cc"), 11),
-        (dict(artifact_store="a"), 11),
+        # served since the warmup slice: the library build directory,
+        # the library store, staged warmup and its ordering
+        (dict(compile_cache="cc"), "served"),
+        (dict(artifact_store="a"), "served"),
         # served since the fleet slice: every record carries it
         (dict(replica_id=0), "served"),
-        (dict(staged_warmup=True), 11),
-        (dict(warm_order=("2@24x24",)), 11),
-        (dict(warm_rank_capture="c"), 11),
+        (dict(staged_warmup=True), "served"),
+        (dict(warm_order=("2@24x24",)), "served"),
+        (dict(warm_rank_capture="c"), "served"),
     ],
     ids=lambda v: next(iter(v)) if isinstance(v, dict) else str(v),
 )
-def test_deferred_serve_fields_raise_naming_roadmap(kw, item, tmp_path):
+def test_deferred_serve_fields_raise_naming_roadmap(kw, item, tmp_path,
+                                                     monkeypatch):
     buckets = ((2, (24, 24)),)
     jcfg.ServeConfig(buckets=buckets, **kw)  # valid in the JAX package
     if item == "served":
+        _unlatched_compile_cache(monkeypatch)
+        kw = {k: (str(tmp_path / v) if k in _PATH_FIELDS else v)
+              for k, v in kw.items()}
         d = _bank()
         mdir = str(tmp_path / "m")
         with _engine(d, _cfg_kw(max_it=2), buckets, metrics_dir=mdir,
@@ -529,9 +551,22 @@ def test_deferred_serve_fields_raise_naming_roadmap(kw, item, tmp_path):
             eng.submit(x * m, mask=m).result(timeout=60)
         from ccsc_code_iccv2017_torch.utils import obs
 
-        recs = [r for r in obs.read_events(mdir)
-                if r.get("type", "").startswith("serve_")]
-        assert recs and all(r["replica_id"] == 0 for r in recs)
+        ev = obs.read_events(mdir)
+        recs = [r for r in ev if r.get("type", "").startswith("serve_")]
+        assert recs and all(r["replica_id"] == kw.get("replica_id")
+                            for r in recs)
+        (ready,) = [r for r in ev if r["type"] == "serve_ready"]
+        (stage,) = [r for r in ev if r["type"] == "warmup_stage"]
+        assert (stage["stage"], stage["bucket"], stage["source"]) == (
+            1, "2@24x24", "compiled")
+        assert ready["staged"] is bool(kw.get("staged_warmup"))
+        assert eng.cache_dir == kw.get("compile_cache")
+        if "compile_cache" in kw:
+            assert kernels.build_dir() == kw["compile_cache"]
+        if "artifact_store" in kw:
+            # on the CPU the engine loads no library: the store stays
+            # untouched
+            assert not os.path.exists(kw["artifact_store"])
         return
     if item is None:
         # constructs, and a standalone engine records its requests there
@@ -549,6 +584,143 @@ def test_deferred_serve_fields_raise_naming_roadmap(kw, item, tmp_path):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue 1 item {item}"):
         ServeConfig(buckets=buckets, **kw)
+
+
+# -- staged warmup and the compile-cache latch (JAX tests/test_serve.py,
+# "staged warmup + compile-cache latch")
+
+
+def _wait_warm(eng, key, timeout=120.0):
+    deadline = time.time() + timeout
+    while not eng.bucket_warm(key):
+        assert time.time() < deadline, f"bucket {key} never warmed"
+        time.sleep(0.02)
+
+
+def test_staged_warmup_serves_hot_bucket_while_cold_builds(tmp_path):
+    """The JAX staged contract on the port: the constructor returns once
+    the DECLARED-hot bucket is warm; a request for the still-cold bucket
+    is refused with BucketCold (retry-after), the hot bucket serves at
+    once, the cold one warms in the background and then serves; stages
+    read [1, 2]. Both results equal the JAX staged engine's within
+    REC_TOL."""
+    d = _bank(k=4, s=3)
+    cfg_kw = _cfg_kw(max_it=3, tol=0.0)
+    buckets = ((2, (48, 48)), (2, (16, 16)))
+    staged = dict(staged_warmup=True, warm_order=("2@16x16",))
+    mdir = str(tmp_path / "m")
+    xc, mc = _req(48, seed=3)
+    x, m = _req(16, seed=2)
+    eng = _engine(d, cfg_kw, buckets, metrics_dir=mdir, **staged)
+    try:
+        assert eng.bucket_warm((2, (16, 16)))
+        refused = None
+        if not eng.bucket_warm((2, (48, 48))):
+            with pytest.raises(serve.BucketCold) as exc:
+                eng.submit(xc * mc, mask=mc, x_orig=xc)
+            refused = exc.value
+            assert refused.bucket == "2@48x48"
+            assert refused.retry_after_s > 0
+        res = eng.submit(x * m, mask=m, x_orig=x).result(timeout=120)
+        assert res.bucket == "2@16x16"
+        _wait_warm(eng, (2, (48, 48)))
+        resc = eng.submit(xc * mc, mask=mc, x_orig=xc).result(timeout=120)
+        assert resc.bucket == "2@48x48"
+    finally:
+        eng.close()
+    from ccsc_code_iccv2017_torch.utils import obs
+
+    ev = obs.read_events(mdir)
+    stages = [e for e in ev if e["type"] == "warmup_stage"]
+    assert [e["stage"] for e in stages] == [1, 2]
+    assert [e["bucket"] for e in stages] == ["2@16x16", "2@48x48"]
+    (ready,) = [e for e in ev if e["type"] == "serve_ready"]
+    assert ready["staged"] is True
+    assert ready["first_ready_s"] <= ready["warmup_s"]
+    cold = [e for e in ev if e["type"] == "bucket_cold"]
+    assert len(cold) == (refused is not None)
+
+    jeng = _jax_engine(d, cfg_kw, buckets, **staged)
+    try:
+        _wait_warm(jeng, (2, (48, 48)), timeout=240)
+        jres = jeng.submit(x * m, mask=m, x_orig=x).result(timeout=240)
+        jresc = jeng.submit(xc * mc, mask=mc,
+                            x_orig=xc).result(timeout=240)
+    finally:
+        jeng.close()
+    assert _rel(res.recon, jres.recon) <= REC_TOL
+    assert _rel(resc.recon, jresc.recon) <= REC_TOL
+
+
+def test_staged_warm_order_typo_refused():
+    d = _bank(k=4, s=3)
+    kw = dict(staged_warmup=True, warm_order=("2@99x99",))
+    with pytest.raises(CCSCInputError, match="not.*configured"):
+        _engine(d, _cfg_kw(max_it=3), ((2, (16, 16)),), **kw)
+    from ccsc_code_iccv2017_tpu.utils.validate import (
+        CCSCInputError as JInputError,
+    )
+
+    with pytest.raises(JInputError, match="not.*configured"):
+        _jax_engine(d, _cfg_kw(max_it=3), ((2, (16, 16)),), **kw)
+
+
+def test_enable_compile_cache_latch_warns_on_different_path(tmp_path):
+    """The per-process build-directory latch: a SECOND enable with a
+    DIFFERENT path warns on the console (tier always) and keeps the
+    first, which the libraries' build directories follow. In a
+    subprocess: the latch is process-global by design."""
+    import subprocess
+    import sys
+
+    a, b = str(tmp_path / "cc-a"), str(tmp_path / "cc-b")
+    code = f"""
+from ccsc_code_iccv2017_torch.data import native
+from ccsc_code_iccv2017_torch.ops import kernels
+from ccsc_code_iccv2017_torch.serve import enable_compile_cache
+assert enable_compile_cache(None) is None
+assert enable_compile_cache({a!r}) == {a!r}
+assert enable_compile_cache({b!r}) == {a!r}
+assert enable_compile_cache({a!r}) == {a!r}  # same path: silent
+assert kernels.build_dir() == native.build_dir() == {a!r}
+"""
+    env = dict(os.environ)
+    env.pop("CCSC_COMPILE_CACHE", None)
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=240)
+    assert p.returncode == 0, p.stdout + p.stderr
+    warns = [ln for ln in p.stdout.splitlines() if "already latched" in ln]
+    assert len(warns) == 1, p.stdout
+    assert "ignoring the new path" in warns[0]
+    assert not os.path.exists(b)
+
+
+def test_warmup_stages_count_from_one_like_jax(tmp_path):
+    """A non-staged engine's ``warmup_stage`` records number the
+    stages 1..n in warm order, as the JAX engine's do on the same
+    buckets."""
+    d = _bank(k=4, s=3)
+    cfg_kw = _cfg_kw(max_it=2)
+    buckets = ((2, (12, 12)), (2, (16, 16)), (2, (20, 20)))
+    stages = {}
+    for pkg, make in (("port", _engine), ("jax", None)):
+        mdir = str(tmp_path / pkg)
+        if make is None:
+            geom = jcfg.ProblemGeom(d.shape[1:], d.shape[0])
+            eng = JEngine(jnp.asarray(d), jr.ReconstructionProblem(geom),
+                          jcfg.SolveConfig(**cfg_kw),
+                          jcfg.ServeConfig(buckets=buckets, metrics_dir=mdir,
+                                           verbose="none"))
+            from ccsc_code_iccv2017_tpu.utils import obs as readers
+        else:
+            eng = make(d, cfg_kw, buckets, metrics_dir=mdir)
+            from ccsc_code_iccv2017_torch.utils import obs as readers
+        eng.close()
+        stages[pkg] = [(e["stage"], e["n_stages"], e["bucket"])
+                       for e in readers.read_events(mdir)
+                       if e["type"] == "warmup_stage"]
+    assert stages["port"] == stages["jax"] == [
+        (1, 3, "2@12x12"), (2, 3, "2@16x16"), (3, 3, "2@20x20")]
 
 
 def test_engine_on_cuda_raises_without_card():

@@ -6,8 +6,8 @@ REC_TOL = 1e-4 plus one quantization step) and serve the same number
 of requests; ``--federate`` drains a durable queue as one federated
 host, ``--min/--max-replicas`` serve under the capacity controller and
 refuse the JAX CLI's bad pairs with its messages, and the compile
-cache, artifact store and staged warmup are refused, naming ROADMAP.md
-Queue 1 item 11's second half.
+cache, artifact store and staged warmup flags reach ``ServeConfig`` and
+the app serves.
 
 The bank is k=4 5x5 and the images 20x20 in a 24x24 two-slot bucket,
 max_it 5, written as a MATLAB-layout ``.mat`` stack
@@ -181,15 +181,40 @@ def test_min_max_replicas_serve_under_the_controller(fixtures, tmp_path,
     assert "fleet ready" in out
 
 
-@pytest.mark.parametrize("flags", [
-    ("--compile-cache", "cc"), ("--artifact-store", "a"),
-    ("--staged-warmup",),
-], ids=lambda f: f[0].lstrip("-"))
-def test_second_half_serve_fields_are_refused(fixtures, tmp_path, flags):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 11, second half"):
-        tapp.main(_argv(fixtures, tmp_path / "o", *flags, "--device",
+@pytest.mark.parametrize("flags, field, value", [
+    (("--compile-cache", "cc"), "compile_cache", "cc"),
+    (("--artifact-store", "a"), "artifact_store", "a"),
+    (("--staged-warmup",), "staged_warmup", True),
+], ids=lambda f: f[0].lstrip("-") if isinstance(f, tuple) else None)
+def test_second_half_serve_fields_are_refused(fixtures, tmp_path,
+                                              monkeypatch, flags, field,
+                                              value):
+    """Once refused; now each flag reaches ``ServeConfig`` as the JAX
+    CLI's does, and the app serves every image with it."""
+    from ccsc_code_iccv2017_torch import serve as tserve
+    from ccsc_code_iccv2017_torch.data import native
+    from ccsc_code_iccv2017_torch.ops import kernels
+    from ccsc_code_iccv2017_torch.serve import engine as tengine
+
+    # the compile cache latches the process's build directory: undo it
+    monkeypatch.setattr(tengine, "_compile_cache_path", None)
+    monkeypatch.setattr(kernels, "_BUILD_DIR", None)
+    monkeypatch.setattr(native, "_BUILD_DIR", None)
+    flags = tuple(str(tmp_path / f) if f in ("cc", "a") else f
+                  for f in flags)
+    value = str(tmp_path / value) if isinstance(value, str) else value
+    seen = []
+
+    class Spy(tengine.CodecEngine):
+        def __init__(self, d, prob, cfg, serve_cfg, *a, **kw):
+            seen.append(serve_cfg)
+            super().__init__(d, prob, cfg, serve_cfg, *a, **kw)
+
+    monkeypatch.setattr(tserve, "CodecEngine", Spy)
+    n = tapp.main(_argv(fixtures, tmp_path / "o", *flags, "--device",
                         "cpu"))
+    assert n == 3 and len(os.listdir(tmp_path / "o")) == 3
+    assert len(seen) == 1 and getattr(seen[0], field) == value
 
 
 def test_serve_app_defaults_to_the_card(fixtures, tmp_path):
