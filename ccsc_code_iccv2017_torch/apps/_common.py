@@ -6,12 +6,11 @@ out-of-memory downgrade ladder (:func:`dispatch_learn`), their ``--mesh N`` (:fu
 ``run`` returns.
 
 Every flag of the JAX CLIs parses here with the same name, choices and
-default; a non-default value of a feature the port has not ported yet
-is refused where the config reads it (``config.SolveConfig`` for
-``--fft-impl`` and ``--tune``) or by :func:`refuse_unported`
-(``--tune-store``), or for the learners by
-:func:`refuse_unported_learner`, naming the ROADMAP.md item that ports
-it. ``--metrics-dir`` writes the run's telemetry stream (utils.obs);
+default. ``--fft-impl`` picks the transform tier, ``--outer-chunk`` /
+``--donate-state`` the chunked learner driver, ``--tune`` the knob
+autotuner (resolved once before a learner runs, :func:`dispatch_learn`)
+and ``--tune-store`` its store (it sets ``CCSC_TUNE_STORE``).
+``--metrics-dir`` writes the run's telemetry stream (utils.obs);
 ``--watchdog`` arms the dispatch-fence watchdog (utils.watchdog) and
 ``--auto-degrade`` the downgrade ladder.
 """
@@ -23,6 +22,19 @@ import functools
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
+
+
+class _TuneStoreAction(argparse.Action):
+    """``--tune-store PATH`` is ``CCSC_TUNE_STORE=PATH`` for this process:
+    every store reader (the learners' resolution, ``reconstruct``'s inline
+    resolution, the engine) reads the knob, so the flag sets it at parse
+    time, as the JAX flag does."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        import os
+
+        os.environ["CCSC_TUNE_STORE"] = values
+        setattr(namespace, self.dest, values)
 
 
 def add_perf_args(parser: argparse.ArgumentParser, fft_pad: bool = True) -> None:
@@ -37,15 +49,24 @@ def add_perf_args(parser: argparse.ArgumentParser, fft_pad: bool = True) -> None
     parser.add_argument(
         "--fft-impl", default="xla",
         choices=["xla", "matmul", "matmul_high", "matmul_bf16"],
-        help="FFT strategy; the port runs 'xla' (torch.fft) only",
+        help="FFT strategy: 'xla' (torch.fft) or a matmul-DFT tier "
+        "(float32, 3-pass bf16, 1-pass bf16 products)",
     )
     parser.add_argument(
         "--tune", default="off", choices=["off", "auto", "sweep"],
-        help="knob autotuning; the port runs 'off' only",
+        help="knob autotuning (tune/): 'auto' applies the measured-"
+        "fastest arm for this card + shape bucket from the tuned store "
+        "(behind a trajectory-parity numerics guard; a failing arm is "
+        "demoted and the next-best applied); 'sweep' times the "
+        "candidate arms on this card first and persists the ranking; "
+        "'off' (default) runs exactly the flags given",
     )
     parser.add_argument(
-        "--tune-store", default=None, metavar="PATH",
-        help="tuned-knob store path (autotuning is not ported yet)",
+        "--tune-store", default=None, action=_TuneStoreAction,
+        metavar="PATH",
+        help="tuned-knob store path (sets CCSC_TUNE_STORE; default: "
+        "$CCSC_COMPILE_CACHE/ccsc_tuned_knobs.json, else the port's "
+        "build/ccsc_tuned_knobs.json)",
     )
 
 
@@ -76,14 +97,6 @@ def add_device_arg(parser: argparse.ArgumentParser) -> None:
     )
 
 
-def refuse_unported(args: argparse.Namespace) -> None:
-    if getattr(args, "tune_store", None) is not None:
-        raise NotImplementedError(
-            "--tune-store: knob autotuning is not ported yet "
-            "(ROADMAP.md Queue 1 item 9)"
-        )
-
-
 def add_learner_args(
     parser: argparse.ArgumentParser,
     masked_carry: bool = False,
@@ -92,17 +105,19 @@ def add_learner_args(
     """The flags the learner CLIs share, as the JAX package's
     ``add_perf_args(chunk=True, masked_carry=...)``,
     ``add_resilience_args`` and ``add_obs_args`` define them, plus the
-    storage dtypes and ``--device``. Those whose mechanisms are not
-    ported parse here and are refused by :func:`refuse_unported_learner`."""
+    storage dtypes and ``--device``."""
     add_perf_args(parser)
     parser.add_argument(
         "--outer-chunk", type=int, default=1,
-        help="outer iterations per chunk (chunked outer steps are not "
-        "ported yet)",
+        help="outer iterations per chunk: one host read a chunk, the "
+        "divergence guard and the tol stop on the device; bitwise the "
+        "per-step run (LearnConfig.outer_chunk)",
     )
     parser.add_argument(
         "--donate-state", action="store_true",
-        help="donate the state to the chunked step (not ported yet)",
+        help="adopt each chunked step into the input state's storage, "
+        "so a chunk holds one state fewer (LearnConfig.donate_state; "
+        "implies the chunked driver; not with --streaming)",
     )
     parser.add_argument(
         "--stream-mode", default=None,
@@ -144,9 +159,9 @@ def add_learner_args(
         "--auto-degrade", action="store_true",
         help="on a preflight memory overflow (CCSC_INMEM_HBM_GB, else the "
         "card's free memory) or a torch.OutOfMemoryError in the first "
-        "step, step down to --streaming instead of erroring (JAX's "
-        "donate and chunk rungs wait for the chunked driver); every "
-        "downgrade is a `degrade` record and in trace['degrades']",
+        "step, step down donate -> --outer-chunk 1 -> --streaming "
+        "instead of erroring; every downgrade is a `degrade` record "
+        "and in trace['degrades']",
     )
     parser.add_argument("--checkpoint-dir", default=None)
     parser.add_argument("--checkpoint-every", type=int, default=5)
@@ -165,28 +180,6 @@ def add_learner_args(
     add_device_arg(parser)
 
 
-# learner flags of the JAX CLIs whose mechanisms are not ported yet:
-# (argparse dest, the value that asks for nothing, what it is, the
-# ROADMAP.md Queue 1 item that ports it)
-_LEARNER_NOT_PORTED = (
-    ("tune", "off", "--tune (knob autotuning)", "9"),
-    ("tune_store", None, "--tune-store (knob autotuning)", "9"),
-    ("fft_impl", "xla", "--fft-impl (the matmul-DFT tiers)", "9"),
-    ("outer_chunk", 1, "--outer-chunk (chunked outer steps)", "9"),
-    ("donate_state", False, "--donate-state (chunked outer steps)", "9"),
-)
-
-
-def refuse_unported_learner(args: argparse.Namespace) -> None:
-    """Exit naming the ROADMAP.md item of the first learner flag set
-    whose mechanism is not ported yet."""
-    for dest, idle, what, item in _LEARNER_NOT_PORTED:
-        if getattr(args, dest, idle) != idle:
-            raise SystemExit(
-                f"not ported yet: {what}: ROADMAP.md Queue 1 item {item}"
-            )
-
-
 def learner_config_kwargs(args: argparse.Namespace) -> dict:
     """The LearnConfig fields the shared learner flags set."""
     kw = dict(
@@ -194,7 +187,9 @@ def learner_config_kwargs(args: argparse.Namespace) -> dict:
         storage_dtype=args.storage_dtype,
         max_recoveries=args.max_recoveries, rho_backoff=args.rho_backoff,
         watchdog=args.watchdog, watchdog_slack=args.watchdog_slack,
-        metrics_dir=args.metrics_dir,
+        metrics_dir=args.metrics_dir, fft_impl=args.fft_impl,
+        outer_chunk=args.outer_chunk, donate_state=args.donate_state,
+        tune=args.tune,
     )
     if hasattr(args, "d_storage_dtype"):
         kw["d_storage_dtype"] = args.d_storage_dtype
@@ -335,34 +330,19 @@ def _can_stream(mesh, solver, forbidden, kwargs) -> bool:
     return True
 
 
-def _rung_cfg(cfg, **change):
-    """``cfg`` with one rung's change, or None when the port's LearnConfig
-    refuses that knob (``donate_state``, ``outer_chunk > 1``: ROADMAP.md
-    Queue 1 item 9), so the ladder passes over the rung."""
-    try:
-        return dataclasses.replace(cfg, **change)
-    except NotImplementedError:
-        return None
-
-
 def _next_rung(cfg, streaming, mesh, solver, forbidden, kwargs,
                runtime=False):
     """The next downgrade, ``(new_cfg, new_streaming, rung_name)``, or
-    None when the ladder is exhausted. JAX's order: ``donate`` (drops
-    the output-state copy), ``chunk`` (runtime only: outer_chunk=1), then
-    ``streaming`` (host-resident state, bounded device memory). A rung
-    whose knob the port refuses is passed over, so today the port steps
-    straight to ``streaming``."""
+    None when the ladder is exhausted. JAX's order: ``donate`` (the
+    chunk adopts into the input state's storage: one state fewer),
+    ``chunk`` (runtime only: outer_chunk=1), then ``streaming``
+    (host-resident state, bounded device memory)."""
     if streaming:
         return None
     if not cfg.donate_state:
-        donated = _rung_cfg(cfg, donate_state=True)
-        if donated is not None:
-            return donated, False, "donate"
+        return dataclasses.replace(cfg, donate_state=True), False, "donate"
     if runtime and cfg.outer_chunk > 1:
-        chunk1 = _rung_cfg(cfg, outer_chunk=1)
-        if chunk1 is not None:
-            return chunk1, False, "chunk"
+        return dataclasses.replace(cfg, outer_chunk=1), False, "chunk"
     if _can_stream(mesh, solver, forbidden, kwargs):
         # the streaming learner refuses donate_state
         return dataclasses.replace(cfg, donate_state=False), True, "streaming"
@@ -434,8 +414,10 @@ def dispatch_learn(
     """Run a learner CLI's solve: ``solver`` (default the consensus
     learner, parallel.consensus.learn) with ``kwargs`` (and ``mesh``),
     or with ``streaming`` the host-streaming learner (the port of the
-    JAX package's ``apps/_dispatch.py::dispatch_learn`` without its
-    tuning arm; streaming refuses a mesh as JAX does). The random init
+    JAX package's ``apps/_dispatch.py::dispatch_learn``; streaming
+    refuses a mesh as JAX does). A ``cfg.tune`` other than 'off' is
+    resolved first, once (:func:`_resolve_tune`), so the ladder sees the
+    knobs that will run. The random init
     draws from ``seed``: on ``device`` for the in-memory solvers, on the
     host for the streaming learner, whose state lives there.
 
@@ -455,16 +437,16 @@ def dispatch_learn(
     each downgrade is a ``degrade`` record (and each OOM a forensic dump
     and its ``mem_oom_dump`` record) in the stream's
     ``events-pNNNNN-dispatch.jsonl`` and lands in ``trace['degrades']``.
-    The port's LearnConfig refuses the ``donate`` and ``chunk`` rungs'
-    knobs (ROADMAP.md Queue 1 item 9), so its ladder steps straight to
-    ``streaming``. Default off: an explicit OOM beats a silent strategy
-    change."""
+    The rungs are JAX's: donate, chunk (runtime only), streaming.
+    Default off: an explicit OOM beats a silent strategy change."""
     if stream_mode and not streaming:
         raise SystemExit("--stream-mode requires --streaming")
     if streaming and mesh is not None:
         raise SystemExit(
             "--streaming is single-device and does not combine with --mesh"
         )
+    if cfg.tune != "off":
+        cfg = _resolve_tune(cfg, b, geom, streaming, solver, device)
     once = functools.partial(
         _dispatch_once, b, geom, seed, device, stream_mode=stream_mode,
         solver=solver, streaming_blocks=streaming_blocks,
@@ -534,6 +516,43 @@ def dispatch_learn(
     if log.events and isinstance(res.trace, dict):
         res.trace["degrades"] = log.events
     return res
+
+
+def _resolve_tune(cfg, b, geom, streaming, solver, device):
+    """The learner CLIs' knob resolution (``--tune``), once, before the
+    ladder's preflight (JAX ``apps/_dispatch.py::_resolve_tune``). The
+    workload token gates which knobs an arm may set (a consensus-measured
+    fused_z never configures the masked or streaming learner) and scopes
+    the store key; records go to ``events-pNNNNN-tune.jsonl`` in the
+    metrics dir (the learner's run is not open yet)."""
+    import os
+    import time
+
+    from ..tune import autotune, store as tune_store
+    from ..utils import obs
+
+    algo = ("masked" if solver is not None
+            else ("streaming" if streaming else "consensus"))
+    workload = tune_store.learn_workload(geom, algo)
+    writer = emit = None
+    if cfg.metrics_dir is not None:
+        host = obs._process_index()
+        writer = obs.EventWriter(os.path.join(
+            cfg.metrics_dir, f"events-p{host:05d}-tune.jsonl"))
+
+        def emit(type_, _w=writer, _h=host, **fields):
+            _w.write({"t": time.time(), "type": type_, "host": _h,
+                      **fields})
+
+    try:
+        cfg, _ = autotune.resolve_learn(
+            cfg, geom, tuple(np.shape(b)), workload=workload, emit=emit,
+            device=device,
+        )
+    finally:
+        if writer is not None:
+            writer.close()
+    return cfg
 
 
 def _dispatch_once(b, geom, seed, device, cfg, streaming, kwargs, *,

@@ -73,9 +73,8 @@ def run(args: argparse.Namespace):
     from ..models.reconstruct import ReconstructionProblem, reconstruct
     from ..utils import validate
     from ..utils.io_mat import load_filters_3d
-    from ._common import AppRun, refuse_unported
+    from ._common import AppRun
 
-    refuse_unported(args)
     d = load_filters_3d(args.filters)
     if args.synthetic:
         clip = volumes.synthetic_video(

@@ -88,9 +88,8 @@ def run(args: argparse.Namespace):
     from ..models.reconstruct import ReconstructionProblem, reconstruct
     from ..utils import validate
     from ..utils.io_mat import _loadmat, load_filters_hyperspectral
-    from ._common import AppRun, refuse_unported
+    from ._common import AppRun
 
-    refuse_unported(args)
     d = load_filters_hyperspectral(args.filters)
     k, bands = d.shape[0], d.shape[1]
 

@@ -52,9 +52,6 @@ def main(argv=None):
     from ..utils import validate
     from ..utils.io_mat import load_filters_2d
 
-    from ._common import refuse_unported
-
-    refuse_unported(args)
     d = load_filters_2d(args.filters)
     size = (args.size, args.size) if args.size else None
     b = load_images(args.data, limit=args.limit, size=size,

@@ -103,10 +103,9 @@ def main(argv=None):
                 )
     from ._common import (
         app_mesh, dispatch_learn, learner_config_kwargs, mesh_result,
-        refuse_unported_learner, run_mesh_ranks,
+        run_mesh_ranks,
     )
 
-    refuse_unported_learner(args)
     ranks = run_mesh_ranks(__spec__.name, argv, args)
     if ranks is not None:
         return ranks

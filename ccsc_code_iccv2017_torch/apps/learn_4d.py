@@ -104,11 +104,10 @@ def problem(args: argparse.Namespace, b: np.ndarray):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     from ._common import (
-        app_mesh, dispatch_learn, mesh_result, refuse_unported_learner,
+        app_mesh, dispatch_learn, mesh_result,
         run_mesh_ranks,
     )
 
-    refuse_unported_learner(args)
     ranks = run_mesh_ranks(__spec__.name, argv, args)
     if ranks is not None:
         return ranks

@@ -106,9 +106,8 @@ def problem(args: argparse.Namespace, b: np.ndarray):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from ._common import dispatch_learn, refuse_unported_learner
+    from ._common import dispatch_learn
 
-    refuse_unported_learner(args)
     from ..models.learn_masked import learn_masked
     from ..utils import validate
     from ..utils.device import resolve_device

@@ -53,9 +53,8 @@ def run(args: argparse.Namespace):
     from ..models.reconstruct import ReconstructionProblem, reconstruct
     from ..utils import validate
     from ..utils.io_mat import load_filters_2d
-    from ._common import AppRun, refuse_unported
+    from ._common import AppRun
 
-    refuse_unported(args)
     d = load_filters_2d(args.filters)
     imgs = load_image_list(args.data, limit=args.limit,
                            mat_layout=args.mat_layout)

@@ -387,9 +387,6 @@ def main(argv=None):
     from ..utils import env as _env
     from ..utils.io_mat import load_filters_2d
 
-    from ._common import refuse_unported
-
-    refuse_unported(args)
     federate_dir = args.federate
     if federate_dir == "":
         federate_dir = _env.env_str("CCSC_DQUEUE_DIR")

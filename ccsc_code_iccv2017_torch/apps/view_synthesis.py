@@ -80,9 +80,8 @@ def run(args: argparse.Namespace):
     from ..models.reconstruct import ReconstructionProblem, reconstruct
     from ..utils import validate
     from ..utils.io_mat import _loadmat, load_filters_lightfield
-    from ._common import AppRun, refuse_unported
+    from ._common import AppRun
 
-    refuse_unported(args)
     d = load_filters_lightfield(args.filters)
     k, a1, a2 = d.shape[0], d.shape[1], d.shape[2]
 

@@ -8,10 +8,10 @@ the two side by side), so a configuration reads the same in both
 packages. The port implements the reconstruction solves, the
 consensus, masked and streaming learners, the serving engine, the
 serving fleet, its federation across processes and its capacity
-controller, and their run telemetry (``metrics_dir``, the SLO targets, ``verbose='all'``
-figures); the fields it does not implement yet refuse a non-default
-value with ``NotImplementedError`` naming the ROADMAP.md item that ports
-them, instead of being silently ignored.
+controller, their run telemetry (``metrics_dir``, the SLO targets,
+``verbose='all'`` figures) and the performance knobs with their
+autotuner (``herm_inv``, ``fft_impl``, ``outer_chunk`` /
+``donate_state``, ``pipeline_depth``, ``tune`` / ``tune_store``).
 """
 from __future__ import annotations
 
@@ -75,10 +75,6 @@ class ProblemGeom:
 GEOM_2D = lambda k=100, s=11: ProblemGeom((s, s), k)
 
 
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({where})")
-
-
 @dataclasses.dataclass(frozen=True)
 class LearnConfig:
     """Hyperparameters of the consensus dictionary learner.
@@ -109,6 +105,16 @@ class LearnConfig:
     - ``watchdog`` / ``watchdog_slack``: the dispatch-fence watchdog
       (utils.watchdog) around each step's one host read; its deadline
       comes from the H100 row of the roofline on the card.
+    - ``outer_chunk`` / ``donate_state``: the chunked driver
+      (models.learn.outer_chunk_scan): ``outer_chunk`` steps with one
+      host read a chunk; ``donate_state`` adopts each step into the
+      input state's storage (``torch.where(..., out=)``), so a chunk
+      holds one state fewer.
+    - ``fft_impl``: 'xla' (torch.fft) or the matmul-DFT tiers
+      (ops.fourier), whose three accuracy classes are JAX's.
+    - ``tune``: 'auto' / 'sweep' are resolved by the learner apps before
+      the run (tune.autotune.resolve_learn); a learner called directly
+      runs the config as written, as in JAX.
     """
 
     lambda_residual: float = 1.0
@@ -182,24 +188,12 @@ class LearnConfig:
                 f"fused_z_precision must be 'highest' | 'high' | "
                 f"'default', got {self.fused_z_precision!r}"
             )
-        # what the port does not implement yet
-        item9 = "ROADMAP.md Queue 1 item 9"
-        if self.outer_chunk > 1 or self.donate_state:
-            raise _not_ported(
-                "outer_chunk > 1 / donate_state (the chunked driver)", item9
-            )
-        if self.fft_impl != "xla":
-            raise _not_ported(
-                f"fft_impl={self.fft_impl!r} (the matmul-DFT tiers)", item9
-            )
-        if self.tune != "off":
-            raise _not_ported(f"tune={self.tune!r} (knob autotuning)", item9)
 
     @property
     def chunked_driver(self) -> bool:
-        """True when the driver must route through the chunked step —
-        never in the port, which refuses outer_chunk > 1 and
-        donate_state above."""
+        """True when the driver must route through the chunked step
+        (models.learn.outer_chunk_scan): outer_chunk > 1, or
+        donate_state, which implies chunking even at outer_chunk=1."""
         return self.outer_chunk > 1 or self.donate_state
 
 
@@ -216,7 +210,10 @@ class SolveConfig:
     ``use_pallas`` is kept for name parity and is not read: on a CUDA
     tensor the W == 1 z-solve always runs the hand-written rank-1 kernel
     (ops.kernels.solve_z_rank1). ``herm_inv`` selects the W > 1
-    problems' Gram inverse; the port runs 'cholesky' (None) only.
+    problems' Gram inverse (ops.freq_solvers.hermitian_inverse; None
+    reads ``CCSC_HERM_INV``, else Cholesky). ``fft_impl`` picks torch.fft
+    ('xla') or a matmul-DFT tier. ``tune`` 'auto' / 'sweep' resolves the
+    knobs from the tuned store at ``reconstruct`` (tune.autotune).
     """
 
     lambda_residual: float = 5.0
@@ -256,17 +253,6 @@ class SolveConfig:
                 f"herm_inv must be None | 'cholesky' | 'schur' | "
                 f"'newton', got {self.herm_inv!r}"
             )
-        if self.tune != "off":
-            raise NotImplementedError(
-                f"tune={self.tune!r}: knob autotuning is not ported yet "
-                "(ROADMAP.md Queue 1 item 9); use tune='off'"
-            )
-        if self.fft_impl != "xla":
-            raise NotImplementedError(
-                f"fft_impl={self.fft_impl!r}: the matmul-DFT tiers are "
-                "not ported yet (ROADMAP.md Queue 1 item 9); the port "
-                "runs torch.fft ('xla')"
-            )
 
     @property
     def with_objective(self) -> bool:
@@ -279,14 +265,6 @@ class SolveConfig:
         if self.track_psnr is None:
             return self.verbose != "none"
         return self.track_psnr
-
-
-# ServeConfig fields of later ROADMAP.md Queue 1 items: (field, the
-# values that ask for what the port does, the item that ports the rest)
-_SERVE_DEFERRED = (
-    ("tune", ("off",), 9), ("tune_store", (None,), 9),
-    ("pipeline_depth", (None, 1), 9),
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,9 +291,10 @@ class ServeConfig:
     store shared between hosts: serve.artifacts), ``staged_warmup``,
     ``warm_order`` and ``warm_rank_capture`` (serve.engine, hot to cold;
     each None falls back to its ``CCSC_*`` knob, and "" of a path is
-    off); ``tune``, ``tune_store`` and ``pipeline_depth`` refuse a value
-    other than their default with ``NotImplementedError`` naming the
-    ROADMAP.md item that ports them.
+    off), ``tune`` / ``tune_store`` (the engine resolves its SolveConfig
+    from the tuned store at construction: tune.autotune.resolve_solve)
+    and ``pipeline_depth`` (None: ``CCSC_SERVE_PIPELINE``; at 2 the
+    worker uploads batch n+1 on a copy stream while batch n solves).
 
     ``mesh_shape`` ``(batch,)`` or ``(batch, freq)`` serves every bucket
     from a mesh of devices driven by the engine's one process (None:
@@ -479,13 +458,6 @@ class ServeConfig:
             raise ValueError(
                 "mesh_devices without mesh_shape is meaningless"
             )
-        # what the port does not serve yet
-        for name, served, item in _SERVE_DEFERRED:
-            if getattr(self, name) not in served:
-                raise _not_ported(
-                    f"ServeConfig.{name}={getattr(self, name)!r}",
-                    f"ROADMAP.md Queue 1 item {item}",
-                )
 
 
 @dataclasses.dataclass(frozen=True)

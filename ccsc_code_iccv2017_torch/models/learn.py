@@ -28,8 +28,9 @@ step on its L = N / nb blocks: the consensus mean is one all-reduce over
 'block' per d-iteration, a 'freq' axis splits the per-frequency solves
 (``fslice`` before each solve, ``all_gather_tiled`` after it), and a
 'filter' axis splits the k axis of the filters and codes, with one psum
-per k-sum. The chunked driver is not ported yet (ROADMAP.md Queue 1
-item 9). With ``cfg.metrics_dir`` the step also computes the telemetry
+per k-sum. :func:`outer_chunk_scan` runs ``cfg.outer_chunk`` steps with
+one host read a chunk (the chunked driver). With ``cfg.metrics_dir`` the
+step also computes the telemetry
 scalars (:class:`ObsExtras`), which ride the step's one host read. The
 JAX package's documented
 divergences from the reference (coding against the projected consensus
@@ -92,6 +93,22 @@ class OuterMetrics(NamedTuple):
     z_diff: torch.Tensor  # rel change of codes (global norm)
     # telemetry scalars, None unless cfg.with_obs_metrics
     extras: Optional[ObsExtras] = None
+
+
+class ChunkTrace(NamedTuple):
+    """Per-step records of one chunk (models.learn.outer_chunk_scan),
+    each stacked on the device with a leading [chunk] axis.
+
+    ``active``: the step attempted an iteration (False once the chunk
+    has stopped). ``adopted``: its iterate was finite and became the
+    state; only these steps append trace entries in the driver. An
+    active step that is not adopted is the non-finite divergence the
+    per-step driver guards (its metrics are reported, the carried state
+    is the last good one)."""
+
+    metrics: OuterMetrics
+    active: torch.Tensor
+    adopted: torch.Tensor
 
 
 def init_state(
@@ -498,6 +515,89 @@ def outer_step(
 
     new_state = LearnState(d_local, dual_d, dbar, udbar, z, dual_z)
     return new_state, OuterMetrics(obj_d, obj_z, d_diff, z_diff, extras)
+
+
+def adopt_state(adopted: torch.Tensor, new, old, donate: bool):
+    """``new`` where the 0-d bool ``adopted`` holds, else ``old``, field
+    by field (a NamedTuple of tensors), as the device select of
+    ``torch.where`` (a true select is bitwise ``new``). The select is
+    written into ``old``'s storage with ``donate`` (the input state's
+    buffers carry the chunk, as a donated state does in JAX), else into
+    ``new``'s, so no third state is allocated either way. A field whose
+    ``new`` is ``old`` itself is kept as it is."""
+    out = []
+    for n, o in zip(new, old):
+        if n is o:
+            out.append(o)
+        else:
+            out.append(torch.where(adopted, n, o, out=o if donate else n))
+    return type(old)(*out)
+
+
+def outer_chunk_scan(
+    state: LearnState,
+    b_blocks: torch.Tensor,
+    geom: ProblemGeom,
+    cfg: LearnConfig,
+    fg: common.FreqGeom,
+    num_blocks: int,
+    chunk: int,
+    mesh=None,
+    poison_at: Optional[int] = None,
+    donate: bool = False,
+) -> Tuple[LearnState, ChunkTrace]:
+    """``chunk`` outer consensus iterations with no host read between
+    them (the JAX package's lax.scan of models/learn.py:446-526 as
+    ``chunk`` calls of :func:`outer_step`). The carry is (state, done),
+    both on the device; each step keeps the per-step driver's contract
+    at chunk granularity:
+
+    - a non-finite step is not adopted (the carry keeps the last finite
+      state) and ``done`` latches;
+    - a converged step (both diffs below ``cfg.tol``) is adopted, then
+      ``done`` latches, so the chunked run lands on the per-step run's
+      iterate;
+    - steps after ``done`` still run and their results are discarded
+      (``active`` False), as in JAX: at most one chunk's tail at the end
+      of a run.
+
+    Adoption is a device select (:func:`adopt_state`): bitwise the step's
+    own output, so a chunked run equals the per-step run bit for bit.
+    ``donate`` writes each adopted step into ``state``'s own storage:
+    the caller's input state is consumed (it must rebind to the
+    output), and peak memory stays one state below the undonated
+    chunk's. ``poison_at`` (chaos, utils.faults): the 0-based step of
+    the chunk whose z iterate is NaN-poisoned. Returns (state,
+    ChunkTrace); the caller reads the trace once a chunk."""
+    dev = b_blocks.device
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    recs, actives, adopts = [], [], []
+    st = state
+    for j in range(chunk):
+        poison = (torch.ones((), dtype=torch.bool, device=dev)
+                  if poison_at == j else None)
+        new, m = outer_step(st, b_blocks, geom, cfg, fg, num_blocks,
+                            mesh=mesh, poison=poison)
+        finite = torch.all(torch.isfinite(
+            torch.stack([m.obj_d, m.obj_z, m.d_diff, m.z_diff])))
+        active = torch.logical_not(done)
+        adopted = torch.logical_and(active, finite)
+        st = adopt_state(adopted, new, st, donate)
+        del new
+        converged = torch.logical_and(m.d_diff < cfg.tol, m.z_diff < cfg.tol)
+        done = torch.logical_or(done, torch.logical_and(
+            active, torch.logical_or(torch.logical_not(finite), converged)))
+        recs.append(m)
+        actives.append(active)
+        adopts.append(adopted)
+    metrics = OuterMetrics(
+        *(torch.stack([getattr(m, f) for m in recs])
+          for f in ("obj_d", "obj_z", "d_diff", "z_diff")),
+        None if recs[0].extras is None else ObsExtras(
+            *(torch.stack([m.extras[i] for m in recs]) for i in range(4))),
+    )
+    return st, ChunkTrace(metrics, torch.stack(actives),
+                          torch.stack(adopts))
 
 
 def obs_extras(z, d_local, dbar, fid_z, l1_z, num_blocks: int,

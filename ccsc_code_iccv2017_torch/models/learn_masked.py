@@ -22,8 +22,8 @@ masked learner (``learn_2d --masked``), whose z-solve is K1. On a 1-D
 ('freq',) mesh (parallel.mesh.freq_mesh) the state and data stay
 replicated on every rank and each rank solves an F / nf slice of the
 spectrum, one tiled all-gather per inner iteration reassembling it, as
-the JAX package's 'freq'-sharded step. The chunked outer loop is not
-ported yet (ROADMAP.md Queue 1 item 9). With ``cfg.metrics_dir`` the
+the JAX package's 'freq'-sharded step. ``cfg.outer_chunk`` runs the
+chunked outer loop (:func:`chunk_scan`). With ``cfg.metrics_dir`` the
 run writes its telemetry stream under ``algorithm="masked_admm"``
 (utils.obs): its roofline records carry it/s only, as the JAX package
 has no cost model of the masked objective.
@@ -213,6 +213,78 @@ def outer_step(
     return new, OuterMetrics(obj_d, obj_z, d_diff, z_diff)
 
 
+def chunk_scan(state, prev, obj_best, b_pad, M_pad, smoothinit, geom, cfg,
+               fg, gamma_div_d, gamma_div_z, chunk: int, mesh=None,
+               poison_at: Optional[int] = None, donate: bool = False):
+    """``chunk`` masked outer iterations with no host read between them
+    (the JAX package's ``_chunk_scan_impl``, models/learn_masked.py:245
+    there). The per-step driver's three stopping rules move onto the
+    device:
+
+    - non-finite metrics: the step is not adopted and ``done`` latches;
+    - the objective rollback (admm_learn.m:204-213): when neither pass
+      improved the best objective (``obj_best``, a 0-d float32 tensor),
+      both iterates revert to ``prev`` and ``done`` latches;
+    - the tol stop: the converged step is adopted, then ``done``
+      latches.
+
+    Returns (state, prev, obj_best, records) with records the stacked
+    [chunk] tensors (obj_d, obj_z, d_diff, z_diff, active, adopted,
+    rolled). Every select is ``torch.where`` (a taken branch is bitwise
+    its input). ``donate``: the adopted values are written into
+    ``state``'s and ``prev``'s own storage, so the caller's two input
+    states carry the chunk (it must rebind both and pass distinct
+    storages). ``poison_at``: chaos NaN injection at that 0-based step."""
+    dev = b_pad.device
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    best = obj_best
+    ys = []
+    st, pv = state, prev
+    for j in range(chunk):
+        poison = (torch.ones((), dtype=torch.bool, device=dev)
+                  if poison_at == j else None)
+        new, m = outer_step(st, b_pad, M_pad, smoothinit, geom, cfg, fg,
+                            gamma_div_d, gamma_div_z, mesh=mesh,
+                            poison=poison)
+        finite = torch.all(torch.isfinite(
+            torch.stack([m.obj_d, m.obj_z, m.d_diff, m.z_diff])))
+        active = torch.logical_not(done)
+        if cfg.with_objective:
+            regressed = torch.logical_and(best <= m.obj_d, best <= m.obj_z)
+        else:
+            # untracked steps return 0.0: the rollback is disarmed
+            regressed = torch.zeros((), dtype=torch.bool, device=dev)
+        adopted = torch.logical_and(active, torch.logical_and(
+            finite, torch.logical_not(regressed)))
+        rolled = torch.logical_and(active, torch.logical_and(
+            finite, regressed))
+        # the new state into new's storage, then the rollback carry
+        sel = [torch.where(rolled, p, torch.where(adopted, n, s, out=n),
+                           out=n)
+               for p, s, n in zip(pv, st, new)]
+        if donate:
+            for p, s in zip(pv, st):
+                torch.where(adopted, s, p, out=p)
+            for s, x in zip(st, sel):
+                s.copy_(x)
+            del sel
+        else:
+            pv = MaskedLearnState(*(torch.where(adopted, s, p)
+                                    for p, s in zip(pv, st)))
+            st = MaskedLearnState(*sel)
+        del new
+        best = torch.where(
+            adopted, torch.minimum(best, torch.minimum(m.obj_d, m.obj_z)),
+            best)
+        converged = torch.logical_and(m.d_diff < cfg.tol, m.z_diff < cfg.tol)
+        done = torch.logical_or(done, torch.logical_and(active, torch.logical_or(
+            torch.logical_not(finite), torch.logical_or(regressed, converged))))
+        ys.append((m.obj_d, m.obj_z, m.d_diff, m.z_diff, active, adopted,
+                   rolled))
+    recs = tuple(torch.stack([y[i] for y in ys]) for i in range(7))
+    return st, pv, best, recs
+
+
 def hbm_estimate(
     geom: ProblemGeom,
     data_spatial_shape: Tuple[int, ...],
@@ -332,17 +404,14 @@ def learn_masked(
     returns the same result, and the host-side decisions read rank 0's
     metrics. Checkpoints are written by rank 0.
 
-    Not ported yet: the chunked outer loop (item 9).
+    ``cfg.outer_chunk > 1`` (or ``cfg.donate_state``) runs the chunked
+    outer loop (:func:`chunk_scan`): one host read a chunk, the rollback
+    and the tol stop carried on the device, bitwise the per-step run.
     """
     if mesh is not None and mesh.axis_names != ("freq",):
         raise ValueError(
             f"learn_masked expects a 1-D ('freq',) mesh, got "
             f"{mesh.axis_names}"
-        )
-    if cfg.chunked_driver:
-        raise NotImplementedError(
-            "the chunked masked outer loop is not ported yet (ROADMAP.md "
-            "Queue 1 item 9)"
         )
     # blocks=False: this solver never consensus-splits the batch
     validate.check_learn_inputs(b, geom, cfg, init_d=init_d,
@@ -422,9 +491,10 @@ def _learn_masked_impl(
         smoothinit = torch.zeros_like(b_pad)
 
     if initial_state is not None:
-        state = MaskedLearnState(
-            *(t.to(dev).contiguous() for t in initial_state)
-        )
+        # a donated state is written in place: never the caller's tensors
+        own = (lambda t: t.to(dev).clone()) if cfg.donate_state else \
+            (lambda t: t.to(dev).contiguous())
+        state = MaskedLearnState(*(own(t) for t in initial_state))
     else:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -475,117 +545,186 @@ def _learn_masked_impl(
     seen = [v for v in trace["obj_vals_d"] + trace["obj_vals_z"] if v > 0.0]
     obj_best = min(seen) if seen else math.inf
     t_total = trace["tim_vals"][-1]
-    it_done = start_it
-    saved_it = None  # last iteration committed to the checkpoint dir
     # rho-backoff recovery: the gamma divisors are this learner's rho
     recov = resilience.RecoveryManager(cfg, trace)
-    timer = PhaseTimer(dev)
+    state, t_total, it_done, saved_it = _run_outer(
+        state, b_pad, M_pad, smoothinit, geom, cfg, fg, gamma_div_d,
+        gamma_div_z, mesh, dev, recov, trace, run, wd, checkpoint_dir,
+        checkpoint_every, fingerprint, start_it, t_total, obj_best)
+    return _finish(state, trace, run, geom, fg, smoothinit, radius, data_sp,
+                   checkpoint_dir, fingerprint, mesh, it_done, saved_it,
+                   t_total)
 
-    prev = state
+
+def _run_outer(state, b_pad, M_pad, smoothinit, geom, cfg, fg, gamma_div_d,
+               gamma_div_z, mesh, dev, recov, trace, run, wd, checkpoint_dir,
+               checkpoint_every, fingerprint, start_it, t_total, obj_best):
+    """The outer loop (JAX models/learn_masked.py:750-900). Each pass
+    runs one step (:func:`outer_step`), adopted or rolled back on the
+    host after its read, or with ``cfg.chunked_driver`` a chunk of
+    :func:`chunk_scan`, which carries the three stopping rules on the
+    device; then ONE host read (on a mesh rank 0's records and any
+    rank's shutdown request), and the walk of the consensus driver's
+    loop. Returns (state, t_total, it_done, saved_it)."""
+    chunked = cfg.chunked_driver
+    timer = None if chunked else PhaseTimer(dev)
+    it_done = start_it
+    saved_it = None  # last iteration committed to the checkpoint dir
+    # the rollback carry needs its own storage when both are written in
+    # place: one state copy up front, as JAX's
+    prev = (MaskedLearnState(*(t.clone() for t in state))
+            if cfg.donate_state else state)
+    # the best objective: on the device for a chunk, on the host for a step
+    best = torch.tensor(obj_best, dtype=torch.float32, device=dev) \
+        if chunked else obj_best
     with resilience.GracefulShutdown() as gs:
         i = start_it
+        stop = False
         fresh_step = True  # the first fence builds the kernels
-        while i < cfg.max_it:
-            t0 = time.perf_counter()
+        while i < cfg.max_it and not stop:
+            clen = min(cfg.outer_chunk, cfg.max_it - i) if chunked else 1
             na = faults.nan_iteration()
+            poisoned = na is not None and i + 1 <= na <= i + clen
+            t0 = time.perf_counter()
             if wd is not None:
-                wd.arm(1, f"masked_outer_{i}",
-                       may_compile=fresh_step or na == i + 1)
-            poison = (torch.ones((), dtype=torch.bool, device=dev)
-                      if na == i + 1 else None)
-            new_state, m = outer_step(
-                state, b_pad, M_pad, smoothinit, geom, cfg, fg,
-                gamma_div_d * recov.scale, gamma_div_z * recov.scale,
-                on_phase=timer, mesh=mesh, poison=poison,
-            )
-            if poison is not None:
+                wd.arm(clen, f"masked_outer_{i}_{i + clen}" if chunked
+                       else f"masked_outer_{i}",
+                       may_compile=fresh_step or poisoned)
+            gd, gz = gamma_div_d * recov.scale, gamma_div_z * recov.scale
+            if chunked:
+                state, prev, best, ys = chunk_scan(
+                    state, prev, best, b_pad, M_pad, smoothinit, geom, cfg,
+                    fg, gd, gz, clen, mesh=mesh,
+                    poison_at=na - (i + 1) if poisoned else None,
+                    donate=cfg.donate_state,
+                )
+            else:
+                new_state, m = outer_step(
+                    state, b_pad, M_pad, smoothinit, geom, cfg, fg, gd, gz,
+                    on_phase=timer, mesh=mesh,
+                    poison=(torch.ones((), dtype=torch.bool, device=dev)
+                            if poisoned else None),
+                )
+                ys = (m.obj_d, m.obj_z, m.d_diff, m.z_diff)
+            if poisoned:
                 faults.consume_nan()
-            # the one host read of the step (also its device fence); on a
-            # mesh rank 0's metrics and any rank's shutdown request
-            (obj_d, obj_z, d_diff, z_diff), stop_req = mesh_lib.agree(
-                torch.stack([m.obj_d, m.obj_z, m.d_diff, m.z_diff]),
+            # the one host read of the pass (also its fence); on a mesh
+            # rank 0's records and any rank's shutdown request
+            flat, stop_req = mesh_lib.agree(
+                torch.cat([y.to(torch.float32).reshape(-1) for y in ys]),
                 gs.requested, mesh,
             )
             # injected hang fires INSIDE the armed fence (utils.faults)
-            faults.hang_tick(i + 1)
+            faults.hang_tick(i + clen)
             if wd is not None:
                 wd.disarm()
             fresh_step = False
+            cols = [flat[r * clen:(r + 1) * clen] for r in range(len(ys))]
+            obj_d, obj_z, d_diff, z_diff = cols[:4]
+            if chunked:
+                active, adopted, rolled = cols[4:]
+            else:
+                # non-finite guard: NaN metrics would sail through the
+                # regression test and poison the adopted state; the
+                # rollback (admm_learn.m:204-213) is armed only when the
+                # objective is tracked (untracked steps return 0.0)
+                finite = all(math.isfinite(c[0]) for c in cols)
+                regressed = (cfg.with_objective and best <= obj_d[0]
+                             and best <= obj_z[0])
+                active = [True]
+                adopted = [finite and not regressed]
+                rolled = [finite and regressed]
+                if adopted[0]:
+                    prev, state = state, new_state
+                    best = min(best, obj_d[0], obj_z[0])
+                elif rolled[0]:
+                    state = prev
+                del new_state
             dt = time.perf_counter() - t0
-            t_total += dt
-            # non-finite guard: NaN metrics would sail through the
-            # regression test below and poison the adopted state
-            if not all(
-                math.isfinite(v) for v in (obj_d, obj_z, d_diff, z_diff)
-            ):
+            n_adopted = 0
+            for j in range(clen):
+                if not active[j]:
+                    break
+                if rolled[j]:
+                    console(cfg, f"Iter {i + j + 1}: objective regressed, "
+                                 "rolling back")
+                    trace["rolled_back_at"] = i + j + 1
+                    stop = True
+                    break
+                if not adopted[j]:
+                    console(
+                        cfg,
+                        f"Iter {i + j + 1}: non-finite metrics "
+                        f"(obj_d={obj_d[j]}, obj_z={obj_z[j]}, "
+                        f"d_diff={d_diff[j]}, z_diff={z_diff[j]}); "
+                        "keeping last good state",
+                        always=True,
+                    )
+                    ev = recov.on_divergence(i + j + 1)
+                    if ev is None:
+                        stop = True
+                    else:
+                        trace.setdefault("recoveries", []).append(ev)
+                        run.event("recovery", **ev)
+                        fresh_step = True  # as JAX's gamma rebuild
+                    break
+                n_adopted += 1
+                t_total += dt / clen
+                trace["obj_vals_d"].append(obj_d[j])
+                trace["obj_vals_z"].append(obj_z[j])
+                trace["tim_vals"].append(t_total)
+                trace["d_diff"].append(d_diff[j])
+                trace["z_diff"].append(z_diff[j])
+                phases = timer.read() if timer is not None else None
+                if phases is not None:
+                    trace.setdefault("d_pass_ms", []).append(phases[0])
+                    trace.setdefault("z_pass_ms", []).append(phases[1])
+                run.step(
+                    it=i + j + 1, obj_d=obj_d[j], obj_z=obj_z[j],
+                    d_diff=d_diff[j], z_diff=z_diff[j],
+                    t_total=round(t_total, 4),
+                )
                 console(
                     cfg,
-                    f"Iter {i + 1}: non-finite metrics (obj_d={obj_d}, "
-                    f"obj_z={obj_z}, d_diff={d_diff}, z_diff={z_diff}); "
-                    "keeping last good state",
-                    always=True,
+                    f"Iter {i + j + 1}, Obj_d {obj_d[j]:.5g}, Obj_z "
+                    f"{obj_z[j]:.5g}, Diff_d {d_diff[j]:.3g}, Diff_z "
+                    f"{z_diff[j]:.3g}",
                 )
-                del new_state
-                ev = recov.on_divergence(i + 1)
-                if ev is None:
+                if d_diff[j] < cfg.tol and z_diff[j] < cfg.tol:
+                    stop = True
                     break
-                trace.setdefault("recoveries", []).append(ev)
-                run.event("recovery", **ev)
-                fresh_step = True  # as JAX's gamma rebuild (a recompile)
-                continue  # retry iteration i with backed-off gammas
-            # rollback (admm_learn.m:204-213), armed only when the
-            # objective is tracked (untracked steps return 0.0)
-            if cfg.with_objective and obj_best <= obj_d and obj_best <= obj_z:
-                console(cfg, f"Iter {i + 1}: objective regressed, "
-                              "rolling back")
-                trace["rolled_back_at"] = i + 1
-                state = prev
-                break
-            prev = state
-            state = new_state
-            obj_best = min(obj_best, obj_d, obj_z)
-            trace["obj_vals_d"].append(obj_d)
-            trace["obj_vals_z"].append(obj_z)
-            trace["tim_vals"].append(t_total)
-            trace["d_diff"].append(d_diff)
-            trace["z_diff"].append(z_diff)
-            phases = timer.read()
-            if phases is not None:
-                trace.setdefault("d_pass_ms", []).append(phases[0])
-                trace.setdefault("z_pass_ms", []).append(phases[1])
-            run.step(
-                it=i + 1, obj_d=obj_d, obj_z=obj_z, d_diff=d_diff,
-                z_diff=z_diff, t_total=round(t_total, 4),
-            )
-            run.chunk(i, 1, 1, dt)
-            run.heartbeat(i + 1, dt)
-            console(
-                cfg,
-                f"Iter {i + 1}, Obj_d {obj_d:.5g}, Obj_z {obj_z:.5g}, "
-                f"Diff_d {d_diff:.3g}, Diff_z {z_diff:.3g}",
-            )
-            it_done = i + 1
-            faults.sigterm_tick(i + 1)
+            it_end = i + n_adopted
+            it_done = it_end
+            if n_adopted:
+                run.chunk(i, clen, n_adopted, dt)
+                run.heartbeat(it_end, dt)
+                faults.sigterm_tick(it_end)
             # one device: the SIGTERM fault's request counts now, as in
-            # JAX; on a mesh the next step's agreed read carries it
-            preempting = (stop_req or (mesh is None and gs.requested)) \
-                and i + 1 < cfg.max_it
+            # JAX; on a mesh the next pass's agreed read carries it
+            preempting = ((stop_req or (mesh is None and gs.requested))
+                          and not stop and it_end < cfg.max_it)
             if preempting:
-                trace.setdefault("preemptions", []).append(i + 1)
-                run.event("preemption", iteration=i + 1, signum=gs.signum)
+                trace.setdefault("preemptions", []).append(it_end)
+                run.event("preemption", iteration=it_end, signum=gs.signum)
+            crossed = (n_adopted and it_end // checkpoint_every
+                       > i // checkpoint_every)
             if checkpoint_dir is not None and (
-                (i + 1) % checkpoint_every == 0 or preempting
+                (crossed and saved_it != it_end) or preempting
             ):
-                _save(checkpoint_dir, state, trace, i + 1, fingerprint, mesh)
-                saved_it = i + 1
+                _save(checkpoint_dir, state, trace, it_end, fingerprint,
+                      mesh)
+                saved_it = it_end
             if preempting:
-                console(cfg, f"preempted: checkpointed iteration {i + 1}, "
-                              "exiting cleanly", always=True)
-                break
-            if d_diff < cfg.tol and z_diff < cfg.tol:
-                break
-            i += 1
+                console(cfg, f"preempted: checkpointed iteration {it_end}, "
+                             "exiting cleanly", always=True)
+                stop = True
+            i = it_end
+    return state, t_total, it_done, saved_it
 
+
+def _finish(state, trace, run, geom, fg, smoothinit, radius, data_sp,
+            checkpoint_dir, fingerprint, mesh, it_done, saved_it, t_total):
+    """The final checkpoint and the outputs of a masked run."""
     if checkpoint_dir is not None and saved_it != it_done:
         _save(checkpoint_dir, state, trace, it_done, fingerprint, mesh)
     dhat = common.full_filters_to_freq(state.d_full, fg)

@@ -10,8 +10,8 @@ lightfield views: W > 1, the Woodbury z-solve), on one device or on a
 mesh of ranks (``mesh=``: the batch split over the first axis, the
 per-frequency solves optionally over a second 'freq' axis). With
 ``cfg.metrics_dir`` a call writes its telemetry stream (utils.obs,
-``algorithm="reconstruct"``). Tuning comes with a later slice
-(ROADMAP.md Queue 1 item 9).
+``algorithm="reconstruct"``). ``cfg.tune`` 'auto' / 'sweep' resolves
+the knobs from the tuned store once, at the call (tune.autotune).
 
 The ADMM skeleton is the reference's 2-function consensus form: v1 = Dz
 (data side), v2 = z (sparsity side), scaled duals, and one exact
@@ -318,6 +318,13 @@ def build_plan(
     position), but an incompatible mesh (batch axis not dividing the
     bucket's slots, freq axis not dividing the FFT domain) is refused
     HERE, before any work, with the bucket table in the error."""
+    if cfg.tune != "off":
+        raise ValueError(
+            "build_plan requires a resolved config (tune='off'): resolve "
+            "the knobs first (tune.autotune.resolve_solve, or let "
+            "serve.CodecEngine / reconstruct() do it), so the plan is "
+            "built from the knobs that will run"
+        )
     dev = resolve_device(device)
     d_t = _as_input("filters", d, dev)
     validate.check_filters(d_t, prob.geom)
@@ -391,7 +398,27 @@ def reconstruct(
 
     ``cfg.metrics_dir``: the call writes a ``"reconstruct"`` telemetry
     run (see :func:`_reconstruct_observed`).
+
+    ``cfg.tune`` 'auto' / 'sweep': the knobs are resolved first from the
+    tuned store for this device and the observation's shape bucket
+    (tune.autotune.resolve_solve); the solve runs the resolved config.
+    A plan does not combine with it (build the plan from a resolved
+    config).
     """
+    if cfg.tune != "off":
+        if plan is not None:
+            raise ValueError(
+                "plan does not combine with tune='auto'/'sweep': "
+                "resolve the knobs first (tune.autotune.resolve_solve) "
+                "and build the plan from the resolved config"
+            )
+        from ..tune import autotune, store as tune_store
+
+        cfg, _ = autotune.resolve_solve(
+            cfg, prob.geom, np.shape(b)[-prob.geom.ndim_spatial:],
+            workload=tune_store.solve_workload(prob.geom),
+            device=mesh.device if mesh is not None else device,
+        )
     if cfg.metrics_dir is not None:
         return _reconstruct_observed(
             b, d, prob, cfg, mask, smooth_init, blur_psf, x_orig, mesh, plan,

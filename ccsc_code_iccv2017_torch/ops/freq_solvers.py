@@ -12,7 +12,9 @@ linear system per frequency:
   Hermitian system per frequency, whose inverse is precomputed once;
   the JAX package runs that solve as XLA einsums outside any Pallas
   kernel, and the port runs it as torch einsums (cuBLAS) and a batched
-  complex Cholesky (cuSOLVER).
+  Gram inverse: Cholesky (cuSOLVER) by default, or the Schur recursion
+  or the Newton-Schulz iteration (batched products, as in JAX), chosen
+  by ``herm_inv`` / ``CCSC_HERM_INV``.
 - d-subproblem: (rho I_K + Z_f^H Z_f) x_f = rhs_f, Z_f the Ni x K matrix
   of code spectra, inverted by the Woodbury identity through an
   Ni x Ni Hermitian system (precompute_d_kernel / solve_d).
@@ -27,11 +29,14 @@ where JAX vmaps.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import threading
+import warnings
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..parallel import mesh as mesh_lib
+from ..utils import env
 from . import kernels
 
 
@@ -41,21 +46,226 @@ def _ksum(x: torch.Tensor, mesh, axis_name: Optional[str]) -> torch.Tensor:
     return mesh_lib.psum(x, mesh, axis_name)
 
 
+def resolve_herm_method(m: int, method: Optional[str] = None) -> str:
+    """The concrete Gram-inverse method that will run for an m x m
+    system: explicit ``method`` > ``CCSC_HERM_INV`` > 'auto'. The JAX
+    package resolves 'auto' to its Schur recursion for some m on the TPU
+    only; on the CPU and the card 'auto' is the batched Cholesky, so
+    every default path runs what it ran before the other methods were
+    ported."""
+    if method is None:
+        method = env.env_str("CCSC_HERM_INV") or "auto"
+    if method == "auto":
+        return "cholesky"
+    if method not in ("cholesky", "schur", "newton"):
+        raise ValueError(
+            f"hermitian_inverse method must be 'auto' | 'cholesky' | "
+            f"'schur' | 'newton', got {method!r}"
+        )
+    return method
+
+
+def _hermitian_inverse_cholesky(G: torch.Tensor) -> torch.Tensor:
+    """A batched Cholesky factor and its inverse. ``torch.linalg`` takes
+    complex64 directly, so the JAX package's real 2m x 2m block
+    embedding (a TPU workaround) does not carry over."""
+    return torch.cholesky_inverse(torch.linalg.cholesky(G))
+
+
+def _adj(x: torch.Tensor) -> torch.Tensor:
+    return x.conj().transpose(-1, -2)
+
+
+def _hermitian_inverse_schur(G: torch.Tensor) -> torch.Tensor:
+    """Exact batched Hermitian-PD inverse by Schur-complement block
+    recursion, batched matrix products all the way down:
+
+    inv([[A, B], [B^H, D]]) = [[Ai + T Si T^H, -T Si], [-Si T^H, Si]],
+    T = Ai B, S = D - B^H T, recursing on A and S (block Cholesky in
+    disguise, valid for Hermitian PD input). The products run in
+    float32 (complex64 cuBLAS; the port sets no TF32 flag), the
+    accuracy class of JAX's HIGHEST precision."""
+    m = G.shape[-1]
+    if m == 1:
+        return 1.0 / G
+    if m == 2:
+        a = G[..., 0:1, 0:1]
+        b = G[..., 0:1, 1:2]
+        d = G[..., 1:2, 1:2]
+        det = a * d - b * b.conj()
+        top = torch.cat([d, -b], dim=-1)
+        bot = torch.cat([-b.conj(), a], dim=-1)
+        return torch.cat([top, bot], dim=-2) / det
+    h = m // 2
+    A = G[..., :h, :h]
+    B = G[..., :h, h:]
+    D = G[..., h:, h:]
+    Ai = _hermitian_inverse_schur(A)
+    T = Ai @ B
+    S = D - _adj(B) @ T
+    Si = _hermitian_inverse_schur(S)
+    TSi = T @ Si
+    TL = Ai + TSi @ _adj(T)
+    top = torch.cat([TL, -TSi], dim=-1)
+    # bottom-left = -Si T^H, the top-right's conjugate transpose
+    bot = torch.cat([-_adj(TSi), Si], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def resolve_newton_iters(iters: Optional[int] = None) -> int:
+    """Iteration count of the Newton-Schulz inverse: explicit arg >
+    ``CCSC_HERM_INV_ITERS`` > 30. The default reaches the float32 floor
+    for condition numbers up to ~3e4 (the JAX package's measured
+    window); the iteration needs about 4 + log2(cond * m) steps, so
+    past that window raise the count or keep the condition guard on."""
+    if iters is not None:
+        return iters
+    return env.env_int("CCSC_HERM_INV_ITERS")
+
+
+def _hermitian_inverse_newton(
+    G: torch.Tensor, iters: Optional[int] = None
+) -> torch.Tensor:
+    """Batched Hermitian-PD inverse by Newton-Schulz iteration,
+    X_{k+1} = X_k (2 I - G X_k), from X_0 = I / ||G||_inf (every
+    eigenvalue of G lies in (0, ||G||_inf], so the residual starts
+    below 1 and converges quadratically). Two batched complex products
+    a step; one Hermitian symmetrization at the end."""
+    iters = resolve_newton_iters(iters)
+    m = G.shape[-1]
+    # ||G||_inf = max_i sum_j |G_ij| (equals ||G||_1 for Hermitian G)
+    norm = torch.amax(torch.sum(torch.abs(G), dim=-1), dim=-1)
+    eye = torch.eye(m, dtype=G.dtype, device=G.device)
+    x = eye / norm[..., None, None].to(G.dtype)
+    two_eye = 2.0 * eye
+    for _ in range(iters):
+        x = x @ (two_eye - G @ x)
+    return 0.5 * (x + _adj(x))
+
+
+def _newton_cond_window() -> float:
+    """The condition-number window of the default Newton iteration
+    count (``CCSC_NEWTON_COND_MAX``, default 3e4)."""
+    return env.env_float("CCSC_NEWTON_COND_MAX")
+
+
+def _power_lam_max(A: torch.Tensor, iters: int = 12) -> torch.Tensor:
+    """Largest-eigenvalue estimate of a batch of Hermitian PD matrices
+    [..., m, m] by ``iters`` deterministic power-iteration steps from an
+    all-ones start."""
+    v = torch.ones((*A.shape[:-2], A.shape[-1], 1), dtype=A.dtype,
+                   device=A.device)
+    for _ in range(iters):
+        w = A @ v
+        nrm = torch.linalg.vector_norm(w, dim=-2, keepdim=True)
+        v = w / torch.clamp(nrm, min=1e-30)
+    return torch.linalg.vector_norm(A @ v, dim=(-2, -1))
+
+
+# Guard verdicts not reported yet: (event or None, [bad, cond]); on the
+# card the pair is copied into pinned host memory behind the event, see
+# _newton_with_cond_guard.
+_pending_guard: List[Tuple[object, torch.Tensor]] = []
+_pending_lock = threading.Lock()
+
+
+def _warn_newton_cond(cond: float) -> None:
+    warnings.warn(
+        f"Newton-Schulz Gram inverse: estimated condition number "
+        f"{cond:.3g} exceeds the ~{_newton_cond_window():.0e} validity "
+        "window of the default iteration count — falling back to the "
+        "direct (Cholesky) inverse for this kernel. Raise "
+        "CCSC_HERM_INV_ITERS to stay on the matmul path."
+    )
+
+
+def report_newton_guard(wait: bool = False) -> int:
+    """Warn for every Newton guard verdict whose device work has
+    finished (all of them with ``wait``, which synchronizes on their
+    events); returns how many fell back to Cholesky. A verdict from the
+    card lands in pinned host memory behind a CUDA event and is read
+    only once ``Event.query`` says it has arrived, so the guard adds no
+    host read to a learner step: its warning comes at a later call."""
+    fell = 0
+    with _pending_lock:
+        keep = []
+        for ev, verdict in _pending_guard:
+            if ev is not None:
+                if not wait and not ev.query():
+                    keep.append((ev, verdict))
+                    continue
+                ev.synchronize()
+            bad, cond = verdict.tolist()
+            if bad:
+                fell += 1
+                _warn_newton_cond(cond)
+        _pending_guard[:] = keep
+    return fell
+
+
+def _newton_with_cond_guard(
+    G: torch.Tensor, newton_iters: Optional[int]
+) -> torch.Tensor:
+    """Newton-Schulz inverse with a condition estimate and a fallback to
+    the direct inverse.
+
+    cond(G) is estimated as lam_max(G) * lam_max(X) by two power
+    iterations (X, the Newton inverse, tracks G^-1 well enough that its
+    top eigenvalue tracks 1/lam_min(G)); when the batch-max estimate is
+    past the window, or not finite, the Cholesky inverse replaces X.
+
+    The guard's form differs from JAX's ``lax.cond``, which runs one
+    branch: deciding on the host would read the device inside a
+    learner step, which has one read (one a chunk under the chunked
+    driver). So the select is on the device: ``torch.where`` over both
+    branches, the Cholesky one by ``cholesky_ex`` (which, unlike
+    ``cholesky``, checks nothing on the host). The guard thus costs a
+    Cholesky besides the Newton iteration; ``CCSC_NEWTON_COND_GUARD=0``
+    drops both it and the estimate (trust the iteration count). The
+    warning is reported without a fence (:func:`report_newton_guard`)."""
+    X = _hermitian_inverse_newton(G, newton_iters)
+    if not env.env_flag("CCSC_NEWTON_COND_GUARD"):
+        return X
+    cond = torch.amax(_power_lam_max(G) * _power_lam_max(X))
+    # fail closed on a non-finite estimate: the iterate itself blew up
+    bad = torch.logical_not(cond <= _newton_cond_window())
+    L, _info = torch.linalg.cholesky_ex(G)
+    out = torch.where(bad, torch.cholesky_inverse(L), X)
+    verdict = torch.stack([bad.to(torch.float64), cond.to(torch.float64)])
+    ev = None
+    if G.is_cuda:
+        host = torch.empty(2, dtype=torch.float64, pin_memory=True)
+        host.copy_(verdict, non_blocking=True)
+        verdict = host
+        ev = torch.cuda.Event()
+        ev.record()
+    with _pending_lock:
+        _pending_guard.append((ev, verdict))
+    report_newton_guard(wait=not G.is_cuda)
+    return out
+
+
 def hermitian_inverse(
-    G: torch.Tensor, method: Optional[str] = None
+    G: torch.Tensor,
+    method: Optional[str] = None,
+    newton_iters: Optional[int] = None,
 ) -> torch.Tensor:
     """Inverse of a batch of Hermitian positive-definite complex
-    matrices, G [..., m, m] -> G^{-1}, by a batched Cholesky factor and
-    its inverse. ``torch.linalg`` takes complex64 directly, so the JAX
-    package's real 2m x 2m block embedding (a TPU workaround) does not
-    carry over. ``method`` None / 'auto' / 'cholesky' run this; 'schur'
-    and 'newton' are not ported yet."""
-    if method not in (None, "auto", "cholesky"):
-        raise NotImplementedError(
-            f"hermitian_inverse method {method!r} is not ported yet "
-            "(ROADMAP.md Queue 1 item 9); the port runs 'cholesky'"
-        )
-    return torch.cholesky_inverse(torch.linalg.cholesky(G))
+    matrices, G [..., m, m] -> G^{-1}.
+
+    ``method`` (resolve_herm_method; None reads ``CCSC_HERM_INV``):
+    'cholesky' (the default on every device of the port) a batched
+    Cholesky factor and its inverse; 'schur' the all-matmul block
+    recursion; 'newton' the Newton-Schulz iteration with its condition
+    guard (``newton_iters`` > ``CCSC_HERM_INV_ITERS`` > 30). All three
+    are exact to float32 rounding on well-conditioned input (the JAX
+    package's tests/test_ops.py tolerances)."""
+    method = resolve_herm_method(G.shape[-1], method)
+    if method == "schur":
+        return _hermitian_inverse_schur(G)
+    if method == "newton":
+        return _newton_with_cond_guard(G, newton_iters)
+    return _hermitian_inverse_cholesky(G)
 
 
 class ZSolveKernel(NamedTuple):

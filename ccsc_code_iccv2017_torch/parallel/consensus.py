@@ -8,7 +8,12 @@ Python outer loop around it with the reference's trace protocol
 dParallel.m:62-71), its rel-change stop (:186-188), the non-finite guard
 that keeps the last good state, rho-backoff recovery, graceful
 preemption and checkpoint cadence/resume. Each outer step reads its four
-metric scalars back in one host sync, as the JAX driver does.
+metric scalars back in one host sync, as the JAX driver does; with
+``cfg.outer_chunk > 1`` (or ``cfg.donate_state``) the chunked driver
+runs chunks of steps (models.learn.outer_chunk_scan) and reads a chunk's
+stacked trace in one host sync, keeping the per-step contract (the
+non-finite guard, the tol stop, recovery, preemption, checkpoints,
+telemetry records) at chunk granularity.
 
 The robustness hooks are the JAX driver's: with ``cfg.watchdog`` a
 utils.watchdog.DispatchWatchdog is armed around each step's one host
@@ -117,7 +122,10 @@ def learn(
     ``cfg.watchdog`` arms the dispatch-fence watchdog (module
     docstring); ``CCSC_FAULT_*`` arm the chaos faults (utils.faults).
 
-    Not ported yet: the chunked driver (item 9, refused by LearnConfig).
+    ``cfg.outer_chunk > 1`` (or ``cfg.donate_state``) runs the chunked
+    driver: chunks of steps with one host read a chunk, bitwise the
+    per-step run on the same inputs (models.learn.outer_chunk_scan).
+    ``cfg.tune`` is not read here: the learner apps resolve it.
     """
     N = cfg.num_blocks
     ndim_s = geom.ndim_spatial
@@ -203,9 +211,10 @@ def _learn_impl(
     timers = profiling.SectionTimers()
     t_setup0 = time.perf_counter()
     if initial_state is not None:
-        state = learn_mod.LearnState(
-            *(t.to(dev).contiguous() for t in initial_state)
-        )
+        # a donated state is written in place: never the caller's tensors
+        own = (lambda t: t.to(dev).clone()) if cfg.donate_state else \
+            (lambda t: t.to(dev).contiguous())
+        state = learn_mod.LearnState(*(own(t) for t in initial_state))
     else:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -275,122 +284,14 @@ def _learn_impl(
     if note is not None:
         console(cfg, note)
     recov = resilience.RecoveryManager(cfg, trace)
-    timer = PhaseTimer(dev)
     t_total = trace["tim_vals"][-1]
-    it_done = start_it
-    saved_it = None  # last iteration committed to the checkpoint dir
     timers.add("setup", time.perf_counter() - t_setup0)
 
-    with resilience.GracefulShutdown() as gs, \
-            profiling.xla_trace(profile_dir, dev):
-        i = start_it
-        fresh_step = True  # the first fence builds the kernels
-        while i < cfg.max_it:
-            t0 = time.perf_counter()
-            na = faults.nan_iteration()
-            if wd is not None:
-                wd.arm(1, f"ccsc_outer_{i}",
-                       may_compile=fresh_step or na == i + 1)
-            with profiling.annotate(f"ccsc_outer_{i}"):
-                # chaos injection (utils.faults): the step NaNs its
-                # iterate on the card
-                poison = (torch.ones((), dtype=torch.bool, device=dev)
-                          if na == i + 1 else None)
-                new_state, m = learn_mod.outer_step(
-                    state, b_blocks, geom, recov.cfg, fg, N, on_phase=timer,
-                    mesh=mesh, poison=poison,
-                )
-                if poison is not None:
-                    faults.consume_nan()
-                # the one host read of the step (also its device fence),
-                # the telemetry scalars in it; on a mesh every rank reads
-                # rank 0's metrics and any rank's shutdown request, so
-                # every rank decides alike
-                vals, stop_req = mesh_lib.agree(
-                    torch.stack([m.obj_d, m.obj_z, m.d_diff, m.z_diff,
-                                 *(m.extras or ())]),
-                    gs.requested, mesh,
-                )
-            # injected hang fires INSIDE the armed fence (utils.faults)
-            faults.hang_tick(i + 1)
-            if wd is not None:
-                wd.disarm()
-            fresh_step = False
-            obj_d, obj_z, d_diff, z_diff = vals[:4]
-            # a non-finite metric means the iterate diverged: keep the
-            # last good state (or back off rho and retry from it)
-            if not all(
-                math.isfinite(v) for v in (obj_d, obj_z, d_diff, z_diff)
-            ):
-                console(
-                    cfg,
-                    f"Iter {i + 1}: non-finite metrics (obj_d={obj_d}, "
-                    f"obj_z={obj_z}, d_diff={d_diff}, z_diff={z_diff}); "
-                    "keeping last good state",
-                    always=True,
-                )
-                del new_state
-                ev = recov.on_divergence(i + 1)
-                if ev is None:
-                    break
-                trace.setdefault("recoveries", []).append(ev)
-                run.event("recovery", **ev)
-                fresh_step = True  # as JAX's rho rebuild (a recompile)
-                continue  # retry iteration i with the backed-off rho
-            state = new_state
-            dt = time.perf_counter() - t0
-            timers.add("step", dt)
-            t_total += dt
-            trace["obj_vals_d"].append(obj_d)
-            trace["obj_vals_z"].append(obj_z)
-            trace["tim_vals"].append(t_total)
-            trace["d_diff"].append(d_diff)
-            trace["z_diff"].append(z_diff)
-            phases = timer.read()
-            if phases is not None:
-                trace.setdefault("d_pass_ms", []).append(phases[0])
-                trace.setdefault("z_pass_ms", []).append(phases[1])
-            run.step(
-                it=i + 1, obj_d=obj_d, obj_z=obj_z, d_diff=d_diff,
-                z_diff=z_diff, t_total=round(t_total, 4),
-                **_extras_fields(vals[4:]),
-            )
-            run.chunk(i, 1, 1, dt, cost=step_cost)
-            run.heartbeat(i + 1, dt)
-            console(
-                cfg,
-                f"Iter {i + 1}, Obj_d {obj_d:.4g}, Obj_z {obj_z:.4g}, "
-                f"Diff_d {d_diff:.3g}, Diff_z {z_diff:.3g}, "
-                f"t {t_total:.2f}s",
-            )
-            if cfg.verbose == "all":
-                _write_figures(figures_dir or "ccsc_figures", i + 1, state,
-                              b_blocks, geom, cfg, fg, mesh)
-            it_done = i + 1
-            faults.sigterm_tick(i + 1)
-            # one device: a request raised after the step's read (the
-            # SIGTERM fault) counts now, as in JAX; on a mesh the next
-            # step's agreed read carries it, so every rank decides alike
-            preempting = (stop_req or (mesh is None and gs.requested)) \
-                and i + 1 < cfg.max_it
-            if preempting:
-                trace.setdefault("preemptions", []).append(i + 1)
-                run.event("preemption", iteration=i + 1, signum=gs.signum)
-            if checkpoint_dir is not None and (
-                (i + 1) % checkpoint_every == 0 or preempting
-            ):
-                with timers.section("checkpoint"):
-                    _save(checkpoint_dir, state, trace, i + 1, fingerprint,
-                          mesh)
-                saved_it = i + 1
-                run.drain_timers(timers)
-            if preempting:
-                console(cfg, f"preempted: checkpointed iteration {i + 1}, "
-                              "exiting cleanly", always=True)
-                break
-            if d_diff < cfg.tol and z_diff < cfg.tol:
-                break
-            i += 1
+    state, t_total, it_done, saved_it = _run_outer(
+        state, b_blocks, geom, cfg, fg, N, mesh, dev, recov, trace, run,
+        timers, wd, profile_dir, figures_dir, checkpoint_dir,
+        checkpoint_every, fingerprint, start_it, t_total, step_cost,
+    )
 
     if checkpoint_dir is not None and saved_it != it_done:
         with timers.section("checkpoint"):
@@ -402,6 +303,176 @@ def _learn_impl(
     run.drain_timers(timers)
     run.close(status="ok", iterations=it_done, wall_s=round(t_total, 4))
     return learn_mod.LearnResult(d_sup, state.z, Dz, trace)
+
+
+def _run_outer(state, b_blocks, geom, cfg, fg, N, mesh, dev, recov, trace,
+               run, timers, wd, profile_dir, figures_dir, checkpoint_dir,
+               checkpoint_every, fingerprint, start_it, t_total, step_cost):
+    """The outer loop (JAX parallel/consensus.py:560-740). Each pass runs
+    one step (``learn_mod.outer_step``) or, with ``cfg.chunked_driver``,
+    a chunk of ``cfg.outer_chunk`` steps (``learn_mod.outer_chunk_scan``,
+    which carries the non-finite rollback and the tol stop on the
+    device), then makes ONE host read (on a mesh one ``agree``, so every
+    rank decides alike). A step is adopted on the host after its read; a
+    chunk returns its adopted state. Trace entries stay per step (a
+    chunk's wall time split evenly over its adopted steps, a step's
+    d-pass and z-pass device times read by its PhaseTimer); the
+    watchdog, telemetry records, figures, checkpoints and preemption
+    work a pass at a time. With ``cfg.donate_state`` the state is
+    consumed by each chunk and rebound to its output. Returns (state,
+    t_total, it_done, saved_it)."""
+    chunked = cfg.chunked_driver
+    timer = None if chunked else PhaseTimer(dev)
+    it_done = start_it
+    saved_it = None  # last iteration committed to the checkpoint dir
+    with resilience.GracefulShutdown() as gs, \
+            profiling.xla_trace(profile_dir, dev):
+        i = start_it
+        stop = False
+        fresh_step = True  # the first fence builds the kernels
+        while i < cfg.max_it and not stop:
+            clen = min(cfg.outer_chunk, cfg.max_it - i) if chunked else 1
+            na = faults.nan_iteration()
+            poisoned = na is not None and i + 1 <= na <= i + clen
+            tag = f"ccsc_outer_{i}_{i + clen}" if chunked else \
+                f"ccsc_outer_{i}"
+            t0 = time.perf_counter()
+            if wd is not None:
+                wd.arm(clen, tag, may_compile=fresh_step or poisoned)
+            with profiling.annotate(tag):
+                # chaos injection (utils.faults): the step NaNs its
+                # iterate on the card
+                if chunked:
+                    new_state, tr = learn_mod.outer_chunk_scan(
+                        state, b_blocks, geom, recov.cfg, fg, N, clen,
+                        mesh=mesh,
+                        poison_at=na - (i + 1) if poisoned else None,
+                        donate=cfg.donate_state,
+                    )
+                    m, flags = tr.metrics, [tr.active, tr.adopted]
+                else:
+                    new_state, m = learn_mod.outer_step(
+                        state, b_blocks, geom, recov.cfg, fg, N,
+                        on_phase=timer, mesh=mesh,
+                        poison=(torch.ones((), dtype=torch.bool, device=dev)
+                                if poisoned else None),
+                    )
+                    flags = []
+                if poisoned:
+                    faults.consume_nan()
+                rows = [m.obj_d, m.obj_z, m.d_diff, m.z_diff, *(m.extras or ())]
+                # the one host read of the pass (also its device fence),
+                # the telemetry scalars in it; on a mesh every rank reads
+                # rank 0's metrics and any rank's shutdown request
+                flat, stop_req = mesh_lib.agree(
+                    torch.cat([torch.stack(rows).reshape(-1),
+                               *(f.to(torch.float32) for f in flags)]),
+                    gs.requested, mesh,
+                )
+            # injected hang fires INSIDE the armed fence (utils.faults)
+            faults.hang_tick(i + clen)
+            if wd is not None:
+                wd.disarm()
+            fresh_step = False
+            nrow = len(rows)
+            cols = [flat[r * clen:(r + 1) * clen] for r in range(nrow)]
+            if chunked:
+                active = flat[nrow * clen:(nrow + 1) * clen]
+                adopted = flat[(nrow + 1) * clen:]
+                state = new_state
+            else:
+                # a non-finite metric means the iterate diverged: keep
+                # the last good state (or back off rho and retry from it)
+                active = [True]
+                adopted = [all(math.isfinite(c[0]) for c in cols[:4])]
+                if adopted[0]:
+                    state = new_state
+            del new_state
+            dt = time.perf_counter() - t0
+            timers.add("step", dt)
+            n_adopted = 0
+            for j in range(clen):
+                if not active[j]:
+                    break  # the tail after the chunk stopped
+                vals = [c[j] for c in cols]
+                obj_d, obj_z, d_diff, z_diff = vals[:4]
+                if not adopted[j]:
+                    console(
+                        cfg,
+                        f"Iter {i + j + 1}: non-finite metrics "
+                        f"(obj_d={obj_d}, obj_z={obj_z}, d_diff={d_diff}, "
+                        f"z_diff={z_diff}); keeping last good state",
+                        always=True,
+                    )
+                    # the pass kept the last good iterate: only rho backs
+                    # off, and the next pass retries from there
+                    ev = recov.on_divergence(i + j + 1)
+                    if ev is None:
+                        stop = True
+                    else:
+                        trace.setdefault("recoveries", []).append(ev)
+                        run.event("recovery", **ev)
+                        fresh_step = True  # as JAX's rho rebuild
+                    break
+                n_adopted += 1
+                t_total += dt / clen
+                trace["obj_vals_d"].append(obj_d)
+                trace["obj_vals_z"].append(obj_z)
+                trace["tim_vals"].append(t_total)
+                trace["d_diff"].append(d_diff)
+                trace["z_diff"].append(z_diff)
+                phases = timer.read() if timer is not None else None
+                if phases is not None:
+                    trace.setdefault("d_pass_ms", []).append(phases[0])
+                    trace.setdefault("z_pass_ms", []).append(phases[1])
+                run.step(
+                    it=i + j + 1, obj_d=obj_d, obj_z=obj_z, d_diff=d_diff,
+                    z_diff=z_diff, t_total=round(t_total, 4),
+                    **_extras_fields(vals[4:]),
+                )
+                console(
+                    cfg,
+                    f"Iter {i + j + 1}, Obj_d {obj_d:.4g}, Obj_z "
+                    f"{obj_z:.4g}, Diff_d {d_diff:.3g}, Diff_z "
+                    f"{z_diff:.3g}, t {t_total:.2f}s",
+                )
+                if d_diff < cfg.tol and z_diff < cfg.tol:
+                    stop = True
+                    break
+            it_end = i + n_adopted
+            it_done = it_end
+            if n_adopted:
+                run.chunk(i, clen, n_adopted, dt, cost=step_cost)
+                run.heartbeat(it_end, dt)
+                if cfg.verbose == "all":
+                    # one panel a pass
+                    _write_figures(figures_dir or "ccsc_figures", it_end,
+                                   state, b_blocks, geom, cfg, fg, mesh)
+                faults.sigterm_tick(it_end)
+            # one device: a request raised after the pass's read (the
+            # SIGTERM fault) counts now, as in JAX; on a mesh the next
+            # pass's agreed read carries it, so every rank decides alike
+            preempting = ((stop_req or (mesh is None and gs.requested))
+                          and not stop and it_end < cfg.max_it)
+            if preempting:
+                trace.setdefault("preemptions", []).append(it_end)
+                run.event("preemption", iteration=it_end, signum=gs.signum)
+            crossed = (n_adopted and it_end // checkpoint_every
+                       > i // checkpoint_every)
+            if checkpoint_dir is not None and (
+                (crossed and saved_it != it_end) or preempting
+            ):
+                with timers.section("checkpoint"):
+                    _save(checkpoint_dir, state, trace, it_end, fingerprint,
+                          mesh)
+                saved_it = it_end
+                run.drain_timers(timers)
+            if preempting:
+                console(cfg, f"preempted: checkpointed iteration {it_end}, "
+                             "exiting cleanly", always=True)
+                stop = True
+            i = it_end
+    return state, t_total, it_done, saved_it
 
 
 def _extras_fields(vals) -> dict:

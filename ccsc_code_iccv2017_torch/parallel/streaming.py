@@ -29,7 +29,7 @@ Cost: per outer step the host traffic of the ``paged`` tier is
 max_it_d * N uploads of a block's d-pass kernel (code spectra, Woodbury
 inverse, the hoisted Z^H b) plus O(N |z|) for the z-pass and the
 objectives; ``kern`` pays the z-pass's O(N |z|). Every copy is blocking
-(overlap with compute is ROADMAP.md Queue 1 item 9).
+(overlap with compute is a perf line of ROADMAP.md Queue 1).
 
 Host tiers hold CPU torch tensors (bfloat16 storage included). Block
 tensors are never updated in place: every step rebinds a list entry, so
@@ -44,8 +44,11 @@ tier. With ``cfg.metrics_dir`` the run writes its telemetry stream under
 ``algorithm="consensus_streaming"`` (utils.obs), each step scored
 against the consensus step's analytic cost (the host copies of the paged
 tiers are not in that model). The watchdog and the chaos faults are the
-JAX module's (utils.watchdog, utils.faults). The chunked cadence
-(``outer_chunk > 1``) is ROADMAP.md Queue 1 item 9.
+JAX module's (utils.watchdog, utils.faults). ``cfg.outer_chunk > 1``
+moves the host read to chunk granularity: the steps' metrics stay on the
+card and are read in one flush every ``outer_chunk`` steps, as in JAX;
+the state advances in place, so a tol hit inside a chunk stops at the
+chunk's end and the trace covers every step the state went through.
 """
 from __future__ import annotations
 
@@ -194,11 +197,6 @@ def learn_streaming(
         raise ValueError(
             "donate_state is only supported by the in-memory learners "
             "(models.learn / models.learn_masked)"
-        )
-    if cfg.outer_chunk > 1:
-        raise NotImplementedError(
-            "outer_chunk > 1 (the chunked cadence) is not ported to the "
-            "streaming learner yet (ROADMAP.md Queue 1 item 9)"
         )
     dev = resolve_device(device)
     host = torch.device("cpu")
@@ -368,21 +366,46 @@ def _learn_streaming_impl(
     saved_it = None  # last iteration committed to the checkpoint dir
     diverged = False
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    pending = []  # (it, [5] device metrics, h2d, d2h, phase events)
+    t_chunk0 = 0.0
+
+    def append_entry(it, o_d, o_z, dd, zd, dt_share, h2d, d2h, phases):
+        """Append one flushed step to the trace and the stream; True when
+        it hit tol."""
+        nonlocal t_total
+        t_total += dt_share
+        trace["obj_vals_d"].append(o_d)
+        trace["obj_vals_z"].append(o_z)
+        trace["tim_vals"].append(t_total)
+        trace["d_diff"].append(dd)
+        trace["z_diff"].append(zd)
+        trace.setdefault("h2d_bytes", []).append(h2d)
+        trace.setdefault("d2h_bytes", []).append(d2h)
+        if phases is not None:
+            trace.setdefault("d_pass_ms", []).append(phases[0])
+            trace.setdefault("z_pass_ms", []).append(phases[1])
+        run.step(it=it + 1, obj_d=o_d, obj_z=o_z, d_diff=dd, z_diff=zd,
+                 t_total=round(t_total, 4))
+        console(cfg, f"Iter {it + 1}, Obj_z {o_z:.4g}, Diff_d {dd:.3g}, "
+                     f"Diff_z {zd:.3g}, t {t_total:.2f}s")
+        return dd < cfg.tol and zd < cfg.tol
+
     with resilience.GracefulShutdown() as gs:
         i = start_it
-        fresh_pieces = True  # the first step builds the kernels
-        while i < cfg.max_it:
+        stop = False
+        fresh_pieces = True  # the first chunk builds the kernels
+        while i < cfg.max_it and not stop:
             c = recov.cfg  # rho as backed off so far
-            t0 = time.perf_counter()
-            if wd is not None:
-                # one armed window per step: the step is many small
-                # launches, but a hang in any of them stalls its fence
-                wd.arm(cfg.outer_chunk, f"stream_outer_{i}",
-                       may_compile=fresh_pieces)
+            if not pending:
+                t_chunk0 = time.perf_counter()
+                if wd is not None:
+                    # one armed window a chunk: the chunk is many small
+                    # launches, but a hang in any of them stalls its read
+                    wd.arm(cfg.outer_chunk, f"stream_outer_{i}",
+                           may_compile=fresh_pieces)
             na = faults.nan_iteration()
             h2d0, d2h0 = mv.h2d, mv.d2h
             dbar_prev = dbar
-
             # ---- d-pass: kernels fixed at the incoming codes ----------
             timer("d_start")
             kerns = []
@@ -448,78 +471,89 @@ def _learn_streaming_impl(
             if na == i + 1:
                 faults.consume_nan()
 
-            # ---- the step's one host read (also its fence) -----------
-            o_d, o_z, dd, num_, den_ = torch.stack(
-                [obj_d, obj_z, d_diff, num, den]
-            ).tolist()
-            zd = math.sqrt(num_) / max(math.sqrt(den_), 1e-30)
-            dt = time.perf_counter() - t0
+            pending.append((i, torch.stack([obj_d, obj_z, d_diff, num, den]),
+                            mv.h2d - h2d0, mv.d2h - d2h0,
+                            dict(timer.events) if timer.enabled else None))
+            if len(pending) < cfg.outer_chunk and i < cfg.max_it - 1:
+                i += 1
+                continue
+
+            # ---- the chunk's one host read (also its fence) ----------
+            flat = torch.stack([p[1] for p in pending]).tolist()
+            dt = time.perf_counter() - t_chunk0
+            vals = []
+            for (it, _, h2d, d2h, evs), (o_d, o_z, dd, num_, den_) in zip(
+                    pending, flat):
+                zd = math.sqrt(num_) / max(math.sqrt(den_), 1e-30)
+                phases = None
+                if evs is not None:
+                    phases = (evs["d_start"].elapsed_time(evs["d_end"]),
+                              evs["z_start"].elapsed_time(evs["z_end"]))
+                vals.append((it, o_d, o_z, dd, zd, h2d, d2h, phases))
+            pending = []
             # injected hang fires INSIDE the armed fence (utils.faults)
-            faults.hang_tick(i + 1)
+            faults.hang_tick(vals[-1][0] + 1)
             if wd is not None:
                 wd.disarm()
             fresh_pieces = False
-            if not all(math.isfinite(v) for v in (o_d, o_z, dd, zd)):
-                console(cfg, f"Iter {i + 1}: non-finite metrics (obj_d="
+            bad = next((k for k, v in enumerate(vals)
+                        if not all(math.isfinite(x) for x in v[1:5])), None)
+            if bad is not None:
+                it_b, o_d, o_z, dd, zd = vals[bad][:5]
+                console(cfg, f"Iter {it_b + 1}: non-finite metrics (obj_d="
                              f"{o_d}, obj_z={o_z}, d_diff={dd}, z_diff={zd})",
                         always=True)
-                ev = recov.on_divergence(i + 1)
+                ev = recov.on_divergence(it_b + 1)
                 if ev is not None:
-                    # restore the last good step's state and replay with
-                    # the backed-off rho
+                    # restore the state of the last good read and replay
+                    # the chunk with the backed-off rho
                     trace.setdefault("recoveries", []).append(ev)
                     run.event("recovery", **ev)
                     (d_local, dual_d, z, dual_z, dbar, udbar,
                      i) = _restore(rec_snap)
                     fresh_pieces = True  # as JAX's rho rebuild
                     continue
-                # the state advanced through the diverged step: stop, and
-                # keep it out of the checkpoint (the newest generation
-                # stays the last good step)
-                trace["diverged_at"] = i + 1
+                # the state advanced through the diverged step: only the
+                # finite prefix enters the trace, and the state stays out
+                # of the checkpoint (the newest generation stays the last
+                # good read)
+                for v in vals[:bad]:
+                    append_entry(*v[:5], dt / len(vals), *v[5:])
+                trace["diverged_at"] = it_b + 1
                 console(cfg, "stopping: the streamed state advanced "
                              "through the diverged step — resume from the "
                              "last checkpoint or enable max_recoveries",
                         always=True)
                 diverged = True
                 break
-            t_total += dt
-            trace["obj_vals_d"].append(o_d)
-            trace["obj_vals_z"].append(o_z)
-            trace["tim_vals"].append(t_total)
-            trace["d_diff"].append(dd)
-            trace["z_diff"].append(zd)
-            trace.setdefault("h2d_bytes", []).append(mv.h2d - h2d0)
-            trace.setdefault("d2h_bytes", []).append(mv.d2h - d2h0)
-            phases = timer.read()
-            if phases is not None:
-                trace.setdefault("d_pass_ms", []).append(phases[0])
-                trace.setdefault("z_pass_ms", []).append(phases[1])
-            run.step(it=i + 1, obj_d=o_d, obj_z=o_z, d_diff=dd, z_diff=zd,
-                     t_total=round(t_total, 4))
-            run.chunk(i, 1, 1, dt, cost=step_cost)
-            run.heartbeat(i + 1, dt)
-            console(cfg, f"Iter {i + 1}, Obj_z {o_z:.4g}, Diff_d {dd:.3g}, "
-                         f"Diff_z {zd:.3g}, t {t_total:.2f}s")
-            it_done = i + 1
+            for v in vals:
+                # every flushed step is appended: the state advanced
+                # through it in place (a tol hit mid-chunk stops at the
+                # chunk's end, as in JAX)
+                if append_entry(*v[:5], dt / len(vals), *v[5:]):
+                    stop = True
+            chunk_start = vals[0][0]
+            it_done = vals[-1][0] + 1
+            run.chunk(chunk_start, len(vals), len(vals), dt, cost=step_cost)
+            run.heartbeat(it_done, dt)
             if recov.enabled:
                 rec_snap = snapshot(it_done)
             faults.sigterm_tick(it_done)
-            preempting = gs.requested and it_done < cfg.max_it
+            preempting = gs.requested and not stop and it_done < cfg.max_it
             if preempting:
                 trace.setdefault("preemptions", []).append(it_done)
                 run.event("preemption", iteration=it_done, signum=gs.signum)
+            crossed = (it_done // checkpoint_every
+                       > chunk_start // checkpoint_every)
             if checkpoint_dir is not None and (
-                it_done % checkpoint_every == 0 or preempting
+                (crossed and saved_it != it_done) or preempting
             ):
                 save(it_done)
                 saved_it = it_done
             if preempting:
                 console(cfg, f"preempted: checkpointed iteration {it_done}, "
                              "exiting cleanly", always=True)
-                break
-            if dd < cfg.tol and zd < cfg.tol:
-                break
+                stop = True
             i += 1
 
     if checkpoint_dir is not None and not diverged and saved_it != it_done:

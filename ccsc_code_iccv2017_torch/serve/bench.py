@@ -3,7 +3,8 @@
     python -m ccsc_code_iccv2017_torch.serve.bench [--requests 40]
         [--padded 2] [--slots 4] [--side 256] [--pad-side 240]
         [--max-it 100] [--tol 1e-3] [--seed 0] [--device cuda]
-        [--mesh SPEC] [--mesh-devices 0,0]
+        [--mesh SPEC] [--mesh-devices 0,0] [--tune off|auto|sweep]
+        [--pipeline DEPTH] [--tune-store PATH]
 
 One stream of inpainting requests against the repo's k=100 11x11 bank
 (``--requests`` Gaussian-smoothed noise images of ``--side``² and
@@ -37,6 +38,18 @@ all-gather's ms an iteration on each position (CUDA events on its
 stream) over one more full dispatch; or ``mesh_skipped`` with the reason
 when the cards cannot back the mesh or it does not divide the bucket. A
 malformed spec refuses before any work.
+
+:func:`run_serve_workload` adds the JAX bench's two other engines on the
+same stream, each pinned to one device: ``--tune`` (default the
+``CCSC_SERVE_TUNE`` knob; 'auto' applies a store entry, 'sweep' measures
+the solve arms on this device first) runs a second engine with
+``ServeConfig.tune`` and records ``tuned_requests_per_sec``,
+``speedup_tuned_vs_default``, ``tuned_knobs`` and
+``tuned_max_rel_err_vs_loop``; ``--pipeline DEPTH`` > 1 (default the
+``CCSC_SERVE_PIPELINE`` knob) runs one at that ``pipeline_depth`` and
+records ``pipeline_requests_per_sec``, ``speedup_pipeline_vs_default``
+and ``pipeline_bit_identical`` (every result bitwise the default
+engine's, measured, not assumed). The default engine pins depth 1.
 """
 from __future__ import annotations
 
@@ -271,6 +284,54 @@ def run_mesh_arm(d, prob, cfg, reqs, spec_shape, bucket, dev, looped,
     return out
 
 
+def run_serve_workload(d, prob, cfg, reqs, bucket, dev, looped,
+                       base_served, base_rps: float, tune_mode: str = "off",
+                       pipe_depth: int = 1,
+                       tune_store_path=None) -> Dict:
+    """The tuned and pipelined arms of the JAX bench's
+    ``run_serve_workload`` on the stream ``reqs``: each a second engine
+    with one ServeConfig field changed (``tune``, or ``pipeline_depth``),
+    timed by the same protocol as the default engine (``base_served``,
+    ``base_rps``). Returns the record fields of the arms that ran."""
+    out: Dict = {}
+    if tune_mode != "off":
+        t0 = time.perf_counter()
+        with CodecEngine(d, prob, cfg, ServeConfig(
+                buckets=(bucket,), verbose="none", mesh_shape=(),
+                pipeline_depth=1, tune=tune_mode,
+                tune_store=tune_store_path), device=dev) as eng:
+            warm_s = time.perf_counter() - t0
+            served, engine_s, _ = run_engine(eng, reqs)
+            rps = len(served) / engine_s
+            out.update({
+                "tuned_requests_per_sec": rps,
+                "speedup_tuned_vs_default": rps / base_rps,
+                "tuned_warmup_s": warm_s,
+                "tuned_knobs": dict(eng._knob_dict),
+                "tuned_max_rel_err_vs_loop": max_rel_diff(served, looped),
+            })
+    if pipe_depth and int(pipe_depth) > 1:
+        t0 = time.perf_counter()
+        with CodecEngine(d, prob, cfg, ServeConfig(
+                buckets=(bucket,), verbose="none", mesh_shape=(),
+                pipeline_depth=int(pipe_depth)), device=dev) as eng:
+            warm_s = time.perf_counter() - t0
+            served, engine_s, _ = run_engine(eng, reqs)
+            rps = len(served) / engine_s
+            out.update({
+                "pipeline_depth": int(pipe_depth),
+                "pipeline_requests_per_sec": rps,
+                "speedup_pipeline_vs_default": rps / base_rps,
+                "pipeline_bit_identical": all(
+                    np.array_equal(a.recon, b.recon)
+                    and int(a.trace.num_iters) == int(b.trace.num_iters)
+                    for a, b in zip(base_served, served)),
+                "pipeline_warmup_s": warm_s,
+                "pipeline_knobs": dict(eng._knob_dict),
+            })
+    return out
+
+
 def main(argv=None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--requests", type=int, default=40)
@@ -287,7 +348,18 @@ def main(argv=None) -> Dict:
                         "arm (default: CCSC_SERVE_MESH)")
     p.add_argument("--mesh-devices", default=None, metavar="LIST",
                    help="card index of each mesh position, e.g. 0,0")
+    p.add_argument("--tune", default=None, choices=["off", "auto", "sweep"],
+                   help="the tuned arm (default: CCSC_SERVE_TUNE)")
+    p.add_argument("--pipeline", type=int, default=None, metavar="DEPTH",
+                   help="the pipelined arm's depth, > 1 to run it "
+                        "(default: CCSC_SERVE_PIPELINE)")
+    p.add_argument("--tune-store", default=None, metavar="PATH",
+                   help="the tuned arm's store (default: CCSC_TUNE_STORE, "
+                        "tune.store.default_store_path)")
     args = p.parse_args(argv)
+    tune_mode = args.tune or env.env_str("CCSC_SERVE_TUNE") or "off"
+    pipe_depth = (args.pipeline if args.pipeline is not None
+                  else env.env_int("CCSC_SERVE_PIPELINE"))
     # a malformed spec is the caller's error: refuse before any work
     spec = args.mesh if args.mesh is not None else env.env_str(
         "CCSC_SERVE_MESH")
@@ -306,11 +378,15 @@ def main(argv=None) -> Dict:
     )
     bucket = (args.slots, (args.side, args.side))
     with CodecEngine(d, prob, cfg, ServeConfig(
-            buckets=(bucket,), verbose="none", mesh_shape=()),
-            device=dev) as eng:
+            buckets=(bucket,), verbose="none", mesh_shape=(),
+            pipeline_depth=1), device=dev) as eng:
         served, engine_s, submit_s = run_engine(eng, reqs)
         looped, loop_s = run_direct_loop(d, prob, cfg, reqs, dev)
         out = record(eng, served, engine_s, submit_s, looped, loop_s, dev)
+    out.update(run_serve_workload(
+        d, prob, cfg, reqs, bucket, dev, looped, served,
+        out["engine_requests_per_sec"], tune_mode=tune_mode,
+        pipe_depth=pipe_depth, tune_store_path=args.tune_store))
     if mesh_shape is not None:
         out.update(run_mesh_arm(d, prob, cfg, reqs, mesh_shape, bucket, dev,
                                 looped, out["engine_requests_per_sec"],

@@ -93,14 +93,33 @@ many requests:
 
 The host reads one scalar per iteration per bucket (the count of
 active slots; on a mesh, per position) instead of one per request.
-Dispatch is synchronous in one worker thread, which pins the engine's
-device (or hands the shards to the positions' threads) and surfaces
-every exception on its batch's futures; nothing falls back to the CPU.
-The fleet layer (serve.fleet) drives replica engines through the
+8. **Tuning** (``ServeConfig.tune`` 'auto' / 'sweep', ``tune_store``;
+   tune.autotune): the engine resolves its SolveConfig once at
+   construction, for its largest bucket (a mesh engine under its own
+   store key), behind the numerics guard; every request is served
+   under the resolved config, whose knobs the ``serve_warmup`` records
+   carry (``tuned``: whether an arm was applied).
+
+9. **Pipelined dispatch** (``ServeConfig.pipeline_depth``, else
+   ``CCSC_SERVE_PIPELINE``): the worker splits a dispatch into
+   ``_launch`` (plan fetch, canvas fill into pinned host memory, a
+   ``non_blocking`` upload on a copy stream, an event) and ``_complete``
+   (the compute stream waits on that event, the solve, its readback, the
+   futures), and holds up to ``depth`` launched batches: batch n+1's
+   upload overlaps batch n's solve. Depth 1 launches and completes at
+   once, the synchronous worker event for event, uploading inside the
+   solve as before; any depth returns depth 1's results bit for bit.
+   The knob dict carries ``"pipeline": depth`` only when depth is not
+   1. A mesh engine takes the same worker, but its positions upload
+   their own shards inside the solve (no copy stream): as JAX's mesh
+   engines, it solves one batch at a time.
+
+Dispatch runs in one worker thread, which pins the engine's device (or
+hands the shards to the positions' threads) and surfaces every
+exception on its batch's futures; nothing falls back to the CPU. The
+fleet layer (serve.fleet) drives replica engines through the
 fleet-internal ``submit`` arguments, ``replica_id`` and the members
 ``bucket_warm``, ``cache_dir``, ``last_it_rate`` and ``_knob_dict``.
-Tuning and pipelining are ROADMAP.md Queue 1 item 9; ``ServeConfig``
-refuses them.
 """
 from __future__ import annotations
 
@@ -252,6 +271,28 @@ class _Pending:
     # workload-capture key (serve.capture): pairs this request's capture
     # record with its outcome
     cap_key: Optional[str] = None
+
+
+class _InFlight:
+    """One launched, not yet completed dispatch (pipelined dispatch,
+    ``ServeConfig.pipeline_depth``): its batch, the canvases (numpy, or
+    at depth > 1 on the card the uploaded tensors with the copy event
+    and the pinned host buffers kept alive until the copy ran), and the
+    launch time. At depth 1 one of these exists for exactly the span of
+    the synchronous dispatch."""
+
+    __slots__ = ("key", "batch", "depth_after", "canvas", "event",
+                 "hold", "t0", "released")
+
+    def __init__(self, key, batch, depth_after, canvas, event, hold, t0):
+        self.key = key
+        self.batch = batch
+        self.depth_after = depth_after
+        self.canvas = canvas  # (bb, mm, ss, xx)
+        self.event = event
+        self.hold = hold
+        self.t0 = t0
+        self.released = False
 
 
 def _bucket_name(slots: int, spatial: Tuple[int, ...]) -> str:
@@ -438,15 +479,12 @@ class CodecEngine:
         # process loads what an earlier one built there
         self.cache_dir = enable_compile_cache(serve_cfg.compile_cache)
         self._last_it_rate = 0.0  # newest dispatch's measured it/s
-        self._knob_dict = {
-            k: getattr(cfg, k) for k in ("fft_impl", "fft_pad",
-                                         "storage_dtype", "use_pallas",
-                                         "herm_inv")
-        }
-        self._knob_dict.update(tune=serve_cfg.tune, tuned=False)
-        if self._mesh_shape:
-            self._knob_dict["devices"] = self.devices
-            self._knob_dict["mesh"] = "x".join(map(str, self._mesh_shape))
+        # pipelined dispatch depth: ServeConfig, else CCSC_SERVE_PIPELINE
+        depth = serve_cfg.pipeline_depth
+        if depth is None:
+            depth = env.env_int("CCSC_SERVE_PIPELINE")
+        self._pipeline_depth = max(1, int(depth or 1))
+        self._copy_stream = None
         self._run = obs.start_run(
             serve_cfg.metrics_dir, algorithm="serve",
             verbose=serve_cfg.verbose, geom=geom, cfg=cfg, mesh=self._mesh,
@@ -468,6 +506,39 @@ class CodecEngine:
         # pairs outcomes by key)
         self._cap_prefix = f"req-{trace_util.new_trace_id()[:8]}"
         try:
+            self._tune_picked = None
+            if serve_cfg.tune != "off":
+                # startup knob resolution: one pinned config serves every
+                # bucket, so the shape key is the largest bucket's; the
+                # SolveConfig rides with tune='off' so direct reconstruct
+                # callers of the same config never re-resolve
+                from ..tune import autotune, store as tune_store
+
+                cfg, self._tune_picked = autotune.resolve_solve(
+                    dataclasses.replace(cfg, tune=serve_cfg.tune), geom,
+                    serve_cfg.buckets[-1][1],
+                    workload=tune_store.solve_workload(geom),
+                    store=tune_store.TunedStore(serve_cfg.tune_store),
+                    emit=self._run.event, mesh=self._mesh_shape or None,
+                    device=self.device,
+                )
+                self.cfg = cfg
+            # the resolved knobs every request is served under
+            self._knob_dict = {
+                k: getattr(cfg, k) for k in ("fft_impl", "fft_pad",
+                                             "storage_dtype", "use_pallas",
+                                             "herm_inv")
+            }
+            self._knob_dict.update(tune=serve_cfg.tune,
+                                   tuned=self._tune_picked is not None)
+            if self._mesh_shape:
+                self._knob_dict["devices"] = self.devices
+                self._knob_dict["mesh"] = "x".join(
+                    map(str, self._mesh_shape))
+            if self._pipeline_depth != 1:
+                # only a non-default depth keys the knob dict: depth-1
+                # engines keep their knob digest
+                self._knob_dict["pipeline"] = self._pipeline_depth
             # a standalone engine captures its own workload, under the
             # solve params requests are served with (fleet replicas are
             # built with capture_dir=None: the fleet captures at
@@ -526,8 +597,9 @@ class CodecEngine:
             (bk, default_digest): [] for bk in self._buckets
         }
         self._n_pending = 0
-        # digest of the batch being dispatched: retire_bank refuses it
-        self._dispatching: Optional[str] = None
+        # digests of the batches in flight (one entry each; pipelined
+        # dispatch holds up to pipeline_depth): retire_bank refuses them
+        self._dispatching: List[str] = []
         self._closed = False
         self._max_wait_s = serve_cfg.max_wait_ms / 1e3
         self._n_dispatches = 0
@@ -788,7 +860,11 @@ class CodecEngine:
 
     def _slotwise(self, dev, plan, bb, mm, ss, xx, cfg, mesh=None):
         def put(a):
-            return None if a is None else torch.from_numpy(a).to(dev)
+            if a is None:
+                return None
+            if isinstance(a, torch.Tensor):  # uploaded at launch
+                return a
+            return torch.from_numpy(a).to(dev)
 
         has_freq = mesh is not None and "freq" in mesh.shape
         return _reconstruct_impl(
@@ -1053,15 +1129,23 @@ class CodecEngine:
 
     # ------------------------------------------------------------------
     def _work_loop(self):
+        # pipelined dispatch: up to ``depth`` launched batches wait in
+        # ``inflight``, oldest first; launching batch n+1 (host work and
+        # an async upload) comes before completing batch n (its solve),
+        # so the upload overlaps the solve. Depth 1 launches and
+        # completes at once: the synchronous worker, event for event.
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+        inflight: List[_InFlight] = []
+        depth = self._pipeline_depth
         while True:
             expired: List[_Pending] = []
             key = None
             with self._cv:
-                while not self._closed and self._n_pending == 0:
+                while (not self._closed and self._n_pending == 0
+                       and not inflight):
                     self._cv.wait()
-                if self._closed and self._n_pending == 0:
+                if self._closed and self._n_pending == 0 and not inflight:
                     return
                 max_wait = self._max_wait_s
                 now = time.perf_counter()
@@ -1096,7 +1180,10 @@ class CodecEngine:
                             if len(lst) >= k[0][0]:  # a full lane
                                 key = k
                                 break
-                        if key is None:
+                        if key is None and not inflight:
+                            # nothing flushable and nothing in flight:
+                            # sleep (with work in flight the worker
+                            # completes the oldest launch instead)
                             t_wait = ot + max_wait - now
                             if dl_min is not None:
                                 # notice an expiry when it happens
@@ -1109,7 +1196,7 @@ class CodecEngine:
                     batch = self._pending[key][:slots]
                     self._pending[key] = self._pending[key][slots:]
                     self._n_pending -= len(batch)
-                    self._dispatching = key[1]
+                    self._dispatching.append(key[1])
                     depth_after = self._n_pending
             for p in expired:
                 # a cancelled future is dropped; a live one fails
@@ -1119,51 +1206,85 @@ class CodecEngine:
                     )
                     self._emit("deadline_exceeded", where="dispatch",
                                deadline=round(p.deadline, 3))
-            if key is None:
+            if expired:
                 continue
-            # a client-cancelled request is dropped here: set_result on
-            # a cancelled Future would raise and poison its siblings
-            batch = [p for p in batch
-                     if p.future.set_running_or_notify_cancel()]
-            try:
+            if key is not None:
+                # a client-cancelled request is dropped here: set_result
+                # on a cancelled Future would raise and poison its
+                # siblings
+                batch = [p for p in batch
+                         if p.future.set_running_or_notify_cancel()]
                 if batch:
-                    self._dispatch(key, batch, depth_after)
-            except Exception as e:
-                for p in batch:
-                    if not p.future.done():
-                        p.future.set_exception(e)
-                self._emit("serve_error", error=str(e)[:300])
-            finally:
-                self._release_digest()
+                    try:
+                        inflight.append(self._launch(key, batch,
+                                                     depth_after))
+                    except Exception as e:
+                        for p in batch:
+                            if not p.future.done():
+                                p.future.set_exception(e)
+                        self._emit("serve_error", error=str(e)[:300])
+                        self._release_key(key[1])
+                else:
+                    self._release_key(key[1])
+                if len(inflight) < depth:
+                    # room in the pipeline: look for the next batch to
+                    # upload before paying any solve
+                    continue
+            if inflight:
+                inf = inflight.pop(0)
+                try:
+                    self._complete(inf)
+                except Exception as e:
+                    for p in inf.batch:
+                        if not p.future.done():
+                            p.future.set_exception(e)
+                    self._emit("serve_error", error=str(e)[:300])
+                finally:
+                    self._release_digest(inf)
 
-    def _release_digest(self) -> None:
+    def _release_key(self, digest: str) -> None:
+        with self._cv:
+            try:
+                self._dispatching.remove(digest)
+            except ValueError:
+                pass
+
+    def _release_digest(self, inf: "_InFlight") -> None:
         """The batch no longer consults its plan: its digest becomes
         retirable (early, before its futures resolve, so a client that
         publishes a bank the moment its result lands can retire the old
-        one)."""
-        with self._cv:
-            self._dispatching = None
+        one). Once a batch."""
+        if not inf.released:
+            inf.released = True
+            self._release_key(inf.key[1])
 
-    def _dispatch(self, key, batch: List[_Pending], depth_after: int) -> None:
-        """One synchronous dispatch: canvas fill, the bucket's slot-wise
-        solve, readback, per-request crop and futures, then the
-        dispatch's telemetry (spans, serve records, the SLO tick).
-        ``depth_after``: the requests still queued once this batch was
-        taken."""
+    def _launch(self, key, batch: List[_Pending],
+                depth_after: int) -> _InFlight:
+        """The dispatch half before the solve: plan fetch and canvas
+        fill. At depth > 1 on a single card the canvases are filled in
+        pinned host memory and uploaded ``non_blocking`` on the engine's
+        copy stream, with an event the solve waits on; otherwise they
+        stay numpy arrays and the solve uploads them, as the synchronous
+        worker did."""
         bkey, digest = key
         slots, spatial = bkey
         geom = self.geom
-        cfg = self.cfg
-        name = _bucket_name(slots, spatial)
-        plan = self._plan_for(digest, bkey)
+        self._plan_for(digest, bkey)  # an evicted plan rebuilds here
         t0 = time.perf_counter()
-
         shape = (slots, *geom.reduce_shape, *spatial)
-        bb = np.zeros(shape, np.float32)
-        mm = np.zeros(shape, np.float32)  # filler slots observe nothing
-        ss = np.zeros(shape, np.float32)
         has_x = any(p.x_orig is not None for p in batch)
-        xx = np.zeros(shape, np.float32) if has_x else None
+        staged = (self._pipeline_depth > 1 and self._mesh is None
+                  and self.device.type == "cuda")
+        if staged:
+            host = [torch.zeros(shape, dtype=torch.float32, pin_memory=True)
+                    for _ in range(4 if has_x else 3)]
+            arrs = [h.numpy() for h in host]
+        else:
+            host = None
+            arrs = [np.zeros(shape, np.float32)
+                    for _ in range(4 if has_x else 3)]
+        bb, mm, ss = arrs[:3]  # filler slots observe nothing (mm = 0)
+        xx = arrs[3] if has_x else None
         for i, p in enumerate(batch):
             # top-left placement; the zero mask over the pad region
             # excludes it from the data term
@@ -1176,6 +1297,39 @@ class CodecEngine:
                 ss[sl] = p.smooth_init
             if p.x_orig is not None:
                 xx[sl] = p.x_orig
+        if not staged:
+            return _InFlight(key, batch, depth_after, (bb, mm, ss, xx),
+                             None, None, t0)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            dev_t = [h.to(self.device, non_blocking=True) for h in host]
+            ev = torch.cuda.Event()
+            ev.record(self._copy_stream)
+        canvas = (*dev_t[:3], dev_t[3] if has_x else None)
+        return _InFlight(key, batch, depth_after, canvas, ev, host, t0)
+
+    def _complete(self, inf: _InFlight) -> None:
+        """The dispatch half from the solve on: the compute stream waits
+        for the batch's upload, the bucket's slot-wise solve and its
+        readback, per-request crop and futures, then the dispatch's
+        telemetry (spans, serve records, the SLO tick). ``depth_after``:
+        the requests still queued once this batch was taken."""
+        key, batch, depth_after = inf.key, inf.batch, inf.depth_after
+        t0 = inf.t0
+        bkey, digest = key
+        slots, spatial = bkey
+        geom = self.geom
+        cfg = self.cfg
+        name = _bucket_name(slots, spatial)
+        plan = self._plan_for(digest, bkey)
+        bb, mm, ss, xx = inf.canvas
+        if inf.event is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(inf.event)
+            for t in inf.canvas:
+                if t is not None:
+                    t.record_stream(cur)
         # a breach armed a ONE-SHOT capture of this dispatch (serve.slo);
         # it is consumed and recorded even when the solve raises
         prof_dir, self._profile_armed = self._profile_armed, None
@@ -1185,6 +1339,7 @@ class CodecEngine:
         finally:
             if prof_dir:
                 self._emit("slo_profile", trace_dir=prof_dir, bucket=name)
+        inf.hold = None  # the upload has run: the pinned buffers go
         iters, obj, psnr, diff = (out[k] for k in ("iters", "obj", "psnr",
                                                    "diff"))
         recon, z, ex = out["recon"], out["z"], out["extras"]
@@ -1198,7 +1353,7 @@ class CodecEngine:
             obj_l1=None if ex is None else ex[1][:nb],
             nonfinite=None if ex is None else ex[2][:nb],
         )
-        self._release_digest()
+        self._release_digest(inf)
 
         max_it = int(iters[: len(batch)].max())
         dt = t_done - t0
@@ -1582,7 +1737,7 @@ class CodecEngine:
         with self._cv:
             if digest in self._routes.values():
                 return False
-            if digest == self._dispatching:
+            if digest in self._dispatching:
                 return False
             if any(lane[1] == digest and lst
                    for lane, lst in self._pending.items()):

@@ -1,3 +1,3 @@
-"""Knob tuning (ROADMAP.md Queue 1 item 9). Only the store's shape keys
-are ported, for the perf ledger (analysis.ledger); the autotuner, its
-arm space and the tuned-knob store wait for item 9."""
+"""Knob tuning: the arm space (space), the tuned-knob store (store) and
+the resolver, numerics guard and sweep (autotune; also the CLI
+``python -m ccsc_code_iccv2017_torch.tune.autotune``)."""

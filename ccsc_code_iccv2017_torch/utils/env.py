@@ -36,6 +36,54 @@ REGISTRY: Dict[str, Knob] = {
         Knob("CCSC_STREAM_MODE", "str", "auto",
              "force a streaming placement tier: device | kern | paged",
              "parallel.streaming"),
+        Knob("CCSC_HERM_INV", "str", None,
+             "Gram-inverse method: cholesky | schur | newton (default "
+             "'auto': cholesky on the CPU and the card); read when a "
+             "solve or a step is built",
+             "ops.freq_solvers"),
+        Knob("CCSC_HERM_INV_ITERS", "int", 30,
+             "Newton-Schulz iteration count (validity window cond <= "
+             "~3e4 at the default)",
+             "ops.freq_solvers"),
+        Knob("CCSC_NEWTON_COND_MAX", "float", 3e4,
+             "condition-number validity window of the Newton default",
+             "ops.freq_solvers"),
+        Knob("CCSC_NEWTON_COND_GUARD", "flag", True,
+             "runtime condition estimate + Cholesky fallback on the "
+             "Newton path (0 disables: trust the iteration count)",
+             "ops.freq_solvers"),
+        Knob("CCSC_SERVE_PIPELINE", "int", 1,
+             "engine dispatch pipeline depth (fallback of "
+             "ServeConfig.pipeline_depth): 2 uploads batch N+1 on a copy "
+             "stream while batch N solves",
+             "serve.engine, serve.bench"),
+        Knob("CCSC_TUNE_STORE", "path", None,
+             "tuned-knob store path (else $CCSC_COMPILE_CACHE/"
+             "ccsc_tuned_knobs.json, else the port's build/"
+             "ccsc_tuned_knobs.json)",
+             "tune.store"),
+        Knob("CCSC_TUNE_CHIP", "str", None,
+             "chip-identity override for store keys (tests/operators)",
+             "tune.autotune"),
+        Knob("CCSC_TUNE_GUARD", "flag", True,
+             "numerics guard on arm application (0 trusts the store)",
+             "tune.autotune"),
+        Knob("CCSC_TUNE_GUARD_TOL", "float", 0.01,
+             "max relative trajectory deviation vs the f32 reference",
+             "tune.autotune"),
+        Knob("CCSC_TUNE_MIN_WIN", "float", 0.02,
+             "minimum fractional win over the baseline, in most of an "
+             "arm's interleaved pairs, for a sweep arm to persist (the "
+             "baseline's own spread raises it)",
+             "tune.autotune"),
+        Knob("CCSC_TUNE_FP", "str", None,
+             "knob-space fingerprint override (pin across a compatible "
+             "rename)",
+             "tune.space"),
+        Knob("CCSC_SERVE_TUNE", "str", "off",
+             "also run a tuned engine on the bench's stream: off | auto "
+             "| sweep",
+             "serve.bench"),
         Knob("CCSC_DIST_CONNECT_RETRIES", "int", 5,
              "extra process-group connect attempts of "
              "parallel.distributed.initialize",

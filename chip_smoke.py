@@ -285,14 +285,15 @@ never exits 0):
    ``learn_2d --auto-degrade`` on phase
    7's data (1 step) in a child whose allocator is capped at
    ROB_OOM_CAP_GIB (``torch.cuda.set_per_process_memory_fraction``): the
-   in-memory learner raises ``torch.OutOfMemoryError``, the forensic
-   dump and its ``mem_oom_dump`` record, one ``degrade`` record
-   (``streaming``, ``dispatch``), the run completes as
+   in-memory learner raises ``torch.OutOfMemoryError``, and so does its
+   donated chunked run (JAX's rungs since PR 17): a forensic dump and
+   its ``mem_oom_dump`` record each, ``degrade`` records (``donate``,
+   then ``streaming``, at ``dispatch``), the run completes as
    ``consensus_streaming`` (``CCSC_STREAM_MODE=device``) with filters
    bitwise a direct ``learn_streaming`` run of that tier; with
-   ``CCSC_INMEM_HBM_GB=1`` the ladder steps down at the preflight and no
-   in-memory run starts; the two children run at once, beside the
-   direct run. (f) Phase 10's 42 requests through a 4-slot
+   ``CCSC_INMEM_HBM_GB=1`` the ladder steps donate and streaming at the
+   preflight and no in-memory run starts; the two children run at once,
+   beside the direct run. (f) Phase 10's 42 requests through a 4-slot
    256x256 engine with ``capture_dir``: 42 request records whose payload
    SHAs are the inputs', ``load_payload`` round-trips, outcome digests
    the results', every result bitwise phase 10's, K1 launched the
@@ -423,6 +424,35 @@ never exits 0):
    for another chip and another toolkit are refused (``chip_mismatch``,
    ``version_skew``) and nothing is written where the library would
    load from.
+22. The perf knobs and the autotuner (run after 21). (a) The Gram
+   inverses (``ops.freq_solvers``: cholesky, schur, newton) on the W=31
+   HS z-kernel Gram (the k=100 11x11x31 bank at 128^2, rho_z = 1) and on
+   one block of the north star's d-pass Gram at the learner's random
+   init: CUDA-event ms each, the condition number, and the deviation
+   from a float64 inverse on the card, held to the float32 Cholesky's
+   class (5e-4, and 10x the Cholesky's own deviation); Schur on the HS
+   Gram is recorded, not held (its explicit block inverse loses
+   accuracy as cond^2, JAX's too). A rank-deficient d-pass Gram past
+   Newton's condition window: the guard selects the Cholesky inverse
+   (bitwise) and warns. (b) Phase 7's north-star learner per step, at
+   outer_chunk=3 without and with donate_state, twice in turn (all
+   warm): filters and traces bitwise phase 7's per-step run, K2a/K2b
+   launched 30 times each a run, steps/s and the peak memory of each
+   (the donated runs' at most the per-step runs', give or take 1 MiB of
+   the chunk's stacked scalars). (c) Each fft_impl tier on one block of the
+   north star's z-pass transforms (rfft and irfft, ms beside cuFFT's,
+   the deviation from 'xla' held to JAX's class: 2e-5, 1e-3, 2e-2) and
+   on the serve solve of phase 10's bucket (4 requests of 256^2, the
+   k=100 bank; wall ms, K1 launches equal to the iterations, the
+   reconstruction's deviation from 'xla'). (d) Phase 10's 42 requests
+   through the engine at pipeline_depth 1, 2, 2, 1: every result equal
+   to phase 10's by sha256, K1's count equal to the dispatch
+   iterations, requests/s of each and each depth's mean. (e) ``tune.autotune.
+   sweep_solve`` on a small 2D problem (k=16 7x7, 64^2) into a fresh
+   store on this card, then ``resolve_solve`` with tune='auto' on that
+   shape reads the 'h100' entry back; an engine with tune='auto' serves
+   under it (K1 counted); a store holding only another chip's entry is
+   refused.
 14. Output: a
    ``{"slice": ...}`` line (serving), a ``{"learn": ...}`` line, a
    ``{"serve_engine": ...}`` line (the engine phase and the
@@ -434,17 +464,19 @@ never exits 0):
    (18's counts and seconds, the armed learner's step beside the plain
    one), a ``{"serve_fleet": ...}`` line (19's records), a
    ``{"serve_federation": ...}`` line (20's records), a
-   ``{"warmup": ...}`` line (21's records), a
+   ``{"warmup": ...}`` line (21's records), a ``{"knobs": ...}`` line
+   (22's records), a
    ``{"kernels": [...]}`` line (K1, K2a, K2b; K1's launches by path:
    reconstruct, engine, poisson, deblur, learn_3d, learn_2d_masked,
    learn_streaming_2d, learn_streaming_3d, mesh_reconstruct,
    mesh_learn_freq, serve_mesh, learn_2d_256_gate, telemetry_engine,
    telemetry_reconstruct, capture_engine, capture_replay,
    degrade_streaming_cli, degrade_streaming_direct, fleet, federation,
-   host_kill, replay, autoscale, warmup_children, staged_engine; K2's:
-   learn,
-   learn_telemetry, mesh_learn_block4, mesh_learn_nccl1, learn_watchdog,
-   learn_nan_recovery, learn_hang), the nvidia-smi line, and last
+   host_kill, replay, autoscale, warmup_children, staged_engine,
+   fft_tiers_reconstruct, pipelined_engine, tune_sweep, tuned_engine;
+   K2's: learn, learn_telemetry, mesh_learn_block4, mesh_learn_nccl1,
+   learn_watchdog, learn_nan_recovery, learn_hang, learn_chunked), a
+   ``{"phase_seconds": ...}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when CUDA is absent or the
@@ -1213,6 +1245,7 @@ def phase_learn(torch, port, seed):
         "filter_norm_max": float(norms.max()),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "wall_s": wall, "data_s": data_s,
+        "d": d,  # phase 22 (b)'s reference; dropped before printing
     }
     for i in range(steps):
         print(f"[7] step {i + 1}: {step_s[i]:.3f} s (d-pass "
@@ -3857,11 +3890,12 @@ def _rob_degrade(torch, port, seed, tmp):
     """(e) learn_2d --auto-degrade at the north star (8 x 100 images of
     100^2, 1 step) in a child whose allocator is capped at
     ROB_OOM_CAP_GIB: a real torch.OutOfMemoryError in the in-memory
-    learner, the forensic dump, one degrade record (streaming,
-    dispatch), and the run completes streamed, bitwise a direct
-    learn_streaming run of the same tier; then CCSC_INMEM_HBM_GB=1 steps
-    down at the preflight. Both children run at once, and the direct run
-    here while they do."""
+    learner and again in its donated chunked run, a forensic dump each,
+    JAX's rungs (donate, then streaming, at dispatch), and the run
+    completes streamed, bitwise a direct learn_streaming run of the same
+    tier; then CCSC_INMEM_HBM_GB=1 steps down donate and streaming at
+    the preflight. Both children run at once, and the direct run here
+    while they do."""
     import numpy as np
     import scipy.io
 
@@ -3929,13 +3963,17 @@ def _rob_degrade(torch, port, seed, tmp):
               f"{child['max_memory_allocated'] / 2**30:.2f} GiB, K1 "
               f"{child['k1']}, K2 {child['k2']}, child wall {wall:.1f} s")
         if tag == "oom":
-            ok = (algos == ["consensus", "consensus_streaming"]
+            # JAX's rungs since the chunked driver: the donated in-memory
+            # run OOMs too under the cap, then the streamed run completes
+            ok = (algos == ["consensus", "consensus", "consensus_streaming"]
                   and [(x["rung"], x["stage"]) for x in degr]
-                  == [("streaming", "dispatch")]
-                  and "out of memory" in degr[0]["error"].lower()
-                  and len(dumps) == 1 and os.path.exists(dumps[0]["path"])
+                  == [("donate", "dispatch"), ("streaming", "dispatch")]
+                  and all("out of memory" in x["error"].lower()
+                          for x in degr)
+                  and len(dumps) == 2
+                  and all(os.path.exists(x["path"]) for x in dumps)
                   and [s["status"] for s in by.get("summary", [])]
-                  == ["error", "ok"])
+                  == ["error", "error", "ok"])
             if ok:
                 with open(dumps[0]["path"]) as f:
                     dump = json.load(f)
@@ -3944,7 +3982,7 @@ def _rob_degrade(torch, port, seed, tmp):
         else:
             ok = (algos == ["consensus_streaming"] and not dumps
                   and [(x["rung"], x["stage"]) for x in degr]
-                  == [("streaming", "preflight")]
+                  == [("donate", "preflight"), ("streaming", "preflight")]
                   and child["max_memory_allocated"]
                   < out["oom"]["child"]["max_memory_allocated"] + 1)
         if not ok or child["algorithm"] != "consensus_streaming" or \
@@ -5742,6 +5780,493 @@ def phase_warmup(torch, port, time_ms, bw, flops, seed, phase10):
     return out
 
 
+# ---- phase 22: the perf knobs and the autotuner --------------------------
+
+KNOB_HS_SIDE = 128  # the W=31 HS z-kernel Gram at 128x128 (F = 138*70)
+KNOB_METHODS = ("cholesky", "schur", "newton")
+# the JAX package's accuracy class (tests/test_ops.py): the float32
+# Cholesky's, 5e-4 at the HS Gram's conditioning (~1e4), for every method;
+# and Schur / Newton within 10x the Cholesky's own deviation on the Gram
+KNOB_INV_LIMIT = 5e-4
+KNOB_INV_VS_CHOL = 10.0
+# fft_impl tiers: the transforms' class against 'xla' (JAX's documented
+# classes: float tolerance, ~1e-4 a transform, ~3 decimal digits)
+TIER_LIMIT = {"matmul": 2e-5, "matmul_high": 1e-3, "matmul_bf16": 2e-2}
+TIER_SOLVE_LIMIT = {"matmul": 1e-4, "matmul_high": 1e-2, "matmul_bf16": 1e-1}
+CHUNK = 3  # (b): phase 7's three steps in one chunk
+# (e): phase 10's bucket (4 requests of 256^2, the k=100 11x11 bank), where
+# the card, not the host, sets a solve's time; 10 iterations a solve and 4
+# interleaved baseline/arm pairs an arm
+TUNE_ITERS, TUNE_PAIRS = 10, 4
+
+
+def _knob_inverses(torch, port, time_ms, tag, G, limits, note,
+                   unheld=()):
+    """Every Gram-inverse method on the batch ``G``: CUDA-event ms and
+    the deviation from a float64 inverse on the card (its largest
+    condition number beside them). ``unheld``: methods recorded without
+    a limit."""
+    fs = port["freq_solvers"]
+    ref = torch.linalg.inv(G.to(torch.complex128))
+    scale = float(ref.abs().max())
+    # the condition number over 256 bins spread through the batch (a
+    # batched eigvalsh of every 100x100 bin would take seconds)
+    flat = G.reshape(-1, *G.shape[-2:])
+    pick = torch.linspace(0, flat.shape[0] - 1, min(256, flat.shape[0]),
+                          device=G.device).long()
+    ev = torch.linalg.eigvalsh(flat[pick].to(torch.complex128))
+    cond = float((ev[..., -1] / ev[..., 0]).max())
+    del ev, flat
+    out = {"shape": list(G.shape), "note": note, "cond_max_sampled": cond}
+    print(f"[22a] {tag} {list(G.shape)}: condition number up to {cond:.3g} "
+          f"(256 bins)")
+    chol_dev = None
+    for method in KNOB_METHODS:
+        inv = fs.hermitian_inverse(G, method)
+        dev = float((inv.to(torch.complex128) - ref).abs().max()) / scale
+        ms = time_ms(lambda: fs.hermitian_inverse(G, method), reps=5,
+                     warmup=1)
+        out[method] = {"ms": ms, "dev_vs_f64": dev}
+        print(f"[22a] {tag} {list(G.shape)} {method}: {ms:.3f} ms, "
+              f"max|inv - inv_f64| / max|inv_f64| {dev:.2e}")
+        chol_dev = dev if chol_dev is None else chol_dev
+        limit = max(limits, KNOB_INV_VS_CHOL * chol_dev) \
+            if method != "cholesky" else limits
+        if method not in unheld and not dev <= limit:
+            raise RuntimeError(f"{tag} {method}: deviation {dev:.3e} past "
+                               f"{limit:.1e}")
+    fs.report_newton_guard(wait=True)
+    return out
+
+
+def _knobs_grams(torch, port, time_ms, seed):
+    """(a) The W=31 HS z-kernel Gram and the north star's d-pass Gram
+    (one block's, at the learner's random init), through every method;
+    then a d-pass Gram past Newton's condition window: the guard selects
+    the Cholesky inverse (bitwise) and reports its fallback."""
+    import warnings
+
+    import numpy as np
+
+    fs, common = port["freq_solvers"], port["common"]
+    cfgm = port["config"]
+    d_hs = torch.from_numpy(np.ascontiguousarray(
+        port["io_mat"].load_filters_hyperspectral(BANK_HS))).cuda()
+    geom_hs = cfgm.ProblemGeom(tuple(d_hs.shape[-2:]), d_hs.shape[0],
+                               reduce_shape=(d_hs.shape[1],))
+    fg = common.FreqGeom.create(geom_hs, (KNOB_HS_SIDE, KNOB_HS_SIDE))
+    dhat = common.filters_to_freq(d_hs, fg)  # [K, 31, F]
+    M = torch.einsum("kvf,kwf->fvw", dhat, dhat.conj())  # rho_z = 1
+    M = M + torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    # the Schur recursion's explicit block inverse loses accuracy as
+    # cond^2 (JAX's does the same on this Gram on the CPU, and JAX's
+    # 'auto' takes it only for m <= 16): recorded, not held
+    out = {"hs_zkernel": _knob_inverses(
+        torch, port, time_ms, "HS z-kernel Gram", M, KNOB_INV_LIMIT,
+        f"I + A A^H of the k=100 11x11x31 bank at {KNOB_HS_SIDE}^2, rho_z=1",
+        unheld=("schur",))}
+    del M, dhat
+    ns = mesh_check.NORTH_STAR
+    geom = cfgm.ProblemGeom((ns["support"],) * 2, ns["k"])
+    fgn = common.FreqGeom.create(geom, (ns["side"], ns["side"]))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+    z = torch.randn((ns["ni"], ns["k"], *fgn.spatial_shape), generator=gen,
+                    device="cuda")
+    zhat = common.codes_to_freq(z, fgn)  # [ni, K, F]
+    del z
+    Z = torch.einsum("nkf,mkf->fnm", zhat, zhat.conj())
+    # a quarter of the filters: Z Z^H of rank <= K/4 < ni
+    low = zhat[:, :max(1, ns["k"] // 4)]
+    Z_low = torch.einsum("nkf,mkf->fnm", low, low.conj())
+    del zhat, low
+    eye = torch.eye(ns["ni"], dtype=Z.dtype, device=Z.device)
+    rho_d = mesh_check.CFG["rho_d"]
+    out["dpass_gram"] = _knob_inverses(
+        torch, port, time_ms, "north-star d-pass Gram", Z + rho_d * eye,
+        KNOB_INV_LIMIT, f"one block's Z Z^H + rho_d I at the random init "
+                        f"(rho_d={rho_d:g})")
+    # past the window, still a float32 Cholesky's: a rank-deficient
+    # Z Z^H with a shift of 3e-5 of its largest diagonal entry (cond
+    # ~1e5 to 3e6: the largest eigenvalue lies between that entry and
+    # ni times it)
+    del Z
+    shift = 3e-5 * float(Z_low.diagonal(dim1=-2, dim2=-1).real.amax())
+    G = Z_low + shift * eye
+    del Z_low
+    fs.report_newton_guard(wait=True)  # nothing pending before
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        newton = fs.hermitian_inverse(G, "newton")
+        fs.report_newton_guard(wait=True)  # the deferred verdict's warning
+    chol = fs.hermitian_inverse(G, "cholesky")
+    same = bool(torch.equal(newton, chol))
+    msgs = [str(w.message)[:120] for w in caught
+            if "Newton-Schulz" in str(w.message)]
+    fell = len(msgs)
+    print(f"[22a] rank-K/4 d-pass Gram + {shift:.3g} I: the Newton guard "
+          f"fell back "
+          f"({fell} warning(s)), result bitwise the Cholesky: {same}; "
+          f"{msgs[:1]}")
+    if not (fell >= 1 and same and msgs):
+        raise RuntimeError("the Newton condition guard did not fall back "
+                           f"(fell {fell}, bitwise {same}, {msgs})")
+    out["guard_fallback"] = {"fell": fell, "bitwise_cholesky": same,
+                             "warning": msgs[0]}
+    del G, newton, chol
+    torch.cuda.empty_cache()
+    return out
+
+
+# the donated chunk's peak may exceed the per-step run's by the chunk's
+# stacked per-step scalars (a few allocator blocks), never by a state
+CHUNK_PEAK_SLACK = 1 << 20
+
+
+def _knobs_chunked(torch, port, seed, phase7):
+    """(b) Phase 7's north-star learner per step, at outer_chunk=CHUNK
+    without and with donate_state, twice in turn (A B C A B C, all
+    warm): filters and traces bitwise phase 7's per-step run, K2a/K2b
+    launched max_it_z a step, steps/s and the peak memory of each (the
+    donated runs' at most the per-step runs', give or take
+    CHUNK_PEAK_SLACK)."""
+    import numpy as np
+
+    n = LEARN_BLOCKS * LEARN_NI
+    b = mesh_check.training_images(seed, n, LEARN_SIDE)
+    geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
+    fz = port["fused_z"].fused_z_iter
+    out = {}
+    configs = (("per_step", 1, False), ("chunked", CHUNK, False),
+               ("donated", CHUNK, True))
+    runs = [(f"{tag}_{r}", tag, chunk, donate) for r in (1, 2)
+            for tag, chunk, donate in configs]
+    for tag, config, chunk, donate in runs:
+        cfg = _learn_cfg(port, num_blocks=LEARN_BLOCKS, max_it=3,
+                         fused_z=True, outer_chunk=chunk, donate_state=donate)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fz.launches_a = fz.launches_b = 0
+        t0 = time.perf_counter()
+        res = port["consensus"].learn(b, geom, cfg, generator=gen,
+                                      device="cuda")
+        d = res.d.cpu().numpy()
+        wall = time.perf_counter() - t0
+        tr = res.trace
+        steps = len(tr["obj_vals_z"]) - 1
+        want = cfg.max_it_z * steps
+        launches = [fz.launches_a, fz.launches_b]
+        same = (np.array_equal(d, phase7["d"]) and all(
+            tr[k] == phase7[k] for k in ("obj_vals_d", "obj_vals_z")))
+        peak = torch.cuda.max_memory_allocated()
+        rec = {"config": config, "outer_chunk": chunk,
+               "donate_state": donate,
+               "steps": steps, "launches": launches, "wall_s": wall,
+               "steps_per_s": steps / tr["tim_vals"][-1],
+               "max_memory_allocated_bytes": peak, "bitwise_phase7": same}
+        print(f"[22b] {tag} (outer_chunk={chunk}, donate_state={donate}): "
+              f"{steps} steps, {rec['steps_per_s']:.3f} steps/s, K2a/K2b "
+              f"{launches} (want {want} each), peak {peak / 2**30:.2f} GiB, "
+              f"bitwise phase 7: {same}")
+        if steps != 3 or launches != [want, want] or not same:
+            raise RuntimeError(f"[22b] {tag}: {rec}")
+        out[tag] = rec
+        del res
+    by = {tag: [r for r in out.values() if r["config"] == tag]
+          for tag, _, _ in configs}
+    rate = {tag: sum(r["steps_per_s"] for r in rs) / len(rs)
+            for tag, rs in by.items()}
+    peak = {tag: max(r["max_memory_allocated_bytes"] for r in rs)
+            for tag, rs in by.items()}
+    out["donated_peak_minus_per_step_bytes"] = (peak["donated"]
+                                                - peak["per_step"])
+    out["chunked_peak_minus_per_step_bytes"] = (peak["chunked"]
+                                                - peak["per_step"])
+    out["chunked_vs_per_step"] = rate["chunked"] / rate["per_step"]
+    out["donated_vs_per_step"] = rate["donated"] / rate["per_step"]
+    print(f"[22b] mean steps/s: per step {rate['per_step']:.3f}, chunked "
+          f"{rate['chunked']:.3f} ({out['chunked_vs_per_step']:.4f}x), "
+          f"donated {rate['donated']:.3f} "
+          f"({out['donated_vs_per_step']:.4f}x); peak against the per-step "
+          f"runs': chunked {out['chunked_peak_minus_per_step_bytes'] / 2**30:+.3f}"
+          f" GiB, donated {out['donated_peak_minus_per_step_bytes'] / 2**30:+.3f}"
+          f" GiB (phase 7's cold run: "
+          f"{phase7['max_memory_allocated_bytes'] / 2**30:.2f} GiB)")
+    if out["donated_peak_minus_per_step_bytes"] > CHUNK_PEAK_SLACK:
+        raise RuntimeError("[22b] the donated chunk peaked above the "
+                           "per-step run")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _knobs_tiers(torch, port, time_ms, seed):
+    """(c) The north star's z-pass transforms (one block's codes) and the
+    2D serve solve (phase 10's bucket: 4 requests of 256^2, the k=100
+    bank) under each fft_impl tier: ms beside cuFFT ('xla'), and the
+    deviation from 'xla' beside JAX's class."""
+    import numpy as np
+
+    fourier = port["fourier"]
+    ns = mesh_check.NORTH_STAR
+    sp = (LEARN_S, LEARN_S)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    z = torch.randn((ns["ni"], ns["k"], *sp), generator=gen, device="cuda")
+    ref = fourier.rfftn_spatial(z, 2, impl="xla")
+    scale = float(ref.abs().max())
+    out = {"transforms": {"shape": list(z.shape)}}
+    for impl in ("xla",) + tuple(TIER_LIMIT):
+        zh = fourier.rfftn_spatial(z, 2, impl=impl)
+        back = fourier.irfftn_spatial(ref, sp, impl=impl)
+        dev = float((zh - ref).abs().max()) / scale
+        dev_inv = float((back - z).abs().max() / z.abs().max())
+        del zh, back
+        fwd = time_ms(lambda: fourier.rfftn_spatial(z, 2, impl=impl), reps=3,
+                      warmup=1)
+        inv = time_ms(lambda: fourier.irfftn_spatial(ref, sp, impl=impl),
+                      reps=3, warmup=1)
+        out["transforms"][impl] = {"rfft_ms": fwd, "irfft_ms": inv,
+                                   "dev_vs_xla": dev,
+                                   "inverse_dev": dev_inv,
+                                   "class": TIER_LIMIT.get(impl)}
+        print(f"[22c] z-pass transform {list(z.shape)} {impl}: rfft "
+              f"{fwd:.2f} ms, irfft {inv:.2f} ms; dev vs xla {dev:.2e}, "
+              f"round trip {dev_inv:.2e} (class {TIER_LIMIT.get(impl)})")
+        if impl != "xla" and not (dev <= TIER_LIMIT[impl]
+                                  and dev_inv <= 5 * TIER_LIMIT[impl]):
+            raise RuntimeError(f"[22c] {impl} transforms out of class")
+    del z, ref
+    torch.cuda.empty_cache()
+    # the serve solve under each tier
+    bench, rec_mod = port["serve_bench"], port["reconstruct"]
+    d = port["io_mat"].load_filters_2d(BANK)
+    prob = rec_mod.ReconstructionProblem(port["config"].ProblemGeom(
+        (11, 11), K))
+    reqs = bench.make_requests([S] * ENGINE_SLOTS, seed + 4)
+    stack = lambda key: np.stack([q[key] for q in reqs])
+    b, m = stack("b"), stack("mask")
+    sm, x = stack("smooth_init"), stack("x_orig")
+    k1 = port["kernels"].solve_z_rank1
+    out["solve"] = {"shape": list(b.shape)}
+    launches = 0
+    recon_ref = None
+    for impl in ("xla",) + tuple(TIER_LIMIT):
+        cfg = port["config"].SolveConfig(lambda_residual=5.0,
+                                         lambda_prior=2.0, max_it=100,
+                                         tol=1e-3, fft_impl=impl,
+                                         verbose="none")
+        rec_mod.reconstruct(b, d, prob, dataclasses.replace(cfg, max_it=1),
+                            mask=m, smooth_init=sm, device="cuda")
+        torch.cuda.synchronize()
+        before = k1.launches
+        t0 = time.perf_counter()
+        res = rec_mod.reconstruct(b, d, prob, cfg, mask=m, smooth_init=sm,
+                                  x_orig=x, device="cuda")
+        recon = res.recon.cpu().numpy()
+        wall = time.perf_counter() - t0
+        iters = int(res.trace.num_iters)
+        n_k1 = k1.launches - before
+        launches += n_k1
+        if recon_ref is None:
+            recon_ref = recon
+        dev = float(np.abs(recon - recon_ref).max() / np.abs(recon_ref).max())
+        psnr = [port["serve"].valid_region_psnr(recon[i], x[i], (R, R))
+                for i in range(len(x))]
+        out["solve"][impl] = {"wall_ms": 1e3 * wall, "iters": iters,
+                              "k1_launches": n_k1, "dev_vs_xla": dev,
+                              "psnr_db": psnr}
+        print(f"[22c] serve solve {list(b.shape)} {impl}: {1e3 * wall:.1f} "
+              f"ms, {iters} iterations, K1 {n_k1}, recon dev vs xla "
+              f"{dev:.2e}, PSNR {min(psnr):.2f}-{max(psnr):.2f} dB")
+        if not (np.isfinite(recon).all() and n_k1 == iters):
+            raise RuntimeError(f"[22c] {impl} solve: K1 {n_k1} for {iters}")
+        if impl != "xla" and not dev <= TIER_SOLVE_LIMIT[impl]:
+            raise RuntimeError(f"[22c] {impl} solve deviates {dev:.3e}")
+    out["k1_launches"] = launches
+    return out
+
+
+def _knobs_pipeline(torch, port, seed, phase10):
+    """(d) Phase 10's 42 requests through the engine at pipeline_depth 1,
+    2, 2, 1 (at 2, batch n+1 is uploaded on a copy stream while batch n
+    solves): every result equal to phase 10's by sha256, K1's count equal
+    to the dispatch iterations; requests/s over the window, each depth's
+    mean (a dispatch's wall at depth 2 starts at its launch, so it also
+    holds the wait behind the batch before it: per-dispatch rates do not
+    compare across depths)."""
+    bench, kernels = port["serve_bench"], port["kernels"]
+    d = port["io_mat"].load_filters_2d(BANK)
+    prob = port["reconstruct"].ReconstructionProblem(
+        port["config"].ProblemGeom((11, 11), K))
+    cfg = port["config"].SolveConfig(lambda_residual=5.0, lambda_prior=2.0,
+                                     max_it=100, tol=1e-3)
+    reqs = bench.make_requests(ENGINE_SIDES, seed + 4)
+    ref = [_digest(port, s.recon) for s in phase10["served"]]
+    out = {"launches": 0, "runs": []}
+    for depth in (1, 2, 2, 1):
+        with port["serve"].CodecEngine(
+                d, prob, cfg, port["config"].ServeConfig(
+                    buckets=((ENGINE_SLOTS, (S, S)),), pipeline_depth=depth),
+                device="cuda") as eng:
+            kernels.solve_z_rank1.launches = 0
+            served, engine_s, _ = bench.run_engine(eng, reqs)
+            launches = kernels.solve_z_rank1.launches
+            iters = eng.dispatch_iters
+            requests = [e["requests"] for e in eng.dispatch_log]
+            knobs = dict(eng._knob_dict)
+        same = [_digest(port, s.recon) for s in served] == ref
+        rps = len(served) / engine_s
+        out["runs"].append({"depth": depth, "requests_per_sec": rps,
+                            "k1_launches": launches,
+                            "dispatch_iters": iters,
+                            "dispatch_requests": requests,
+                            "sha256_equal_phase10": same, "knobs": knobs})
+        out["launches"] += launches
+        print(f"[22d] engine at pipeline_depth={depth}: {rps:.3f} "
+              f"requests/s (phase 10 "
+              f"{phase10['bench']['engine_requests_per_sec']:.3f}), "
+              f"{len(iters)} dispatches of {requests} requests, K1 "
+              f"{launches} (want {sum(iters)}), "
+              f"every result phase 10's by sha256: {same}")
+        if not same or launches != sum(iters):
+            raise RuntimeError(f"[22d] depth {depth}: sha256 {same}, K1 "
+                               f"{launches} for {sum(iters)} iterations")
+        if (depth == 2) != ("pipeline" in knobs):
+            raise RuntimeError(f"[22d] knob dict {knobs}")
+        del served
+    mean = {d: sum(r["requests_per_sec"] for r in out["runs"]
+                   if r["depth"] == d) / 2 for d in (1, 2)}
+    out["depth2_vs_depth1"] = mean[2] / mean[1]
+    print(f"[22d] depth 2 against depth 1 (means of two runs each): "
+          f"{mean[2]:.3f} / {mean[1]:.3f} requests/s = "
+          f"{out['depth2_vs_depth1']:.4f}x")
+    return out
+
+
+def _knobs_tune(torch, port, seed, tmp):
+    """(e) sweep_solve at phase 10's bucket into a fresh store on this
+    card (every arm in interleaved pairs against the baseline), then
+    resolve_solve with tune='auto' on the same shape reads the H100
+    entry back (behind the numerics guard), a tuned engine serves under
+    it, and a store holding only another chip's entry is refused."""
+    import numpy as np
+
+    at, ts = port["tune_autotune"], port["tune_store"]
+    k1 = port["kernels"].solve_z_rank1
+    d = port["io_mat"].load_filters_2d(BANK)
+    geom = port["config"].ProblemGeom((2 * R + 1,) * 2, K)
+    spatial = (S, S)
+    cfg = port["config"].SolveConfig(lambda_residual=5.0, lambda_prior=2.0,
+                                     max_it=TUNE_ITERS, verbose="none")
+    path = os.path.join(tmp, "tuned.json")
+    events = []
+    emit = lambda t, **f: events.append(dict(type=t, **f))
+    before = k1.launches
+    t0 = time.perf_counter()
+    at.sweep_solve(cfg, geom, spatial, store=ts.TunedStore(path), emit=emit,
+                   d=d, reps=1, batch=ENGINE_SLOTS, pairs=TUNE_PAIRS,
+                   device="cuda")
+    sweep_s = time.perf_counter() - t0
+    sweep_k1 = k1.launches - before
+    chip = at.chip_now("cuda")
+    store = ts.TunedStore(path)
+    key = ts.solve_shape_key("solve2d", k=K, support=geom.spatial_support,
+                             spatial=spatial)
+    rows = store._data.get(f"{chip}|solve|{key}", [])
+    label = port["tune_space"].arm_label
+    pairs = {label(e["arm"]): e.get("pairs") for e in events
+             if e["type"] == "tune_arm" and e["arm"]}
+    arms = {label(r["arm"]): {"value": r["value"],
+                              "demoted": r.get("demoted", False),
+                              "reason": r.get("demote_reason"),
+                              "pairs": pairs.get(label(r["arm"]))}
+            for r in rows}
+    print(f"[22e] sweep_solve {ENGINE_SLOTS}x{list(spatial)} k={K} on {chip} "
+          f"in {sweep_s:.1f} s: " + ", ".join(
+              f"{a} {v['value']:.2f}/s"
+              f"{' (demoted: ' + v['reason'] + ')' if v['demoted'] else ''}"
+              for a, v in sorted(arms.items(), key=lambda kv: -kv[1]["value"])))
+    if chip != "h100" or not rows:
+        raise RuntimeError(f"[22e] no entry under the H100 key ({chip})")
+    picked_ev = []
+    resolved, picked = at.resolve_solve(
+        dataclasses.replace(cfg, tune="auto"), geom, spatial, store=store,
+        emit=lambda t, **f: picked_ev.append(dict(type=t, **f)),
+        device="cuda")
+    pick = [e for e in picked_ev if e["type"] == "tune_pick"][-1]
+    print(f"[22e] tune='auto' read back: arm {pick['arm']} "
+          f"({pick.get('value')} {pick.get('unit')}), guards "
+          f"{[e['ok'] for e in picked_ev if e['type'] == 'tune_guard']}")
+    if picked is None or pick["chip"] != "h100":
+        raise RuntimeError(f"[22e] the H100 entry was not read back: {pick}")
+    # a tuned engine on the sweep's bucket: K1 counted
+    r = np.random.default_rng(seed + 25)
+    prob = port["reconstruct"].ReconstructionProblem(geom)
+    with port["serve"].CodecEngine(
+            d, prob, cfg, port["config"].ServeConfig(
+                buckets=((ENGINE_SLOTS, spatial),), tune="auto",
+                tune_store=path),
+            device="cuda") as eng:
+        before = k1.launches
+        futs = []
+        for i in range(2 * ENGINE_SLOTS):
+            x = r.random(spatial).astype(np.float32)
+            m = (r.random(spatial) < 0.5).astype(np.float32)
+            futs.append(eng.submit(x * m, mask=m))
+        res = [f.result(timeout=600) for f in futs]
+        engine_k1 = k1.launches - before
+        iters = eng.dispatch_iters
+        knobs = dict(eng._knob_dict)
+    print(f"[22e] tuned engine: knobs {knobs}, {len(res)} requests, K1 "
+          f"{engine_k1} (want {sum(iters)})")
+    if not knobs["tuned"] or engine_k1 != sum(iters) or not all(
+            np.isfinite(q.recon).all() for q in res):
+        raise RuntimeError(f"[22e] tuned engine: {knobs}, K1 {engine_k1}")
+    # another chip's entry is refused
+    other = ts.TunedStore(os.path.join(tmp, "other.json"))
+    other.add("a100", "solve", key, {"fft_impl": "matmul"}, 1e6,
+              "solves/sec", source="another card")
+    ev2 = []
+    got, picked2 = at.resolve_solve(
+        dataclasses.replace(cfg, tune="auto"), geom, spatial, store=other,
+        emit=lambda t, **f: ev2.append(dict(type=t, **f)), device="cuda")
+    reason = ev2[-1].get("reason", "")
+    print(f"[22e] a store holding only an a100 entry: picked {picked2}, "
+          f"reason {reason!r}")
+    if picked2 is not None or "cross-chip refusal" not in reason or \
+            got.fft_impl != "xla":
+        raise RuntimeError(f"[22e] another chip's entry applied: {ev2}")
+    return {"chip": chip, "shape_key": key, "sweep_s": sweep_s,
+            "arms": arms, "picked": pick["arm"],
+            "tuned_engine_knobs": knobs, "cross_chip_reason": reason,
+            "k1_launches": {"tune_sweep": sweep_k1,
+                            "tuned_engine": engine_k1}}
+
+
+def phase_knobs(torch, port, time_ms, seed, phase7, phase10):
+    """Phase 22: the perf knobs and the autotuner on one card, (a)-(e)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="ccsc-knobs-")
+    out = {"grams": _knobs_grams(torch, port, time_ms, seed)}
+    out["chunked"] = _knobs_chunked(torch, port, seed, phase7)
+    out["fft_tiers"] = _knobs_tiers(torch, port, time_ms, seed)
+    out["pipeline"] = _knobs_pipeline(torch, port, seed, phase10)
+    out["tune"] = _knobs_tune(torch, port, seed, tmp)
+    fz = out["chunked"]
+    out["k1_launches"] = {
+        "fft_tiers_reconstruct": out["fft_tiers"]["k1_launches"],
+        "pipelined_engine": out["pipeline"]["launches"],
+        **out["tune"]["k1_launches"]}
+    # the chunked driver's launches: its chunked and donated runs (the
+    # per-step reruns beside them are the per-step driver's)
+    out["k2_launches"] = [sum(r["launches"][i] for r in fz.values()
+                              if isinstance(r, dict) and "launches" in r
+                              and r["config"] != "per_step")
+                          for i in (0, 1)]
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, kernel_ms, plain_ms,
                   bound, build_s, **extra):
     return dict(
@@ -5797,6 +6322,8 @@ def main(argv=None) -> int:
             ("watchdog", "utils.watchdog"), ("faults", "utils.faults"),
             ("capture", "serve.capture"), ("ledger", "analysis.ledger"),
             ("perfmodel", "utils.perfmodel"), ("quality", "serve.quality"),
+            ("tune_autotune", "tune.autotune"), ("tune_store", "tune.store"),
+            ("tune_space", "tune.space"),
         )
     }
 
@@ -5860,7 +6387,10 @@ def main(argv=None) -> int:
     warmup = phase_warmup(torch, port, time_ms, bw, flops, args.seed,
                           engine)
     lap("21")
+    knobs = phase_knobs(torch, port, time_ms, args.seed, learn, engine)
+    lap("22")
     engine.pop("served")
+    learn.pop("d")
     telemetry["learn"].pop("plain_d")
     seconds = time.perf_counter() - t_start
     print(f"[14] total {seconds:.1f} s; by phase {phase_s}")
@@ -5906,7 +6436,7 @@ def main(argv=None) -> int:
                 "host_kill": federation["host_kill"]["k1_launches"],
                 "replay": federation["replay"]["k1_launches"],
                 "autoscale": federation["autoscale"]["k1_launches"],
-                **warmup["k1_launches"]}
+                **warmup["k1_launches"], **knobs["k1_launches"]}
     ns_ranks = mesh["north_star"]["mesh"]["per_rank"]
     k2_paths = {p: {
         "learn": learn["launches"][f"fused_z_{p}"],
@@ -5919,6 +6449,7 @@ def main(argv=None) -> int:
         "learn_nan_recovery": robust["nan_recovery"]["launches"][i]
         + robust["nan_recovery"]["reduced_k2_launches"][i],
         "learn_hang": robust["hang"]["launches"][i],
+        "learn_chunked": knobs["k2_launches"][i],
     } for i, p in enumerate(("pass_a", "pass_b"))}
     k2_rank = next(c for c in k2["cases"] if c.get("mesh"))
     k2_rank_shape = {k: k2_rank[k] for k in ("N", "K", "Sy", "Sx", "dtype")}
@@ -5974,6 +6505,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serve_fleet": fleet}))
     print(json.dumps({"serve_federation": federation}))
     print(json.dumps({"warmup": warmup}))
+    print(json.dumps({"knobs": knobs}))
     print(json.dumps({"phase_seconds": dict(phase_s, total=round(seconds,
                                                                   1))}))
     # the kernels line last but two: the end of the output carries it

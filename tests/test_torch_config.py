@@ -78,9 +78,11 @@ def test_invalid_values_refused_like_jax(kw):
     ],
 )
 def test_unported_fields_raise_naming_roadmap(kw, item):
-    jcfg.SolveConfig(**kw)  # valid in the JAX package
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        tcfg.SolveConfig(**kw)
+    """The knobs of ROADMAP.md item 9 (``item``), refused until the port
+    ran them: they construct as in the JAX package."""
+    j = jcfg.SolveConfig(**kw)  # valid in the JAX package
+    assert dataclasses.asdict(tcfg.SolveConfig(**kw)) == \
+        dataclasses.asdict(j)
 
 
 @pytest.mark.parametrize("kw", [dict(metrics_dir="/nonexistent")])
@@ -160,12 +162,12 @@ def test_learn_invalid_values_refused_like_jax(kw):
 @pytest.mark.parametrize(
     "kw, item",
     [
-        (dict(outer_chunk=2), "Queue 1 item 9"),
-        (dict(donate_state=True), "Queue 1 item 9"),
-        (dict(fft_impl="matmul"), "Queue 1 item 9"),
-        (dict(tune="auto"), "Queue 1 item 9"),
-        # the watchdog runs since the robustness slice: it constructs as
+        # the knobs of item 9 and the watchdog run: each constructs as
         # JAX's does
+        (dict(outer_chunk=2), None),
+        (dict(donate_state=True), None),
+        (dict(fft_impl="matmul"), None),
+        (dict(tune="auto"), None),
         (dict(watchdog=True), None),
     ],
 )

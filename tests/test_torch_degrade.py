@@ -4,12 +4,10 @@ the JAX package's ``apps/_dispatch.py`` ladder, on the CPU: the port's
 versions of ``tests/test_supervised.py``'s ladder tests, with
 ``torch.OutOfMemoryError`` standing in for ``RESOURCE_EXHAUSTED``.
 
-One deliberate divergence: the port's LearnConfig refuses the
-``donate`` and ``chunk`` rungs' knobs (ROADMAP.md Queue 1 item 9), so
-the ladder passes over them and steps straight to ``streaming``, where
-JAX steps donate, chunk, streaming. The records (``degrade`` with rung,
-stage and the estimate or the error; ``mem_oom_dump``) and
-``trace['degrades']`` are JAX's."""
+The ladder steps donate, chunk (at runtime), streaming, as JAX's does
+(the chunked driver runs since the knobs slice). The records
+(``degrade`` with rung, stage and the estimate or the error;
+``mem_oom_dump``) and ``trace['degrades']`` are JAX's."""
 import dataclasses
 import json
 import os
@@ -59,10 +57,10 @@ def _degrade_records(mdir):
 
 
 def test_runtime_ladder_steps_to_streaming(monkeypatch, tmp_path):
-    """Every in-memory attempt raises torch.OutOfMemoryError: one
-    ``dispatch`` downgrade to streaming (JAX's ladder ends there too,
-    after the rungs the port refuses), recorded in the stream and in
-    trace['degrades']; the run is the streaming learner's."""
+    """Every in-memory attempt raises torch.OutOfMemoryError: the
+    ``dispatch`` downgrades donate, chunk and streaming, JAX's rungs,
+    recorded in the stream and in trace['degrades']; the run is the
+    streaming learner's."""
     seen = []
 
     def oom_learn(b, geom, cfg, **kw):
@@ -71,17 +69,19 @@ def test_runtime_ladder_steps_to_streaming(monkeypatch, tmp_path):
 
     monkeypatch.setattr(consensus, "learn", oom_learn)
     mdir = str(tmp_path / "m")
-    res = _dispatch(_data(), LearnConfig(**KW, metrics_dir=mdir),
+    res = _dispatch(_data(), LearnConfig(**KW, metrics_dir=mdir,
+                                         outer_chunk=2),
                     auto_degrade=True)
-    assert [(d["rung"], d["stage"]) for d in res.trace["degrades"]] == [
-        ("streaming", "dispatch")]
+    rungs = [("donate", "dispatch"), ("chunk", "dispatch"),
+             ("streaming", "dispatch")]
+    assert [(d["rung"], d["stage"]) for d in res.trace["degrades"]] == rungs
     assert "out of memory" in res.trace["degrades"][0]["error"]
-    assert [(c.donate_state, c.outer_chunk) for c in seen] == [(False, 1)]
+    assert [(c.donate_state, c.outer_chunk) for c in seen] == [
+        (False, 2), (True, 2), (True, 1)]
     assert res.trace["algorithm"] == "consensus_streaming"
     assert len(res.trace["obj_vals_z"]) == KW["max_it"] + 1
     recs = _degrade_records(mdir)
-    assert [(e["rung"], e["stage"]) for e in recs] == [("streaming",
-                                                        "dispatch")]
+    assert [(e["rung"], e["stage"]) for e in recs] == rungs
     # JAX's ladder on the same OOM reaches streaming after its rungs
     jseen = []
 
@@ -96,7 +96,7 @@ def test_runtime_ladder_steps_to_streaming(monkeypatch, tmp_path):
         _data(), JGeom(*GEOM), JCfg(**KW, outer_chunk=2),
         jax.random.PRNGKey(0), None, streaming=False, auto_degrade=True)
     assert [d["rung"] for d in jres.trace["degrades"]] == [
-        "donate", "chunk", "streaming"]
+        r for r, _ in rungs]
     assert jres.trace["algorithm"] == res.trace["algorithm"]
 
 
@@ -113,18 +113,20 @@ def test_preflight_steps_to_streaming(monkeypatch, tmp_path):
     mdir = str(tmp_path / "m")
     res = _dispatch(_data(), LearnConfig(**KW, metrics_dir=mdir),
                     auto_degrade=True)
-    (rec,) = res.trace["degrades"]
-    assert (rec["rung"], rec["stage"]) == ("streaming", "preflight")
+    degs = res.trace["degrades"]
+    assert [(d["rung"], d["stage"]) for d in degs] == [
+        ("donate", "preflight"), ("streaming", "preflight")]
     jres = jdispatch.dispatch_learn(
         _data(), JGeom(*GEOM), JCfg(**KW), jax.random.PRNGKey(0), None,
         streaming=False, auto_degrade=True)
-    jfirst = jres.trace["degrades"][0]  # JAX's donate rung, same estimate
-    assert (rec["est_gb"], rec["budget_gb"]) == (jfirst["est_gb"],
-                                                 jfirst["budget_gb"])
+    # JAX's rungs, with the same estimates and budget
+    assert [(d["rung"], d["est_gb"], d["budget_gb"]) for d in degs] == [
+        (d["rung"], d["est_gb"], d["budget_gb"])
+        for d in jres.trace["degrades"]]
     assert res.trace["algorithm"] == "consensus_streaming"
     assert [(e["rung"], e["est_gb"], e["budget_gb"])
             for e in _degrade_records(mdir)] == [
-        ("streaming", rec["est_gb"], rec["budget_gb"])]
+        (d["rung"], d["est_gb"], d["budget_gb"]) for d in degs]
 
 
 def test_streaming_rung_refuses_a_foreign_checkpoint(monkeypatch, tmp_path):
@@ -146,8 +148,8 @@ def test_streaming_rung_refuses_a_foreign_checkpoint(monkeypatch, tmp_path):
 @pytest.mark.parametrize("where", ["fits", "between"])
 def test_preflight_stops_when_the_run_fits(monkeypatch, where):
     """A budget above the estimate keeps the in-memory run, with no
-    record. Between JAX's donated and plain estimates JAX stops at its
-    donate rung; the port, which refuses donate_state, streams."""
+    record. Between the donated and plain estimates both packages stop
+    at the donate rung, in memory."""
     b = _data()
     cfg = LearnConfig(**dict(KW, max_it=1))
     est, _ = perfmodel.inmem_learn_estimate(b.shape, ProblemGeom(*GEOM), cfg,
@@ -168,14 +170,14 @@ def test_preflight_stops_when_the_run_fits(monkeypatch, where):
             "consensus"
     else:
         assert [d["rung"] for d in jres.trace["degrades"]] == ["donate"]
-        assert [d["rung"] for d in res.trace["degrades"]] == ["streaming"]
-        assert res.trace["algorithm"] == "consensus_streaming"
+        assert [d["rung"] for d in res.trace["degrades"]] == ["donate"]
+        assert res.trace["algorithm"] == "consensus"
 
 
 def test_a_custom_solver_takes_the_runtime_rung_only(monkeypatch):
     """The masked learner (a custom solver) gets no preflight and no
-    streaming rung: an OOM it raises surfaces, as in JAX once donate is
-    spent."""
+    streaming rung: after its donate rung an OOM it raises surfaces, as
+    in JAX once donate is spent."""
     calls = []
 
     def flaky(b, geom, cfg, **kw):
@@ -186,7 +188,7 @@ def test_a_custom_solver_takes_the_runtime_rung_only(monkeypatch):
     with pytest.raises(torch.OutOfMemoryError):
         _dispatch(_data(), LearnConfig(**KW), solver=flaky,
                   auto_degrade=True)
-    assert len(calls) == 1
+    assert [c.donate_state for c in calls] == [False, True]
 
 
 def test_a_late_oom_with_progress_raises(tmp_path):
@@ -236,13 +238,16 @@ def test_oom_forensic_dump_and_its_record(monkeypatch, tmp_path):
     _dispatch(_data(), LearnConfig(**KW, metrics_dir=mdir),
               auto_degrade=True)
     assert os.path.exists(os.path.join(mdir, "events-p00000-dispatch.jsonl"))
-    (rec,) = [e for e in obs.read_events(mdir)
-              if e["type"] == "mem_oom_dump"]
-    assert os.path.dirname(rec["path"]) == mdir
-    with open(rec["path"]) as f:
-        dump = json.load(f)
-    assert dump["error"].startswith("OutOfMemoryError: CUDA out of memory")
-    assert "devices" in dump
+    # one dump an OOM: the plain attempt's and the donate rung's
+    dumps = [e for e in obs.read_events(mdir) if e["type"] == "mem_oom_dump"]
+    assert len(dumps) == 2
+    for rec in dumps:
+        assert os.path.dirname(rec["path"]) == mdir
+        with open(rec["path"]) as f:
+            dump = json.load(f)
+        assert dump["error"].startswith(
+            "OutOfMemoryError: CUDA out of memory")
+        assert "devices" in dump
     # the records are JAX's: every field JAX's schema requires
     from ccsc_code_iccv2017_tpu.analysis import obs_schema as jschema
 
@@ -252,12 +257,23 @@ def test_oom_forensic_dump_and_its_record(monkeypatch, tmp_path):
 
 
 def test_rungs_the_port_refuses_are_passed_over():
-    cfg = LearnConfig(**KW)
-    assert _common._rung_cfg(cfg, donate_state=True) is None
-    assert _common._rung_cfg(cfg, outer_chunk=1) == cfg
+    """No rung is passed over since the knobs slice: donate, chunk
+    (runtime only), streaming, JAX's order."""
+    cfg = LearnConfig(**KW, outer_chunk=2)
     new, streaming, name = _common._next_rung(cfg, False, None, None, None,
                                               {}, runtime=True)
-    assert (streaming, name) == (True, "streaming")
+    assert (new.donate_state, new.outer_chunk, streaming, name) == (
+        True, 2, False, "donate")
+    assert _common._next_rung(new, False, None, None, None, {}) [2] == \
+        "streaming"  # the preflight never takes the chunk rung
+    new, streaming, name = _common._next_rung(new, False, None, None, None,
+                                              {}, runtime=True)
+    assert (new.donate_state, new.outer_chunk, streaming, name) == (
+        True, 1, False, "chunk")
+    new, streaming, name = _common._next_rung(new, False, None, None, None,
+                                              {}, runtime=True)
+    assert (new.donate_state, streaming, name) == (False, True, "streaming")
+    cfg = dataclasses.replace(cfg, donate_state=True, outer_chunk=1)
     assert _common._next_rung(cfg, True, None, None, None, {}) is None
     assert _common._next_rung(cfg, False, object(), None, None, {}) is None
     assert _common._next_rung(cfg, False, None, None, {"--x": 1}, {}) is None

@@ -150,13 +150,18 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(change, exc):
 
 
 def test_w_greater_than_one_is_not_ported():
-    """W > 1 solves now (the Woodbury tests below); what is still not
-    ported there is the Schur/Newton choice of its Gram inverse."""
-    dhat = torch.ones(3, 2, 10, dtype=torch.complex64)
-    assert tfs.precompute_z_kernel(dhat, 1.0).minv.shape == (10, 2, 2)
+    """W > 1 solves (the Woodbury tests below), and since the knobs slice
+    with every Gram inverse: the Schur and Newton kernels equal the
+    Cholesky one to float32 rounding."""
+    r = np.random.default_rng(3)
+    dhat = torch.from_numpy((r.normal(size=(3, 2, 10))
+                             + 1j * r.normal(size=(3, 2, 10))).astype(
+                                 np.complex64))
+    ref = tfs.precompute_z_kernel(dhat, 1.0).minv
+    assert ref.shape == (10, 2, 2)
     for method in ("schur", "newton"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tfs.precompute_z_kernel(dhat, 1.0, herm_inv=method)
+        got = tfs.precompute_z_kernel(dhat, 1.0, herm_inv=method).minv
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
 
 def _woodbury_problem(r, K, W, F, N, extra):
@@ -302,9 +307,12 @@ def test_hermitian_inverse_matches_jax_cholesky(m):
 
 @pytest.mark.parametrize("method", ["schur", "newton"])
 def test_hermitian_inverse_other_methods_not_ported(method):
-    G = torch.from_numpy(_herm_pd(np.random.default_rng(6), (2,), 3, 1.0))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tfs.hermitian_inverse(G, method=method)
+    """The Schur and Newton inverses, ported since the knobs slice: each
+    equals JAX's of the same method (tests/test_torch_herm_inv.py holds
+    them at every size)."""
+    G = _herm_pd(np.random.default_rng(6), (2,), 3, 1.0)
+    ref = jfs.hermitian_inverse(jnp.asarray(G), method=method)
+    _close(tfs.hermitian_inverse(torch.from_numpy(G), method=method), ref)
 
 
 def _d_problem(r, Ni, K, W, F):

@@ -166,25 +166,30 @@ def test_filter_files_cross_between_the_packages(tmp_path, layout):
 @pytest.mark.parametrize("name, flags, item", [
     ("learn_3d", ["--streaming", "--mesh", "2"],
      "does not combine with --mesh"),
-    ("learn_3d", ["--stream-mode", "auto", "--outer-chunk", "2"], "item 9"),
+    ("learn_3d", ["--stream-mode", "auto", "--outer-chunk", "2"],
+     "requires --streaming"),
     ("learn_3d", ["--mesh", "2", "--stream-mode", "paged"],
      "requires --streaming"),
-    ("learn_3d", ["--tune", "auto"], "item 9"),
-    ("learn_3d", ["--outer-chunk", "2"], "item 9"),
+    # the knobs of item 9 run (item None): an empty tuned store runs the
+    # defaults, the chunked driver is bitwise the per-step one
+    ("learn_3d", ["--tune=auto"], None),
+    ("learn_3d", ["--outer-chunk=2"], None),
     # the robustness slice's flags run (item None): the ladder and the
     # watchdog armed, the result unchanged
     ("learn_3d", ["--auto-degrade"], None),
     ("learn_3d", ["--watchdog"], None),
     ("learn_4d", ["--mesh", "2", "--streaming"],
      "does not combine with --mesh"),
-    ("learn_4d", ["--outer-chunk", "3"], "item 9"),
+    ("learn_4d", ["--outer-chunk=3"], None),
     ("learn_hyperspectral", ["--streaming", "--auto-degrade"], None),
-    ("learn_hyperspectral", ["--streaming-blocks", "2", "--tune", "auto"],
-     "item 9"),
-    ("learn_hyperspectral", ["--tune", "sweep"], "item 9"),
+    ("learn_hyperspectral", ["--streaming-blocks", "2", "--tune=auto"],
+     None),
+    ("learn_hyperspectral", ["--outer-chunk=2", "--donate-state"], None),
     ("learn_hyperspectral", ["--auto-degrade"], None),
 ])
-def test_refused_flags_name_their_item(name, flags, item, tmp_path):
+def test_refused_flags_name_their_item(name, flags, item, tmp_path,
+                                      monkeypatch):
+    monkeypatch.setenv("CCSC_TUNE_STORE", str(tmp_path / "tuned.json"))
     _, tapp = _apps(name)
     if item is None:
         argv, _ = APP_ARGV[name]

@@ -128,8 +128,15 @@ def test_fft_sizes_and_shapes():
         assert tfourier.rfreq_shape(sp) == jfourier.rfreq_shape(sp)
     with pytest.raises(ValueError):
         tfourier.next_fast_size(10, "bogus")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tfourier.rfftn_spatial(torch.zeros(2, 4, 4), 2, impl="matmul")
+    # the matmul-DFT tier runs (tests/test_torch_matmul_dft.py holds it to
+    # JAX); an unknown impl is refused as in JAX
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 4, 4)).astype(np.float32))
+    torch.testing.assert_close(
+        tfourier.rfftn_spatial(x, 2, impl="matmul"),
+        tfourier.rfftn_spatial(x, 2), atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="unknown fft impl"):
+        tfourier.rfftn_spatial(x, 2, impl="bogus")
 
 
 def test_apply_dictionary_and_adjoint():

@@ -356,7 +356,7 @@ def test_default_device_raises_without_cuda():
         convert.bank_from_numpy(d)
 
 
-def test_inpaint_app_matches_jax_app(tmp_path, capsys):
+def test_inpaint_app_matches_jax_app(tmp_path, capsys, monkeypatch):
     from PIL import Image
 
     r = np.random.default_rng(20)
@@ -382,8 +382,13 @@ def test_inpaint_app_matches_jax_app(tmp_path, capsys):
     assert float(np.abs(_np(tres.recon) - np.asarray(jres.recon)).max()) <= REC_TOL
     assert (tmp_path / "out" / "recon_1.png").exists()
     assert "2 images, 4 iterations" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tapp.main(argv + ["--device", "cpu", "--tune", "auto"])
+    # --tune auto against an empty store (--tune-store sets
+    # CCSC_TUNE_STORE) runs the defaults: the same reconstruction
+    monkeypatch.delenv("CCSC_TUNE_STORE", raising=False)
+    tuned = tapp.main(argv + ["--device", "cpu", "--tune", "auto",
+                              "--tune-store", str(tmp_path / "ts.json"),
+                              "--out-dir", str(tmp_path / "out2")])
+    assert torch.equal(tuned.recon, tres.recon)
 
 
 def _reduce_case(reduce_shape, support, k, spatial, seed):

@@ -75,7 +75,8 @@ def _engine(d, cfg_kw, buckets, **kw):
                              device="cpu")
 
 
-_PATH_FIELDS = ("compile_cache", "artifact_store", "warm_rank_capture")
+_PATH_FIELDS = ("compile_cache", "artifact_store", "warm_rank_capture",
+                "tune_store")
 
 
 def _unlatched_compile_cache(monkeypatch):
@@ -518,9 +519,12 @@ def test_valid_region_psnr_matches_jax():
 @pytest.mark.parametrize(
     "kw, item",
     [
-        (dict(tune="auto"), 9),
-        (dict(tune_store="tuned.json"), 9),
-        (dict(pipeline_depth=2), 9),
+        # served since the knobs slice (tests/test_torch_serve_pipeline.py,
+        # tests/test_torch_autotune.py): tuning against an empty store
+        # runs the defaults
+        (dict(tune="auto"), "served"),
+        (dict(tune_store="tuned.json"), "served"),
+        (dict(pipeline_depth=2), "served"),
         # capture runs since the robustness slice (serve.capture)
         (dict(capture_dir="c"), None),
         # served since the warmup slice: the library build directory,
@@ -541,6 +545,8 @@ def test_deferred_serve_fields_raise_naming_roadmap(kw, item, tmp_path,
     jcfg.ServeConfig(buckets=buckets, **kw)  # valid in the JAX package
     if item == "served":
         _unlatched_compile_cache(monkeypatch)
+        # a tuning engine reads an empty store of its own
+        monkeypatch.setenv("CCSC_TUNE_STORE", str(tmp_path / "store.json"))
         kw = {k: (str(tmp_path / v) if k in _PATH_FIELDS else v)
               for k, v in kw.items()}
         d = _bank()
