@@ -47,6 +47,7 @@ import torch
 from ..config import LearnConfig, ProblemGeom
 from ..ops import fourier, freq_solvers, fused_z, proxes
 from ..parallel import mesh as mesh_lib
+from ..utils import profiling
 from . import common
 
 
@@ -386,9 +387,10 @@ def outer_step(
 
     b_blocks: [L, ni, *reduce, *data_spatial] (unpadded), on the state's
     device. ``num_blocks`` is the global block count N (= L on one
-    device). ``on_phase`` (optional) is called with "d_start", "d_end",
-    "z_start" and "z_end" at the phase boundaries — the driver records
-    CUDA events there to time the passes apart.
+    device). ``on_phase`` (optional) is called with "step_start",
+    "d_start", "gram_end" (the code Grams and their inverses built),
+    "d_end", "z_start" and "z_end" at the phase boundaries — the driver
+    records CUDA events there to time the passes apart.
 
     ``mesh``: this rank's parallel.mesh.Mesh (axes 'block' and at most
     one of 'freq' / 'filter'); L = N / nb and the state holds this
@@ -402,6 +404,7 @@ def outer_step(
     default) launches nothing.
     """
     mark = on_phase or (lambda _name: None)
+    mark("step_start")
     ax_b, ax_f, ax_k = mesh_axes(mesh)
     if ax_f is not None and ax_k is not None:
         raise ValueError(
@@ -437,7 +440,9 @@ def outer_step(
 
     # ---------------- d-pass (dzParallel.m:95-135) -------------------
     mark("d_start")
-    dkern = f_dkern(state.z, bhat_blocks, cfg, fg, **sh)  # [L, ...] spectra
+    with profiling.annotate("ccsc.learn.gram"):
+        dkern = f_dkern(state.z, bhat_blocks, cfg, fg, **sh)  # [L, ...]
+    mark("gram_end")
     dsd = state.d_local.dtype  # d-state storage (d_storage_dtype)
     d_local, dual_d = state.d_local, state.dual_d
     dbar, udbar = state.dbar, state.udbar

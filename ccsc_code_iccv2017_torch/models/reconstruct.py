@@ -36,7 +36,7 @@ import torch
 from ..config import ProblemGeom, SolveConfig
 from ..ops import fourier, freq_solvers, proxes
 from ..parallel import mesh as mesh_lib
-from ..utils import validate
+from ..utils import profiling, validate
 from ..utils.device import resolve_device
 from . import common
 
@@ -811,9 +811,11 @@ def _reconstruct_impl(
             iters = iters + active.to(torch.int32)
             diffs = diff_d
             active = (iters < cfg.max_it) & (diffs >= cfg.tol)
-            n_active = int(active.sum())
+            with profiling.annotate("ccsc.solve.read"):
+                n_active = int(active.sum())
         else:
-            diff = float(diff_d)
+            with profiling.annotate("ccsc.solve.read"):
+                diff = float(diff_d)
     z = to_compute(z_s)
 
     extras = None

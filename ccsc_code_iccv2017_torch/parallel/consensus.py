@@ -96,7 +96,10 @@ def learn(
     applies on top of it.
 
     On the card the trace also carries ``d_pass_ms`` / ``z_pass_ms``,
-    the device time of each step's two passes (CUDA events).
+    the device time of each step's two passes (CUDA events), and
+    ``gram_ms`` (the d-pass's code Grams and their inverses) and
+    ``step_rest_ms`` (the step outside both passes: the data FFT, the
+    objectives, the change sums, the metrics' stack).
 
     ``mesh``: a parallel.mesh.Mesh with a 'block' axis and at most one
     of 'freq' / 'filter' (block_mesh, block_freq_mesh,
@@ -113,7 +116,8 @@ def learn(
     state in the one-device format.
 
     ``profile_dir`` captures a ``torch.profiler`` trace of the step loop
-    (utils.profiling.xla_trace; each step is the span ``ccsc_outer_<i>``),
+    (utils.profiling.xla_trace; each step is the span ``ccsc.learn.step``
+    with its first iteration as the argument),
     kernels on the card included. ``verbose='all'`` writes per-iteration
     figures (the filter mosaic and original-vs-iterate panels, PNG) into
     ``figures_dir`` (default ``ccsc_figures``); on a mesh rank 0 writes
@@ -339,7 +343,7 @@ def _run_outer(state, b_blocks, geom, cfg, fg, N, mesh, dev, recov, trace,
             t0 = time.perf_counter()
             if wd is not None:
                 wd.arm(clen, tag, may_compile=fresh_step or poisoned)
-            with profiling.annotate(tag):
+            with profiling.annotate("ccsc.learn.step", str(i)):
                 # chaos injection (utils.faults): the step NaNs its
                 # iterate on the card
                 if chunked:
@@ -361,14 +365,16 @@ def _run_outer(state, b_blocks, geom, cfg, fg, N, mesh, dev, recov, trace,
                 if poisoned:
                     faults.consume_nan()
                 rows = [m.obj_d, m.obj_z, m.d_diff, m.z_diff, *(m.extras or ())]
+                packed = torch.cat([torch.stack(rows).reshape(-1),
+                                    *(f.to(torch.float32) for f in flags)])
+                if timer is not None:
+                    timer("step_end")
                 # the one host read of the pass (also its device fence),
                 # the telemetry scalars in it; on a mesh every rank reads
                 # rank 0's metrics and any rank's shutdown request
-                flat, stop_req = mesh_lib.agree(
-                    torch.cat([torch.stack(rows).reshape(-1),
-                               *(f.to(torch.float32) for f in flags)]),
-                    gs.requested, mesh,
-                )
+                with profiling.annotate("ccsc.learn.read"):
+                    flat, stop_req = mesh_lib.agree(packed, gs.requested,
+                                                    mesh)
             # injected hang fires INSIDE the armed fence (utils.faults)
             faults.hang_tick(i + clen)
             if wd is not None:
@@ -423,8 +429,12 @@ def _run_outer(state, b_blocks, geom, cfg, fg, N, mesh, dev, recov, trace,
                 trace["z_diff"].append(z_diff)
                 phases = timer.read() if timer is not None else None
                 if phases is not None:
-                    trace.setdefault("d_pass_ms", []).append(phases[0])
-                    trace.setdefault("z_pass_ms", []).append(phases[1])
+                    d_ms, z_ms, gram_ms, step_ms = phases
+                    trace.setdefault("d_pass_ms", []).append(d_ms)
+                    trace.setdefault("z_pass_ms", []).append(z_ms)
+                    trace.setdefault("gram_ms", []).append(gram_ms)
+                    trace.setdefault("step_rest_ms", []).append(
+                        step_ms - d_ms - z_ms)
                 run.step(
                     it=i + j + 1, obj_d=obj_d, obj_z=obj_z, d_diff=d_diff,
                     z_diff=z_diff, t_total=round(t_total, 4),

@@ -248,6 +248,9 @@ class ServedResult(NamedTuple):
     wait_s: float  # queue time (submit -> dispatch start)
     latency_s: float  # submit -> result ready
     z: Optional[np.ndarray]  # codes, ServeConfig.return_codes only
+    # the submit call's own host time, entry to queued (validation and
+    # the host copies: before wait_s starts)
+    submit_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -271,6 +274,7 @@ class _Pending:
     # workload-capture key (serve.capture): pairs this request's capture
     # record with its outcome
     cap_key: Optional[str] = None
+    submit_s: float = 0.0  # ServedResult.submit_s
 
 
 class _InFlight:
@@ -279,10 +283,10 @@ class _InFlight:
     at depth > 1 on the card the uploaded tensors with the copy event
     and the pinned host buffers kept alive until the copy ran), and the
     launch time. At depth 1 one of these exists for exactly the span of
-    the synchronous dispatch."""
+    the synchronous dispatch. ``launch_s``: the launch's host time."""
 
     __slots__ = ("key", "batch", "depth_after", "canvas", "event",
-                 "hold", "t0", "released")
+                 "hold", "t0", "released", "launch_s")
 
     def __init__(self, key, batch, depth_after, canvas, event, hold, t0):
         self.key = key
@@ -293,6 +297,7 @@ class _InFlight:
         self.hold = hold
         self.t0 = t0
         self.released = False
+        self.launch_s = 0.0
 
 
 def _bucket_name(slots: int, spatial: Tuple[int, ...]) -> str:
@@ -1011,102 +1016,110 @@ class CodecEngine:
         ``_digest`` is the admission-time digest binding (the fleet
         owns the routing table); ``_deadline`` is the absolute
         wall-clock deadline stamped at the original admission."""
-        if not _validated:
-            validate.check_serve_request(
-                b, self.geom, mask=mask, smooth_init=smooth_init,
-                x_orig=x_orig,
-            )
-        deadline = _deadline
-        if deadline is None and deadline_ms is not None:
-            deadline = time.time() + float(deadline_ms) / 1e3
-        if deadline is not None and time.time() >= deadline:
-            self._emit("deadline_exceeded", where="engine",
-                       deadline=round(deadline, 3))
-            raise DeadlineExceeded("engine", deadline)
-        if _trace is None:
-            trace_id = (trace_util.new_trace_id() if self._run.active
-                        else None)
-            parent_span, own_root = None, True
-        else:
-            (trace_id, parent_span), own_root = _trace, False
-        spatial = tuple(int(s) for s in b.shape[self.geom.ndim_reduce:])
-        key = self.bucket_for(spatial)
-
-        def host(a):
-            return None if a is None else np.asarray(
-                a.detach().cpu() if torch.is_tensor(a) else a, np.float32
-            )
-
-        p = _Pending(
-            b=host(b), mask=host(mask), smooth_init=host(smooth_init),
-            x_orig=host(x_orig), spatial=spatial, future=Future(),
-            t_submit=time.perf_counter(), bank_id=bank_id, tenant=tenant,
-            deadline=deadline, trace_id=trace_id, parent_span=parent_span,
-            own_root=own_root,
-        )
-        cold_retry: Optional[float] = None
-        with self._cv:
-            if self._closed or self._close_started:
-                raise RuntimeError("engine is closed")
-            if key not in self._warm:
-                # staged warmup: THIS bucket is still warming — refuse
-                # only it (retry-after), never block the whole engine. A
-                # failed warmup poisons the remaining cold buckets
-                # instead: their requests fail fast, not retry forever
-                if self._warm_error is not None:
-                    raise RuntimeError(
-                        f"bucket {_bucket_name(*key)} will never warm — "
-                        f"staged warmup failed: {self._warm_error}"
+        t_enter = time.perf_counter()
+        with profiling.annotate("ccsc.engine.submit"):
+            if not _validated:
+                with profiling.annotate("ccsc.engine.validate"):
+                    validate.check_serve_request(
+                        b, self.geom, mask=mask, smooth_init=smooth_init,
+                        x_orig=x_orig,
                     )
-                stages = self._stage_s
-                cold_retry = max(
-                    float(self._cold_retry_floor),
-                    (sum(stages) / len(stages)) if stages else 0.0,
-                )
+            deadline = _deadline
+            if deadline is None and deadline_ms is not None:
+                deadline = time.time() + float(deadline_ms) / 1e3
+            if deadline is not None and time.time() >= deadline:
+                self._emit("deadline_exceeded", where="engine",
+                           deadline=round(deadline, 3))
+                raise DeadlineExceeded("engine", deadline)
+            if _trace is None:
+                trace_id = (trace_util.new_trace_id() if self._run.active
+                            else None)
+                parent_span, own_root = None, True
             else:
-                # the digest binds under the queue lock: publish_bank
-                # flips routes and retires digests under the same lock
-                if _digest is not None:
-                    digest = _digest
-                    if digest not in self._banks:
-                        raise validate.CCSCInputError(
-                            f"bank digest {digest!r} is not published on "
-                            "this engine — publish the bank (add_bank) "
-                            "before routing requests to it"
-                        )
-                else:
-                    digest = self._routes.get(bank_id)
-                    if digest is None:
-                        raise validate.CCSCInputError(
-                            f"unknown bank id {bank_id!r} — published: "
-                            f"{sorted(k for k in self._routes if k)} "
-                            "(default bank routes as bank_id=None)"
-                        )
-                p.digest = digest
-                if self._capture is not None:
-                    self._cap_seq += 1
-                    p.cap_key = f"{self._cap_prefix}-{self._cap_seq:08d}"
-                self._pending.setdefault((key, digest), []).append(p)
-                self._n_pending += 1
-                self._cv.notify()
-        if cold_retry is not None:
-            # emitted OUTSIDE the queue lock, at most once a second per
-            # bucket: a tight client retry loop must not flood the stream
-            now = time.monotonic()
-            if now - self._cold_emit_t.get(key, 0.0) >= 1.0:
-                self._cold_emit_t[key] = now
-                self._emit("bucket_cold", bucket=_bucket_name(*key),
-                           retry_after_s=round(cold_retry, 3))
-            raise BucketCold(_bucket_name(*key), cold_retry)
-        if p.cap_key is not None:
-            # recorded outside the queue lock: hashing and the segment
-            # append must not serialize submitters against dispatch
-            self._capture.record_submit(
-                p.cap_key, p.trace_id, p.b, mask=p.mask,
-                smooth_init=p.smooth_init, x_orig=p.x_orig,
-                bucket=_bucket_name(*key), bank_id=bank_id, tenant=tenant,
+                (trace_id, parent_span), own_root = _trace, False
+            spatial = tuple(int(s) for s in b.shape[self.geom.ndim_reduce:])
+            key = self.bucket_for(spatial)
+
+            def host(a):
+                return None if a is None else np.asarray(
+                    a.detach().cpu() if torch.is_tensor(a) else a, np.float32
+                )
+
+            with profiling.annotate("ccsc.engine.to_host"):
+                hb, hm, hs, hx = (host(a) for a in (b, mask, smooth_init,
+                                                    x_orig))
+            p = _Pending(
+                b=hb, mask=hm, smooth_init=hs, x_orig=hx, spatial=spatial,
+                future=Future(),
+                t_submit=time.perf_counter(), bank_id=bank_id, tenant=tenant,
+                deadline=deadline, trace_id=trace_id, parent_span=parent_span,
+                own_root=own_root,
             )
-        return p.future
+            cold_retry: Optional[float] = None
+            with self._cv:
+                if self._closed or self._close_started:
+                    raise RuntimeError("engine is closed")
+                if key not in self._warm:
+                    # staged warmup: THIS bucket is still warming — refuse
+                    # only it (retry-after), never block the whole engine. A
+                    # failed warmup poisons the remaining cold buckets
+                    # instead: their requests fail fast, not retry forever
+                    if self._warm_error is not None:
+                        raise RuntimeError(
+                            f"bucket {_bucket_name(*key)} will never warm — "
+                            f"staged warmup failed: {self._warm_error}"
+                        )
+                    stages = self._stage_s
+                    cold_retry = max(
+                        float(self._cold_retry_floor),
+                        (sum(stages) / len(stages)) if stages else 0.0,
+                    )
+                else:
+                    # the digest binds under the queue lock: publish_bank
+                    # flips routes and retires digests under the same lock
+                    if _digest is not None:
+                        digest = _digest
+                        if digest not in self._banks:
+                            raise validate.CCSCInputError(
+                                f"bank digest {digest!r} is not published on "
+                                "this engine — publish the bank (add_bank) "
+                                "before routing requests to it"
+                            )
+                    else:
+                        digest = self._routes.get(bank_id)
+                        if digest is None:
+                            raise validate.CCSCInputError(
+                                f"unknown bank id {bank_id!r} — published: "
+                                f"{sorted(k for k in self._routes if k)} "
+                                "(default bank routes as bank_id=None)"
+                            )
+                    p.digest = digest
+                    if self._capture is not None:
+                        self._cap_seq += 1
+                        p.cap_key = f"{self._cap_prefix}-{self._cap_seq:08d}"
+                    self._pending.setdefault((key, digest), []).append(p)
+                    self._n_pending += 1
+                    # set before the worker can take it (it takes the lock)
+                    p.submit_s = time.perf_counter() - t_enter
+                    self._cv.notify()
+            if cold_retry is not None:
+                # emitted OUTSIDE the queue lock, at most once a second per
+                # bucket: a tight client retry loop must not flood the stream
+                now = time.monotonic()
+                if now - self._cold_emit_t.get(key, 0.0) >= 1.0:
+                    self._cold_emit_t[key] = now
+                    self._emit("bucket_cold", bucket=_bucket_name(*key),
+                               retry_after_s=round(cold_retry, 3))
+                raise BucketCold(_bucket_name(*key), cold_retry)
+            if p.cap_key is not None:
+                # recorded outside the queue lock: hashing and the segment
+                # append must not serialize submitters against dispatch
+                self._capture.record_submit(
+                    p.cap_key, p.trace_id, p.b, mask=p.mask,
+                    smooth_init=p.smooth_init, x_orig=p.x_orig,
+                    bucket=_bucket_name(*key), bank_id=bank_id, tenant=tenant,
+                )
+            return p.future
 
     def reconstruct(
         self, b, mask=None, smooth_init=None, x_orig=None,
@@ -1216,8 +1229,11 @@ class CodecEngine:
                          if p.future.set_running_or_notify_cancel()]
                 if batch:
                     try:
-                        inflight.append(self._launch(key, batch,
-                                                     depth_after))
+                        t_launch = time.perf_counter()
+                        with profiling.annotate("ccsc.engine.launch"):
+                            inf = self._launch(key, batch, depth_after)
+                        inf.launch_s = time.perf_counter() - t_launch
+                        inflight.append(inf)
                     except Exception as e:
                         for p in batch:
                             if not p.future.done():
@@ -1312,16 +1328,9 @@ class CodecEngine:
     def _complete(self, inf: _InFlight) -> None:
         """The dispatch half from the solve on: the compute stream waits
         for the batch's upload, the bucket's slot-wise solve and its
-        readback, per-request crop and futures, then the dispatch's
-        telemetry (spans, serve records, the SLO tick). ``depth_after``:
-        the requests still queued once this batch was taken."""
-        key, batch, depth_after = inf.key, inf.batch, inf.depth_after
-        t0 = inf.t0
-        bkey, digest = key
-        slots, spatial = bkey
-        geom = self.geom
-        cfg = self.cfg
-        name = _bucket_name(slots, spatial)
+        readback, then its delivery (:meth:`_deliver`)."""
+        bkey, digest = inf.key
+        name = _bucket_name(*bkey)
         plan = self._plan_for(digest, bkey)
         bb, mm, ss, xx = inf.canvas
         if inf.event is not None:
@@ -1333,17 +1342,36 @@ class CodecEngine:
         # a breach armed a ONE-SHOT capture of this dispatch (serve.slo);
         # it is consumed and recorded even when the solve raises
         prof_dir, self._profile_armed = self._profile_armed, None
+        t_solve = time.perf_counter()
         try:
-            with profiling.xla_trace(prof_dir, self.device):
-                out = self._solve(plan, bb, mm, ss, xx, cfg)
+            with profiling.xla_trace(prof_dir, self.device), \
+                    profiling.annotate("ccsc.engine.solve"):
+                out = self._solve(plan, bb, mm, ss, xx, self.cfg)
         finally:
             if prof_dir:
                 self._emit("slo_profile", trace_dir=prof_dir, bucket=name)
         inf.hold = None  # the upload has run: the pinned buffers go
+        t_done = time.perf_counter()
+        with profiling.annotate("ccsc.engine.deliver"):
+            self._deliver(inf, out, t_solve, t_done)
+
+    def _deliver(self, inf: _InFlight, out, t_solve: float,
+                 t_done: float) -> None:
+        """A solved dispatch's host half: per-request crop and futures,
+        then the dispatch's telemetry (spans, serve records, the SLO and
+        quality ticks). ``t_solve``/``t_done``: the solve's bounds on
+        the perf counter; ``depth_after``: the requests still queued
+        once this batch was taken."""
+        key, batch, depth_after = inf.key, inf.batch, inf.depth_after
+        t0 = inf.t0
+        bkey, digest = key
+        slots, spatial = bkey
+        geom = self.geom
+        cfg = self.cfg
+        name = _bucket_name(slots, spatial)
         iters, obj, psnr, diff = (out[k] for k in ("iters", "obj", "psnr",
                                                    "diff"))
         recon, z, ex = out["recon"], out["z"], out["extras"]
-        t_done = time.perf_counter()
         # the solve diagnostics came back with the dispatch's one host
         # read; filler slots are no diagnostics
         nb = len(batch)
@@ -1357,20 +1385,23 @@ class CodecEngine:
 
         max_it = int(iters[: len(batch)].max())
         dt = t_done - t0
-        # the dispatch is on the books before any of its futures resolves,
-        # so a client holding its result sees it in stats() and the log
-        occ = len(batch) / slots
-        with self._lock:
-            self._n_dispatches += 1
-            self._occupancy_sum += occ
-            self._dispatch_log.append({
-                "requests": len(batch), "iters": max_it,
-                "position_iters": out["position_iters"],
-                "gathers": out["gathers"], "wall_s": dt,
-            })
         # span timestamps on the wall clock, from the perf-counter
         # measurements through one offset
         wall_off = time.time() - time.perf_counter()
+        # the dispatch is on the books before any of its futures resolves,
+        # so a client holding its result sees it in stats() and the log
+        occ = len(batch) / slots
+        entry = {
+            "requests": len(batch), "iters": max_it,
+            "position_iters": out["position_iters"],
+            "gathers": out["gathers"], "wall_s": dt,
+            "launch_s": inf.launch_s, "deliver_s": None,
+            "t_solve0": wall_off + t_solve, "t_solve1": wall_off + t_done,
+        }
+        with self._lock:
+            self._n_dispatches += 1
+            self._occupancy_sum += occ
+            self._dispatch_log.append(entry)
         for i, p in enumerate(batch):
             crop = tuple(slice(0, s) for s in p.spatial)
             rec_i = recon[i][(..., *crop)]
@@ -1391,6 +1422,7 @@ class CodecEngine:
                 wait_s=t0 - p.t_submit,
                 latency_s=t_done - p.t_submit,
                 z=z[i] if z is not None else None,
+                submit_s=p.submit_s,
             )
             with self._lock:  # stats() reads n and percentiles together
                 self._slo.observe("queue", res.wait_s * 1e3)
@@ -1472,6 +1504,8 @@ class CodecEngine:
             self._emit("quality_histogram", **sn)
         for dg in q_diags:
             self._emit("quality_solve_diag", **dg)
+        with self._lock:
+            entry["deliver_s"] = time.perf_counter() - t_done
 
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, object]:
@@ -1565,8 +1599,13 @@ class CodecEngine:
         ``position_iters`` (the loop iterations of each mesh position,
         one z-solve launch each; one entry without a mesh), ``gathers``
         (each position's all-gathers: one an iteration on a 'freq'
-        axis, else 0) and ``wall_s`` (canvas fill to the last
-        readback)."""
+        axis, else 0), ``wall_s`` (canvas fill to the last readback),
+        the worker's host time around the solve, ``launch_s`` (plan
+        fetch and canvas fill) and ``deliver_s`` (crop, futures,
+        records and ticks; None until the delivery ends, after the
+        futures resolve), and the solve's bounds ``t_solve0`` /
+        ``t_solve1`` (epoch seconds, the clock of the obs spans and the
+        profiler)."""
         with self._lock:
             return [dict(e) for e in self._dispatch_log]
 

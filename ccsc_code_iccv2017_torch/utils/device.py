@@ -87,8 +87,9 @@ def device_time_ms(fn: Callable[[], object], reps: int = 30, warmup: int = 5,
 
 class PhaseTimer:
     """CUDA events at a learner step's phase boundaries (d_start,
-    d_end, z_start, z_end): the d-pass and z-pass device times of a step,
-    read after the step's metrics sync. A no-op off the card."""
+    d_end, z_start, z_end; and where the driver marks them step_start,
+    gram_end, step_end): the phases' device-stream times of a step, read
+    after the step's metrics sync. A no-op off the card."""
 
     def __init__(self, device: torch.device):
         self.enabled = device.type == "cuda"
@@ -101,9 +102,15 @@ class PhaseTimer:
             self.events[name] = ev
 
     def read(self):
-        """(d_pass_ms, z_pass_ms) of the last step, or None."""
+        """(d_pass_ms, z_pass_ms, gram_ms, step_ms) of the last step, or
+        None: gram_ms from d_start to gram_end, step_ms from step_start
+        to step_end, each None where its marks were not recorded."""
         if not self.enabled:
             return None
         e = self.events
-        return (e["d_start"].elapsed_time(e["d_end"]),
-                e["z_start"].elapsed_time(e["z_end"]))
+
+        def ms(a, b):
+            return e[a].elapsed_time(e[b]) if a in e and b in e else None
+
+        return (ms("d_start", "d_end"), ms("z_start", "z_end"),
+                ms("d_start", "gram_end"), ms("step_start", "step_end"))

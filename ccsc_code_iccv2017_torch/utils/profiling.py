@@ -5,8 +5,10 @@
   region, written as a Chrome trace (``*.pt.trace.json``, which
   TensorBoard's PyTorch profiler plugin and chrome://tracing read). The
   name is the JAX package's, so the call sites read alike.
-- ``annotate(name)``: a named span in the capture
-  (``torch.profiler.record_function``).
+- ``annotate(name)``: the port's one span call, a named span in the
+  capture (``torch.profiler.record_function``) on the profiler's clock
+  and the calling thread, and a shared null context whenever no
+  profiler records. Names are ``ccsc.<layer>.<phase>``, fixed strings.
 - ``SectionTimers``: accumulating named wall-clock timers for host-side
   phases (a copy of the JAX package's).
 """
@@ -16,11 +18,18 @@ import contextlib
 import time
 from typing import Dict, Iterator, Optional
 
+import torch
+from torch._C._profiler import _ExperimentalConfig
+from torch.autograd import profiler as _autograd_profiler
+
+
+_OFF = contextlib.nullcontext()
+
 
 def profiler_active() -> bool:
-    """Whether a torch profiler is recording in this process."""
-    import torch
-
+    """Whether a torch profiler is recording on the calling thread (the
+    profiler's state is thread-local: another thread's capture reads
+    False here; ``annotate`` reads the process-wide flag instead)."""
     return bool(torch._C._autograd._profiler_enabled())
 
 
@@ -29,11 +38,13 @@ def xla_trace(log_dir: Optional[str], device=None) -> Iterator[None]:
     """Capture a ``torch.profiler`` trace of the region into ``log_dir``
     (no-op if None).
 
-    It records the host's operators and ``annotate`` spans (the CPU
-    activity) and, when ``device`` is a CUDA device (None: whenever a
-    card is visible), every kernel and copy on the card (the CUDA
-    activity, through CUPTI). On exit ``tensorboard_trace_handler``
-    writes one ``<host>_<pid>.<ns>.pt.trace.json`` into ``log_dir``.
+    It records the host's operators and ``annotate`` spans of every
+    thread (the CPU activity: the serving engine's worker beside the
+    thread that started the capture) and, when ``device`` is a CUDA
+    device (None: whenever a card is visible), every kernel and copy on
+    the card (the CUDA activity, through CUPTI). On exit
+    ``tensorboard_trace_handler`` writes one
+    ``<host>_<pid>.<ns>.pt.trace.json`` into ``log_dir``.
 
     Only one torch profiler can record at a time: starting a capture
     while another is active (``profile_solve``, a caller's own
@@ -42,9 +53,8 @@ def xla_trace(log_dir: Optional[str], device=None) -> Iterator[None]:
     if log_dir is None:
         yield
         return
-    import torch
-
-    if profiler_active():
+    # either flag: a capture of every thread clears the thread-local one
+    if profiler_active() or _autograd_profiler._is_profiler_enabled:
         raise RuntimeError(
             f"cannot start a profiler capture into {log_dir!r}: another "
             "torch profiler is already recording in this process (only "
@@ -57,6 +67,9 @@ def xla_trace(log_dir: Optional[str], device=None) -> Iterator[None]:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(
         activities=acts,
+        # every thread's operators and spans, not the starting thread's
+        # alone (the profiler's state is thread-local)
+        experimental_config=_ExperimentalConfig(profile_all_threads=True),
         on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
     ):
         yield
@@ -65,12 +78,18 @@ def xla_trace(log_dir: Optional[str], device=None) -> Iterator[None]:
             torch.cuda.synchronize(device)
 
 
-def annotate(name: str):
-    """Named span visible in profiler timelines (a cheap context
-    manager when no capture is active)."""
-    import torch
-
-    return torch.profiler.record_function(name)
+def annotate(name: str, args: Optional[str] = None):
+    """The named span ``name`` (``ccsc.<layer>.<phase>``) on the calling
+    thread while a profiler records, ``args`` (a step index, say) beside
+    it; the one shared null context otherwise, so a span costs a flag
+    read when nothing records. Whether another thread's span lands in a
+    capture is the capture's choice (``xla_trace`` records every
+    thread)."""
+    # the flag torch.profiler.profile sets on enter and clears on exit,
+    # the same on every thread
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name, args)
 
 
 class SectionTimers:

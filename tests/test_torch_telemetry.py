@@ -18,6 +18,7 @@ renders the port's streams.
 """
 import importlib
 import importlib.util
+import json
 import os
 import time
 
@@ -406,8 +407,12 @@ def test_profile_dir_captures_the_step_spans(tmp_path):
                 profile_dir=str(p))
     (name,) = os.listdir(p)
     with open(p / name) as f:
-        text = f.read()
-    assert "ccsc_outer_0" in text and "ccsc_outer_1" in text
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    # fixed-name spans, one of each a step; no per-step name
+    for span in ("ccsc.learn.step", "ccsc.learn.gram", "ccsc.learn.read"):
+        assert names.count(span) == 2, span
+    assert not any(n.startswith("ccsc_outer_") for n in names)
 
 
 def test_verbose_all_writes_the_figures(tmp_path, capsys):
