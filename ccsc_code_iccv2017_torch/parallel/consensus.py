@@ -111,10 +111,19 @@ def learn(
     mesh run from seed s equals the one-device run from seed s to within
     reduction order. On a mesh ``b`` may instead be this rank's blocks,
     a parallel.distributed.GlobalBlockArray (global_block_array), so no
-    rank holds the whole data. ``d`` and the trace come back replicated; ``z`` and
+    rank holds the whole data; ``initial_state`` may then be this
+    rank's shard alone (d_local, dual_d [L_local, ...], z, dual_z
+    [L_local, ni, ...], under 'filter' each its K / nk filters; dbar,
+    udbar replicated), taken as it is, so no rank holds a global-sized
+    state either (a checkpoint still holds the global one). ``d`` and
+    the trace come back replicated; ``z`` and
     ``Dz`` hold this rank's blocks (parallel.mesh.gather_blocks
     assembles them). Checkpoints: rank 0 writes the gathered global
-    state in the one-device format.
+    state in the one-device format. On a mesh the per-step trace also
+    carries ``wire_bytes`` (the bytes the step handed to collectives,
+    ``Mesh.wire_bytes``) and, on the card, ``allreduce_ms`` (the step's
+    summed device time inside its collectives, the wait on peers
+    included: CUDA events read after the step's one host read).
 
     ``profile_dir`` captures a ``torch.profiler`` trace of the step loop
     (utils.profiling.xla_trace; each step is the span ``ccsc.learn.step``
@@ -228,9 +237,20 @@ def _learn_impl(
             z_dtype=getattr(torch, cfg.storage_dtype),
             d_dtype=getattr(torch, cfg.d_storage_dtype),
         )
+    d_shape = (geom.num_filters, *geom.reduce_shape, *fg.spatial_shape)
+    z_shape = (N, ni, geom.num_filters, *fg.spatial_shape)
+    expect = dict(d_local=(N, *d_shape), dual_d=(N, *d_shape),
+                  dbar=d_shape, udbar=d_shape, z=z_shape, dual_z=z_shape)
+    local = (mesh is not None and initial_state is not None
+             and _shapes(state) == _local_shapes(expect, mesh)
+             and _shapes(state) != expect)
     if init_d is not None:
         d_full = fourier.circ_embed(validate.as_float32(init_d, dev),
                                     fg.spatial_shape)
+        if local:
+            d_full = mesh_lib.fslice(
+                d_full, mesh, "filter" if "filter" in mesh.shape else None,
+                dim=0)
         state = state._replace(
             # keep the d-state storage dtype
             d_local=d_full.expand(state.d_local.shape).to(
@@ -238,10 +258,6 @@ def _learn_impl(
             ).contiguous(),
             dbar=d_full,
         )
-    d_shape = (geom.num_filters, *geom.reduce_shape, *fg.spatial_shape)
-    z_shape = (N, ni, geom.num_filters, *fg.spatial_shape)
-    expect = dict(d_local=(N, *d_shape), dual_d=(N, *d_shape),
-                  dbar=d_shape, udbar=d_shape, z=z_shape, dual_z=z_shape)
     start_it = 0
     resumed_trace = None
     fingerprint = resilience.config_fingerprint(geom, cfg, "consensus")
@@ -257,13 +273,18 @@ def _learn_impl(
             state = learn_mod.LearnState(
                 **{k: v.to(dev) for k, v in fields.items()}
             )
+            local = False
             console(cfg, f"resumed from {checkpoint_dir} at iteration "
                           f"{start_it}", always=True)
-    got = {f: tuple(getattr(state, f).shape) for f in state._fields}
-    if got != expect:
-        raise ValueError(f"state shapes {got} do not match problem {expect}")
-    if mesh is not None:
-        state = _shard_state(state, mesh)
+    if not local:
+        got = _shapes(state)
+        if got != expect:
+            raise ValueError(f"state shapes {got} do not match problem "
+                             f"{expect}" + (
+                                 "" if mesh is None else " (or this rank's "
+                                 f"shard {_local_shapes(expect, mesh)})"))
+        if mesh is not None:
+            state = _shard_state(state, mesh)
 
     if resumed_trace is not None:
         trace = resumed_trace
@@ -321,9 +342,10 @@ def _run_outer(state, b_blocks, geom, cfg, fg, N, mesh, dev, recov, trace,
     rank decides alike). A step is adopted on the host after its read; a
     chunk returns its adopted state. Trace entries stay per step (a
     chunk's wall time split evenly over its adopted steps, a step's
-    d-pass and z-pass device times read by its PhaseTimer); the
-    watchdog, telemetry records, figures, checkpoints and preemption
-    work a pass at a time. With ``cfg.donate_state`` the state is
+    d-pass and z-pass device times read by its PhaseTimer, on a mesh
+    its collectives' bytes and device time); the watchdog, telemetry
+    records, figures, checkpoints and preemption work a pass at a
+    time. With ``cfg.donate_state`` the state is
     consumed by each chunk and rebound to its output. Returns (state,
     t_total, it_done, saved_it)."""
     chunked = cfg.chunked_driver
@@ -341,6 +363,11 @@ def _run_outer(state, b_blocks, geom, cfg, fg, N, mesh, dev, recov, trace,
             poisoned = na is not None and i + 1 <= na <= i + clen
             tag = f"ccsc_outer_{i}_{i + clen}" if chunked else \
                 f"ccsc_outer_{i}"
+            if mesh is not None and not chunked:
+                # the step's collectives: bytes counted, device time
+                # recorded (CUDA events, read after the step's host read)
+                wire0 = sum(mesh.wire_bytes.values())
+                mesh.record_step()
             t0 = time.perf_counter()
             if wd is not None:
                 wd.arm(clen, tag, may_compile=fresh_step or poisoned)
@@ -376,6 +403,10 @@ def _run_outer(state, b_blocks, geom, cfg, fg, N, mesh, dev, recov, trace,
                 with profiling.annotate("ccsc.learn.read"):
                     flat, stop_req = mesh_lib.agree(packed, gs.requested,
                                                     mesh)
+            coll = None
+            if mesh is not None and not chunked:
+                coll = (mesh.step_ms(),
+                        sum(mesh.wire_bytes.values()) - wire0)
             # injected hang fires INSIDE the armed fence (utils.faults)
             faults.hang_tick(i + clen)
             if wd is not None:
@@ -437,6 +468,10 @@ def _run_outer(state, b_blocks, geom, cfg, fg, N, mesh, dev, recov, trace,
                     trace.setdefault("gram_inv_ms", []).append(inv_ms)
                     trace.setdefault("step_rest_ms", []).append(
                         step_ms - d_ms - z_ms)
+                if coll is not None:
+                    if coll[0] is not None:
+                        trace.setdefault("allreduce_ms", []).append(coll[0])
+                    trace.setdefault("wire_bytes", []).append(coll[1])
                 run.step(
                     it=i + j + 1, obj_d=obj_d, obj_z=obj_z, d_diff=d_diff,
                     z_diff=z_diff, t_total=round(t_total, 4),
@@ -558,6 +593,28 @@ def _check_mesh(mesh, device, geom, fg, num_blocks) -> torch.device:
             f"num_freq={fg.num_freq} not divisible by num_freq_shards={nf}"
         )
     return mesh.device
+
+
+def _shapes(state: learn_mod.LearnState) -> dict:
+    return {f: tuple(getattr(state, f).shape) for f in state._fields}
+
+
+def _local_shapes(expect: dict, mesh) -> dict:
+    """A rank's shard of the global state shapes ``expect``: the block
+    axis of the block-local fields over 'block', the k axis of every
+    field over 'filter' (as :func:`_shard_state` cuts them)."""
+    nb = mesh.shape["block"]
+    nk = mesh.shape.get("filter", 1)
+    out = {}
+    for f, shp in expect.items():
+        shp = list(shp)
+        kdim = 0
+        if f in ("d_local", "dual_d", "z", "dual_z"):
+            shp[0] //= nb
+            kdim = 1 if f in ("d_local", "dual_d") else 2
+        shp[kdim] //= nk
+        out[f] = tuple(shp)
+    return out
 
 
 def _shard_state(state: learn_mod.LearnState, mesh) -> learn_mod.LearnState:

@@ -25,7 +25,10 @@ once runs on one device and on a mesh:
 
 Everything a rank reduces is float32 or complex64 (complex tensors
 travel as their real view); a ``gloo`` group stages CUDA tensors
-through the host.
+through the host. Each all-reduce runs inside the span
+``ccsc.mesh.allreduce`` (its tag the argument; utils.profiling), and a
+:class:`Mesh` counts, always, the collectives it ran and the bytes it
+handed to them, per tag (``Mesh.calls``, ``Mesh.wire_bytes``).
 
 The serving engine's mesh is in-process instead (``parallel.local_mesh.
 LocalMesh``: one thread per position, no process group): ``fslice`` and
@@ -40,6 +43,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+
+from ..utils import profiling
 
 AxisSpec = Union[None, str, Tuple[str, ...]]
 
@@ -133,6 +138,11 @@ class Mesh:
         # collective timing (time_collectives): per-axis (start, end)
         self.time_collectives = False
         self._timings: Dict[str, list] = {}
+        # always on: collectives run and bytes handed to them, per tag
+        self.calls: Dict[str, int] = {}
+        self.wire_bytes: Dict[str, int] = {}
+        # (start, end) CUDA events of the collectives since record_step
+        self._step_events: Optional[list] = None
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, device={self.device}, "
@@ -164,6 +174,23 @@ class Mesh:
         if clear:
             self._timings = {}
         return out
+
+    def record_step(self) -> None:
+        """Start recording CUDA events around every collective, for
+        :meth:`step_ms` (a no-op off the card). No host read."""
+        if self.device.type == "cuda":
+            self._step_events = []
+
+    def step_ms(self) -> Optional[float]:
+        """The summed device time (ms, the current stream's) of the
+        collectives since :meth:`record_step`, the wait on peers
+        included, and stop recording; None off the card. Call it after
+        a host read that follows them on the stream (an event the
+        stream has not reached has no time yet)."""
+        ev, self._step_events = self._step_events, None
+        if ev is None:
+            return None
+        return sum(a.elapsed_time(b) for a, b in ev)
 
 
 def _product(sizes):
@@ -272,8 +299,15 @@ def _from_wire(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return torch.view_as_complex(out) if like.is_complex() else out
 
 
-def _timed(mesh: Mesh, axis_key: str, fn):
-    if not mesh.time_collectives:
+def _timed(mesh: Mesh, axis_key: str, fn, calls: int, nbytes: int):
+    """Run the collective(s) ``fn``: count them under ``axis_key`` and
+    time them where ``time_collectives`` or :meth:`Mesh.record_step`
+    asks."""
+    mesh.calls[axis_key] = mesh.calls.get(axis_key, 0) + calls
+    mesh.wire_bytes[axis_key] = (mesh.wire_bytes.get(axis_key, 0)
+                                 + calls * nbytes)
+    step = mesh._step_events
+    if not mesh.time_collectives and step is None:
         return fn()
     if mesh.device.type == "cuda":
         a = torch.cuda.Event(enable_timing=True)
@@ -281,11 +315,14 @@ def _timed(mesh: Mesh, axis_key: str, fn):
         a.record()
         out = fn()
         b.record()
+        if step is not None:
+            step.append((a, b))
     else:
         a = time.perf_counter()
         out = fn()
         b = time.perf_counter()
-    mesh._timings.setdefault(axis_key, []).append((a, b))
+    if mesh.time_collectives:
+        mesh._timings.setdefault(axis_key, []).append((a, b))
     return out
 
 
@@ -306,7 +343,9 @@ def _all_reduce(x, mesh: Mesh, names, op, tag=None):
         for g in groups:
             dist.all_reduce(buf, op=op, group=g)
 
-    _timed(mesh, tag or "+".join(names), run)
+    key = tag or "+".join(names)
+    with profiling.annotate("ccsc.mesh.allreduce", key):
+        _timed(mesh, key, run, len(groups), buf.numel() * buf.element_size())
     return _from_wire(buf, x)
 
 
@@ -314,7 +353,8 @@ def psum(x: torch.Tensor, mesh: Optional[Mesh], axis: AxisSpec,
          tag: Optional[str] = None):
     """Sum over a mesh axis, a tuple of axes, or None (the identity, as
     without a mesh): ``lax.psum``. ``tag`` names the call in
-    ``Mesh.collective_ms`` (default: the axes)."""
+    ``Mesh.collective_ms``, the counters and the span (default: the
+    axes)."""
     names = _axes(mesh, axis)
     if not names:
         return x
@@ -374,7 +414,8 @@ def all_gather_tiled(x: torch.Tensor, mesh: Optional[Mesh],
     buf = _to_wire(x, mesh)
     out = torch.empty((n * buf.shape[0], *buf.shape[1:]), dtype=buf.dtype,
                       device=buf.device)
-    _timed(mesh, axis, lambda: _gather_into(out, buf, mesh.group(axis)))
+    _timed(mesh, axis, lambda: _gather_into(out, buf, mesh.group(axis)), 1,
+           buf.numel() * buf.element_size())
     out = out.reshape(n, *buf.shape).movedim(0, d)
     out = out.reshape(*x.shape[:d], n * x.shape[d], *buf.shape[d + 1:])
     return _from_wire(out, x)
