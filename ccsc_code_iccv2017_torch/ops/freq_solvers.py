@@ -18,7 +18,9 @@ linear system per frequency:
   ``herm_inv`` / ``CCSC_HERM_INV``.
 - d-subproblem: (rho I_K + Z_f^H Z_f) x_f = rhs_f, Z_f the Ni x K matrix
   of code spectra, inverted by the Woodbury identity through an
-  Ni x Ni Hermitian system (precompute_d_kernel / solve_d).
+  Ni x Ni Hermitian system (precompute_d_kernel / solve_d); on the card
+  the consensus learner's solve is the hand-written kernel of
+  ops.d_solve, over code spectra kept frequency-major.
 
 The ``mesh`` / ``axis_name`` arguments are the JAX package's
 filter-axis sharding: the inputs hold this rank's K/nk shard of the
@@ -38,6 +40,7 @@ import torch
 
 from ..parallel import mesh as mesh_lib
 from ..utils import env
+from . import d_solve as d_solve_kernel
 from . import herm_inv as herm_inv_kernel
 from . import kernels
 
@@ -407,7 +410,11 @@ def solve_z_reference(
 class DSolveKernel(NamedTuple):
     """Precomputed factors for the d-subproblem (dictionary update).
 
-    zhat: [..., Ni, K, F] code spectra of a consensus block.
+    zhat: [..., F, Ni, K] code spectra of a consensus block, frequency-
+          major: contiguous where the d-solve kernel reads them
+          (ops.d_solve; solve_d reads the route from the layout), else a
+          view of the k-major [..., Ni, K, F] spectra, which the einsum
+          body reads back as they were.
     ginv: [..., F, Ni, Ni] complex — (rho I_Ni + Z Z^H)^{-1}, the Woodbury
           inner inverse.
     zb:   optional [..., K, W, F] — Z^H b, hoisted when the data-side
@@ -434,17 +441,38 @@ def precompute_d_kernel(
     is psummed over that axis of ``mesh`` before the complex Cholesky,
     so the Ni x Ni inverse is replicated across filter shards.
     ``on_phase`` (optional) is called with "inv_start" and "inv_end"
-    around the Gram's inverse (the learner's PhaseTimer)."""
+    around the Gram's inverse (the learner's PhaseTimer).
+
+    Where :func:`solve_d` will take the d-solve kernel (a hoisted target,
+    no filter axis, ops.d_solve's route), the spectra are transposed
+    once to frequency-major and the Gram Z Z^H and Z^H b are batched
+    products over that copy, the conjugate read as a conjugate-transpose
+    operand; everywhere else the kernel holds the einsums' results of
+    the k-major spectra, as before."""
     mark = on_phase or (lambda _name: None)
-    G = _ksum(torch.einsum("...nkf,...mkf->...fnm", zhat, zhat.conj()),
-              mesh, axis_name)
-    zb = None
-    if b_hat is not None:
-        zb = torch.einsum("...nkf,...nwf->...kwf", zhat.conj(), b_hat)
+    zt = zhat.movedim(-1, -3)  # [..., F, Ni, K]
+    fmajor = b_hat is not None and axis_name is None and \
+        d_solve_kernel.route(zhat.device.type, zhat.dtype, *zt.shape[-2:],
+                             b_hat.shape[-2]) == "kernel"
+    if fmajor:
+        zt = zt.contiguous()
+        G = zt @ zt.mH
+        # Z^H b as the conjugate of b^H Z: the conjugate taken of the
+        # small product, not of the codes
+        zb = (b_hat.movedim(-1, -3).mH @ zt).conj_physical()  # [.., F, W, K]
+        zb = zb.permute(*range(zb.ndim - 3), -1, -2, -3).contiguous()
+    else:
+        G = _ksum(torch.einsum("...nkf,...mkf->...fnm", zhat, zhat.conj()),
+                  mesh, axis_name)
+        zb = None
+        if b_hat is not None:
+            zb = torch.einsum("...nkf,...nwf->...kwf", zhat.conj(), b_hat)
     mark("inv_start")
     ginv = shifted_hermitian_inverse(G, rho)
     mark("inv_end")
-    return DSolveKernel(zhat, ginv, zb)
+    if fmajor:
+        ginv = ginv.contiguous()  # as the Cholesky kernel writes it
+    return DSolveKernel(zt, ginv, zb)
 
 
 def solve_d(
@@ -462,8 +490,35 @@ def solve_d(
     filter spectra. Woodbury: x = (r - Z^H (rho I + Z Z^H)^{-1} Z r) / rho
     with r = Z^H b + rho * xi (solve_conv_term_D, dParallel.m:252-276).
     ``axis_name``: filter sharding; the k-sum Z r is psummed over it.
+
+    A hoisted kernel without a filter axis whose spectra
+    :func:`precompute_d_kernel` made frequency-major (contiguous
+    complex64: the layout carries its route) runs the d-solve kernel;
+    every other call runs the einsum body, :func:`solve_d_reference`.
     """
-    zhat, ginv = kernel.zhat, kernel.ginv
+    zhat = kernel.zhat
+    if kernel.zb is not None and b_hat is None and axis_name is None \
+            and zhat.dtype == torch.complex64 and zhat.is_contiguous():
+        return d_solve_kernel.solve(zhat, kernel.ginv, kernel.zb,
+                                    xi_hat.contiguous(), float(rho))
+    return solve_d_reference(kernel, b_hat, xi_hat, rho, mesh=mesh,
+                             axis_name=axis_name)
+
+
+def solve_d_reference(
+    kernel: DSolveKernel,
+    b_hat: Optional[torch.Tensor],
+    xi_hat: torch.Tensor,
+    rho: float,
+    mesh=None,
+    axis_name: Optional[str] = None,
+) -> torch.Tensor:
+    """The JAX package's einsum body of solve_d for any caller, never
+    launching the d-solve kernel: r = Z^H b + rho xi (Z^H b hoisted in
+    the kernel, or from ``b_hat``), t = Z r (psummed over
+    ``axis_name``), s = ginv t, x = (r - Z^H s) / rho, over the code
+    spectra's k-major view."""
+    zhat, ginv = kernel.zhat.movedim(-3, -1), kernel.ginv  # [..., Ni, K, F]
     if kernel.zb is not None:
         if b_hat is not None:
             # a hoisted kernel bakes in its own data target

@@ -16,8 +16,10 @@ cuda:0 over ``gloo`` instead (the one-card smoke seam of
 
 Holds the mesh run to the one-card run at the JAX package's mesh limits
 (filters 2e-5; objective traces rtol 1e-4; the codes, gathered on rank
-0, 2e-5 of max(1, max|z|)), each rank's K2 launches to max_it_z a step
-and its Gram-inverse kernel's (ops.herm_inv) to one a step, and prints
+0, 2e-5 of max(1, max|z|)), each rank's K2 launches to max_it_z a step,
+its Gram-inverse kernel's (ops.herm_inv) to one a step and its d-solve
+kernel's (ops.d_solve) to max_it_d a step (likewise the one card's), and
+prints
 one JSON record: steps/s of both runs, each rank's d-pass and z-pass ms
 a step, the consensus all-reduce's ms per d-iteration, peak memory per
 rank, the distances, the card's name and power limit. Exits
@@ -70,7 +72,7 @@ def _mesh_rank(rank, b, steps, seed, ref_z_path, shared):
     rank 0 also holds the gathered codes to the one-card run's."""
     import torch
 
-    from ..ops import fused_z, herm_inv
+    from ..ops import d_solve, fused_z, herm_inv
     from . import consensus, mesh as mesh_lib
 
     geom, cfg = _problem(steps)
@@ -83,6 +85,7 @@ def _mesh_rank(rank, b, steps, seed, ref_z_path, shared):
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     fz.launches_a = fz.launches_b = herm_inv.invert.launches = 0
+    d_solve.solve.launches = 0
     t0 = time.perf_counter()
     res = consensus.learn(
         b, geom, cfg, mesh=mesh, device="cuda",
@@ -92,11 +95,12 @@ def _mesh_rank(rank, b, steps, seed, ref_z_path, shared):
     wall = time.perf_counter() - t0
     launches = [fz.launches_a, fz.launches_b]
     herm_launches = herm_inv.invert.launches
+    ds_launches = d_solve.solve.launches
     coll = mesh.collective_ms()
     peak = torch.cuda.max_memory_allocated(dev)
     out = dict(
         rank=rank, device=str(dev), wall_s=wall, launches=launches,
-        herm_inv_launches=herm_launches,
+        herm_inv_launches=herm_launches, d_solve_launches=ds_launches,
         trace={k: res.trace[k] for k in ("obj_vals_d", "obj_vals_z",
                                          "d_diff", "z_diff", "tim_vals",
                                          "d_pass_ms", "z_pass_ms")},
@@ -135,7 +139,7 @@ def run(b: np.ndarray, ranks: int = 4, steps: int = 3, seed: int = 0,
     a check fails."""
     import torch
 
-    from ..ops import fused_z, herm_inv, kernels
+    from ..ops import d_solve, fused_z, herm_inv, kernels
     from . import consensus, distributed
 
     if steps < 2:
@@ -149,6 +153,7 @@ def run(b: np.ndarray, ranks: int = 4, steps: int = 3, seed: int = 0,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fz.launches_a = fz.launches_b = herm_inv.invert.launches = 0
+        d_solve.solve.launches = 0
         t0 = time.perf_counter()
         ref = consensus.learn(
             b, geom, cfg, device="cuda",
@@ -157,6 +162,7 @@ def run(b: np.ndarray, ranks: int = 4, steps: int = 3, seed: int = 0,
         ref_wall = time.perf_counter() - t0
         ref_launches = [fz.launches_a, fz.launches_b]
         ref_herm = herm_inv.invert.launches
+        ref_ds = d_solve.solve.launches
         ref_peak = torch.cuda.max_memory_allocated()
         ref_path = os.path.join(tmp, "z.npy")
         np.save(ref_path, ref.z.cpu().numpy())
@@ -184,6 +190,7 @@ def run(b: np.ndarray, ranks: int = 4, steps: int = 3, seed: int = 0,
         for key in ("obj_vals_d", "obj_vals_z")
     )
     want = cfg.max_it_z * steps
+    want_ds = cfg.max_it_d * steps  # one call for the local blocks
     z_lim = D_ATOL * max(1.0, r0["z_max_abs"])
     cons = [m for o in outs for m in o["consensus_ms"]]
     rec = {
@@ -194,7 +201,7 @@ def run(b: np.ndarray, ranks: int = 4, steps: int = 3, seed: int = 0,
         "blocks_per_rank": r0["local_blocks"],
         "one_card": {
             "wall_s": ref_wall, "launches": ref_launches,
-            "herm_inv_launches": ref_herm,
+            "herm_inv_launches": ref_herm, "d_solve_launches": ref_ds,
             **_steps_per_s(ref_tr["tim_vals"]),
             "d_pass_ms": ref_tr.get("d_pass_ms"),
             "z_pass_ms": ref_tr.get("z_pass_ms"), "peak_bytes": ref_peak,
@@ -205,6 +212,7 @@ def run(b: np.ndarray, ranks: int = 4, steps: int = 3, seed: int = 0,
                 "rank": o["rank"], "device": o["device"],
                 "launches": o["launches"],
                 "herm_inv_launches": o["herm_inv_launches"],
+                "d_solve_launches": o["d_solve_launches"],
                 "peak_bytes": o["peak_bytes"],
                 "d_pass_ms": o["trace"]["d_pass_ms"],
                 "z_pass_ms": o["trace"]["z_pass_ms"],
@@ -225,6 +233,8 @@ def run(b: np.ndarray, ranks: int = 4, steps: int = 3, seed: int = 0,
     if ref_herm != steps:
         bad.append(f"one-card Gram-inverse launches {ref_herm}, want "
                    f"{steps}")
+    if ref_ds != want_ds:
+        bad.append(f"one-card d-solve launches {ref_ds}, want {want_ds}")
     for o in outs:
         if o["launches"] != [want, want]:
             bad.append(f"rank {o['rank']} K2 launches {o['launches']}, "
@@ -232,6 +242,9 @@ def run(b: np.ndarray, ranks: int = 4, steps: int = 3, seed: int = 0,
         if o["herm_inv_launches"] != steps:
             bad.append(f"rank {o['rank']} Gram-inverse launches "
                        f"{o['herm_inv_launches']}, want {steps}")
+        if o["d_solve_launches"] != want_ds:
+            bad.append(f"rank {o['rank']} d-solve launches "
+                       f"{o['d_solve_launches']}, want {want_ds}")
     if not d_err <= D_ATOL:
         bad.append(f"filters {d_err:.3e} from the one-card run")
     if not trace_rel <= TRACE_RTOL:

@@ -75,8 +75,17 @@ never exits 0):
    max_it_z=10, fused_z,
    3 outer steps at tol=0 through ``parallel.consensus.learn``. K2a's
    and K2b's launch counts are set to 0 just before and must each equal
-   max_it_z x the steps adopted; every trace value is finite, obj_z
-   falls from step 1 to step 3 and every filter norm is <= 1 + 1e-5.
+   max_it_z x the steps adopted, the d-solve kernel's (``ops.d_solve``)
+   max_it_d x the steps (one call for the 8 blocks a d-iteration); every
+   trace value is finite, obj_z falls from step 1 to step 3 and every
+   filter norm is <= 1 + 1e-5. Then the d-solve kernel alone at the
+   north star's shape ([8, 6160, 100, 100], W = 1, codes of random
+   images, rho_d): within 1e-5 of max|x| of its plain version, and
+   CUDA-event ms of the kernel beside its bound (the code matrices and
+   one triangle of their Hermitian inverses read once), of the plain
+   version and of the einsum
+   body it replaced (``freq_solvers.solve_d_reference`` on the k-major
+   spectra: the library yardstick).
 8. Fused vs composition: the same configuration on 2 blocks x 8
    images, 2 outer steps, fused_z True and False from the same init:
    objective traces within rtol 1e-4, filters within 1e-4 max|d|; K1
@@ -130,7 +139,9 @@ never exits 0):
    launched 10 times a step and K2 never, obj_z falls from step 1 to
    step 2; then K1 at its z-solve shape (N=64, K=49, F=60*60*31 =
    111,600) on the learned filters' and the clips' spectra, held and
-   timed as in phase 3, and for K1_F64_DRAWS draws of the code target
+   timed as in phase 3 but against the plain version run in float64
+   (within 1e-5 of its max|z|; the distance from the float32 plain
+   version reported), and for K1_F64_DRAWS draws of the code target
    both K1 and its plain version held to the same solve in float64. The
    4D lightfield learner through
    ``learn_4d.main`` (k=49 11x11 over 5x5 views, 64 patches of 50x50 in
@@ -167,12 +178,12 @@ never exits 0):
    paged`` for one step: its peak memory below phase 12's in-memory
    peak, K1 launched max_it_z x 8 times; then K1 at a block's shape
    (N=8, K=49, F=111,600) on the learned filters and block 0's clips,
-   held and timed as in phase 3. The hyperspectral app at phase 12's
-   width with ``--streaming --streaming-blocks 4`` (the W = 31 solve,
-   the auto tier): no K1, Dz finite and within 1e-4 of the returned
-   codes' reconstruction plus the smooth_init offset. Both learners
-   paged on the card against the CPU at reduced sizes, at phase 12's
-   card-vs-CPU limits. The native library: available, its local_cn
+   held and timed as phase 12 holds it at N=64. The hyperspectral app
+   at phase 12's width with ``--streaming --streaming-blocks 4`` (the
+   W = 31 solve, the auto tier): no K1, Dz finite and within 1e-4 of
+   the returned codes' reconstruction plus the smooth_init offset. Both
+   learners paged on the card against the CPU at reduced sizes, at
+   phase 12's card-vs-CPU limits. The native library: available, its local_cn
    (64 images of 100x100) within 5e-3 and its smooth fill (phase 4's
    requests) within 2e-5 of numpy, both timed beside numpy.
 15. The meshes (``parallel.mesh``, ``parallel.distributed``; run before
@@ -182,7 +193,8 @@ never exits 0):
    (2 blocks each, K2 at N=200), beside the one-card learner from the
    same init (``parallel.mesh_check.run``): filters within 2e-5, traces
    rtol 1e-4, the codes gathered on rank 0 within 2e-5 of max(1, max|z|),
-   K2a/K2b launched max_it_z x steps on every rank; per rank peak memory,
+   K2a/K2b launched max_it_z x steps and the d-solve kernel max_it_d x
+   steps on every rank (and on the one card); per rank peak memory,
    d-pass and z-pass ms, the consensus all-reduce's ms per d-iteration.
    (b) The 4 requests of phase 4 (max_it=100, tol=1e-3) solved as one
    batch by ``reconstruct(mesh=)`` on ``block_mesh(4)`` and on a (2, 2)
@@ -196,9 +208,12 @@ never exits 0):
    4 blocks x 10 images, and the masked learner on ``freq_mesh(4)`` at
    the hyperspectral app's (k=100 11x11x31, cubes of 31x100x100) on 4
    cubes, 2 steps each against the one-device runs at (a)'s limits,
-   K1's launches per rank exact; per rank time and peak memory. (d) One NCCL process group of world size 1 in this
-   process (``block_mesh(1)``): one learner step (K2) and one
-   reconstruct through the mesh code, within 1e-6 of the mesh-less
+   K1's launches per rank exact, the d-solve kernel's max_it_d x steps
+   a rank on the 'freq' mesh and none on the 'filter' and masked ones
+   (their einsum body unchanged); per rank time and peak memory. (d)
+   One NCCL process group of world size 1 in this process
+   (``block_mesh(1)``): one learner step (K2) and one reconstruct
+   through the mesh code, within 1e-6 of the mesh-less
    calls. Every group has a timeout and ``launch`` a join deadline; a
    failed rank fails the phase.
 16. Mesh serving (``serve.CodecEngine`` with ``ServeConfig.mesh_shape``;
@@ -257,9 +272,10 @@ never exits 0):
    metrics_dir=)``: bitwise the same, K1 launched its iterations both
    times, ``step`` records 1..n_it and ``summary.iterations`` n_it. (d)
    ``learn_3d --synthetic --metrics-dir`` in a fresh process (1 step):
-   its stream validates and holds two ``compile`` records, kind
-   ``load``, for ``herm_inv`` (the d-pass's Gram inverse) and
-   ``solve_z_rank1`` (both built in phase 2), and no ``build``.
+   its stream validates and holds three ``compile`` records, kind
+   ``load``, for ``herm_inv`` (the d-pass's Gram inverse), ``d_solve``
+   (its Woodbury solve) and ``solve_z_rank1`` (all built in phase 2),
+   and no ``build``.
 18. Robustness (``utils.watchdog``, ``utils.faults``, the degrade ladder
    of ``apps._common.dispatch_learn``, the ``supervise`` module,
    ``serve.capture``, ``analysis.ledger``; run after 17, before the
@@ -478,7 +494,8 @@ never exits 0):
    ``{"serve_federation": ...}`` line (20's records), a
    ``{"warmup": ...}`` line (21's records), a ``{"knobs": ...}`` line
    (22's records), a
-   ``{"kernels": [...]}`` line (K1, K2a, K2b, the Gram inverse; K1's
+   ``{"kernels": [...]}`` line (K1, K2a, K2b, the Gram inverse, the
+   d-solve; K1's
    launches by path:
    reconstruct, engine, poisson, deblur, learn_3d, learn_2d_masked,
    learn_streaming_2d, learn_streaming_3d, mesh_reconstruct,
@@ -492,7 +509,8 @@ never exits 0):
    Gram inverse's: learn (phase 7, one a step), learn_3d, learn_4d,
    learn_hyperspectral, learn_2d_masked, the W > 1 apps, the four mesh
    learners, each path's launches held equal to the Gram inverses it
-   built on the card), a
+   built on the card; the d-solve's: learn (phase 7), the block and freq
+   mesh learners), a
    ``{"phase_seconds": ...}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -619,11 +637,16 @@ def _load_kernels(root):
 
 
 def _k1_case(torch, kernels, time_ms, bw, flops, card, args, label,
-             against=None):
+             against=None, exact=False):
     """K1 against its plain version on ``args`` = (dhat [K, F], xi1
     [N, F], xi2 [N, K, F], rho, dinv [K, F]): the error relative to
     max|z|, two launches' bits, its time beside the plain version's, its
-    bound and a plain copy of xi2; raises past 1e-5 or on unequal bits."""
+    bound and a plain copy of xi2; raises past 1e-5 or on unequal bits.
+    With ``exact`` the error is taken against the plain version run in
+    float64 (the distance from the float32 plain version is reported
+    beside it): where the rank-1 correction cancels most of g, each
+    float32 solve lies up to ~1e-5 of max|z| from the exact one, and the
+    two float32 solves' distance measures both errors."""
     dhat, xi1, xi2, rho, dinv = args
     n, k, f = xi2.shape
     plan = kernels.k1_launch_plan(n, k, f, *card)
@@ -635,13 +658,19 @@ def _k1_case(torch, kernels, time_ms, bw, flops, card, args, label,
     ref = kernels.solve_z_rank1_reference(*args)
     abs_err = float((z - ref).abs().max())
     rel_err = abs_err / float(ref.abs().max())
+    vs_f32 = {}
+    if exact:
+        vs_f32 = {"plain_f32_abs_err": abs_err, "plain_f32_rel_err": rel_err}
+        abs_err, scale = _k1_from_f64(torch, kernels, z, args)
+        rel_err = abs_err / scale
     # each input read once, the output written once
     nbytes = (k * (12 + 16 * n) + 8 * n) * f
     # ~35 real operations per (n, k, f) and 4 per (n, f)
     nops = n * f * (35 * k + 4)
     bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * nops / flops
     case = dict(label, n=n, k=k, f=f, plan=plan, max_abs_err=abs_err,
-                max_rel_err=rel_err, bitwise_repeatable=bitwise,
+                max_rel_err=rel_err, against_float64=exact, **vs_f32,
+                bitwise_repeatable=bitwise,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes=nbytes)
@@ -664,7 +693,10 @@ def _k1_case(torch, kernels, time_ms, bw, flops, card, args, label,
     del dst
     print(f"[3] K1 {' '.join(f'{a}={b}' for a, b in label.items())} N={n} "
           f"K={k} F={f} plan kpt={plan['kpt']} nc={plan['nc']} grid="
-          f"{plan['grid']}: rel err {rel_err:.2e}, bitwise repeat {bitwise}, "
+          f"{plan['grid']}: rel err {rel_err:.2e}"
+          + (f" (of the float64 solve; {vs_f32['plain_f32_rel_err']:.2e} "
+             "from the float32 plain version)" if exact else "")
+          + f", bitwise repeat {bitwise}, "
           f"kernel {case['kernel_ms']:.4f} ms, plain {case['plain_ms']:.4f} "
           f"ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}), copy "
           f"of xi2 {case['copy_xi2_ms']:.4f} ms"
@@ -675,6 +707,24 @@ def _k1_case(torch, kernels, time_ms, bw, flops, card, args, label,
         raise RuntimeError(f"K1 disagrees with its plain version or "
                            f"with itself: {case}")
     return case
+
+
+def _k1_from_f64(torch, kernels, z, args):
+    """(max|z - exact|, max|exact|) for K1's output z on ``args``, the
+    exact solve being the plain version in float64, in slices of 4
+    images."""
+    dhat, xi1, xi2, rho, dinv = args
+    d64, di64 = dhat.to(torch.complex128), dinv.to(torch.float64)
+    err = scale = 0.0
+    for i in range(0, xi2.shape[0], 4):
+        sl = slice(i, i + 4)
+        ref = kernels.solve_z_rank1_reference(
+            d64, xi1[sl].to(torch.complex128), xi2[sl].to(torch.complex128),
+            rho, di64)
+        err = max(err, float((z[sl] - ref).abs().max()))
+        scale = max(scale, float(ref.abs().max()))
+        del ref
+    return err, scale
 
 
 def _card(torch):
@@ -1218,10 +1268,11 @@ def phase_learn(torch, port, seed):
     cfg = _learn_cfg(port, num_blocks=LEARN_BLOCKS, max_it=3, fused_z=True)
     geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
     fz = port["fused_z"].fused_z_iter
+    ds = port["d_solve"].solve
     gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fz.launches_a = fz.launches_b = 0
+    fz.launches_a = fz.launches_b = ds.launches = 0
     t0 = time.perf_counter()
     with _gram_inverses(port) as grams:
         res = port["consensus"].learn(b, geom, cfg, generator=gen,
@@ -1235,6 +1286,12 @@ def phase_learn(torch, port, seed):
     # one d-pass Gram inverse a step (the z-side is W = 1: none)
     herm = grams.check("[7] learner", want=steps)
     want = cfg.max_it_z * steps
+    # one d-solve a d-iteration, for the 8 blocks at once
+    d_launches, want_d = ds.launches, cfg.max_it_d * steps
+    print(f"[7] d-solve launches {d_launches} (want {want_d})")
+    if d_launches != want_d:
+        raise RuntimeError(f"[7] d-solve launches {d_launches}, want "
+                           f"{want_d}")
     print(f"[7] learn n={n} {LEARN_SIDE}x{LEARN_SIDE}, k={LEARN_K} "
           f"{LEARN_SUPPORT}x{LEARN_SUPPORT}, {LEARN_BLOCKS} blocks: {steps} "
           f"steps in {wall:.2f} s (data {data_s:.2f} s); K2 launches "
@@ -1257,7 +1314,8 @@ def phase_learn(torch, port, seed):
         "n": n, "side": LEARN_SIDE, "k": LEARN_K, "support": LEARN_SUPPORT,
         "blocks": LEARN_BLOCKS, "max_it_d": cfg.max_it_d,
         "max_it_z": cfg.max_it_z, "steps": steps, "launches": launches,
-        "herm_inv": herm, "step_s": step_s, "d_pass_ms": tr["d_pass_ms"],
+        "herm_inv": herm, "d_solve_launches": d_launches,
+        "step_s": step_s, "d_pass_ms": tr["d_pass_ms"],
         "z_pass_ms": tr["z_pass_ms"],
         "steps_per_s": steps / tr["tim_vals"][-1],
         "steps_per_s_after_first": (steps - 1) / sum(step_s[1:]),
@@ -1277,6 +1335,71 @@ def phase_learn(torch, port, seed):
           f"memory allocated {out['max_memory_allocated_bytes'] / 2**30:.2f}"
           f" GiB, filter norm max {out['filter_norm_max']:.6f}")
     del res
+    torch.cuda.empty_cache()
+    return out
+
+
+D_SOLVE_VS_PLAIN = 1e-5  # of max|x|: float32 sums in another order
+
+
+def phase_d_solve(torch, port, time_ms, bw, flops, seed):
+    """Phase 7's d-solve kernel alone at the north star's shape: codes of
+    random images, their Gram inverse and Z^H b as the learner builds
+    them, random targets; the kernel held to its plain version and timed
+    beside its bound, the plain version and the einsum body it replaced
+    (the k-major spectra, ``freq_solvers.solve_d_reference``)."""
+    ds, fs, common = port["d_solve"], port["freq_solvers"], port["common"]
+    ns = mesh_check.NORTH_STAR
+    L, ni, K, W = ns["blocks"], ns["ni"], ns["k"], 1
+    geom = port["config"].ProblemGeom((ns["support"],) * 2, K)
+    fg = common.FreqGeom.create(geom, (ns["side"], ns["side"]))
+    F = fg.num_freq
+    gen = torch.Generator(device="cuda").manual_seed(seed + 701)
+    zhat = torch.empty((L, ni, K, F), dtype=torch.complex64, device="cuda")
+    for i in range(L):  # a block at a time: the codes in real space
+        z = torch.randn((ni, K, *fg.spatial_shape), generator=gen,
+                        device="cuda") / 10.0
+        zhat[i] = common.codes_to_freq(z, fg)
+    del z
+    bhat = torch.randn((L, ni, W, F), dtype=torch.complex64, device="cuda",
+                       generator=gen)
+    xi = torch.randn((L, K, W, F), dtype=torch.complex64, device="cuda",
+                     generator=gen)
+    rho = mesh_check.CFG["rho_d"]
+    kern = fs.precompute_d_kernel(zhat, rho, b_hat=bhat)
+    kmajor = fs.DSolveKernel(zhat.movedim(-1, -3), kern.ginv, kern.zb)
+    got = ds.solve(kern.zhat, kern.ginv, kern.zb, xi, rho)
+    plain = ds.plain(kern.zhat, kern.ginv, kern.zb, xi, rho)
+    lib = fs.solve_d_reference(kmajor, None, xi, rho)
+    scale = float(plain.abs().max())
+    err = float((got - plain).abs().max()) / scale
+    lib_err = float((lib - plain).abs().max()) / scale
+    del got, plain, lib
+    kernel_ms = time_ms(lambda: ds.solve(kern.zhat, kern.ginv, kern.zb, xi,
+                                         rho))
+    plain_ms = time_ms(lambda: ds.plain(kern.zhat, kern.ginv, kern.zb, xi,
+                                        rho), reps=10)
+    library_ms = time_ms(lambda: fs.solve_d_reference(kmajor, None, xi, rho),
+                         reps=10)
+    # a block-frequency: Z (ni K) and one triangle of its Hermitian
+    # inverse read once, zb and xi read and x written (K W each);
+    # 8 W (2 ni K + ni^2) flops
+    nbytes = 8 * L * F * (ni * K + ni * (ni + 1) // 2 + 3 * K * W)
+    ops = 8 * W * L * F * (2 * ni * K + ni * ni)
+    bound = _bound(ops, nbytes, ops, bw, flops)
+    out = dict(shape=[L, F, ni, K], W=W, rho=rho, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               max_rel_err_vs_plain=err, library_rel_err_vs_plain=lib_err,
+               **bound)
+    print(f"[7b] d-solve [{L}, {F}, {ni}, {K}] W={W}: kernel "
+          f"{kernel_ms:.3f} ms (bound {bound['bound_ms']:.3f} ms by "
+          f"{bound['bound_by']}), plain {plain_ms:.3f} ms, einsum body "
+          f"{library_ms:.3f} ms; max|x - plain| / max|plain| {err:.2e} "
+          f"(einsum body {lib_err:.2e})")
+    if not err <= D_SOLVE_VS_PLAIN:
+        raise RuntimeError(f"[7b] d-solve {err:.3e} from its plain version, "
+                           f"past {D_SOLVE_VS_PLAIN}")
+    del zhat, bhat, xi, kern, kmajor
     torch.cuda.empty_cache()
     return out
 
@@ -1915,7 +2038,10 @@ def _k1_at_3d_learner(torch, port, time_ms, bw, flops, res, b, geom, cfg,
     """K1 at the 3D learner's z-solve shape (N = the clips of ``b``,
     K = 49, F = 60*60*31), on the learned filters' spectra and the clips'
     data spectra, random code targets, dinv = 1/rho_z: phase 3's checks,
-    and with ``f64`` the float64 comparison."""
+    K1 held to the plain version in float64 (the rank-1 correction
+    cancels ~50x of g here, so float32's own error reaches ~1e-5 of
+    max|z|), and with ``f64`` the float64 comparison of K1 and the
+    float32 plain version over K1_F64_DRAWS draws."""
     cm, fourier = port["common"], port["fourier"]
     dev = torch.device("cuda", 0)
     bt = torch.from_numpy(b).to(dev)
@@ -1931,7 +2057,7 @@ def _k1_at_3d_learner(torch, port, time_ms, bw, flops, res, b, geom, cfg,
     dinv = torch.full((k, f), 1.0 / cfg.rho_z, device=dev)
     case = _k1_case(torch, port["kernels"], time_ms, bw, flops, _card(torch),
                     (dhat, xi1, xi2, float(cfg.rho_z), dinv),
-                    {"path": path})
+                    {"path": path}, exact=True)
     del xi2
     torch.cuda.empty_cache()
     if f64:
@@ -2106,6 +2232,8 @@ def _learn_2d_masked(torch, port, seed, tmp):
             "--seed", str(seed), "--device", "cuda",
             "--out", os.path.join(tmp, "masked.mat")] + STEPS_ARGV
     _zero_counts(torch, port)
+    ds = port["d_solve"].solve
+    ds.launches = 0
     t0 = time.perf_counter()
     with _gram_inverses(port) as grams:
         res = port["learn_2d"].main(argv)
@@ -2113,6 +2241,9 @@ def _learn_2d_masked(torch, port, seed, tmp):
     wall = time.perf_counter() - t0
     launches = _counts(port)
     herm = grams.check("[12] 2D masked learner")
+    if ds.launches:  # its target is not hoisted: the einsum body
+        raise RuntimeError(f"2D masked learner: {ds.launches} d-solve "
+                           "launches, want none")
     geom = port["config"].ProblemGeom((LEARN_SUPPORT,) * 2, LEARN_K)
     rec = _learner_record(torch, "2D masked", res, geom, True, wall, 0.0,
                           launches)
@@ -2651,7 +2782,8 @@ def _mesh_learn_rank(rank, data, seed):
     import torch
 
     from ccsc_code_iccv2017_torch.models import learn_masked as lm
-    from ccsc_code_iccv2017_torch.ops import freq_solvers, herm_inv, kernels
+    from ccsc_code_iccv2017_torch.ops import d_solve, freq_solvers, herm_inv
+    from ccsc_code_iccv2017_torch.ops import kernels
     from ccsc_code_iccv2017_torch.parallel import consensus
     from ccsc_code_iccv2017_torch.parallel import mesh as mesh_lib
 
@@ -2663,7 +2795,7 @@ def _mesh_learn_rank(rank, data, seed):
         ("block2_filter2", mesh_lib.block_filter_mesh(2, 2, devices=devs)),
         ("masked_freq4", mesh_lib.freq_mesh(MESH_RANKS, devices=devs)),
     ):
-        kernels.solve_z_rank1.launches = 0
+        kernels.solve_z_rank1.launches = d_solve.solve.launches = 0
         gen = torch.Generator(device=mesh.device).manual_seed(seed)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2679,6 +2811,7 @@ def _mesh_learn_rank(rank, data, seed):
             torch.cuda.synchronize()
         out[tag] = dict(d=res.d.cpu(), trace=res.trace,
                         launches=kernels.solve_z_rank1.launches,
+                        d_solve_launches=d_solve.solve.launches,
                         herm_inv=grams.record(),
                         wall_s=time.perf_counter() - t0,
                         peak_bytes=torch.cuda.max_memory_allocated())
@@ -2833,13 +2966,18 @@ def _mesh_learners(torch, port, seed):
     out = {}
     want_k1 = {"block2_freq2": cfg.max_it_z * MESH_STEPS,
                "block2_filter2": 0, "masked_freq4": 0}
+    # the d-solve kernel on the 'freq' mesh; the 'filter' mesh and the
+    # masked learner keep the einsum body
+    want_ds = {"block2_freq2": cfg.max_it_d * MESH_STEPS,
+               "block2_filter2": 0, "masked_freq4": 0}
     for tag in ("block2_freq2", "block2_filter2", "masked_freq4"):
         got = [o[tag] for o in outs]
         r = ref if not tag.startswith("masked") else mref
         out[tag] = _mesh_compare(f"(c) {tag}", got[0]["d"], got[0]["trace"],
                                  r.d.cpu(), r.trace)
         launches = [g["launches"] for g in got]
-        out[tag].update(k1_launches=launches,
+        ds_launches = [g["d_solve_launches"] for g in got]
+        out[tag].update(k1_launches=launches, d_solve_launches=ds_launches,
                         herm_inv=[_check_gram_inverses(
                             f"[15] (c) {tag} rank {i}", g["herm_inv"])
                             for i, g in enumerate(got)],
@@ -2850,6 +2988,9 @@ def _mesh_learners(torch, port, seed):
         if launches != [want_k1[tag]] * MESH_RANKS:
             raise RuntimeError(f"(c) {tag}: K1 launches {launches}, want "
                                f"{want_k1[tag]} on each rank")
+        if ds_launches != [want_ds[tag]] * MESH_RANKS:
+            raise RuntimeError(f"(c) {tag}: d-solve launches {ds_launches}, "
+                               f"want {want_ds[tag]} on each rank")
         if any(not torch.equal(g["d"], got[0]["d"]) for g in got):
             raise RuntimeError(f"(c) {tag}: the ranks' filters differ")
     out["one_device"] = {"k1_launches": ref_launches,
@@ -2858,7 +2999,8 @@ def _mesh_learners(torch, port, seed):
                          "consensus_shape": list(b2d.shape),
                          "masked_shape": list(bhs.shape)}
     print(f"[15] (c) K1 launches per rank: "
-          f"{ {t: out[t]['k1_launches'] for t in want_k1} }")
+          f"{ {t: out[t]['k1_launches'] for t in want_k1} }, d-solve "
+          f"{ {t: out[t]['d_solve_launches'] for t in want_ds} }")
     return out
 
 
@@ -3501,8 +3643,8 @@ def _tel_reconstruct(torch, port, seed, tmp):
 
 def _tel_cli(port, tmp):
     """(d) learn_3d in a fresh process with --metrics-dir: its stream
-    validates, and its two compile records load the Gram inverse's kernel
-    and K1 (both built in phase 2)."""
+    validates, and its three compile records load the Gram inverse's
+    kernel, the d-solve kernel and K1 (all built in phase 2)."""
     import subprocess
 
     mdir = os.path.join(tmp, "d")
@@ -3522,8 +3664,10 @@ def _tel_cli(port, tmp):
     algo = [m["algorithm"] for m in by.get("run_meta", [])]
     print(f"[17] (d) learn_3d --metrics-dir in a fresh process: {wall:.1f} s,"
           f" runs {algo}, compile records {comp}")
-    # the d-pass's Gram inverse (its kernel) and K1, both built in phase 2
-    if sorted(comp) != [("load", "herm_inv"), ("load", "solve_z_rank1")] \
+    # the d-pass's Gram inverse and d-solve kernels and K1, all built in
+    # phase 2
+    if sorted(comp) != [("load", "d_solve"), ("load", "herm_inv"),
+                        ("load", "solve_z_rank1")] \
             or algo != ["consensus"] or [
             x["status"] for x in by.get("summary", [])] != ["ok"]:
         raise RuntimeError(f"(d) compile records {comp}, runs {algo}")
@@ -6507,7 +6651,7 @@ def main(argv=None) -> int:
         for name, mod in (
             ("config", "config"), ("kernels", "ops.kernels"),
             ("fused_z", "ops.fused_z"), ("freq_solvers", "ops.freq_solvers"),
-            ("herm_inv", "ops.herm_inv"),
+            ("herm_inv", "ops.herm_inv"), ("d_solve", "ops.d_solve"),
             ("reconstruct", "models.reconstruct"),
             ("learn", "models.learn"), ("common", "models.common"),
             ("consensus", "parallel.consensus"),
@@ -6564,6 +6708,8 @@ def main(argv=None) -> int:
     k2 = phase_k2_vs_plain(torch, port, bw, flops, args.seed)
     lap("6")
     learn = phase_learn(torch, port, args.seed)
+    learn["d_solve"] = phase_d_solve(torch, port, time_ms, bw, flops,
+                                     args.seed)
     fused_vs_comp = phase_fused_vs_composition(torch, port, args.seed)
     learn_agree = phase_learn_card_vs_cpu(torch, port, args.seed)
     lap("7-9")
@@ -6721,6 +6867,21 @@ def main(argv=None) -> int:
         max_dev_vs_f64=max(c["dev_vs_f64"]
                            for c in knobs["herm_inv"].values())))
     kernels_line["kernels"][-1]["library_ms"] = hinv["library_ms"]
+    dsk = learn["d_solve"]
+    ds_paths = {
+        "learn": learn["d_solve_launches"],
+        "mesh_learn_block4": sum(r["d_solve_launches"] for r in ns_ranks),
+        "mesh_learn_freq": sum(
+            mesh_learn["block2_freq2"]["d_solve_launches"]),
+    }
+    kernels_line["kernels"].append(_kernel_entry(
+        "d_solve", "d_solve.cu",
+        "none: the JAX package leaves the d-iteration's Woodbury solve to "
+        "XLA einsums (ccsc_code_iccv2017_tpu/ops/freq_solvers.py::solve_d)",
+        sum(ds_paths.values()), dsk["kernel_ms"], dsk["plain_ms"], dsk,
+        build["d_solve"]["seconds"], launches_by_path=ds_paths,
+        shape=dsk["shape"], max_rel_err_vs_plain=dsk["max_rel_err_vs_plain"]))
+    kernels_line["kernels"][-1]["library_ms"] = dsk["library_ms"]
     kernels_line["kernels"][1]["cases"] = k2_err["cases"]
     kernels_line["kernels"][1]["whole_plane_vs_f64"] = k2["whole_plane"]
     print(json.dumps({"slice": dict(served, card_vs_cpu=agree)}))

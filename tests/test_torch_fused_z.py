@@ -217,7 +217,7 @@ def test_kernel_source_names_what_it_replaces():
     # no float atomics: the k-sum is a fixed-order loop
     assert "atomicAdd" not in src
     assert set(kernels.sources()) == {"solve_z_rank1", "fused_z",
-                                      "herm_inv"}
+                                      "herm_inv", "d_solve"}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
