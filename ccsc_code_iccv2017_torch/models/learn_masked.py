@@ -31,18 +31,15 @@ has no cost model of the masked objective.
 from __future__ import annotations
 
 import math
-import time
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import LearnConfig, ProblemGeom
 from ..ops import fourier, freq_solvers, proxes
-from ..parallel import mesh as mesh_lib
+from ..parallel import driver, mesh as mesh_lib
 from ..utils import checkpoint as ckpt
-from ..utils import faults, watchdog
-from ..utils import obs, resilience, validate
-from ..utils.resilience import console
+from ..utils import obs, resilience, validate, watchdog
 from ..utils.device import PhaseTimer, resolve_device
 from . import common
 from .learn import LearnResult, OuterMetrics, extract_filters
@@ -508,68 +505,27 @@ def _learn_masked_impl(
     z_shape = (n, geom.num_filters, *fg.spatial_shape)
     expect = dict(d_full=d_shape, dual_d1=x_shape, dual_d2=d_shape,
                   z=z_shape, dual_z1=x_shape, dual_z2=z_shape)
-    got = {f: tuple(getattr(state, f).shape) for f in state._fields}
-    if got != expect:
-        raise ValueError(f"state shapes {got} do not match problem {expect}")
-
-    trace = {
-        "algorithm": "masked_admm",
-        "obj_vals_d": [],
-        "obj_vals_z": [],
-        "tim_vals": [0.0],
-        "d_diff": [],
-        "z_diff": [],
-    }
+    driver.check_shapes("state", state._asdict(), expect)
     fingerprint = resilience.config_fingerprint(geom, cfg, "masked_admm")
-    start_it = 0
-    if checkpoint_dir is not None:
-        snap = ckpt.load(checkpoint_dir, expect_fingerprint=fingerprint)
-        if snap is not None:
-            fields, resumed_trace, start_it = snap
-            got = {k: tuple(v.shape) for k, v in fields.items()}
-            if expect != got:
-                raise ValueError(
-                    f"checkpoint shapes {got} do not match problem {expect}"
-                )
-            state = MaskedLearnState(
-                **{k: v.to(dev) for k, v in fields.items()}
-            )
-            if resumed_trace is not None:
-                trace = resumed_trace
-                trace.setdefault("algorithm", "masked_admm")
-            console(cfg, f"resumed from {checkpoint_dir} at iteration "
-                          f"{start_it}", always=True)
+    fields, trace, start_it = driver.resume(cfg, checkpoint_dir, fingerprint,
+                                            expect)
+    if fields is not None:
+        state = MaskedLearnState(**{k: v.to(dev) for k, v in fields.items()})
+    # rho-backoff recovery: the gamma divisors are this learner's rho
+    trace, recov = driver.start_trace(cfg, trace, "masked_admm")
 
     # untracked iterations persist 0.0 placeholders; real objectives are
     # strictly positive, so a resumed best ignores the placeholders
     seen = [v for v in trace["obj_vals_d"] + trace["obj_vals_z"] if v > 0.0]
     obj_best = min(seen) if seen else math.inf
-    t_total = trace["tim_vals"][-1]
-    # rho-backoff recovery: the gamma divisors are this learner's rho
-    recov = resilience.RecoveryManager(cfg, trace)
-    state, t_total, it_done, saved_it = _run_outer(
-        state, b_pad, M_pad, smoothinit, geom, cfg, fg, gamma_div_d,
-        gamma_div_z, mesh, dev, recov, trace, run, wd, checkpoint_dir,
-        checkpoint_every, fingerprint, start_it, t_total, obj_best)
-    return _finish(state, trace, run, geom, fg, smoothinit, radius, data_sp,
-                   checkpoint_dir, fingerprint, mesh, it_done, saved_it,
-                   t_total)
-
-
-def _run_outer(state, b_pad, M_pad, smoothinit, geom, cfg, fg, gamma_div_d,
-               gamma_div_z, mesh, dev, recov, trace, run, wd, checkpoint_dir,
-               checkpoint_every, fingerprint, start_it, t_total, obj_best):
-    """The outer loop (JAX models/learn_masked.py:750-900). Each pass
-    runs one step (:func:`outer_step`), adopted or rolled back on the
-    host after its read, or with ``cfg.chunked_driver`` a chunk of
-    :func:`chunk_scan`, which carries the three stopping rules on the
-    device; then ONE host read (on a mesh rank 0's records and any
-    rank's shutdown request), and the walk of the consensus driver's
-    loop. Returns (state, t_total, it_done, saved_it)."""
+    # the pass (JAX models/learn_masked.py:750-900): one step
+    # (:func:`outer_step`), adopted or rolled back on the host after the
+    # pass's read, or with ``cfg.chunked_driver`` a chunk of
+    # :func:`chunk_scan`, which carries the three stopping rules on the
+    # device
     chunked = cfg.chunked_driver
     timer = None if chunked else PhaseTimer(dev)
-    it_done = start_it
-    saved_it = None  # last iteration committed to the checkpoint dir
+    new = None
     # the rollback carry needs its own storage when both are written in
     # place: one state copy up front, as JAX's
     prev = (MaskedLearnState(*(t.clone() for t in state))
@@ -577,170 +533,73 @@ def _run_outer(state, b_pad, M_pad, smoothinit, geom, cfg, fg, gamma_div_d,
     # the best objective: on the device for a chunk, on the host for a step
     best = torch.tensor(obj_best, dtype=torch.float32, device=dev) \
         if chunked else obj_best
-    with resilience.GracefulShutdown() as gs:
-        i = start_it
-        stop = False
-        fresh_step = True  # the first fence builds the kernels
-        while i < cfg.max_it and not stop:
-            clen = min(cfg.outer_chunk, cfg.max_it - i) if chunked else 1
-            na = faults.nan_iteration()
-            poisoned = na is not None and i + 1 <= na <= i + clen
-            t0 = time.perf_counter()
-            if wd is not None:
-                wd.arm(clen, f"masked_outer_{i}_{i + clen}" if chunked
-                       else f"masked_outer_{i}",
-                       may_compile=fresh_step or poisoned)
-            gd, gz = gamma_div_d * recov.scale, gamma_div_z * recov.scale
-            if chunked:
-                state, prev, best, ys = chunk_scan(
-                    state, prev, best, b_pad, M_pad, smoothinit, geom, cfg,
-                    fg, gd, gz, clen, mesh=mesh,
-                    poison_at=na - (i + 1) if poisoned else None,
-                    donate=cfg.donate_state,
-                )
-            else:
-                new_state, m = outer_step(
-                    state, b_pad, M_pad, smoothinit, geom, cfg, fg, gd, gz,
-                    on_phase=timer, mesh=mesh,
-                    poison=(torch.ones((), dtype=torch.bool, device=dev)
-                            if poisoned else None),
-                )
-                ys = (m.obj_d, m.obj_z, m.d_diff, m.z_diff)
-            if poisoned:
-                faults.consume_nan()
-            # the one host read of the pass (also its fence); on a mesh
-            # rank 0's records and any rank's shutdown request
-            flat, stop_req = mesh_lib.agree(
-                torch.cat([y.to(torch.float32).reshape(-1) for y in ys]),
-                gs.requested, mesh,
+
+    def launch(i, clen, poison_at):
+        nonlocal state, prev, best, new
+        gd, gz = gamma_div_d * recov.scale, gamma_div_z * recov.scale
+        if chunked:
+            state, prev, best, ys = chunk_scan(
+                state, prev, best, b_pad, M_pad, smoothinit, geom, cfg, fg,
+                gd, gz, clen, mesh=mesh, poison_at=poison_at,
+                donate=cfg.donate_state,
             )
-            # injected hang fires INSIDE the armed fence (utils.faults)
-            faults.hang_tick(i + clen)
-            if wd is not None:
-                wd.disarm()
-            fresh_step = False
-            cols = [flat[r * clen:(r + 1) * clen] for r in range(len(ys))]
-            obj_d, obj_z, d_diff, z_diff = cols[:4]
-            if chunked:
-                active, adopted, rolled = cols[4:]
-            else:
-                # non-finite guard: NaN metrics would sail through the
-                # regression test and poison the adopted state; the
-                # rollback (admm_learn.m:204-213) is armed only when the
-                # objective is tracked (untracked steps return 0.0)
-                finite = all(math.isfinite(c[0]) for c in cols)
-                regressed = (cfg.with_objective and best <= obj_d[0]
-                             and best <= obj_z[0])
-                active = [True]
-                adopted = [finite and not regressed]
-                rolled = [finite and regressed]
-                if adopted[0]:
-                    prev, state = state, new_state
-                    best = min(best, obj_d[0], obj_z[0])
-                elif rolled[0]:
-                    state = prev
-                del new_state
-            dt = time.perf_counter() - t0
-            n_adopted = 0
-            for j in range(clen):
-                if not active[j]:
-                    break
-                if rolled[j]:
-                    console(cfg, f"Iter {i + j + 1}: objective regressed, "
-                                 "rolling back")
-                    trace["rolled_back_at"] = i + j + 1
-                    stop = True
-                    break
-                if not adopted[j]:
-                    console(
-                        cfg,
-                        f"Iter {i + j + 1}: non-finite metrics "
-                        f"(obj_d={obj_d[j]}, obj_z={obj_z[j]}, "
-                        f"d_diff={d_diff[j]}, z_diff={z_diff[j]}); "
-                        "keeping last good state",
-                        always=True,
-                    )
-                    ev = recov.on_divergence(i + j + 1)
-                    if ev is None:
-                        stop = True
-                    else:
-                        trace.setdefault("recoveries", []).append(ev)
-                        run.event("recovery", **ev)
-                        fresh_step = True  # as JAX's gamma rebuild
-                    break
-                n_adopted += 1
-                t_total += dt / clen
-                trace["obj_vals_d"].append(obj_d[j])
-                trace["obj_vals_z"].append(obj_z[j])
-                trace["tim_vals"].append(t_total)
-                trace["d_diff"].append(d_diff[j])
-                trace["z_diff"].append(z_diff[j])
-                phases = timer.read() if timer is not None else None
-                if phases is not None:
-                    trace.setdefault("d_pass_ms", []).append(phases[0])
-                    trace.setdefault("z_pass_ms", []).append(phases[1])
-                run.step(
-                    it=i + j + 1, obj_d=obj_d[j], obj_z=obj_z[j],
-                    d_diff=d_diff[j], z_diff=z_diff[j],
-                    t_total=round(t_total, 4),
-                )
-                console(
-                    cfg,
-                    f"Iter {i + j + 1}, Obj_d {obj_d[j]:.5g}, Obj_z "
-                    f"{obj_z[j]:.5g}, Diff_d {d_diff[j]:.3g}, Diff_z "
-                    f"{z_diff[j]:.3g}",
-                )
-                if d_diff[j] < cfg.tol and z_diff[j] < cfg.tol:
-                    stop = True
-                    break
-            it_end = i + n_adopted
-            it_done = it_end
-            if n_adopted:
-                run.chunk(i, clen, n_adopted, dt)
-                run.heartbeat(it_end, dt)
-                faults.sigterm_tick(it_end)
-            # one device: the SIGTERM fault's request counts now, as in
-            # JAX; on a mesh the next pass's agreed read carries it
-            preempting = ((stop_req or (mesh is None and gs.requested))
-                          and not stop and it_end < cfg.max_it)
-            if preempting:
-                trace.setdefault("preemptions", []).append(it_end)
-                run.event("preemption", iteration=it_end, signum=gs.signum)
-            crossed = (n_adopted and it_end // checkpoint_every
-                       > i // checkpoint_every)
-            if checkpoint_dir is not None and (
-                (crossed and saved_it != it_end) or preempting
-            ):
-                _save(checkpoint_dir, state, trace, it_end, fingerprint,
-                      mesh)
-                saved_it = it_end
-            if preempting:
-                console(cfg, f"preempted: checkpointed iteration {it_end}, "
-                             "exiting cleanly", always=True)
-                stop = True
-            i = it_end
-    return state, t_total, it_done, saved_it
+        else:
+            new, m = outer_step(
+                state, b_pad, M_pad, smoothinit, geom, cfg, fg, gd, gz,
+                on_phase=timer, mesh=mesh, poison=None if poison_at is None
+                else torch.ones((), dtype=torch.bool, device=dev),
+            )
+            ys = (m.obj_d, m.obj_z, m.d_diff, m.z_diff)
+        return torch.cat([y.to(torch.float32).reshape(-1) for y in ys])
 
+    def adopt(cols):
+        nonlocal state, prev, best, new
+        if chunked:
+            return cols[:4], *cols[4:]  # active, adopted, rolled
+        # non-finite guard: NaN metrics would sail through the regression
+        # test and poison the adopted state; the rollback
+        # (admm_learn.m:204-213) is armed only when the objective is
+        # tracked (untracked steps return 0.0)
+        finite = all(math.isfinite(c[0]) for c in cols)
+        regressed = (cfg.with_objective and best <= cols[0][0]
+                     and best <= cols[1][0])
+        if finite and not regressed:
+            prev, state = state, new
+            best = min(best, cols[0][0], cols[1][0])
+        elif finite:
+            state = prev
+        new = None
+        return cols, [True], [finite and not regressed], [finite and regressed]
 
-def _finish(state, trace, run, geom, fg, smoothinit, radius, data_sp,
-            checkpoint_dir, fingerprint, mesh, it_done, saved_it, t_total):
-    """The final checkpoint and the outputs of a masked run."""
-    if checkpoint_dir is not None and saved_it != it_done:
-        _save(checkpoint_dir, state, trace, it_done, fingerprint, mesh)
+    def series(extras):
+        phases = timer.read() if timer is not None else None
+        if phases is None:
+            return (), {}
+        return (("d_pass_ms", phases[0]), ("z_pass_ms", phases[1])), {}
+
+    def save(it):
+        # the (replicated) state: written by rank 0 of a mesh, every rank
+        # waiting for it
+        if mesh is None or mesh.rank == 0:
+            ckpt.save(checkpoint_dir, state, trace, it,
+                      fingerprint=fingerprint)
+        mesh_lib.barrier(mesh)
+
+    it_done = driver.Driver(
+        cfg, run, trace, recov, save, checkpoint_dir, checkpoint_every,
+    ).passes(
+        launch, adopt, series, start_it, tag="masked_outer",
+        line="Iter {it}, Obj_d {obj_d:.5g}, Obj_z {obj_z:.5g}, Diff_d "
+             "{d_diff:.3g}, Diff_z {z_diff:.3g}", mesh=mesh, wd=wd)
+
+    # the outputs
     dhat = common.full_filters_to_freq(state.d_full, fg)
     d_proj = proxes.kernel_constraint_proj(state.d_full, geom.spatial_support,
                                            fg.spatial_shape)
     zhat = common.codes_to_freq(_f32(state.z), fg)
     Dz = common.recon_from_freq(dhat, zhat, fg) + smoothinit
     Dz = fourier.crop_spatial(Dz, radius, data_sp)
-    run.close(status="ok", iterations=it_done, wall_s=round(t_total, 4))
+    run.close(status="ok", iterations=it_done,
+              wall_s=round(trace["tim_vals"][-1], 4))
     return LearnResult(extract_filters(d_proj, geom), state.z[None], Dz,
                        trace)
-
-
-def _save(checkpoint_dir, state, trace, it, fingerprint, mesh) -> None:
-    """One checkpoint of the (replicated) state: written by rank 0 of a
-    mesh, every rank waiting for it."""
-    if mesh is None or mesh.rank == 0:
-        ckpt.save(checkpoint_dir, state, trace, it, fingerprint=fingerprint)
-    mesh_lib.barrier(mesh)

@@ -2,26 +2,14 @@
 port of the per-step branch of
 ``ccsc_code_iccv2017_tpu.parallel.consensus.learn``).
 
-The per-step math lives in models.learn.outer_step; this module is the
-Python outer loop around it with the reference's trace protocol
-(obj_vals_d / obj_vals_z / tim_vals / d_diff / z_diff,
-dParallel.m:62-71), its rel-change stop (:186-188), the non-finite guard
-that keeps the last good state, rho-backoff recovery, graceful
-preemption and checkpoint cadence/resume. Each outer step reads its four
-metric scalars back in one host sync, as the JAX driver does; with
-``cfg.outer_chunk > 1`` (or ``cfg.donate_state``) the chunked driver
-runs chunks of steps (models.learn.outer_chunk_scan) and reads a chunk's
-stacked trace in one host sync, keeping the per-step contract (the
-non-finite guard, the tol stop, recovery, preemption, checkpoints,
-telemetry records) at chunk granularity.
-
-The robustness hooks are the JAX driver's: with ``cfg.watchdog`` a
-utils.watchdog.DispatchWatchdog is armed around each step's one host
-read (its deadline the perfmodel roofline bound of the step times
-``cfg.watchdog_slack``; on a mesh every rank arms its own), and the
-chaos faults of utils.faults fire at the same points (the NaN poison
-inside the step, the hang inside the armed fence, SIGTERM at the
-boundary). With every hook off they add no launch and no host read.
+The per-step math lives in models.learn.outer_step, a chunk of steps in
+models.learn.outer_chunk_scan (``cfg.outer_chunk > 1`` or
+``cfg.donate_state``: one host read a chunk, the per-step contract kept
+at chunk granularity). This module places the data and the state and
+hands its pass, its adopt rule and its per-step records to the run
+driver (parallel.driver), which keeps the reference's trace protocol,
+the non-finite guard and its rho backoff, preemption, checkpoints, the
+watchdog and the chaos faults around the pass's one host read.
 
 With ``cfg.metrics_dir`` the run writes its telemetry stream (utils.obs):
 run metadata, one ``step`` record per adopted step with the ObsExtras
@@ -51,10 +39,10 @@ import torch
 from ..config import LearnConfig, ProblemGeom
 from ..models import common, learn as learn_mod
 from ..ops import fourier
-from . import mesh as mesh_lib
+from . import driver, mesh as mesh_lib
 from .distributed import GlobalBlockArray
 from ..utils import checkpoint as ckpt
-from ..utils import faults, obs, perfmodel, profiling, resilience, validate
+from ..utils import obs, perfmodel, profiling, resilience, validate
 from ..utils import watchdog
 from ..utils.resilience import console
 from ..utils.device import PhaseTimer, resolve_device
@@ -258,268 +246,108 @@ def _learn_impl(
             ).contiguous(),
             dbar=d_full,
         )
-    start_it = 0
-    resumed_trace = None
     fingerprint = resilience.config_fingerprint(geom, cfg, "consensus")
-    if checkpoint_dir is not None:
-        snap = ckpt.load(checkpoint_dir, expect_fingerprint=fingerprint)
-        if snap is not None:
-            fields, resumed_trace, start_it = snap
-            got = {k: tuple(v.shape) for k, v in fields.items()}
-            if expect != got:
-                raise ValueError(
-                    f"checkpoint shapes {got} do not match problem {expect}"
-                )
-            state = learn_mod.LearnState(
-                **{k: v.to(dev) for k, v in fields.items()}
-            )
-            local = False
-            console(cfg, f"resumed from {checkpoint_dir} at iteration "
-                          f"{start_it}", always=True)
+    fields, trace, start_it = driver.resume(cfg, checkpoint_dir, fingerprint,
+                                            expect)
+    if fields is not None:
+        state = learn_mod.LearnState(
+            **{k: v.to(dev) for k, v in fields.items()})
+        local = False
     if not local:
-        got = _shapes(state)
-        if got != expect:
-            raise ValueError(f"state shapes {got} do not match problem "
-                             f"{expect}" + (
-                                 "" if mesh is None else " (or this rank's "
-                                 f"shard {_local_shapes(expect, mesh)})"))
+        driver.check_shapes(
+            "state", state._asdict(), expect, "" if mesh is None
+            else f" (or this rank's shard {_local_shapes(expect, mesh)})")
         if mesh is not None:
             state = _shard_state(state, mesh)
-
-    if resumed_trace is not None:
-        trace = resumed_trace
-        trace.setdefault("algorithm", "consensus")
-    else:
-        obj0 = (
-            float(learn_mod.eval_block(
-                state, b_blocks, geom, cfg, fg, with_outputs=False,
-                mesh=mesh,
-            )[0])
-            if cfg.with_objective
-            else 0.0
-        )
-        trace = {
-            "algorithm": "consensus",
-            "obj_vals_d": [obj0],
-            "obj_vals_z": [obj0],
-            "tim_vals": [0.0],
-            "d_diff": [0.0],
-            "z_diff": [0.0],
-        }
+    trace, recov = driver.start_trace(
+        cfg, trace, "consensus", lambda: float(learn_mod.eval_block(
+            state, b_blocks, geom, cfg, fg, with_outputs=False, mesh=mesh,
+        )[0]) if cfg.with_objective else 0.0)
     note = learn_mod.fused_z_note(cfg, fg, mesh, dev)
     if note is not None:
         console(cfg, note)
-    recov = resilience.RecoveryManager(cfg, trace)
-    t_total = trace["tim_vals"][-1]
     timers.add("setup", time.perf_counter() - t_setup0)
 
-    state, t_total, it_done, saved_it = _run_outer(
-        state, b_blocks, geom, cfg, fg, N, mesh, dev, recov, trace, run,
-        timers, wd, profile_dir, figures_dir, checkpoint_dir,
-        checkpoint_every, fingerprint, start_it, t_total, step_cost,
-    )
+    # the pass (JAX parallel/consensus.py:560-740): one step
+    # (learn_mod.outer_step) or, with cfg.chunked_driver, a chunk of
+    # cfg.outer_chunk steps (learn_mod.outer_chunk_scan, which carries
+    # the non-finite rollback and the tol stop on the device; with
+    # cfg.donate_state it consumes the state and the state is rebound to
+    # its output); a step is adopted on the host after the pass's read
+    chunked = cfg.chunked_driver
+    timer = None if chunked else PhaseTimer(dev)
+    new = None
 
-    if checkpoint_dir is not None and saved_it != it_done:
-        with timers.section("checkpoint"):
-            _save(checkpoint_dir, state, trace, it_done, fingerprint, mesh)
+    def launch(i, clen, poison_at):
+        nonlocal new
+        if chunked:
+            new, tr = learn_mod.outer_chunk_scan(
+                state, b_blocks, geom, recov.cfg, fg, N, clen, mesh=mesh,
+                poison_at=poison_at, donate=cfg.donate_state,
+            )
+            m, flags = tr.metrics, [tr.active, tr.adopted]
+        else:
+            new, m = learn_mod.outer_step(
+                state, b_blocks, geom, recov.cfg, fg, N, on_phase=timer,
+                mesh=mesh, poison=None if poison_at is None
+                else torch.ones((), dtype=torch.bool, device=dev),
+            )
+            flags = []
+        rows = [m.obj_d, m.obj_z, m.d_diff, m.z_diff, *(m.extras or ())]
+        packed = torch.cat([torch.stack(rows).reshape(-1),
+                            *(f.to(torch.float32) for f in flags)])
+        if timer is not None:
+            timer("step_end")
+        return packed
+
+    def adopt(cols):
+        nonlocal state, new
+        if chunked:
+            state, new = new, None
+            return cols[:-2], cols[-2], cols[-1], [False] * len(cols[0])
+        # a non-finite metric means the iterate diverged: keep the last
+        # good state (or back off rho and retry from it)
+        ok = all(math.isfinite(c[0]) for c in cols[:4])
+        if ok:
+            state = new
+        new = None
+        return cols, [True], [ok], [False]
+
+    def series(extras):
+        # a step's d-pass and z-pass device times read by its PhaseTimer
+        phases = timer.read() if timer is not None else None
+        out = ()
+        if phases is not None:
+            d_ms, z_ms, gram_ms, step_ms, inv_ms = phases
+            out = (("d_pass_ms", d_ms), ("z_pass_ms", z_ms),
+                   ("gram_ms", gram_ms), ("gram_inv_ms", inv_ms),
+                   ("step_rest_ms", step_ms - d_ms - z_ms))
+        return out, _extras_fields(extras)
+
+    def figures(it):
+        # one panel a pass
+        _write_figures(figures_dir or "ccsc_figures", it, state, b_blocks,
+                       geom, cfg, fg, mesh)
+
+    drv = driver.Driver(
+        cfg, run, trace, recov,
+        lambda it: _save(checkpoint_dir, state, trace, it, fingerprint, mesh),
+        checkpoint_dir, checkpoint_every, timers=timers, step_cost=step_cost)
+    it_done = drv.passes(
+        launch, adopt, series, start_it, tag="ccsc_outer",
+        line="Iter {it}, Obj_d {obj_d:.4g}, Obj_z {obj_z:.4g}, Diff_d "
+             "{d_diff:.3g}, Diff_z {z_diff:.3g}, t {t_total:.2f}s",
+        mesh=mesh, wd=wd, spans=True, collectives=True,
+        after=figures if cfg.verbose == "all" else None,
+        context=profiling.xla_trace(profile_dir, dev))
     with timers.section("final_eval"):
         _, d_sup, Dz = learn_mod.eval_block(state, b_blocks, geom, cfg, fg,
                                             mesh=mesh)
         Dz = Dz.reshape(-1, *Dz.shape[2:])
     run.drain_timers(timers)
-    run.close(status="ok", iterations=it_done, wall_s=round(t_total, 4))
+    run.close(status="ok", iterations=it_done,
+              wall_s=round(trace["tim_vals"][-1], 4))
     return learn_mod.LearnResult(d_sup, state.z, Dz, trace)
-
-
-def _run_outer(state, b_blocks, geom, cfg, fg, N, mesh, dev, recov, trace,
-               run, timers, wd, profile_dir, figures_dir, checkpoint_dir,
-               checkpoint_every, fingerprint, start_it, t_total, step_cost):
-    """The outer loop (JAX parallel/consensus.py:560-740). Each pass runs
-    one step (``learn_mod.outer_step``) or, with ``cfg.chunked_driver``,
-    a chunk of ``cfg.outer_chunk`` steps (``learn_mod.outer_chunk_scan``,
-    which carries the non-finite rollback and the tol stop on the
-    device), then makes ONE host read (on a mesh one ``agree``, so every
-    rank decides alike). A step is adopted on the host after its read; a
-    chunk returns its adopted state. Trace entries stay per step (a
-    chunk's wall time split evenly over its adopted steps, a step's
-    d-pass and z-pass device times read by its PhaseTimer, on a mesh
-    its collectives' bytes and device time); the watchdog, telemetry
-    records, figures, checkpoints and preemption work a pass at a
-    time. With ``cfg.donate_state`` the state is
-    consumed by each chunk and rebound to its output. Returns (state,
-    t_total, it_done, saved_it)."""
-    chunked = cfg.chunked_driver
-    timer = None if chunked else PhaseTimer(dev)
-    it_done = start_it
-    saved_it = None  # last iteration committed to the checkpoint dir
-    with resilience.GracefulShutdown() as gs, \
-            profiling.xla_trace(profile_dir, dev):
-        i = start_it
-        stop = False
-        fresh_step = True  # the first fence builds the kernels
-        while i < cfg.max_it and not stop:
-            clen = min(cfg.outer_chunk, cfg.max_it - i) if chunked else 1
-            na = faults.nan_iteration()
-            poisoned = na is not None and i + 1 <= na <= i + clen
-            tag = f"ccsc_outer_{i}_{i + clen}" if chunked else \
-                f"ccsc_outer_{i}"
-            if mesh is not None and not chunked:
-                # the step's collectives: bytes counted, device time
-                # recorded (CUDA events, read after the step's host read)
-                wire0 = sum(mesh.wire_bytes.values())
-                mesh.record_step()
-            t0 = time.perf_counter()
-            if wd is not None:
-                wd.arm(clen, tag, may_compile=fresh_step or poisoned)
-            with profiling.annotate("ccsc.learn.step", str(i)):
-                # chaos injection (utils.faults): the step NaNs its
-                # iterate on the card
-                if chunked:
-                    new_state, tr = learn_mod.outer_chunk_scan(
-                        state, b_blocks, geom, recov.cfg, fg, N, clen,
-                        mesh=mesh,
-                        poison_at=na - (i + 1) if poisoned else None,
-                        donate=cfg.donate_state,
-                    )
-                    m, flags = tr.metrics, [tr.active, tr.adopted]
-                else:
-                    new_state, m = learn_mod.outer_step(
-                        state, b_blocks, geom, recov.cfg, fg, N,
-                        on_phase=timer, mesh=mesh,
-                        poison=(torch.ones((), dtype=torch.bool, device=dev)
-                                if poisoned else None),
-                    )
-                    flags = []
-                if poisoned:
-                    faults.consume_nan()
-                rows = [m.obj_d, m.obj_z, m.d_diff, m.z_diff, *(m.extras or ())]
-                packed = torch.cat([torch.stack(rows).reshape(-1),
-                                    *(f.to(torch.float32) for f in flags)])
-                if timer is not None:
-                    timer("step_end")
-                # the one host read of the pass (also its device fence),
-                # the telemetry scalars in it; on a mesh every rank reads
-                # rank 0's metrics and any rank's shutdown request
-                with profiling.annotate("ccsc.learn.read"):
-                    flat, stop_req = mesh_lib.agree(packed, gs.requested,
-                                                    mesh)
-            coll = None
-            if mesh is not None and not chunked:
-                coll = (mesh.step_ms(),
-                        sum(mesh.wire_bytes.values()) - wire0)
-            # injected hang fires INSIDE the armed fence (utils.faults)
-            faults.hang_tick(i + clen)
-            if wd is not None:
-                wd.disarm()
-            fresh_step = False
-            nrow = len(rows)
-            cols = [flat[r * clen:(r + 1) * clen] for r in range(nrow)]
-            if chunked:
-                active = flat[nrow * clen:(nrow + 1) * clen]
-                adopted = flat[(nrow + 1) * clen:]
-                state = new_state
-            else:
-                # a non-finite metric means the iterate diverged: keep
-                # the last good state (or back off rho and retry from it)
-                active = [True]
-                adopted = [all(math.isfinite(c[0]) for c in cols[:4])]
-                if adopted[0]:
-                    state = new_state
-            del new_state
-            dt = time.perf_counter() - t0
-            timers.add("step", dt)
-            n_adopted = 0
-            for j in range(clen):
-                if not active[j]:
-                    break  # the tail after the chunk stopped
-                vals = [c[j] for c in cols]
-                obj_d, obj_z, d_diff, z_diff = vals[:4]
-                if not adopted[j]:
-                    console(
-                        cfg,
-                        f"Iter {i + j + 1}: non-finite metrics "
-                        f"(obj_d={obj_d}, obj_z={obj_z}, d_diff={d_diff}, "
-                        f"z_diff={z_diff}); keeping last good state",
-                        always=True,
-                    )
-                    # the pass kept the last good iterate: only rho backs
-                    # off, and the next pass retries from there
-                    ev = recov.on_divergence(i + j + 1)
-                    if ev is None:
-                        stop = True
-                    else:
-                        trace.setdefault("recoveries", []).append(ev)
-                        run.event("recovery", **ev)
-                        fresh_step = True  # as JAX's rho rebuild
-                    break
-                n_adopted += 1
-                t_total += dt / clen
-                trace["obj_vals_d"].append(obj_d)
-                trace["obj_vals_z"].append(obj_z)
-                trace["tim_vals"].append(t_total)
-                trace["d_diff"].append(d_diff)
-                trace["z_diff"].append(z_diff)
-                phases = timer.read() if timer is not None else None
-                if phases is not None:
-                    d_ms, z_ms, gram_ms, step_ms, inv_ms = phases
-                    trace.setdefault("d_pass_ms", []).append(d_ms)
-                    trace.setdefault("z_pass_ms", []).append(z_ms)
-                    trace.setdefault("gram_ms", []).append(gram_ms)
-                    trace.setdefault("gram_inv_ms", []).append(inv_ms)
-                    trace.setdefault("step_rest_ms", []).append(
-                        step_ms - d_ms - z_ms)
-                if coll is not None:
-                    if coll[0] is not None:
-                        trace.setdefault("allreduce_ms", []).append(coll[0])
-                    trace.setdefault("wire_bytes", []).append(coll[1])
-                run.step(
-                    it=i + j + 1, obj_d=obj_d, obj_z=obj_z, d_diff=d_diff,
-                    z_diff=z_diff, t_total=round(t_total, 4),
-                    **_extras_fields(vals[4:]),
-                )
-                console(
-                    cfg,
-                    f"Iter {i + j + 1}, Obj_d {obj_d:.4g}, Obj_z "
-                    f"{obj_z:.4g}, Diff_d {d_diff:.3g}, Diff_z "
-                    f"{z_diff:.3g}, t {t_total:.2f}s",
-                )
-                if d_diff < cfg.tol and z_diff < cfg.tol:
-                    stop = True
-                    break
-            it_end = i + n_adopted
-            it_done = it_end
-            if n_adopted:
-                run.chunk(i, clen, n_adopted, dt, cost=step_cost)
-                run.heartbeat(it_end, dt)
-                if cfg.verbose == "all":
-                    # one panel a pass
-                    _write_figures(figures_dir or "ccsc_figures", it_end,
-                                   state, b_blocks, geom, cfg, fg, mesh)
-                faults.sigterm_tick(it_end)
-            # one device: a request raised after the pass's read (the
-            # SIGTERM fault) counts now, as in JAX; on a mesh the next
-            # pass's agreed read carries it, so every rank decides alike
-            preempting = ((stop_req or (mesh is None and gs.requested))
-                          and not stop and it_end < cfg.max_it)
-            if preempting:
-                trace.setdefault("preemptions", []).append(it_end)
-                run.event("preemption", iteration=it_end, signum=gs.signum)
-            crossed = (n_adopted and it_end // checkpoint_every
-                       > i // checkpoint_every)
-            if checkpoint_dir is not None and (
-                (crossed and saved_it != it_end) or preempting
-            ):
-                with timers.section("checkpoint"):
-                    _save(checkpoint_dir, state, trace, it_end, fingerprint,
-                          mesh)
-                saved_it = it_end
-                run.drain_timers(timers)
-            if preempting:
-                console(cfg, f"preempted: checkpointed iteration {it_end}, "
-                             "exiting cleanly", always=True)
-                stop = True
-            i = it_end
-    return state, t_total, it_done, saved_it
 
 
 def _extras_fields(vals) -> dict:

@@ -61,6 +61,7 @@ import torch
 from ..config import LearnConfig, ProblemGeom
 from ..models import common, learn as learn_mod
 from ..ops import freq_solvers
+from . import driver
 from ..utils import checkpoint as ckpt
 from ..utils import env, faults, obs, perfmodel, resilience, validate
 from ..utils import watchdog
@@ -68,6 +69,9 @@ from ..utils.device import PhaseTimer, resolve_device
 from ..utils.resilience import console
 
 TIERS = ("device", "kern", "paged")
+# an adopted step's console line (Driver.record)
+_LINE = ("Iter {it}, Obj_z {obj_z:.4g}, Diff_d {d_diff:.3g}, Diff_z "
+         "{z_diff:.3g}, t {t_total:.2f}s")
 
 
 def placement_bytes(b_shape, geom: ProblemGeom, cfg: LearnConfig,
@@ -262,21 +266,9 @@ def _learn_streaming_impl(
     fingerprint = resilience.config_fingerprint(
         geom, cfg, "consensus_streaming"
     )
-    start_it = 0
-    trace = None
-    src = initial_state
-    if checkpoint_dir is not None:
-        snap = ckpt.load(checkpoint_dir, expect_fingerprint=fingerprint)
-        if snap is not None:
-            fields, trace, start_it = snap
-            got = {k: tuple(v.shape) for k, v in fields.items()}
-            if expect != got:
-                raise ValueError(
-                    f"checkpoint shapes {got} do not match problem {expect}"
-                )
-            src = learn_mod.LearnState(**fields)
-            console(cfg, f"resumed from {checkpoint_dir} at iteration "
-                         f"{start_it}", always=True)
+    fields, trace, start_it = driver.resume(cfg, checkpoint_dir, fingerprint,
+                                            expect)
+    src = initial_state if fields is None else learn_mod.LearnState(**fields)
     if src is None:
         if generator is None:
             generator = torch.Generator(device=host).manual_seed(0)
@@ -285,23 +277,11 @@ def _learn_streaming_impl(
             z_dtype=getattr(torch, cfg.storage_dtype),
             d_dtype=getattr(torch, cfg.d_storage_dtype),
         )
-    got = {f: tuple(getattr(src, f).shape) for f in src._fields}
-    if got != expect:
-        raise ValueError(f"state shapes {got} do not match problem {expect}")
-    if trace is None:
-        trace = {
-            # the producer's identity: a .mat saved from a --streaming
-            # run records which objective produced it
-            "algorithm": "consensus_streaming",
-            "obj_vals_d": [0.0],
-            "obj_vals_z": [0.0],
-            "tim_vals": [0.0],
-            "d_diff": [0.0],
-            "z_diff": [0.0],
-        }
-    trace.setdefault("algorithm", "consensus_streaming")
-    # rho-backoff recovery re-applies what a resumed trace recorded
-    recov = resilience.RecoveryManager(cfg, trace)
+    driver.check_shapes("state", src._asdict(), expect)
+    # the producer's identity: a .mat saved from a --streaming run records
+    # which objective produced it
+    trace, recov = driver.start_trace(cfg, trace, "consensus_streaming",
+                                      lambda: 0.0)
 
     budget = env.env_float("CCSC_STREAM_RESIDENT_GB") * 1e9
     mode = select_tier(
@@ -361,36 +341,15 @@ def _learn_streaming_impl(
     # divergence recovery restores the state of the last good step
     rec_snap = snapshot(start_it) if recov.enabled else None
     timer = PhaseTimer(dev)
-    t_total = trace["tim_vals"][-1]
     it_done = start_it
-    saved_it = None  # last iteration committed to the checkpoint dir
     diverged = False
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     pending = []  # (it, [5] device metrics, h2d, d2h, phase events)
     t_chunk0 = 0.0
+    drv = driver.Driver(cfg, run, trace, recov, save, checkpoint_dir,
+                        checkpoint_every, step_cost=step_cost)
 
-    def append_entry(it, o_d, o_z, dd, zd, dt_share, h2d, d2h, phases):
-        """Append one flushed step to the trace and the stream; True when
-        it hit tol."""
-        nonlocal t_total
-        t_total += dt_share
-        trace["obj_vals_d"].append(o_d)
-        trace["obj_vals_z"].append(o_z)
-        trace["tim_vals"].append(t_total)
-        trace["d_diff"].append(dd)
-        trace["z_diff"].append(zd)
-        trace.setdefault("h2d_bytes", []).append(h2d)
-        trace.setdefault("d2h_bytes", []).append(d2h)
-        if phases is not None:
-            trace.setdefault("d_pass_ms", []).append(phases[0])
-            trace.setdefault("z_pass_ms", []).append(phases[1])
-        run.step(it=it + 1, obj_d=o_d, obj_z=o_z, d_diff=dd, z_diff=zd,
-                 t_total=round(t_total, 4))
-        console(cfg, f"Iter {it + 1}, Obj_z {o_z:.4g}, Diff_d {dd:.3g}, "
-                     f"Diff_z {zd:.3g}, t {t_total:.2f}s")
-        return dd < cfg.tol and zd < cfg.tol
-
-    with resilience.GracefulShutdown() as gs:
+    with drv.gs:
         i = start_it
         stop = False
         fresh_pieces = True  # the first chunk builds the kernels
@@ -481,15 +440,18 @@ def _learn_streaming_impl(
             # ---- the chunk's one host read (also its fence) ----------
             flat = torch.stack([p[1] for p in pending]).tolist()
             dt = time.perf_counter() - t_chunk0
-            vals = []
+            vals = []  # (it, metrics, series) a step
             for (it, _, h2d, d2h, evs), (o_d, o_z, dd, num_, den_) in zip(
                     pending, flat):
                 zd = math.sqrt(num_) / max(math.sqrt(den_), 1e-30)
-                phases = None
+                series = (("h2d_bytes", h2d), ("d2h_bytes", d2h))
                 if evs is not None:
-                    phases = (evs["d_start"].elapsed_time(evs["d_end"]),
-                              evs["z_start"].elapsed_time(evs["z_end"]))
-                vals.append((it, o_d, o_z, dd, zd, h2d, d2h, phases))
+                    series += (
+                        ("d_pass_ms", evs["d_start"].elapsed_time(
+                            evs["d_end"])),
+                        ("z_pass_ms", evs["z_start"].elapsed_time(
+                            evs["z_end"])))
+                vals.append((it, (o_d, o_z, dd, zd), series))
             pending = []
             # injected hang fires INSIDE the armed fence (utils.faults)
             faults.hang_tick(vals[-1][0] + 1)
@@ -497,18 +459,12 @@ def _learn_streaming_impl(
                 wd.disarm()
             fresh_pieces = False
             bad = next((k for k, v in enumerate(vals)
-                        if not all(math.isfinite(x) for x in v[1:5])), None)
+                        if not all(math.isfinite(x) for x in v[1])), None)
             if bad is not None:
-                it_b, o_d, o_z, dd, zd = vals[bad][:5]
-                console(cfg, f"Iter {it_b + 1}: non-finite metrics (obj_d="
-                             f"{o_d}, obj_z={o_z}, d_diff={dd}, z_diff={zd})",
-                        always=True)
-                ev = recov.on_divergence(it_b + 1)
-                if ev is not None:
+                it_b = vals[bad][0]
+                if drv.diverged(it_b + 1, vals[bad][1], note=""):
                     # restore the state of the last good read and replay
                     # the chunk with the backed-off rho
-                    trace.setdefault("recoveries", []).append(ev)
-                    run.event("recovery", **ev)
                     (d_local, dual_d, z, dual_z, dbar, udbar,
                      i) = _restore(rec_snap)
                     fresh_pieces = True  # as JAX's rho rebuild
@@ -517,8 +473,8 @@ def _learn_streaming_impl(
                 # finite prefix enters the trace, and the state stays out
                 # of the checkpoint (the newest generation stays the last
                 # good read)
-                for v in vals[:bad]:
-                    append_entry(*v[:5], dt / len(vals), *v[5:])
+                for it, m, ser in vals[:bad]:
+                    drv.record(it + 1, m, dt / len(vals), _LINE, ser)
                 trace["diverged_at"] = it_b + 1
                 console(cfg, "stopping: the streamed state advanced "
                              "through the diverged step — resume from the "
@@ -526,38 +482,21 @@ def _learn_streaming_impl(
                         always=True)
                 diverged = True
                 break
-            for v in vals:
+            for it, m, ser in vals:
                 # every flushed step is appended: the state advanced
                 # through it in place (a tol hit mid-chunk stops at the
                 # chunk's end, as in JAX)
-                if append_entry(*v[:5], dt / len(vals), *v[5:]):
+                if drv.record(it + 1, m, dt / len(vals), _LINE, ser):
                     stop = True
-            chunk_start = vals[0][0]
             it_done = vals[-1][0] + 1
-            run.chunk(chunk_start, len(vals), len(vals), dt, cost=step_cost)
-            run.heartbeat(it_done, dt)
             if recov.enabled:
                 rec_snap = snapshot(it_done)
-            faults.sigterm_tick(it_done)
-            preempting = gs.requested and not stop and it_done < cfg.max_it
-            if preempting:
-                trace.setdefault("preemptions", []).append(it_done)
-                run.event("preemption", iteration=it_done, signum=gs.signum)
-            crossed = (it_done // checkpoint_every
-                       > chunk_start // checkpoint_every)
-            if checkpoint_dir is not None and (
-                (crossed and saved_it != it_done) or preempting
-            ):
-                save(it_done)
-                saved_it = it_done
-            if preempting:
-                console(cfg, f"preempted: checkpointed iteration {it_done}, "
-                             "exiting cleanly", always=True)
+            if drv.end_pass(vals[0][0], len(vals), len(vals), dt, stop):
                 stop = True
             i += 1
 
-    if checkpoint_dir is not None and not diverged and saved_it != it_done:
-        save(it_done)
+    if not diverged:
+        drv.finish(it_done)
 
     # final outputs, one block on the card at a time
     d_proj = learn_mod.f_prox(dbar, udbar, geom, fg)
@@ -566,7 +505,8 @@ def _learn_streaming_impl(
         learn_mod.f_dz_block(mv.up(z[nn]), dhat_z, geom, fg, data_sp).cpu()
         for nn in range(N)
     ])
-    run.close(status="ok", iterations=it_done, wall_s=round(t_total, 4))
+    run.close(status="ok", iterations=it_done,
+              wall_s=round(trace["tim_vals"][-1], 4))
     return learn_mod.LearnResult(
         learn_mod.extract_filters(d_proj, geom).cpu(),
         torch.stack([x.cpu() for x in z]), Dz, trace,

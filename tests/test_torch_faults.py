@@ -29,7 +29,7 @@ from ccsc_code_iccv2017_tpu.models import learn_masked as jlm
 from ccsc_code_iccv2017_tpu.utils import faults as jfaults
 from ccsc_code_iccv2017_torch.config import LearnConfig, ProblemGeom
 from ccsc_code_iccv2017_torch.models import learn_masked as tlm
-from ccsc_code_iccv2017_torch.parallel import consensus
+from ccsc_code_iccv2017_torch.parallel import consensus, streaming
 from ccsc_code_iccv2017_torch.utils import checkpoint as ckpt
 from ccsc_code_iccv2017_torch.utils import faults, obs
 
@@ -288,3 +288,38 @@ def test_sigterm_checkpoints_and_the_resume_equals_the_uninterrupted_run(
                                    rtol=1e-6)
     np.testing.assert_allclose(resumed.d.float().numpy(),
                                full.d.float().numpy(), atol=1e-7)
+
+
+@pytest.mark.parametrize("learner", ["consensus", "masked", "streaming"])
+def test_resume_refuses_a_checkpoint_of_other_shapes(tmp_path, learner):
+    """The data is not part of the config fingerprint: a checkpoint of
+    the same configuration on twice the images is refused by its shapes
+    before any state is placed, with the shapes named."""
+    ck = str(tmp_path / "ck")
+    if learner == "consensus":
+        b, geom, kw = tl._golden_data(), ProblemGeom(*tl.GEOM), tl.GOLDEN_KW
+
+        def run(x):
+            return consensus.learn(x, geom, LearnConfig(**dict(kw, max_it=1)),
+                                   device="cpu", checkpoint_dir=ck)
+    elif learner == "masked":
+        ga = tlmt.GEOMS["hs"]
+        b, _ = tlmt._data(ga)
+
+        def run(x):
+            return tlm.learn_masked(x, ProblemGeom(*ga),
+                                    LearnConfig(**dict(tlmt.STEP_KW,
+                                                       max_it=1)),
+                                    device="cpu", checkpoint_dir=ck)
+    else:
+        b = tst._data()
+
+        def run(x):
+            return streaming.learn_streaming(
+                x, ProblemGeom(*tst.GEOM), LearnConfig(**dict(tst.KW,
+                                                              max_it=1)),
+                device="cpu", checkpoint_dir=ck)
+    run(b)
+    with pytest.raises(ValueError, match="checkpoint shapes .* do not match "
+                                         "problem"):
+        run(np.concatenate([b, b]))
